@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels of the port, one directory each.
+
+  rmsnorm          — fused residual add + RMSNorm (replaces the Pallas
+                     ``fused_rmsnorm_fwd``).
+  decode_attention — split-KV decode attention with exported LSE, reading
+                     the cache in its model layout (``decode_attention_fwd``).
+  flash_attention  — FlashAttention-2 forward on bf16 tensor cores, GQA,
+                     causal or full (``flash_attention_fwd``).
+
+Each directory holds ``csrc/<name>.cu`` (the kernel, built by
+:mod:`._build` at first use), ``ops.py`` (the wrapper: kernel for CUDA
+tensors, plain version for CPU tensors, a ``launches`` counter) and
+``ref.py`` (the plain PyTorch version).
+"""
+from .decode_attention.ops import decode_attention
+from .flash_attention.ops import flash_attention
+from .rmsnorm.ops import fused_rmsnorm
+
+#: Every wrapper whose ``launches`` counter a run can read or reset.
+WRAPPERS = {"rmsnorm": fused_rmsnorm, "decode_attention": decode_attention,
+            "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+__all__ = ["decode_attention", "flash_attention", "fused_rmsnorm",
+           "WRAPPERS", "launches", "reset_launches"]

@@ -1,0 +1,42 @@
+"""Carry a reference parameter tree over to the port.
+
+The tree is the reference's ``init_params`` output with every leaf turned
+into a numpy array by the caller (``jax.tree.map(np.asarray, params)``);
+this module itself needs only numpy. Stacked leaves under ``"stack"`` have
+the leading axis n_blocks and become the port's list of blocks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .transformer import check_supported, compute_dtype
+
+
+def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # 1-D leaves are norm weights and stay float32; matrices take the
+    # compute dtype. bfloat16 numpy arrays have no torch counterpart, so
+    # everything passes through float32 (exact for both source dtypes).
+    arr = np.array(a, dtype=np.float32)        # a writable copy
+    t = torch.from_numpy(arr)
+    return t.to(device=device, dtype=torch.float32 if arr.ndim == 1 else dtype)
+
+
+def _convert(tree, dtype, device, index=None):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device, index) for k, v in tree.items()}
+    return _tensor(tree if index is None else tree[index], dtype, device)
+
+
+def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
+    """The port's parameters, equal to ``tree``'s, on ``device``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = compute_dtype(cfg)
+    params = {k: _convert(v, dtype, device)
+              for k, v in tree.items() if k != "stack"}
+    params["stack"] = [_convert(tree["stack"], dtype, device, index=b)
+                       for b in range(cfg.n_blocks)]
+    return params

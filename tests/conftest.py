@@ -107,3 +107,8 @@ def random_dag(rng: np.random.Generator, max_kernels: int = 8,
 def smoke_cfgs():
     from repro.configs import ARCH_IDS, get_config
     return {a: get_config(a, smoke=True) for a in ARCH_IDS}
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
