@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Serve Mistral-NeMo-12B on one NVIDIA card through the PyTorch port.
+"""Drive the PyTorch port's two paths on one NVIDIA card: serve
+Mistral-NeMo-12B, and run the DSE price phase.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each fatal on failure:
   1. the card and the toolchain;
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc
-     (sm_90a), printing ``-Xptxas -v``;
+     (sm_90a), one process per source, all in parallel, printing
+     ``-Xptxas -v``;
   3. every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it and at ragged ones, with its time,
-     the plain version's, one PyTorch library call's and the least time the
-     card could take (bound);
-  4. the main path: ``run_serve`` on the full mistral_nemo_12b config, 4
+     shapes its path gives it and at ragged ones, with its time, the plain
+     version's, one PyTorch library call's (where one exists) and the least
+     time the card could take (bound); the pricing kernel at 2^20 rows, f64
+     bit for bit and f32 within the drift band;
+  4. the serving path: ``run_serve`` on the full mistral_nemo_12b config, 4
      requests x 2048-token prompts x 32 new tokens, random weights from a
      seed; the kernels' launch counters are zeroed just before and read just
      after, and must show every kernel on the path;
@@ -19,7 +22,12 @@ Phases, each fatal on failure:
      model against the plain versions on a small config, and at full size
      the decode path's logits against a teacher-forced prefill over the
      generated tokens;
-  6. one JSON line of kernel numbers, the card's name and power limit, and
+  6. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
+     parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
+     on the kernel backends, each against the numpy backend (rows and
+     winners identical) with its launch counters zeroed before and read
+     after; the price phase split into plan, copies and kernel;
+  7. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -28,8 +36,10 @@ checkout of the repository. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +49,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12        # tensor cores
 F32_FLOP_PER_S = 67e12          # CUDA cores
+F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 kernel vs plain, element-wise
@@ -48,6 +59,15 @@ TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 kernel vs plain, element-wise
 DECODE_REL = 2.0 ** -6
 SCALED_TOL_SMALL = 2e-2            # whole model, small config, bf16
 SCALED_TOL_FULL = 5e-2             # 40 bf16 layers, decode vs prefill path
+
+PRICE_ROWS, PRICE_TIMED_ROWS = 131072, 1 << 20
+DRIFT_BAND = 1e-5                  # f32 pricing vs the f64 reference
+# f32 pricing kernel vs its plain f32 version, relative, element-wise: the
+# two differ only where the kernel contracts a product and a sum into an
+# FMA; 2^-19 is 4 to 8 f32 ulps.
+F32_PLAIN_REL = 2.0 ** -19
+SMOKE_SCENARIOS = ("llm", "dlrm", "hpl", "fft", "moe", "mamba2", "serving")
+PARALLEL_TIMEOUT_S = 600
 
 
 def fail(msg: str) -> int:
@@ -135,6 +155,37 @@ def profile(torch, fn) -> dict:
             "by_group_ms": {k: round(v, 4) for k, v in sorted(
                 groups.items(), key=lambda kv: -kv[1])},
             "top": [(round(t, 4), n, k) for t, n, k in sorted(kernels)[::-1][:8]]}
+
+
+def device_split(torch, fn):
+    """Run ``fn`` once under torch.profiler; returns its result and the
+    device time (ms) and count of the host->device copies, the pricing
+    kernels, the device->host copies and anything else on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    split = {k: [0.0, 0] for k in ("h2d", "kernel", "d2h", "other")}
+    events = []
+    for e in prof.key_averages():
+        memcpy = "Memcpy" in e.key
+        if getattr(e, "device_type", None) != DeviceType.CUDA and not memcpy:
+            continue
+        t = (getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)) / 1e3
+        key = ("h2d" if "HtoD" in e.key else "d2h" if "DtoH" in e.key else
+               "kernel" if "pricing_kernel" in e.key else "other")
+        split[key][0] += t
+        split[key][1] += e.count
+        events.append((e.key[:48], str(getattr(e, "device_type", None)),
+                       e.count, round(t, 6)))
+    return out, {f"{k}_ms": t for k, (t, _) in split.items()} | {
+        f"{k}_n": n for k, (_, n) in split.items()} | {"events": events}
 
 
 def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -303,6 +354,271 @@ def check_kernels(torch, timer) -> dict:
     return out
 
 
+# ------------------------------- phase 3: pricing -----------------------------
+# Arithmetic operations per row of each formula (additions, subtractions,
+# multiplications, divisions; comparisons and selects not counted).
+PRICING_OPS = {"price": 35, "roofline": 11}
+
+
+def _max_abs_finite(a, b) -> float:
+    """Largest |a - b| over the entries where both are finite."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    both = np.isfinite(a) & np.isfinite(b)
+    return float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
+
+
+def check_pricing(torch, timer) -> dict:
+    """The pricing kernel, f64 and f32, on its two formulas: seeded rows plus
+    hand-made edge rows (zero branches, NaN, ±inf, signed zeros). f64 must be
+    bit-identical to its plain version on the card and to the numpy formula
+    on the host; f32 within the drift band of that f64 reference, a feasible
+    bit flipping only within the band of the capacity. The certification
+    harnesses at n = 512, then times at 2^20 rows (the seeded rows tiled)."""
+    import numpy as np
+
+    from repro_torch.core.pricing import stack_plans
+    from repro_torch.kernels.pricing import (certify, certify_f32,
+                                             pricing_f32, pricing_f64)
+    from repro_torch.kernels.pricing.ops import f32_drift
+    from repro_torch.kernels.pricing.ref import (FORMULAS, edge_plan_vectors,
+                                                 pricing_ref,
+                                                 random_plan_vectors,
+                                                 random_roofline_columns)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    finite, special = edge_plan_vectors()
+    inputs = {"price": stack_plans(random_plan_vectors(PRICE_ROWS, SEED)
+                                   + finite + special),
+              "roofline": random_roofline_columns(PRICE_ROWS, SEED)}
+    say(f"  inputs: {PRICE_ROWS} seeded rows per formula, "
+        f"{len(finite) + len(special)} edge rows for price "
+        f"({time.perf_counter() - t0:.1f} s)")
+    stacks, errs, drift_all = {}, {"pricing": 0.0, "pricing_f32": 0.0}, {}
+    rel32 = 0.0
+    for entry, cols in inputs.items():
+        formula, names, outs, bools = FORMULAS[entry]
+        x = torch.from_numpy(np.stack([cols[k] for k in names])).to(dev)
+        stacks[entry] = x
+        with np.errstate(all="ignore"):
+            host = formula(np, cols)
+        want = np.stack([np.asarray(host[k], np.float64) for k in outs])
+        got = pricing_f64(x, entry)
+        plain = pricing_ref(x, entry)
+        torch.cuda.synchronize()
+        got, plain = got.cpu().numpy(), plain.cpu().numpy()
+        bad = {"plain": int((got.view(np.uint64) != plain.view(np.uint64)).sum()),
+               "numpy": int((got.view(np.uint64) != want.view(np.uint64)).sum())}
+        if any(bad.values()):
+            raise AssertionError(f"pricing f64 {entry}: values whose bits "
+                                 f"differ from the plain version / numpy: {bad}")
+        errs["pricing"] = max(errs["pricing"], _max_abs_finite(got, plain))
+        got32 = pricing_f32(x, entry)
+        plain32 = pricing_ref(x, entry, f32=True)
+        torch.cuda.synchronize()
+        got32, plain32 = got32.cpu().numpy(), plain32.cpu().numpy()
+        errs["pricing_f32"] = max(errs["pricing_f32"],
+                                  _max_abs_finite(got32, plain32))
+        got32_cols = {k: got32[i] != 0 if k in bools else got32[i]
+                      for i, k in enumerate(outs)}
+        vs_plain = f32_drift(got32_cols, {
+            k: plain32[i] != 0 if k in bools else plain32[i].astype(np.float64)
+            for i, k in enumerate(outs)}, cols.get("mem_capacity", 1.0))
+        rel32 = max(rel32, max(vs_plain.values()))
+        if not rel32 <= F32_PLAIN_REL:
+            raise AssertionError(f"pricing f32 {entry}: relative difference "
+                                 f"from its plain f32 version beyond "
+                                 f"{F32_PLAIN_REL:g}: {vs_plain}")
+        drifts = f32_drift(got32_cols, host, cols.get("mem_capacity", 1.0))
+        drift_all[entry] = drifts
+        say(f"  pricing {entry} {tuple(x.shape)}: f64 bit-identical to its "
+            f"plain version and to numpy; f32 within "
+            f"{max(vs_plain.values()):.3g} (relative) of its plain version, "
+            f"largest relative drift from f64 per column "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in drifts.items()})}")
+        if not max(drifts.values()) <= DRIFT_BAND:
+            raise AssertionError(f"pricing f32 {entry}: drift beyond the band "
+                                 f"{DRIFT_BAND:g}: {drifts}")
+    rep64 = certify(n=512, device=dev)
+    rep32 = certify_f32(n=512, band=DRIFT_BAND, device=dev)
+    say(f"  certify: {rep64}; certify_f32: max drift {rep32['max_drift']:.3g}")
+
+    numbers = {}
+    reps = PRICE_TIMED_ROWS // PRICE_ROWS
+    for name, kernel, f32 in (("pricing", pricing_f64, False),
+                              ("pricing_f32", pricing_f32, True)):
+        per = {}
+        for entry, x in stacks.items():
+            n_in, n_out = len(FORMULAS[entry][1]), len(FORMULAS[entry][2])
+            xb = x[:, :PRICE_ROWS].repeat(1, reps)
+            n = xb.shape[1]
+            nb = n_in * n * 8 + n_out * n * (4 if f32 else 8)
+            b_ms, b_by = bound(nb, PRICING_OPS[entry] * n,
+                               F32_FLOP_PER_S if f32 else F64_FLOP_PER_S)
+            per[entry] = dict(
+                ms=timer.ms(lambda: kernel(xb, entry), 50),
+                plain_ms=timer.ms(lambda: pricing_ref(xb, entry, f32), 10),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=[n_in, n])
+            del xb
+        numbers[name] = dict(
+            max_abs_err=errs[name], **per["price"], roofline=per["roofline"],
+            **({"max_rel_err": rel32, "rel_err_limit": F32_PLAIN_REL,
+                "max_rel_drift": max(max(d.values())
+                                     for d in drift_all.values()),
+                "drift_band": DRIFT_BAND}
+               if f32 else {}))
+        say(f"  {name} {numbers[name]}")
+    return numbers
+
+
+# ------------------------------- phase 6 --------------------------------------
+def exact_rows(rows: list[dict]) -> list[dict]:
+    """Sweep rows with every float spelled exactly (``float.hex``)."""
+    return [{k: v.hex() if isinstance(v, float) else v for k, v in r.items()}
+            for r in rows]
+
+
+def _timed_out(what: str) -> None:
+    print(f"chip_smoke: FAILED: {what} did not finish in "
+          f"{PARALLEL_TIMEOUT_S} s", file=sys.stderr, flush=True)
+    os._exit(1)
+
+
+def check_dse(kernels) -> dict[str, int]:
+    """The DSE price phase on the card: every smoke scenario swept on the
+    kernel backends (and the eager torch one) against the numpy backend, one
+    parallel sweep after CUDA is initialized (forkserver workers), and
+    ``reprice_grid`` on the dense grid with its phase split. Each run's
+    launch counters are zeroed just before it and read just after; returns
+    the pricing launches summed over the runs."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import DSEEngine
+    from repro_torch.search import DenseGridSpec
+    from repro_torch.workloads.scenarios import get_scenario
+
+    total = {"pricing": 0, "pricing_f32": 0}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        c = kernels.launches()
+        if any(v for k, v in c.items() if k not in total):
+            raise AssertionError(f"serving kernels launched on the DSE path: {c}")
+        for k in total:
+            total[k] += c[k]
+        return out, c
+
+    t0 = time.perf_counter()
+    for name in SMOKE_SCENARIOS:
+        want = exact_rows(DSEEngine(parallel=False, pricing_backend="numpy")
+                          .sweep_scenario(name, smoke=True).rows())
+        note = []
+        for backend in ("kernel", "kernel-f32", "torch"):
+            engine = DSEEngine(parallel=False, pricing_backend=backend)
+            res, c = counted(lambda: engine.sweep_scenario(name, smoke=True))
+            if exact_rows(res.rows()) != want:
+                raise AssertionError(f"sweep {name} on {backend}: rows differ "
+                                     f"from the numpy backend's")
+            key = "pricing_f32" if backend == "kernel-f32" else "pricing"
+            if backend != "torch" and not c[key]:
+                raise AssertionError(f"sweep {name} on {backend}: no launch")
+            note.append(f"{backend} {c[key] if backend != 'torch' else 0}")
+            if backend == "kernel-f32":
+                drift = engine.last_drift_stats
+                if not drift["max_iter_drift"] <= DRIFT_BAND:
+                    raise AssertionError(f"sweep {name}: drift {drift}")
+                note.append(f"max iter drift {drift['max_iter_drift']:.3g}")
+        say(f"  sweep {name} smoke: {len(want)} rows identical to numpy on "
+            f"kernel, kernel-f32 and torch; launches {', '.join(note)}")
+    say(f"  seven scenarios x four backends in {time.perf_counter() - t0:.1f} s")
+
+    engine = DSEEngine(parallel=True, max_workers=2, pricing_backend="kernel")
+    method = engine._start_method()
+    if method != "forkserver":
+        raise AssertionError(f"CUDA is initialized but the pool starts by {method}")
+    watchdog = threading.Timer(PARALLEL_TIMEOUT_S, _timed_out,
+                               ("the parallel sweep",))
+    watchdog.daemon = True
+    t0 = time.perf_counter()
+    watchdog.start()
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="parallel sweep unavailable")
+            res, c = counted(lambda: engine.sweep_scenario("llm", smoke=True))
+    finally:
+        watchdog.cancel()
+    want = exact_rows(DSEEngine(parallel=False, pricing_backend="numpy")
+                      .sweep_scenario("llm", smoke=True).rows())
+    if exact_rows(res.rows()) != want or not c["pricing"]:
+        raise AssertionError(f"parallel sweep: rows differ or no launch ({c})")
+    say(f"  parallel sweep llm smoke ({method}, 2 workers) in "
+        f"{time.perf_counter() - t0:.1f} s: rows identical to numpy; "
+        f"launches {c['pricing']}; plan stats {engine.last_plan_stats}")
+
+    grid = DenseGridSpec.dense(100_000)
+    spec = grid.spec()
+    work = get_scenario("llm", smoke=True).work_fn
+    keys = ("cells", "groups", "enumerated", "survived", "priced_rows",
+            "chunks")
+    ref = DSEEngine(parallel=False, pricing_backend="numpy").reprice_grid(
+        work, spec)
+    say(f"  reprice_grid numpy (cold plan): {json.dumps(ref)}")
+    for backend, key in (("kernel", "pricing"), ("kernel-f32", "pricing_f32")):
+        engine = DSEEngine(parallel=False, pricing_backend=backend)
+        (rep, c), split = device_split(
+            torch, lambda: counted(lambda: engine.reprice_grid(work, spec)))
+        if {k: rep[k] for k in keys} != {k: ref[k] for k in keys}:
+            raise AssertionError(f"reprice_grid {backend}: report differs "
+                                 f"from numpy's: {rep}")
+        if c[key] != rep["chunks"] or not rep["winners_identical"]:
+            raise AssertionError(f"reprice_grid {backend}: launches {c} for "
+                                 f"{rep['chunks']} chunks")
+        if split["kernel_n"] != sum(c.values()):
+            raise AssertionError(f"reprice_grid {backend}: the profiler saw "
+                                 f"{split['kernel_n']} pricing kernels, the "
+                                 f"counters {c}")
+        device_s = (split["h2d_ms"] + split["kernel_ms"] + split["d2h_ms"]
+                    + split["other_ms"]) / 1e3
+        # the chunk's host->device copy alone, timed with CUDA events at the
+        # same size and from the same kind of (pinned) buffer
+        stack = torch.empty((25, rep["priced_rows"]), dtype=torch.float64,
+                            pin_memory=True)
+        h2d_ms = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            stack.to("cuda", non_blocking=True)
+            end.record()
+            torch.cuda.synchronize()
+            h2d_ms.append(start.elapsed_time(end))
+        say(f"  reprice_grid {backend}: {rep['cells']} cells, "
+            f"{rep['groups']} groups, {rep['priced_rows']} rows priced in "
+            f"{rep['chunks']} chunk(s), {c[key]} launch(es); winners "
+            f"identical to numpy; repriced_frac {rep['repriced_frac']:.6g}, "
+            f"max iter drift "
+            f"{(rep['drift'] or {}).get('max_iter_drift', 0.0):.6g}")
+        say(f"    price phase split (torch.profiler device time): plan_s "
+            f"{rep['plan_s']:.6f}, price_s {rep['price_s']:.6f} = "
+            f"host->device {split['h2d_ms']:.6f} ms ({split['h2d_n']} copies)"
+            f" + kernel {split['kernel_ms']:.6f} ms ({split['kernel_n']}) + "
+            f"device->host {split['d2h_ms']:.6f} ms ({split['d2h_n']}) + "
+            f"other device work {split['other_ms']:.6f} ms "
+            f"({split['other_n']}) + the rest on the host (stacking, "
+            f"concatenation, winner certification) "
+            f"{rep['price_s'] - device_s:.6f} s")
+        say(f"    profiled device events {split['events']}; host->device "
+            f"copy of the chunk's (25, {rep['priced_rows']}) float64 "
+            f"stack alone: {min(h2d_ms):.6f} ms (best of 5, CUDA events)")
+    return total
+
+
 # ------------------------------- phase 5 --------------------------------------
 def scaled_err(got, want) -> float:
     """Largest difference over the largest reference value."""
@@ -411,9 +727,11 @@ def main() -> int:
 
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
-        f"decode o within {DECODE_REL:g} x max|plain|, lse within 1e-3)")
+        f"decode o within {DECODE_REL:g} x max|plain|, lse within 1e-3; "
+        f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
     numbers = check_kernels(torch, timer)
+    numbers.update(check_pricing(torch, timer))
     del timer
     torch.cuda.empty_cache()
 
@@ -429,7 +747,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
-            "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}
+            "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS,
+            "pricing": 0, "pricing_f32": 0}
     say(f"    TTFT {res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms, "
         f"{res.tokens_per_s:.2f} tokens/s, peak memory "
         f"{peak / 2**30:.3f} GiB; launches {counts}")
@@ -472,15 +791,26 @@ def main() -> int:
     small = check_small_model(torch)
     say(f"    small config, card vs CPU plain: scaled error {small:.3g}")
 
-    # 6. result
-    sources = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
-               "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
-               "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112"}
+    # 6. the DSE path
+    say("[6] DSE price phase: sweeps, a parallel sweep and reprice_grid on "
+        "the kernel backends against numpy")
+    t0 = time.perf_counter()
+    counts.update(check_dse(kernels))
+    say(f"    DSE path in {time.perf_counter() - t0:.1f} s; pricing launches "
+        f"{counts['pricing']}, pricing_f32 launches {counts['pricing_f32']}")
+
+    # 7. result
+    replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
+                "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
+                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112",
+                "pricing": "src/repro/kernels/pricing/kernel.py:165",
+                "pricing_f32": "src/repro/kernels/pricing/kernel.py:235"}
     line = []
     for name, n in numbers.items():
+        src = name.removesuffix("_f32")
         line.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
-                     "replaces": sources[name], "launches": counts[name],
+                     "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
+                     "replaces": replaces[name], "launches": counts[name],
                      **n})
     say(f"    total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": line}))

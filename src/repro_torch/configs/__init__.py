@@ -4,7 +4,9 @@ Each ported module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as in the reference
 package. The reference names more architectures than the port runs yet;
 asking for one of those raises ``NotImplementedError`` naming the ROADMAP
-queue that holds it.
+queue that holds it. Two of them, ``mamba2_130m`` and ``qwen3_moe_235b``,
+are already here as data: the DSE scenarios
+(``repro_torch.workloads.scenarios``) read their shapes.
 """
 from __future__ import annotations
 

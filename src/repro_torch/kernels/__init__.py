@@ -6,6 +6,9 @@
                      the cache in its model layout (``decode_attention_fwd``).
   flash_attention  — FlashAttention-2 forward on bf16 tensor cores, GQA,
                      causal or full (``flash_attention_fwd``).
+  pricing          — the DSE price phase's elementwise column formulas, f64
+                     bit-identical and f32 drift-banded (``run_columns``,
+                     ``run_columns_f32``).
 
 Each directory holds ``csrc/<name>.cu`` (the kernel, built by
 :mod:`._build` at first use), ``ops.py`` (the wrapper: kernel for CUDA
@@ -14,11 +17,13 @@ tensors, plain version for CPU tensors, a ``launches`` counter) and
 """
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
+from .pricing.ops import pricing_f32, pricing_f64
 from .rmsnorm.ops import fused_rmsnorm
 
 #: Every wrapper whose ``launches`` counter a run can read or reset.
 WRAPPERS = {"rmsnorm": fused_rmsnorm, "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "pricing": pricing_f64,
+            "pricing_f32": pricing_f32}
 
 
 def reset_launches() -> None:
@@ -31,4 +36,5 @@ def launches() -> dict[str, int]:
 
 
 __all__ = ["decode_attention", "flash_attention", "fused_rmsnorm",
-           "WRAPPERS", "launches", "reset_launches"]
+           "pricing_f32", "pricing_f64", "WRAPPERS", "launches",
+           "reset_launches"]

@@ -38,7 +38,8 @@ from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_r
 from repro.kernels.rmsnorm.ops import fused_rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.kernels.rmsnorm.ref import fused_rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 fused_rmsnorm, launches, reset_launches)
+                                 fused_rmsnorm, launches, pricing_f32,
+                                 pricing_f64, reset_launches)
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -151,8 +152,11 @@ def test_cpu_tensors_do_not_count_as_launches():
                     torch.ones(1, 1, 4, 32))
     decode_attention(torch.ones(1, 2, 32), torch.ones(1, 1, 4, 32),
                      torch.ones(1, 1, 4, 32), 3)
+    pricing_f64(torch.ones(25, 4, dtype=torch.float64))
+    pricing_f32(torch.ones(8, 4, dtype=torch.float64), "roofline")
     assert launches() == {"rmsnorm": 0, "decode_attention": 0,
-                          "flash_attention": 0}
+                          "flash_attention": 0, "pricing": 0,
+                          "pricing_f32": 0}
 
 
 # ------------------------------ import rule ----------------------------------
@@ -172,7 +176,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
            if pat.search(f.read_text())]
     assert bad == []
     code = ("import sys, repro_torch.launch.serve, repro_torch.kernels, "
-            "repro_torch.models.convert; "
+            "repro_torch.models.convert, repro_torch.core, "
+            "repro_torch.workloads.scenarios, repro_torch.kernels.pricing; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
