@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA card: serve
-Mistral-NeMo-12B, and run the DSE price phase.
+"""Drive the PyTorch port's three paths on one NVIDIA card: serve
+Mistral-NeMo-12B, serve Mamba2-130M, and run the DSE price phase.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -13,21 +13,35 @@ Phases, each fatal on failure:
      shapes its path gives it and at ragged ones, with its time, the plain
      version's, one PyTorch library call's (where one exists) and the least
      time the card could take (bound); the pricing kernel at 2^20 rows, f64
-     bit for bit and f32 within the drift band;
-  4. the serving path: ``run_serve`` on the full mistral_nemo_12b config, 4
-     requests x 2048-token prompts x 32 new tokens, random weights from a
-     seed; the kernels' launch counters are zeroed just before and read just
-     after, and must show every kernel on the path;
-  5. steady-state decode timings and correctness checks: the kernels'
-     model against the plain versions on a small config, and at full size
-     the decode path's logits against a teacher-forced prefill over the
-     generated tokens;
-  6. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
+     bit for bit and f32 within the drift band; the SSD scan in f32 within
+     the reference's 2e-4, in the model's layout (B/C at head stride 0) and
+     in the Pallas kernel's;
+  4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
      winners identical) with its launch counters zeroed before and read
-     after; the price phase split into plan, copies and kernel;
-  7. one JSON line of kernel numbers, the card's name and power limit, and
+     after; the price phase split into plan, copies and kernel (it runs
+     before the serving paths' profiles, after which torch.profiler has
+     missed the pricing kernel's event);
+  5. the serving path: ``run_serve`` on the full mistral_nemo_12b config, 4
+     requests x 2048-token prompts x 32 new tokens, random weights from a
+     seed; the kernels' launch counters are zeroed just before and read just
+     after, and must show every kernel on the path;
+  6. steady-state decode timings and correctness checks: the kernels'
+     model against the plain versions on a small config, and at full size
+     the decode path's logits against a teacher-forced prefill over the
+     generated tokens;
+  7. the SSM serving path: ``run_serve`` on the full mamba2_130m config, 8
+     requests x 2048-token prompts x 32 new tokens, counters zeroed just
+     before and read just after; a second run from the seed, steady-state
+     decode, the decode path (the recurrence) against a teacher-forced
+     forward (the chunked scan), for the whole model and for each layer
+     alone, the state handoff layer by layer, profiles of a prefill and a
+     decode step, and the small config on the card against the plain
+     versions; then one more profiled ``reprice_grid``, whose pricing
+     events the profiler is asked for after the serving profiles
+     (reported, not checked);
+  8. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -52,13 +66,27 @@ F32_FLOP_PER_S = 67e12          # CUDA cores
 F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
+SSM_REQUESTS = 8                   # mamba2_130m: 8 x 2048 + 32
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 kernel vs plain, element-wise
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's SSD tolerance, f32 math
 # Decode attention averages ~2000 values, so its outputs are ~0.03: an
 # absolute 2e-2 would hide a dropped split. Its limit is four bf16 ulps of
 # the largest reference output instead.
 DECODE_REL = 2.0 ** -6
 SCALED_TOL_SMALL = 2e-2            # whole model, small config, bf16
 SCALED_TOL_FULL = 5e-2             # 40 bf16 layers, decode vs prefill path
+# mamba2_130m at full depth with random weights amplifies bf16 rounding
+# layer by layer. On the H100 each layer alone (same inputs) gives decode
+# outputs within one bf16 ulp of its forward's (<= 0.0036 of the largest)
+# and the same state and conv tail; the whole model's two paths agree
+# exactly in layer 0's caches, then drift apart to a state gap of 0.073,
+# a conv gap of 0.058 and logits 0.106 of the largest logit apart. So each
+# layer alone is held to the repo's bf16 bound (output) and to 1e-3
+# (state, conv tail), the whole model to limits about 1.4 times above
+# those readings.
+SCALED_TOL_SSM_LOGITS = 0.15
+SCALED_TOL_SSM_CACHE = 0.1
+SCALED_TOL_SSM_ALONE = 1e-3
 
 PRICE_ROWS, PRICE_TIMED_ROWS = 131072, 1 << 20
 DRIFT_BAND = 1e-5                  # f32 pricing vs the f64 reference
@@ -143,6 +171,7 @@ def profile(torch, fn) -> dict:
         group = ("rmsnorm" if "rmsnorm_kernel" in name else
                  "decode_attention" if "decode_" in name and "_kernel" in name else
                  "flash_attention" if "flash_fwd_kernel" in name else
+                 "ssd" if "ssd_chunk_kernel" in name else
                  "matmul" if any(w in name.lower() for w in
                                  ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
                  else "other")
@@ -194,15 +223,15 @@ def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, got, want, name: str) -> float:
+def compare(torch, got, want, name: str, tol: dict = TOL) -> float:
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    lim = TOL["atol"] + TOL["rtol"] * want.float().abs()
+    lim = tol["atol"] + tol["rtol"] * want.float().abs()
     if not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"{name}: non-finite output")
     if bool((err > lim).any()):
         raise AssertionError(f"{name}: max |kernel - plain| {err.max().item():.3g}"
-                             f" outside rtol=atol=2e-2")
+                             f" outside rtol={tol['rtol']:g}, atol={tol['atol']:g}")
     return err.max().item()
 
 
@@ -354,6 +383,92 @@ def check_kernels(torch, timer) -> dict:
     return out
 
 
+# ------------------------------- phase 3: SSD ---------------------------------
+def ssd_work(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Multiply-adds of the chunked scan at the kernel's tile q, the causal
+    half of each q x q product counted: C B^T once per (sequence, chunk),
+    since B and C are shared by the heads; per (sequence, head, chunk) the
+    masked scores times x dt, C h and B^T x dt."""
+    from repro_torch.kernels.ssd.ref import CHUNK as q
+
+    nc = -(-s // q)
+    tri = q * (q + 1) // 2
+    return b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p)
+
+
+def check_ssd(torch, timer) -> dict:
+    """The SSD kernel against its plain version (f32 math, rtol = atol =
+    2e-4 on y and the final state): the serving shape of mamba2_130m in the
+    model's layout, x, B and C slices of one convolution output and B/C
+    shared by the heads (head stride 0), as ssm_layer passes them, the Pallas
+    kernel's (BH, S, .) layout, a ragged length and P != N; times at the
+    serving shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    cfg = get_config("mamba2_130m")
+    d_in = cfg.ssm_expand * cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    def model_case(b, s, h, p, n, dtype):
+        # x, B and C as ssm_layer passes them: slices of one (b, s, h p + 2n)
+        # convolution output, a position stride of h p + 2n
+        xbc = randn(b, s, h * p + 2 * n)
+        xbc[..., h * p:] *= 0.3
+        xs, Bm, Cm = torch.split(xbc.to(dtype), [h * p, n, n], dim=-1)
+        x = xs.view(b, s, h, p)
+        dt = F.softplus(randn(b, s, h))
+        dA = dt * -torch.exp(randn(h, scale=0.5))
+        args = (x, dt, Bm[:, :, None].expand(b, s, h, n),
+                Cm[:, :, None].expand(b, s, h, n), dA)
+
+        def plain():
+            y, st = ssd_scan_ref(*(t.transpose(1, 2) for t in args))
+            return y.transpose(1, 2), st
+        return args, plain, (Bm, Cm)
+
+    def contract_case(bh, s, p, n):
+        dt = F.softplus(randn(bh, s))
+        args = (randn(bh, s, p), dt, randn(bh, s, n, scale=0.3),
+                randn(bh, s, n, scale=0.3), -0.1 * dt)
+        return args, lambda: ssd_scan_ref(*args), args[2:4]
+
+    B, S, H, P, N = SSM_REQUESTS, PROMPT_LEN, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    errs = []
+    for label, (args, plain, bc) in (
+            ("serve", model_case(B, S, H, P, N, torch.bfloat16)),
+            ("contract", contract_case(48, 512, P, N)),
+            ("ragged", model_case(2, 100, 3, P, N, torch.bfloat16)),
+            ("P!=N", model_case(2, 300, 4, 16, 32, torch.float32))):
+        y, st = ssd_chunk(*args)
+        yr, sr = plain()
+        errs += [compare(torch, y, yr, f"ssd {label} y", SSD_TOL),
+                 compare(torch, st, sr, f"ssd {label} state", SSD_TOL)]
+        say(f"  ssd {label} x {tuple(args[0].shape)} {str(args[0].dtype)[6:]} "
+            f"strides {args[0].stride()} state {tuple(st.shape)} max|err| y {errs[-2]:.3g} state "
+            f"{errs[-1]:.3g} (max|y| {yr.abs().max().item():.3g})")
+        if label == "serve":
+            main = args, plain, bc
+    args, plain, (Bm, Cm) = main
+    x, dt, _, _, dA = args
+    nb = (x.numel() * x.element_size() + (dt.numel() + dA.numel()) * 4
+          + (Bm.numel() + Cm.numel()) * Bm.element_size()
+          + x.numel() * 4 + B * H * P * N * 4)
+    b_ms, b_by = bound(nb, 2.0 * ssd_work(B, S, H, P, N), F32_FLOP_PER_S)
+    out = dict(max_abs_err=max(errs), ms=timer.ms(lambda: ssd_chunk(*args), 20),
+               plain_ms=timer.ms(plain, 5), library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, shape=[B, S, H, P, N])
+    say(f"  ssd serve {out}")
+    return out
+
+
 # ------------------------------- phase 3: pricing -----------------------------
 # Arithmetic operations per row of each formula (additions, subtractions,
 # multiplications, divisions; comparisons and selects not counted).
@@ -474,7 +589,7 @@ def check_pricing(torch, timer) -> dict:
     return numbers
 
 
-# ------------------------------- phase 6 --------------------------------------
+# ------------------------------- phase 4 --------------------------------------
 def exact_rows(rows: list[dict]) -> list[dict]:
     """Sweep rows with every float spelled exactly (``float.hex``)."""
     return [{k: v.hex() if isinstance(v, float) else v for k, v in r.items()}
@@ -582,7 +697,8 @@ def check_dse(kernels) -> dict[str, int]:
         if split["kernel_n"] != sum(c.values()):
             raise AssertionError(f"reprice_grid {backend}: the profiler saw "
                                  f"{split['kernel_n']} pricing kernels, the "
-                                 f"counters {c}")
+                                 f"counters {c}; profiled device events "
+                                 f"{split['events']}")
         device_s = (split["h2d_ms"] + split["kernel_ms"] + split["d2h_ms"]
                     + split["other_ms"]) / 1e3
         # the chunk's host->device copy alone, timed with CUDA events at the
@@ -619,66 +735,235 @@ def check_dse(kernels) -> dict[str, int]:
     return total
 
 
-# ------------------------------- phase 5 --------------------------------------
+def profiler_recheck(torch, kernels) -> dict:
+    """``reprice_grid`` once more on the kernel backend under a fresh
+    profiler, after the serving paths' profiles: the pricing-kernel and
+    kernel-launch events it recorded beside the launch counter. Reported,
+    not checked: once, after serving profiles, the profiler recorded no
+    pricing-kernel event while the counter saw the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch.core import DSEEngine
+    from repro_torch.search import DenseGridSpec
+    from repro_torch.workloads.scenarios import get_scenario
+
+    engine = DSEEngine(parallel=False, pricing_backend="kernel")
+    spec = DenseGridSpec.dense(100_000).spec()
+    work = get_scenario("llm", smoke=True).work_fn
+    engine.reprice_grid(work, spec)                 # warm the plan
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        engine.reprice_grid(work, spec)
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.key_averages():
+        if "pricing_kernel" in e.key or "LaunchKernel" in e.key:
+            on = "device" if getattr(e, "device_type", None) == DeviceType.CUDA else "host"
+            seen[f"{e.key[:40]} ({on})"] = e.count
+    return {"counter": kernels.launches()["pricing"], "profiler": seen}
+
+
+# ------------------------------- phases 5-7 -----------------------------------
 def scaled_err(got, want) -> float:
     """Largest difference over the largest reference value."""
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max()).item()
 
 
-def check_small_model(torch) -> float:
+def check_small_model(torch, arch: str) -> dict:
     """The kernels' model on the card against the plain versions on the CPU:
-    mistral_nemo_12b SMOKE in bf16, same weights, prefill plus 4
-    teacher-forced decode steps."""
+    the SMOKE config of ``arch`` in bf16, same weights, prefill plus 4
+    teacher-forced decode steps; logits of every step and the final cache,
+    within 2e-2 of their largest value."""
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill, to_device
 
-    cfg = get_config("mistral_nemo_12b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     cpu = init_params(cfg, seed=SEED, device="cpu")
-    gpu = to_device(cpu, "cuda")
     g = torch.Generator().manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (2, 20), generator=g)
     s, steps = 16, 4
-    worst = 0.0
-    with torch.no_grad():
-        want, wc = prefill(cfg, cpu, toks[:, :s], max_len=s + steps)
-        got, gc = prefill(cfg, gpu, toks[:, :s].cuda(), max_len=s + steps)
-        worst = max(worst, scaled_err(got.cpu(), want),
-                    scaled_err(gc["k"].cpu(), wc["k"]))
-        for i in range(steps):
-            want, wc = decode_step(cfg, cpu, wc, toks[:, s + i], s + i)
-            got, gc = decode_step(cfg, gpu, gc, toks[:, s + i].cuda(), s + i)
-            worst = max(worst, scaled_err(got.cpu(), want))
-    if not worst <= SCALED_TOL_SMALL:
-        raise AssertionError(f"small model: card vs CPU error {worst:.3g}")
-    return worst
+
+    def run(params, dev):
+        with torch.no_grad():
+            lg, cache = prefill(cfg, params, toks[:, :s].to(dev), max_len=s + steps)
+            outs = [lg]
+            for i in range(steps):
+                lg, cache = decode_step(cfg, params, cache,
+                                        toks[:, s + i].to(dev), s + i)
+                outs.append(lg)
+        return [o.cpu() for o in outs], {k: v.cpu() for k, v in cache.items()}
+
+    want, want_cache = run(cpu, "cpu")
+    got, got_cache = run(to_device(cpu, "cuda"), "cuda")
+    out = {"scaled_err": max(scaled_err(a, w) for a, w in zip(got, want)),
+           "cache_scaled_err": max(scaled_err(got_cache[k], want_cache[k])
+                                   for k in want_cache)}
+    if not max(out.values()) <= SCALED_TOL_SMALL:
+        raise AssertionError(f"small model {arch}: card vs CPU {out}")
+    return out
 
 
 def check_full_model(torch, cfg, params, prompts, tokens) -> dict:
-    """At full size: the decode path's logits (decode kernel, cache) for the
-    generated tokens against one forward pass (flash kernel) over the prompt
-    and those tokens; and the greedy tokens against that pass's argmax."""
+    """At full size: the decode path's logits (cache and ``decode_step``:
+    the decode kernel, or the SSM recurrence) for the generated tokens
+    against one forward pass (the flash kernel, or the chunked scan) over
+    the prompt and those tokens; and the greedy tokens against that pass's
+    argmax. For an SSM config also the state handoff: the cache after the
+    prompt's prefill and the decode steps against the cache of one prefill
+    over the same tokens, layer by layer, and each layer alone
+    (:func:`ssm_layers_alone`)."""
     from repro_torch.models import decode_step, forward, prefill
 
     gen = torch.tensor(tokens, device=prompts.device).t()  # (B, n)
     n, s = gen.shape[1], prompts.shape[1]
+    seq = torch.cat([prompts, gen[:, :-1]], 1)
     with torch.no_grad():
-        full = forward(cfg, params, torch.cat([prompts, gen[:, :-1]], 1))
+        full = forward(cfg, params, seq)
         teacher = full[:, s - 1:]                           # (B, n, V)
         if not bool(torch.isfinite(teacher.float()).all()):
             raise AssertionError("full model: non-finite logits")
         agree = (teacher.argmax(-1) == gen).float().mean().item()
+        del full
         _, cache = prefill(cfg, params, prompts, max_len=s + n)
         worst = 0.0
         for i in range(n - 1):
             lg, cache = decode_step(cfg, params, cache, gen[:, i], s + i)
             worst = max(worst, scaled_err(lg, teacher[:, i + 1]))
-    if not worst <= SCALED_TOL_FULL:
-        raise AssertionError(f"full model: decode vs prefill error {worst:.3g}")
-    if not agree >= 0.8:
-        raise AssertionError(f"full model: greedy tokens agree with the "
-                             f"teacher-forced argmax on {agree:.2%} only")
-    return {"decode_vs_prefill_scaled_err": worst, "greedy_agreement": agree}
+        del teacher
+        out = {"decode_vs_prefill_scaled_err": worst, "greedy_agreement": agree}
+        if not cfg.attention_free:
+            if not (worst <= SCALED_TOL_FULL and agree >= 0.8):
+                raise AssertionError(f"full model: decode vs prefill beyond "
+                                     f"{SCALED_TOL_FULL:g} or greedy agreement "
+                                     f"under 0.8: {out}")
+            return out
+        _, whole = prefill(cfg, params, seq)
+        for k in ("ssm", "conv"):
+            out[f"{k}_handoff_scaled_err_by_layer"] = [
+                float(f"{scaled_err(cache[k][b, 0], whole[k][b, 0]):.3g}")
+                for b in range(cfg.n_blocks)]
+        del cache, whole
+        out["layer_alone_scaled_err_by_layer"] = ssm_layers_alone(
+            torch, cfg, params, seq, s)
+    handoff = out["ssm_handoff_scaled_err_by_layer"] + out[
+        "conv_handoff_scaled_err_by_layer"]
+    first = max(out["ssm_handoff_scaled_err_by_layer"][0],
+                out["conv_handoff_scaled_err_by_layer"][0])
+    alone = out["layer_alone_scaled_err_by_layer"]
+    if not (worst <= SCALED_TOL_SSM_LOGITS and agree >= 0.8
+            and first <= SCALED_TOL_SMALL
+            and max(handoff) <= SCALED_TOL_SSM_CACHE
+            and max(e[0] for e in alone) <= SCALED_TOL_SMALL
+            and max(max(e[1:]) for e in alone) <= SCALED_TOL_SSM_ALONE):
+        raise AssertionError(
+            f"full model: decode vs prefill beyond {SCALED_TOL_SSM_LOGITS:g}, "
+            f"greedy agreement under 0.8, first-layer state handoff beyond "
+            f"{SCALED_TOL_SMALL:g}, a layer's cache handoff beyond "
+            f"{SCALED_TOL_SSM_CACHE:g}, or a layer alone beyond "
+            f"{SCALED_TOL_SMALL:g} (output) or {SCALED_TOL_SSM_ALONE:g} "
+            f"(state, conv tail): {out}")
+    return out
+
+
+def ssm_layers_alone(torch, cfg, params, seq, s: int) -> list[float]:
+    """Each SSM layer alone, on the inputs the teacher-forced forward gives
+    it: its outputs at the positions after the first ``s``, from a prefill
+    of the layer over those s positions (the chunked scan) and then its
+    decode recurrence token by token from the state and conv tail that
+    prefill left, against its outputs from one chunked scan over the whole
+    sequence; and the state and conv tail the recurrence ends with against
+    those of that scan. Depth amplifies nothing here. Scaled errors
+    [output, state, conv tail], per layer."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _run_stack
+
+    errs = []
+
+    def mix(blk, slot, lp, h):
+        p = lp["ssm"]
+        whole, whole_state, whole_tail = L.ssm_layer(p, h, cfg)
+        _, state, tail = L.ssm_layer(p, h[:, :s], cfg)
+        tail = tail.contiguous()
+        steps = [L.ssm_decode_step(p, h[:, t:t + 1], state, tail, cfg)[0]
+                 for t in range(s, h.shape[1])]
+        errs.append([float(f"{scaled_err(a, b):.3g}") for a, b in (
+            (torch.cat(steps, 1), whole[:, s:]), (state, whole_state),
+            (tail, whole_tail))])
+        return whole
+
+    with torch.no_grad():
+        _run_stack(cfg, params, params["embed"][seq].to(torch.bfloat16), mix)
+    return errs
+
+
+def check_serving(torch, kernels, arch: str, requests: int,
+                  want: dict[str, int], phase: int) -> dict[str, int]:
+    """The serving path of ``arch`` at full size (phase N), then steady
+    state and correctness (phase N + 1 for the dense path, the same phase
+    for the SSM one). Returns the launch counts of the ``run_serve`` call."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch)
+    say(f"[{phase}] run_serve {cfg.name}: {requests} requests x {PROMPT_LEN} "
+        f"prompt tokens x {NEW_TOKENS} new tokens, seed {SEED}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = run_serve(cfg, requests=requests, prompt_len=PROMPT_LEN,
+                    tokens=NEW_TOKENS, seed=SEED)
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counts} | want
+    say(f"    TTFT {res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms, "
+        f"{res.tokens_per_s:.2f} tokens/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    if len(res.tokens) != NEW_TOKENS or any(
+            len(t) != requests or not all(0 <= x < cfg.vocab for x in t)
+            for t in res.tokens):
+        raise AssertionError(f"{arch}: generated tokens malformed")
+
+    params = init_params(cfg, seed=SEED)
+    engine = ServeEngine(cfg, params, max_batch=requests,
+                         max_len=PROMPT_LEN + NEW_TOKENS + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (requests, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
+    if warm.tokens != res.tokens:
+        raise AssertionError(f"{arch}: a second run from the same seed gave "
+                             f"other tokens")
+    steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
+    if not cfg.attention_free:
+        phase += 1
+    say(f"[{phase}] warm generate: TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
+        f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
+    say(f"    decode_steady: TPOT mean {steady.tpot * 1e3:.4f} ms, min "
+        f"{min(steady.step_times) * 1e3:.4f}, max "
+        f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
+        f"steps; {steady.tokens_per_s:.2f} tokens/s")
+    full = check_full_model(torch, cfg, params, prompts, res.tokens)
+    say(f"    full-size consistency: {full}")
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
+        tok = logits[:, -1].argmax(-1)
+        decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
+        say(f"    profile of one decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
+        del logits, cache
+        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
+    del engine, params
+    torch.cuda.empty_cache()
+    small = check_small_model(torch, arch)
+    say(f"    small config, card vs CPU plain: {small}")
+    return counts
 
 
 # ------------------------------- main -----------------------------------------
@@ -693,9 +978,6 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import run_serve
-    from repro_torch.models import init_params
-    from repro_torch.serve import ServeEngine
 
     t_start = time.perf_counter()
     # 1. card and toolchain
@@ -728,89 +1010,56 @@ def main() -> int:
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
         f"decode o within {DECODE_REL:g} x max|plain|, lse within 1e-3; "
+        "ssd rtol=atol=2e-4; "
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
     numbers = check_kernels(torch, timer)
+    numbers["ssd"] = check_ssd(torch, timer)
     numbers.update(check_pricing(torch, timer))
     del timer
     torch.cuda.empty_cache()
 
-    # 4. the main path
-    cfg = get_config("mistral_nemo_12b")
-    say(f"[4] run_serve {cfg.name}: {REQUESTS} requests x {PROMPT_LEN} "
-        f"prompt tokens x {NEW_TOKENS} new tokens, seed {SEED}")
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    res = run_serve(cfg, requests=REQUESTS, prompt_len=PROMPT_LEN,
-                    tokens=NEW_TOKENS, seed=SEED)
-    counts = kernels.launches()
-    peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
-            "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS,
-            "pricing": 0, "pricing_f32": 0}
-    say(f"    TTFT {res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms, "
-        f"{res.tokens_per_s:.2f} tokens/s, peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {counts}")
-    if counts != want:
-        return fail(f"launch counts {counts} != {want}")
-    if len(res.tokens) != NEW_TOKENS or any(
-            len(t) != REQUESTS or not all(0 <= x < cfg.vocab for x in t)
-            for t in res.tokens):
-        return fail("generated tokens malformed")
-
-    # 5. steady state and correctness
-    params = init_params(cfg, seed=SEED)
-    engine = ServeEngine(cfg, params, max_batch=REQUESTS,
-                         max_len=PROMPT_LEN + NEW_TOKENS + 1)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
-                            generator=gen, device="cuda")
-    warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
-    if warm.tokens != res.tokens:
-        return fail("a second run from the same seed gave other tokens")
-    steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
-    say(f"[5] warm generate: TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
-        f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
-    say(f"    decode_steady: TPOT mean {steady.tpot * 1e3:.4f} ms, min "
-        f"{min(steady.step_times) * 1e3:.4f}, max "
-        f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
-        f"steps; {steady.tokens_per_s:.2f} tokens/s")
-    full = check_full_model(torch, cfg, params, prompts, res.tokens)
-    say(f"    full-size consistency: {full}")
-    from repro_torch.models import decode_step, prefill
-    with torch.no_grad():
-        logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
-        tok = logits[:, -1].argmax(-1)
-        decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
-        say(f"    profile of one decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
-        del logits, cache
-        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
-    del engine, params
-    torch.cuda.empty_cache()
-    small = check_small_model(torch)
-    say(f"    small config, card vs CPU plain: scaled error {small:.3g}")
-
-    # 6. the DSE path
-    say("[6] DSE price phase: sweeps, a parallel sweep and reprice_grid on "
+    # 4. the DSE path
+    say("[4] DSE price phase: sweeps, a parallel sweep and reprice_grid on "
         "the kernel backends against numpy")
     t0 = time.perf_counter()
-    counts.update(check_dse(kernels))
+    dse = check_dse(kernels)
     say(f"    DSE path in {time.perf_counter() - t0:.1f} s; pricing launches "
-        f"{counts['pricing']}, pricing_f32 launches {counts['pricing_f32']}")
+        f"{dse['pricing']}, pricing_f32 launches {dse['pricing_f32']}")
 
-    # 7. result
+    # 5.-7. the serving paths
+    cfg = get_config("mistral_nemo_12b")
+    dense = check_serving(torch, kernels, "mistral_nemo_12b", REQUESTS, {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
+        "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=5)
+    # an SSM layer has no MLP: per pass 1 + L residual norms and L gated
+    # norms; the scan runs in prefill only, the decode step is a recurrence
+    cfg = get_config("mamba2_130m")
+    ssm = check_serving(torch, kernels, "mamba2_130m", SSM_REQUESTS, {
+        "ssd": cfg.n_layers,
+        "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=7)
+    say(f"    pricing events profiled after the serving profiles: "
+        f"{profiler_recheck(torch, kernels)}")
+    by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse}
+    counts = {name: sum(c.get(name, 0) for c in by_path.values())
+              for name in dense}
+
+    # 8. result
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
                 "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112",
                 "pricing": "src/repro/kernels/pricing/kernel.py:165",
-                "pricing_f32": "src/repro/kernels/pricing/kernel.py:235"}
+                "pricing_f32": "src/repro/kernels/pricing/kernel.py:235",
+                "ssd": "src/repro/kernels/ssd/kernel.py:86"}
     line = []
     for name, n in numbers.items():
         src = name.removesuffix("_f32")
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
                      "replaces": replaces[name], "launches": counts[name],
+                     "launches_by_path": {p: c[name] for p, c in by_path.items()
+                                          if c.get(name)},
                      **n})
     say(f"    total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": line}))

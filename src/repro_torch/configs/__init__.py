@@ -2,11 +2,13 @@
 
 Each ported module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as in the reference
-package. The reference names more architectures than the port runs yet;
-asking for one of those raises ``NotImplementedError`` naming the ROADMAP
-queue that holds it. Two of them, ``mamba2_130m`` and ``qwen3_moe_235b``,
-are already here as data: the DSE scenarios
-(``repro_torch.workloads.scenarios``) read their shapes.
+package. The port serves a dense decoder (``mistral_nemo_12b``) and an
+attention-free Mamba2 stack (``mamba2_130m``). The reference names more
+architectures than the port runs yet; asking for one of those raises
+``NotImplementedError`` naming the ROADMAP queue that holds it. One of
+them, ``qwen3_moe_235b``, is already here as data: the DSE scenarios
+(``repro_torch.workloads.scenarios``) read its shapes, as they read
+``mamba2_130m``'s.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import importlib
 from ..models.config import ModelConfig
 
 #: Architectures the port serves today.
-ARCH_IDS = ["mistral_nemo_12b"]
+ARCH_IDS = ["mistral_nemo_12b", "mamba2_130m"]
 
 #: Architectures of the reference package that wait for a later slice,
 #: each with the ROADMAP queue 1 item that ports what it needs.
@@ -28,8 +30,7 @@ PENDING = {
     "seamless_m4t_medium": "queue 1: cross-attention memory and the encoder",
     "olmoe_1b_7b": "queue 1: MoE layers",
     "qwen3_moe_235b": "queue 1: MoE layers",
-    "jamba_v01_52b": "queue 1: the SSM path (kernel ssd_chunk_fwd) and MoE layers",
-    "mamba2_130m": "queue 1: the SSM path (kernel ssd_chunk_fwd)",
+    "jamba_v01_52b": "queue 1: MoE layers (its SSM layers are ported)",
 }
 
 

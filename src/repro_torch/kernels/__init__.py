@@ -9,6 +9,8 @@
   pricing          — the DSE price phase's elementwise column formulas, f64
                      bit-identical and f32 drift-banded (``run_columns``,
                      ``run_columns_f32``).
+  ssd              — the Mamba2 SSD chunk scan, state carried across the
+                     chunks in one launch (``ssd_chunk_fwd``).
 
 Each directory holds ``csrc/<name>.cu`` (the kernel, built by
 :mod:`._build` at first use), ``ops.py`` (the wrapper: kernel for CUDA
@@ -19,11 +21,12 @@ from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
 from .pricing.ops import pricing_f32, pricing_f64
 from .rmsnorm.ops import fused_rmsnorm
+from .ssd.ops import ssd_chunk
 
 #: Every wrapper whose ``launches`` counter a run can read or reset.
 WRAPPERS = {"rmsnorm": fused_rmsnorm, "decode_attention": decode_attention,
             "flash_attention": flash_attention, "pricing": pricing_f64,
-            "pricing_f32": pricing_f32}
+            "pricing_f32": pricing_f32, "ssd": ssd_chunk}
 
 
 def reset_launches() -> None:
@@ -36,5 +39,5 @@ def launches() -> dict[str, int]:
 
 
 __all__ = ["decode_attention", "flash_attention", "fused_rmsnorm",
-           "pricing_f32", "pricing_f64", "WRAPPERS", "launches",
+           "pricing_f32", "pricing_f64", "ssd_chunk", "WRAPPERS", "launches",
            "reset_launches"]

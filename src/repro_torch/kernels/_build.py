@@ -26,7 +26,7 @@ _ROOT = _KERNELS_DIR.parents[2]
 BUILD_DIR = _ROOT / "build" / "kernels"
 
 #: Every kernel of the port, by the name of its directory and source.
-NAMES = ("rmsnorm", "decode_attention", "flash_attention", "pricing")
+NAMES = ("rmsnorm", "decode_attention", "flash_attention", "pricing", "ssd")
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]

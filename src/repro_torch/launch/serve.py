@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \\
       --prompt-len 2048 --tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m \\
+      --requests 8 --prompt-len 2048 --tokens 32
 
 :func:`run_serve` is the importable body; ``main`` is the argparse shell.
 It runs on the CUDA card unless ``device`` (``--device``) says otherwise.

@@ -16,9 +16,11 @@ from .transformer import check_supported, compute_dtype
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    # 1-D leaves are norm weights and stay float32; matrices take the
-    # compute dtype. bfloat16 numpy arrays have no torch counterpart, so
-    # everything passes through float32 (exact for both source dtypes).
+    # 1-D leaves (norm weights; the SSM's A_log, D, dt_bias, norm_w) stay
+    # float32; matrices (projections, the SSM's conv_w) take the compute
+    # dtype, as the reference casts them per use. bfloat16 numpy arrays
+    # have no torch counterpart, so everything passes through float32
+    # (exact for both source dtypes).
     arr = np.array(a, dtype=np.float32)        # a writable copy
     t = torch.from_numpy(arr)
     return t.to(device=device, dtype=torch.float32 if arr.ndim == 1 else dtype)

@@ -1,4 +1,5 @@
-"""Model layers of the port: the dense subset, as plain functions on tensors.
+"""Model layers of the port: the dense and SSM subsets, as plain functions
+on tensors.
 
 Each function mirrors the reference layer of the same name in
 ``repro/models/layers.py`` and computes the same function, with the
@@ -9,7 +10,10 @@ computes:
 * decode attention goes through ``decode_attention``, which reads the KV
   cache in place;
 * the block's residual adds and norms go through ``fused_rmsnorm``
-  (``models/transformer.py``).
+  (``models/transformer.py``), and so does the SSM layer's gated norm;
+* the SSM layer's chunked scan goes through ``ssd_chunk``. The decode
+  recurrence, the causal convolution, softplus, SiLU and the D skip stay
+  plain tensor ops, as the reference computes them outside any kernel.
 
 A CUDA tensor always reaches the kernel and a CPU tensor its plain version;
 there is no switch. Parameters are dictionaries of tensors with the
@@ -26,6 +30,8 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.rmsnorm.ops import fused_rmsnorm
+from ..kernels.ssd.ops import ssd_chunk
 from .config import ModelConfig
 
 
@@ -131,6 +137,86 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _mm(h, p["wo"])
 
 
+# =========================== Mamba2 / SSD layer ==============================
+def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    """(d_inner, state size N, heads H, head width P)."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal 1-D conv. x: (B, S, C); w: (K, C).
+
+    Sums in float32 and rounds once to x's dtype, as the decode step's
+    einsum over its window does, so that in bf16 prefill and decode round
+    alike (the reference rounds each of the 2K bf16 operations here)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, k - 1, 0))
+    wf = w.float()
+    out = xp[:, :s] * wf[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * wf[i]
+    return out.to(x.dtype)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor):
+    """rmsnorm(y * silu(z), w) through the fused RMSNorm (no residual)."""
+    g = y * F.silu(z)
+    return fused_rmsnorm(g.reshape(-1, g.shape[-1]), w)[0].view(g.shape)
+
+
+def ssm_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Mamba2 block forward (prefill). x: (B, S, d).
+
+    Returns (out (B, S, d), final state (B, H, P, N) float32, conv tail
+    (B, K-1, d_in + 2N) in x's dtype): the reference's ``ssm_layer`` and
+    ``transformer._ssm_with_state`` in one pass, so that prefill fills the
+    cache as it goes. The scan takes any S: the reference's ``chunk =
+    min(128, S)`` holds S <= 128 or S % 128 == 0 only.
+    """
+    b, s, _ = x.shape
+    d_in, n, h, hp = ssm_dims(cfg)
+    k = cfg.ssm_conv
+    zxbcdt = _mm(x, p["in_proj"])
+    z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, h], dim=-1)
+    conv_tail = F.pad(xbc, (0, 0, max(k - 1 - s, 0), 0))[:, -(k - 1):]
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"].to(x.dtype)))
+    xs, Bm, Cm = torch.split(xbc, [d_in, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # (B, S, H)
+    dA = dt * -torch.exp(p["A_log"])
+    xs = xs.view(b, s, h, hp)
+    y, state = ssd_chunk(xs, dt, Bm[:, :, None].expand(b, s, h, n),
+                         Cm[:, :, None].expand(b, s, h, n), dA)
+    y = y + p["D"][:, None] * xs.float()
+    y = _gated_norm(y.view(b, s, d_in).to(x.dtype), z, p["norm_w"])
+    return _mm(y, p["out_proj"]), state, conv_tail
+
+
+def ssm_decode_step(p: dict, x: torch.Tensor, state: torch.Tensor,
+                    conv_cache: torch.Tensor, cfg: ModelConfig):
+    """One-token SSD recurrence. x: (B, 1, d); state: (B, H, P, N) float32;
+    conv_cache: (B, K-1, d_in + 2N). Both caches are updated in place.
+    Returns (out (B, 1, d), state, conv_cache)."""
+    b = x.shape[0]
+    d_in, n, h, hp = ssm_dims(cfg)
+    zxbcdt = _mm(x, p["in_proj"])[:, 0]
+    z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, h], dim=-1)
+    window = torch.cat([conv_cache.to(xbc.dtype), xbc[:, None]], dim=1)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", window,
+                              p["conv_w"].to(window.dtype)))
+    conv_cache.copy_(window[:, 1:])
+    xs, Bm, Cm = torch.split(xbc, [d_in, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # (B, H)
+    dA = torch.exp(dt * -torch.exp(p["A_log"]))
+    xs = xs.reshape(b, h, hp).float()
+    state.mul_(dA[..., None, None]).add_(
+        torch.einsum("bhp,bn,bh->bhpn", xs, Bm.float(), dt))
+    y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
+    y = y + p["D"][:, None] * xs
+    y = _gated_norm(y.reshape(b, d_in).to(x.dtype), z, p["norm_w"])
+    return _mm(y, p["out_proj"])[:, None], state, conv_cache
+
+
 # =============================== initializers ================================
 def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
                device) -> torch.Tensor:
@@ -147,6 +233,24 @@ def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
         "wv": dense_init(gen, d, (d, cfg.n_kv_heads * hd), dtype, device),
         "wo": dense_init(gen, cfg.n_heads * hd, (cfg.n_heads * hd, d),
                          dtype, device),
+    }
+
+
+def init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """The reference's leaves and shapes; A_log 0, D 1, dt_bias 0 and
+    norm_w 1 in float32, as the reference initialises them."""
+    d = cfg.d_model
+    d_in, n, h, _ = ssm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(gen, d, (d, 2 * d_in + 2 * n + h), dtype, device),
+        "conv_w": dense_init(gen, cfg.ssm_conv, (cfg.ssm_conv, d_in + 2 * n),
+                             dtype, device),
+        "A_log": torch.zeros(h, **f32),
+        "D": torch.ones(h, **f32),
+        "dt_bias": torch.zeros(h, **f32),
+        "norm_w": torch.ones(d_in, **f32),
+        "out_proj": dense_init(gen, d_in, (d_in, d), dtype, device),
     }
 
 

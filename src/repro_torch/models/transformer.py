@@ -7,23 +7,30 @@ Public entry points, mirroring ``repro/models/transformer.py``:
   prefill(cfg, params, tokens, max_len)              -> logits, cache
   decode_step(cfg, params, cache, token, pos)        -> logits, cache
 
+Two layer kinds run: attention + SwiGLU MLP layers (dense decoders) and
+Mamba2 SSM layers without an MLP (attention-free configs, ``d_ff == 0``).
 Parameters are nested dictionaries with the reference's names and shapes;
 the reference's stacked ``params["stack"]`` (leading axis n_blocks) is a
-list of n_blocks block dictionaries here. Projection matrices and the
-embedding are held in the compute dtype, norm weights in float32.
+list of n_blocks block dictionaries here. Projection matrices, the SSM
+convolution and the embedding are held in the compute dtype, norm weights
+and the SSM's 1-D leaves in float32.
 
 The block applies its residual adds through the fused RMSNorm kernel:
 each branch output is added to the residual and normed by the next norm in
 one launch, ``(h, x) = fused_rmsnorm(branch_out, w_next, residual=x)``, so a
-pass over L layers launches it 1 + 2L times. The kernel normalises the f32
-sum before rounding it, where the reference normalises the residual after
-rounding; the two agree exactly in float32 and to the last bf16 bit in
-bfloat16.
+pass over L dense layers launches it 1 + 2L times, and over L SSM layers
+1 + L times plus L gated norms inside the layers. The kernel normalises the
+f32 sum before rounding it, where the reference normalises the residual
+after rounding; the two agree exactly in float32 and to the last bf16 bit
+in bfloat16.
 
-The cache layout is the reference's, (n_blocks, n_attn, B, max_len, Hkv, hd),
-in bfloat16 whatever the compute dtype. Unlike the reference, prefill fills
-it in the same pass that computes the logits, and ``decode_step`` writes it
-in place.
+The cache has the reference's layout and dtypes: for attention layers
+``k``/``v`` (n_blocks, n_attn, B, max_len, Hkv, hd) in bfloat16; for SSM
+layers ``ssm`` (n_blocks, n_ssm, B, H, P, N) in float32 and ``conv``
+(n_blocks, n_ssm, B, K-1, d_inner + 2N) in bfloat16, whatever the compute
+dtype. The SSM entries do not depend on ``max_len``. Unlike the reference,
+prefill fills the cache in the same pass that computes the logits, and
+``decode_step`` writes it in place.
 """
 from __future__ import annotations
 
@@ -40,13 +47,13 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense RMSNorm SwiGLU decoders; everything else
-    raises."""
+    """The port serves dense RMSNorm SwiGLU decoders and attention-free
+    Mamba2 stacks; everything else raises."""
     missing = []
     if cfg.moe_experts:
         missing.append("MoE layers")
-    if cfg.attn_every or cfg.attention_free:
-        missing.append("the SSM path")
+    if cfg.attn_every > 0:
+        missing.append("hybrid attention/SSM blocks")
     if cfg.cross_attn_every or cfg.is_enc_dec:
         missing.append("cross-attention memory")
     if cfg.norm != "rmsnorm":
@@ -60,12 +67,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ================================ init =======================================
-def _init_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
+def _init_layer(gen, cfg: ModelConfig, idx: int, dtype, device) -> dict:
     norm_init, _ = L.make_norm(cfg)
-    return {"ln1": norm_init(cfg.d_model, device),
-            "attn": L.init_attention(gen, cfg, dtype, device),
-            "ln2": norm_init(cfg.d_model, device),
-            "mlp": L.init_mlp(gen, cfg, dtype, device)}
+    p: dict = {"ln1": norm_init(cfg.d_model, device)}
+    if cfg.layer_kind(idx) == "attn":
+        p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    else:
+        p["ssm"] = L.init_ssm(gen, cfg, dtype, device)
+    if cfg.d_ff:
+        p["ln2"] = norm_init(cfg.d_model, device)
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -80,7 +92,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         "embed": L.dense_init(gen, cfg.d_model, (cfg.vocab, cfg.d_model),
                               dtype, device),
         "final_norm": norm_init(cfg.d_model, device),
-        "stack": [{f"l{i}": _init_layer(gen, cfg, dtype, device)
+        "stack": [{f"l{i}": _init_layer(gen, cfg, i, dtype, device)
                    for i in range(cfg.block_size)}
                   for _ in range(cfg.n_blocks)],
     }
@@ -102,27 +114,30 @@ def to_device(params, device):
 
 # ================================ stack ======================================
 def _layers(cfg: ModelConfig, params: dict):
-    """(block, slot, layer params) in order; slot indexes the cache."""
+    """(block, slot, layer params) in order; slot indexes the cache (every
+    layer of a block is of one kind, so its index is its slot)."""
     for b, bp in enumerate(params["stack"]):
         for i in range(cfg.block_size):
             yield b, i, bp[f"l{i}"]
 
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
-               attend) -> torch.Tensor:
-    """x: (B, S, d) embeddings. ``attend(block, slot, layer, h)`` returns
-    the attention branch's output. Returns the final-normed (B, S, d)."""
+               mix) -> torch.Tensor:
+    """x: (B, S, d) embeddings. ``mix(block, slot, layer, h)`` returns the
+    layer's attention or SSM branch output. Returns the final-normed
+    (B, S, d)."""
     shape = x.shape
     layers = list(_layers(cfg, params))
     h, x = fused_rmsnorm(x.reshape(-1, shape[-1]), layers[0][2]["ln1"]["w"])
     for n, (b, i, lp) in enumerate(layers):
-        a = attend(b, i, lp, h.view(shape))
-        h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["ln2"]["w"],
-                             residual=x)
-        m = L.mlp(lp["mlp"], h.view(shape), cfg)
+        a = mix(b, i, lp, h.view(shape))
+        if "mlp" in lp:
+            h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["ln2"]["w"],
+                                 residual=x)
+            a = L.mlp(lp["mlp"], h.view(shape), cfg)
         w_next = (layers[n + 1][2]["ln1"]["w"] if n + 1 < len(layers)
                   else params["final_norm"]["w"])
-        h, x = fused_rmsnorm(m.reshape(-1, shape[-1]), w_next, residual=x)
+        h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), w_next, residual=x)
     return h.view(shape)
 
 
@@ -130,8 +145,12 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
-def _positions(start: int, n: int, device) -> torch.Tensor:
-    return torch.arange(start, start + n, device=device)
+def _rope(cfg: ModelConfig, start: int, n: int, device):
+    """RoPE tables of positions start..start+n-1; None without attention."""
+    if cfg.attention_free:
+        return None
+    pos = torch.arange(start, start + n, device=device)
+    return L.rope_tables(pos, cfg.hd, cfg.rope_theta)
 
 
 # ================================ forward ====================================
@@ -140,31 +159,45 @@ def forward(cfg: ModelConfig, params: dict,
     """tokens: (B, S) int. Returns logits (B, S, V) in the compute dtype."""
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
-    rope = L.rope_tables(_positions(0, tokens.shape[1], x.device), cfg.hd,
-                         cfg.rope_theta)
+    rope = _rope(cfg, 0, tokens.shape[1], x.device)
 
-    def attend(b, i, lp, h):
+    def mix(b, i, lp, h):
+        if "ssm" in lp:
+            return L.ssm_layer(lp["ssm"], h, cfg)[0]
         return L.self_attention(lp["attn"], h, cfg, rope)[0]
 
-    h = _run_stack(cfg, params, x, attend)
+    h = _run_stack(cfg, params, x, mix)
     return L._mm(h, _head(cfg, params))
 
 
-# ============================= KV cache ======================================
+# ============================= KV / state cache ==============================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_blocks, cfg.block_size, batch, max_len, cfg.n_kv_heads,
-             cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    nb = cfg.n_blocks
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.block_size))
+    n_ssm = cfg.block_size - n_attn
+    cache: dict = {}
+    if n_attn:
+        shape = (nb, n_attn, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_ssm:
+        d_in, n, h, hp = L.ssm_dims(cfg)
+        cache["ssm"] = torch.zeros((nb, n_ssm, batch, h, hp, n),
+                                   dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros(
+            (nb, n_ssm, batch, cfg.ssm_conv - 1, d_in + 2 * n), dtype=dtype,
+            device=device)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             max_len: int | None = None):
     """Logits for the prompt and a cache of ``max_len`` positions (default
-    the prompt length) whose first S positions hold the prompt's K/V."""
+    the prompt length) whose first S positions hold the prompt's K/V, and
+    the SSM layers' state and convolution tail after the prompt."""
     b, s = tokens.shape
     max_len = s if max_len is None else max_len
     if max_len < s:
@@ -172,15 +205,20 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     cache = init_cache(cfg, b, max_len, tokens.device)
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
-    rope = L.rope_tables(_positions(0, s, x.device), cfg.hd, cfg.rope_theta)
+    rope = _rope(cfg, 0, s, x.device)
 
-    def attend(blk, slot, lp, h):
+    def mix(blk, slot, lp, h):
+        if "ssm" in lp:
+            out, state, tail = L.ssm_layer(lp["ssm"], h, cfg)
+            cache["ssm"][blk, slot] = state
+            cache["conv"][blk, slot] = tail
+            return out
         out, k, v = L.self_attention(lp["attn"], h, cfg, rope)
         cache["k"][blk, slot, :, :s] = k
         cache["v"][blk, slot, :, :s] = v
         return out
 
-    h = _run_stack(cfg, params, x, attend)
+    h = _run_stack(cfg, params, x, mix)
     return L._mm(h, _head(cfg, params)), cache
 
 
@@ -191,13 +229,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     (logits (B, V), cache)."""
     dtype = compute_dtype(cfg)
     x = params["embed"][token][:, None, :].to(dtype)       # (B, 1, d)
-    rope = L.rope_tables(_positions(pos, 1, x.device), cfg.hd,
-                         cfg.rope_theta)
+    rope = _rope(cfg, pos, 1, x.device)
 
-    def attend(blk, slot, lp, h):
+    def mix(blk, slot, lp, h):
+        if "ssm" in lp:
+            return L.ssm_decode_step(lp["ssm"], h, cache["ssm"][blk, slot],
+                                     cache["conv"][blk, slot], cfg)[0]
         return L.decode_self_attention(lp["attn"], h, cache["k"][blk, slot],
                                        cache["v"][blk, slot], pos, cfg,
                                        rope)[0]
 
-    h = _run_stack(cfg, params, x, attend)
+    h = _run_stack(cfg, params, x, mix)
     return L._mm(h[:, 0], _head(cfg, params)), cache

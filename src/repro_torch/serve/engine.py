@@ -1,4 +1,5 @@
-"""Batched serving engine of the port: prefill, then decode with a KV cache.
+"""Batched serving engine of the port: prefill, then decode with a cache
+(K/V for attention layers, state and conv tail for SSM layers).
 
 Mirrors ``repro/serve/engine.py``: TTFT is the prefill latency up to the
 first sampled token, TPOT the decode step latency. Two decode loops share
@@ -10,9 +11,10 @@ the model's ``decode_step``:
 * :meth:`ServeEngine.decode_steady` — the measurement path: warm-up steps
   are discarded, then every steady-state step is synchronised and timed.
 
-The cache holds ``max_len`` positions from the start and prefill writes the
-first S, which leaves the same contents as the reference's copy of the
-prefill cache into a serving-length one, without the copy.
+The K/V cache holds ``max_len`` positions from the start and prefill writes
+the first S, which leaves the same contents as the reference's copy of the
+prefill cache into a serving-length one, without the copy; the SSM state
+and conv tail do not depend on ``max_len`` and carry over as they are.
 """
 from __future__ import annotations
 

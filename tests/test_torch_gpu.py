@@ -4,8 +4,10 @@ Each kernel is held against its plain PyTorch version on the same inputs on
 the card, at serving and ragged shapes, element-wise within the bf16
 tolerance of the reference's kernel tests (rtol = atol = 2e-2); decode
 attention's outputs, averages over up to ~2000 values, are held within four
-bf16 ulps of the largest reference output instead. The model on the card is
-held against the plain versions on the CPU. The f64 pricing kernel must be
+bf16 ulps of the largest reference output instead. The SSD kernel computes
+in f32 and is held to the reference's 2e-4 on y and the final state. The
+models on the card are held against the plain versions on the CPU within
+2e-2 of the largest logit. The f64 pricing kernel must be
 bit-identical to its plain version and to the numpy formula, and the f32
 one within the drift band 1e-5 of the f64 reference. Without a card every
 test here skips. Run them on a card with
@@ -25,7 +27,8 @@ from repro_torch.core import DSEEngine
 from repro_torch.core.pricing import (_price, _roofline, price_plans,
                                       stack_plans)
 from repro_torch.kernels import (decode_attention, flash_attention,
-                                 fused_rmsnorm, launches, reset_launches)
+                                 fused_rmsnorm, launches, reset_launches,
+                                 ssd_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.pricing import (certify, certify_f32, pricing_f32,
@@ -36,11 +39,13 @@ from repro_torch.kernels.pricing.ref import (FORMULAS, edge_plan_vectors,
                                              random_plan_vectors,
                                              random_roofline_columns)
 from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+from repro_torch.kernels.ssd.ref import ssd_scan_ref
 from repro_torch.launch.serve import run_serve
 from repro_torch.models import decode_step, init_params, prefill, to_device
 
 pytestmark = pytest.mark.gpu
 SMOKE = get_config("mistral_nemo_12b", smoke=True)
+SSM_SMOKE = get_config("mamba2_130m", smoke=True)
 
 
 @pytest.fixture
@@ -146,7 +151,7 @@ def test_model_on_card_matches_cpu_and_counts_launches(cuda):
     n = SMOKE.n_layers
     assert launches() == {"rmsnorm": 2 * (1 + 2 * n), "flash_attention": n,
                           "decode_attention": n, "pricing": 0,
-                          "pricing_f32": 0}
+                          "pricing_f32": 0, "ssd": 0}
     want_step, want_cache = decode_step(SMOKE, cpu, want_cache, tok, 12)
     assert _scaled_err(step, want_step) <= 2e-2
     assert _scaled_err(cache["v"], want_cache["v"]) <= 2e-2
@@ -157,6 +162,86 @@ def test_run_serve_defaults_to_the_card(cuda):
     res = run_serve(SMOKE, requests=2, prompt_len=8, tokens=3)
     assert len(res.tokens) == 3
     assert launches()["decode_attention"] == SMOKE.n_layers * 2
+
+
+@pytest.mark.parametrize("b,s,h,p,n,dtype,model", [
+    (8, 2048, 24, 64, 128, torch.bfloat16, True),   # mamba2_130m serving
+    (2, 100, 3, 64, 128, torch.bfloat16, True),     # ragged
+    (2, 300, 4, 16, 32, torch.float32, True),       # P != N
+    (48, 512, 0, 64, 128, torch.float32, False),    # the Pallas layout
+    (1, 256, 0, 128, 128, torch.float32, False)])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, dtype, model):
+    g = torch.Generator(device=cuda).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=cuda)
+    lead = (b, s, h) if model else (b, s)
+    dt = torch.nn.functional.softplus(randn(*lead))
+    x = randn(*lead, p).to(dtype)
+    if model:    # B/C shared by the heads, read at head stride 0
+        Bm, Cm = (randn(b, s, 1, n, scale=0.3).to(dtype).expand(b, s, h, n)
+                  for _ in range(2))
+        dA = dt * -torch.exp(randn(h, scale=0.5))
+    else:
+        Bm, Cm = (randn(b, s, n, scale=0.3).to(dtype) for _ in range(2))
+        dA = -0.1 * dt
+    before = ssd_chunk.launches
+    y, state = ssd_chunk(x, dt, Bm, Cm, dA)
+    assert ssd_chunk.launches == before + 1
+    assert y.shape == x.shape and y.dtype == state.dtype == torch.float32
+    if model:
+        yr, sr = ssd_scan_ref(*(t.transpose(1, 2) for t in (x, dt, Bm, Cm, dA)))
+        yr = yr.transpose(1, 2)
+        assert state.shape == (b, h, p, n)
+    else:
+        yr, sr = ssd_scan_ref(x, dt, Bm, Cm, dA)
+        assert state.shape == (b, p, n)
+    _close(y, yr, 2e-4)
+    _close(state, sr, 2e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 64, 256, device=cuda)
+    dt = torch.zeros(2, 64, device=cuda)
+    bc = torch.zeros(2, 64, 16, device=cuda)
+    with pytest.raises(ValueError, match="P <= 128"):
+        ssd_chunk(x, dt, bc, bc, dt)
+    with pytest.raises(TypeError, match="ssd_chunk"):
+        ssd_chunk(x[..., :64], dt, bc.bfloat16(), bc, dt)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x[..., :64], dt.bfloat16(), bc, bc, dt)
+
+
+def test_mamba2_model_on_card_matches_cpu_and_counts_launches(cuda):
+    """bf16 kernels on the card against the plain versions on the CPU, same
+    weights and tokens; a prefill launches the SSD kernel once per layer and
+    a decode step not at all, and each pass the norm 1 + 2L times."""
+    cpu = init_params(SSM_SMOKE, seed=0, device="cpu")
+    gpu = to_device(cpu, cuda)
+    prompt = torch.randint(0, SSM_SMOKE.vocab, (2, 100),
+                           generator=torch.Generator().manual_seed(5))
+    want, want_cache = prefill(SSM_SMOKE, cpu, prompt, max_len=102)
+    reset_launches()
+    got, cache = prefill(SSM_SMOKE, gpu, prompt.to(cuda), max_len=102)
+    assert _scaled_err(got, want) <= 2e-2
+    assert _scaled_err(cache["ssm"], want_cache["ssm"]) <= 2e-2
+    tok = want[:, -1].argmax(-1)
+    step, cache = decode_step(SSM_SMOKE, gpu, cache, tok.to(cuda), 100)
+    torch.cuda.synchronize()
+    n = SSM_SMOKE.n_layers
+    assert launches() == {"rmsnorm": 2 * (1 + 2 * n), "ssd": n,
+                          "flash_attention": 0, "decode_attention": 0,
+                          "pricing": 0, "pricing_f32": 0}
+    want_step, want_cache = decode_step(SSM_SMOKE, cpu, want_cache, tok, 100)
+    assert _scaled_err(step, want_step) <= 2e-2
+    assert _scaled_err(cache["conv"], want_cache["conv"]) <= 2e-2
+
+
+def test_run_serve_mamba2_defaults_to_the_card(cuda):
+    reset_launches()
+    res = run_serve(SSM_SMOKE, requests=2, prompt_len=8, tokens=3)
+    assert len(res.tokens) == 3
+    assert launches()["ssd"] == SSM_SMOKE.n_layers
 
 
 def _pricing_inputs(entry: str, n: int) -> dict[str, np.ndarray]:
