@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths on one NVIDIA card: serve
-Mistral-NeMo-12B, serve Mamba2-130M, and run the DSE price phase.
+"""Drive the PyTorch port's four paths on one NVIDIA card: serve
+Mistral-NeMo-12B, serve Mamba2-130M, run the DSE price phase, and train
+OLMo-1B.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -15,7 +16,11 @@ Phases, each fatal on failure:
      time the card could take (bound); the pricing kernel at 2^20 rows, f64
      bit for bit and f32 within the drift band; the SSD scan in f32 within
      the reference's 2e-4, in the model's layout (B/C at head stride 0) and
-     in the Pallas kernel's;
+     in the Pallas kernel's; the three training attention kernels
+     (forward with LSE, dK/dV, dQ) at the olmo_1b training shape (8, 16,
+     2048, 128) causal, a GQA ragged shape and hd 64 full attention,
+     each row of o, dq (per query) and dk, dv (per key) within 2e-2 of
+     that row's largest plain value;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -41,7 +46,18 @@ Phases, each fatal on failure:
      versions; then one more profiled ``reprice_grid``, whose pricing
      events the profiler is asked for after the serving profiles
      (reported, not checked);
-  8. one JSON line of kernel numbers, the card's name and power limit, and
+  8. training: the gradients of a 2-layer olmo_1b at full width, batch 2 x
+     2048, through the kernels against the same model with the plain
+     attention under autograd (every leaf within 2e-2 of its largest
+     value, wq/wk/wv non-zero); the SMOKE config's 3 train steps on the
+     card against the CPU; then ``run_train`` on the full olmo_1b, 8 x
+     2048 tokens, 8 steps on one repeated batch, counters zeroed just
+     before and read just after (2L forward-with-LSE launches per step
+     under remat "full", L of each backward kernel), a finite loss that
+     starts near ln V + 1/2 and falls, step time, tokens/s, the FLOP
+     shares of the 989 TFLOP/s peak and peak memory; and a profile of one
+     full step;
+  9. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -67,6 +83,8 @@ F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
 SSM_REQUESTS = 8                   # mamba2_130m: 8 x 2048 + 32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 8   # olmo_1b: 8 x 2048
+GRAD_LAYERS, GRAD_BATCH = 2, 2     # the full-width gradient check
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 kernel vs plain, element-wise
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's SSD tolerance, f32 math
 # Decode attention averages ~2000 values, so its outputs are ~0.03: an
@@ -74,6 +92,7 @@ SSD_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's SSD tolerance, f32 math
 # the largest reference output instead.
 DECODE_REL = 2.0 ** -6
 SCALED_TOL_SMALL = 2e-2            # whole model, small config, bf16
+TRAIN_ROW_REL = 2e-2               # training attention, each row's own scale
 SCALED_TOL_FULL = 5e-2             # 40 bf16 layers, decode vs prefill path
 # mamba2_130m at full depth with random weights amplifies bf16 rounding
 # layer by layer. On the H100 each layer alone (same inputs) gives decode
@@ -124,6 +143,22 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
+    def eager_ms(self, fn, iters: int) -> float:
+        """CUDA events around each eager call (one that a graph cannot
+        capture, such as autograd's backward), L2 flushed before each."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in ev:
+            self.flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in ev) / iters
+
     def ms(self, fn, iters: int) -> float:
         torch = self.torch
         side = torch.cuda.Stream()
@@ -171,6 +206,7 @@ def profile(torch, fn) -> dict:
         group = ("rmsnorm" if "rmsnorm_kernel" in name else
                  "decode_attention" if "decode_" in name and "_kernel" in name else
                  "flash_attention" if "flash_fwd_kernel" in name else
+                 "flash_attention_bwd" if "flash_bwd_" in name else
                  "ssd" if "ssd_chunk_kernel" in name else
                  "matmul" if any(w in name.lower() for w in
                                  ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
@@ -246,6 +282,31 @@ def compare_scaled(torch, got, want, name: str, rel: float) -> float:
         raise AssertionError(f"{name}: max |kernel - plain| {err:.3g} > {lim:.3g}"
                              f" ({rel:g} x max |plain|)")
     return err
+
+
+# A row's scale is its largest |plain| value, but at least this share of
+# the tensor's: some rows are zero by cancellation (dq at query 0 of causal
+# attention, where o = v_0 makes dS = 0), and the kernel's f32 rounding
+# leaves ~1e-7 there.
+ROW_SCALE_FLOOR = 1e-3
+
+
+def row_scaled_errs(got, want) -> tuple[float, float]:
+    """(max |got - want| / max |want| over the whole tensor, the same ratio
+    taken row by row over the last dimension, each row's scale at least
+    ROW_SCALE_FLOOR of the tensor's, maximised over rows). Causal
+    attention's rows differ in size by two orders of magnitude (row 0 of o
+    is one value of v, row 2047 a mean of 2048), so a limit scaled by the
+    whole tensor's largest value may pass a kernel that drops a key or
+    query tile deep in the sequence: the training kernels are held to the
+    row ratio."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs()
+    top = scale.max()
+    whole = (err.max() / top).item()
+    rows = (err.amax(-1) / scale.amax(-1).clamp_min(ROW_SCALE_FLOOR * top)
+            ).max().item()
+    return whole, rows
 
 
 def sdpa(F, q, k, v, causal: bool):
@@ -587,6 +648,182 @@ def check_pricing(torch, timer) -> dict:
                if f32 else {}))
         say(f"  {name} {numbers[name]}")
     return numbers
+
+
+# ------------------------------- phase 3: training attention ------------------
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: all, or those with key <=
+    query (top-left causal)."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+# the training kernels' cases: (label, (B, H, Hkv, Sq, Sk, hd, causal))
+TRAIN_CASES = (("train", (TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, True)),
+               ("gqa-ragged", (2, 24, 8, 1000, 1000, 128, True)),
+               ("hd64-full", (2, 8, 2, 700, 900, 64, False)))
+
+
+def training_inputs(torch, shape, seed: int = SEED + 3):
+    """Seeded bf16 q, k, v, dO in the model's (B, S, heads, hd) layout,
+    handed over as (B, heads, S, hd) views."""
+    b, h, hkv, sq, sk, hd, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*dims):
+        return torch.randn(dims, generator=g, device="cuda").bfloat16().transpose(1, 2)
+    return (randn(b, sq, h, hd), randn(b, sk, hkv, hd), randn(b, sk, hkv, hd),
+            randn(b, sq, h, hd))
+
+
+def training_case(torch, q, k, v, do, causal: bool, label: str,
+                  check: bool = True) -> dict:
+    """Run the three training kernels once on (q, k, v, dO) and hold each
+    output against its plain version: o, dq (per query row), dk, dv (per
+    key row) within TRAIN_ROW_REL of their row's largest plain value, lse
+    within 1e-3. Returns, per output, the max abs error, the error over the
+    whole tensor's max |plain| and the worst row's ratio. ``check=False``
+    only measures (the planted-fault tool reads what would have failed)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_delta, flash_attention_bwd_dkv_ref,
+        flash_attention_bwd_dq_ref, flash_attention_fwd_lse_ref)
+
+    out = {}
+
+    def held(name, got, want):
+        torch.cuda.synchronize()
+        whole, rows = row_scaled_errs(got, want)
+        finite = bool(torch.isfinite(got.float()).all())
+        out[name] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                     "whole_scaled_err": whole, "row_scaled_err": rows,
+                     "finite": finite}
+        if check and not (finite and rows <= TRAIN_ROW_REL):
+            raise AssertionError(
+                f"{label} {name}: finite {finite}, a row's max |kernel - plain|"
+                f" is {rows:.3g} x its max |plain| (limit {TRAIN_ROW_REL:g})")
+
+    o, lse = flash_attention_fwd_lse(q, k, v, causal)
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    held("o", o, orf)
+    lse_err = (lse - lser).abs().max().item()
+    out["lse"] = {"max_abs_err": lse_err}
+    if check and not lse_err <= 1e-3 * max(1.0, lser.abs().max().item()):
+        raise AssertionError(f"fwd_lse {label}: lse error {lse_err:.3g}")
+    del orf
+    # the backward kernels take the plain forward's statistics, so that
+    # each kernel is held alone
+    dd = attention_delta(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    dkr, dvr = flash_attention_bwd_dkv_ref(q, k, v, do, lser, dd, causal)
+    held("dk", dk, dkr)
+    held("dv", dv, dvr)
+    del dkr, dvr
+    dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+    held("dq", dq, flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal))
+    out["inputs"] = (lse, dd)
+    return out
+
+
+def check_training_kernels(torch, timer) -> dict:
+    """The forward with LSE and the dK/dV and dQ kernels against their plain
+    versions (o and dq per query row, dk and dv per key row, within 2e-2 of
+    the row's largest plain value; lse within 1e-3) at the olmo_1b training
+    shape, a GQA ragged shape and hd 64 full attention, all in the model's
+    (B, S, heads, hd) layout read transposed; times at the training shape.
+    The library yardstick is scaled_dot_product_attention: its forward for
+    the forward kernel; its backward (forward + backward through autograd,
+    less the forward) does the work of both backward kernels together, so
+    it stands beside their sum, not beside either one."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
+        flash_attention_fwd_lse_ref)
+
+    cfg = get_config("olmo_1b")
+    assert TRAIN_CASES[0][1][1:3] == (cfg.n_heads, cfg.n_kv_heads)
+    assert TRAIN_CASES[0][1][5] == cfg.hd
+    names = TRAIN_KERNELS
+    errs = dict.fromkeys(names, 0.0)
+    rel = dict.fromkeys(names, 0.0)
+    of = {names[0]: ("o",), names[1]: ("dk", "dv"), names[2]: ("dq",)}
+    for label, shape in TRAIN_CASES:
+        q, k, v, do = training_inputs(torch, shape)
+        causal = shape[-1]
+        res = training_case(torch, q, k, v, do, causal, label)
+        for name in names:
+            errs[name] = max([errs[name]] + [res[x]["max_abs_err"] for x in of[name]])
+            rel[name] = max([rel[name]] + [res[x]["row_scaled_err"] for x in of[name]])
+        say(f"  training attention {label} q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} causal {causal}: worst row |err| / row max "
+            + ", ".join(f"{x} {res[x]['row_scaled_err']:.3g}"
+                        for x in ("o", "dk", "dv", "dq"))
+            + f"; lse max|err| {res['lse']['max_abs_err']:.3g}")
+        if label == "train":
+            main = (q, k, v, do, *res["inputs"])
+        del res
+        torch.cuda.empty_cache()
+
+    q, k, v, do, lse, dd = main
+    b, h, s, hd = q.shape
+    pairs = attention_pairs(s, s, True)
+    mm = 2.0 * b * h * hd * pairs          # flops of one (S, S) x hd product
+    qb = q.numel() * 2                     # bytes of one bf16 (B, H, S, hd)
+    kb = k.numel() * 2
+    rows = lse.numel() * 4
+    work = {names[0]: (2 * qb + 2 * kb + rows, 2 * mm),
+            names[1]: (2 * qb + 4 * kb + 2 * rows, 4 * mm),
+            names[2]: (3 * qb + 2 * kb + 2 * rows, 3 * mm)}
+    calls = {names[0]: (lambda: flash_attention_fwd_lse(q, k, v, True),
+                        lambda: flash_attention_fwd_lse_ref(q, k, v, True)),
+             names[1]: (lambda: flash_attention_bwd_dkv(q, k, v, do, lse, dd, True),
+                        lambda: flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd, True)),
+             names[2]: (lambda: flash_attention_bwd_dq(q, k, v, do, lse, dd, True),
+                        lambda: flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, True))}
+    lib_fwd = timer.ms(lambda: sdpa(F, q, k, v, causal=True), 20)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        sdpa(F, *leaves, causal=True).backward(do)
+    lib_fwd_bwd = timer.eager_ms(sdpa_fwd_bwd, 20)
+    del leaves
+    out = {}
+    for name in names:
+        kernel, plain = calls[name]
+        nb, fl = work[name]
+        b_ms, b_by = bound(nb, fl, BF16_FLOP_PER_S)
+        # no one library call computes dK/dV or dQ alone: SDPA's backward
+        # is both kernels' work, and is given as the pair's yardstick
+        lib = (dict(library_ms=lib_fwd) if name == names[0] else
+               dict(library_ms=None,
+                    library_bwd_pair_ms=lib_fwd_bwd - lib_fwd,
+                    library_note="SDPA backward (forward + backward through "
+                                 "autograd less the forward): the work of "
+                                 "dK/dV and dQ together"))
+        out[name] = dict(max_abs_err=errs[name], max_row_scaled_err=rel[name],
+                         row_scaled_err_limit=TRAIN_ROW_REL,
+                         ms=timer.ms(kernel, 20),
+                         plain_ms=timer.ms(plain, 3), **lib,
+                         bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9,
+                         shape=[b, h, k.shape[1], s, s, hd])
+    pair = out[names[1]]["ms"] + out[names[2]]["ms"]
+    for name in names[1:]:
+        out[name]["bwd_pair_ms"] = pair
+    for name in names:
+        say(f"  {name} train {out[name]}")
+    return out
 
 
 # ------------------------------- phase 4 --------------------------------------
@@ -966,6 +1203,183 @@ def check_serving(torch, kernels, arch: str, requests: int,
     return counts
 
 
+# ------------------------------- phase 8: training ----------------------------
+def leaf_grads(torch, cfg, params, batch):
+    """(loss, [gradient per leaf]) of ``loss_fn`` through autograd."""
+    from repro_torch.models import loss_fn
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def check_train_grads(torch, kernels) -> dict:
+    """olmo_1b at full width with 2 layers, batch 2 x 2048: loss and every
+    parameter gradient through the kernels (flash_attention_train) against
+    the same model whose attention is the plain forward under autograd,
+    swapped in here for the comparison."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import init_params, layers, param_dtype, synth_batch
+
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=GRAD_LAYERS)
+    params = init_params(cfg, seed=SEED, dtype=param_dtype(cfg))
+    batch = synth_batch(cfg, GRAD_BATCH, TRAIN_SEQ,
+                        torch.Generator(device="cuda").manual_seed(SEED + 4))
+    kernels.reset_launches()
+    loss, grads = leaf_grads(torch, cfg, params, batch)
+    counts = kernels.launches()
+    kernel_attention = layers.flash_attention_train
+    layers.flash_attention_train = flash_attention_ref
+    try:
+        kernels.reset_launches()
+        want_loss, want = leaf_grads(torch, cfg, params, batch)
+        if any(kernels.launches().values()):
+            raise AssertionError(f"the plain model launched kernels: "
+                                 f"{kernels.launches()}")
+    finally:
+        layers.flash_attention_train = kernel_attention
+    # tree_leaves order: dict keys sorted (empty norm trees hold no leaf)
+    names = ["embed", *[f"l{i}.{w}" for i in range(GRAD_LAYERS)
+                        for w in ("wk", "wo", "wq", "wv", "mlp.wi", "mlp.wo")]]
+    errs = [scaled_err(g, w) for g, w in zip(grads, want)]
+    by_name = dict(zip(names, grads))
+    attn_norms = {f"l{i}.{w}": by_name[f"l{i}.{w}"].norm().item()
+                  for i in range(GRAD_LAYERS) for w in ("wq", "wk", "wv")}
+    out = {"loss": loss.item(), "plain_loss": want_loss.item(),
+           "max_scaled_err": max(errs), "launches": counts,
+           "attn_grad_norms": attn_norms, "n_leaves": len(grads),
+           "scaled_err_by_leaf": {k: float(f"{e:.3g}") for k, e in zip(names, errs)}}
+    if len(grads) != len(names):
+        raise AssertionError(f"gradient check: {len(grads)} leaves")
+    n = cfg.n_layers
+    if counts != {**dict.fromkeys(counts, 0), "flash_attention_fwd_lse": 2 * n,
+                  "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}:
+        raise AssertionError(f"gradient check: launches {counts}")
+    if not (abs(out["loss"] - out["plain_loss"]) <= SCALED_TOL_SMALL * out["plain_loss"]
+            and max(errs) <= SCALED_TOL_SMALL and min(attn_norms.values()) > 0
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise AssertionError(f"gradient check beyond {SCALED_TOL_SMALL:g}, "
+                             f"or a zero attention gradient: {out}")
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_smoke_training(torch) -> dict:
+    """The SMOKE config's 3 train steps on the card against the same steps
+    on the CPU (plain versions): losses within 2e-2, parameters at the
+    reference's rtol 2e-2, atol 2e-3 (lr 1e-4, so that Adam's sign on a
+    near-zero gradient moves a weight by at most 3 x 2e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_dtype, to_device
+    from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config("olmo_1b", smoke=True)
+    cpu = init_params(cfg, seed=SEED, device="cpu", dtype=param_dtype(cfg))
+    gpu = to_device(cpu, "cuda")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4))
+    data = iter(SyntheticTokens(cfg.vocab, 4, 64, seed=SEED))
+    out = {"loss_cpu": [], "loss_card": []}
+    opt_cpu, opt_gpu = adamw_init(cpu), adamw_init(gpu)
+    for _ in range(3):
+        b = next(data)
+        _, _, m = step(cpu, opt_cpu, b)
+        out["loss_cpu"].append(float(m["loss"]))
+        _, _, m = step(gpu, opt_gpu, {k: v.cuda() for k, v in b.items()})
+        out["loss_card"].append(float(m["loss"]))
+    rel = max(abs(a - b) / b for a, b in zip(out["loss_card"], out["loss_cpu"]))
+    worst = max(((a.cpu() - b).abs() - 2e-2 * b.abs()).max().item()
+                for a, b in zip(tree_leaves(gpu), tree_leaves(cpu)))
+    out.update(loss_rel_diff=rel, param_excess_over_rtol=worst)
+    if not (rel <= 2e-2 and worst <= 2e-3):
+        raise AssertionError(f"SMOKE training card vs CPU: {out}")
+    return out
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> dict:
+    """FLOPs of one step. Model FLOPs (the MFU numerator): 6 N T for the
+    matmul weights (tied head included) plus 3x the causal attention
+    forward (4 B H hd pairs per layer), no recomputation. Executed: adds
+    remat's second forward (2 N T + the attention forward) and counts the
+    backward kernels' seven (S, S) x hd products per layer."""
+    n_mm = n_params                     # every leaf is a matmul weight here
+    t = batch * seq
+    attn_fwd = cfg.n_layers * 4.0 * batch * cfg.n_heads * cfg.hd * \
+        attention_pairs(seq, seq, True)
+    model = 6.0 * n_mm * t + 3 * attn_fwd
+    executed = 8.0 * n_mm * t + attn_fwd * (2 + 3.5)
+    return {"model_flops": model, "executed_flops": executed}
+
+
+def check_training(torch, kernels) -> dict[str, int]:
+    """``run_train`` on the full olmo_1b, 8 x 2048, on one repeated batch,
+    launch counters zeroed just before and read just after; then one full
+    step under the profiler. Returns the launch counts of the run."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import init_params, param_dtype
+    from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
+
+    cfg = get_config("olmo_1b")
+    say(f"[8] run_train {cfg.name}: {TRAIN_STEPS} steps x {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens on one repeated batch, seed {SEED}, remat "
+        f"{cfg.remat}")
+    kernels.reset_launches()
+    res = run_train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    seed=SEED, repeat=True)
+    counts = kernels.launches()
+    n = cfg.n_layers * TRAIN_STEPS
+    want = {**dict.fromkeys(counts, 0), "flash_attention_fwd_lse": 2 * n,
+            "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    steady = res.step_times[1:]
+    fl = train_flops(cfg, res.n_params, TRAIN_BATCH, TRAIN_SEQ)
+    mean = sum(steady) / len(steady)
+    say(f"    {res.n_params:,} params; losses {[round(x, 4) for x in res.losses]}")
+    say(f"    step times (s) {[round(x, 4) for x in res.step_times]}; steady "
+        f"mean {mean:.4f} s, min {min(steady):.4f} s; {res.tokens_per_s:.1f} "
+        f"tokens/s; peak memory {res.peak_memory_bytes / 2**30:.3f} GiB")
+    say(f"    FLOPs per step: model {fl['model_flops']:.4g} (6 N T + 3 x "
+        f"attention forward), executed {fl['executed_flops']:.4g} (remat "
+        f"and the 7-product backward); share of {BF16_FLOP_PER_S:.3g} "
+        f"FLOP/s at the steady mean: MFU "
+        f"{fl['model_flops'] / mean / BF16_FLOP_PER_S:.4f}, executed "
+        f"{fl['executed_flops'] / mean / BF16_FLOP_PER_S:.4f}; floor "
+        f"{fl['executed_flops'] / BF16_FLOP_PER_S:.4f} s")
+    say(f"    launches {counts}")
+    if counts != want:
+        raise AssertionError(f"training: launch counts {counts} != {want}")
+    first, last = res.losses[0], res.losses[-1]
+    expect = math.log(cfg.vocab) + 0.5
+    if not (all(math.isfinite(x) for x in res.losses)
+            and abs(first - expect) <= 0.5 and last < first):
+        raise AssertionError(f"training: losses {res.losses} (step 0 should "
+                             f"be near {expect:.3f}, the last below it)")
+
+    params = init_params(cfg, seed=SEED, dtype=param_dtype(cfg))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig())
+    batch = next(iter(SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=SEED, device="cuda")))
+    step(params, opt, batch)                         # warm
+    say(f"    profile of one train step: "
+        f"{profile(torch, lambda: float(step(params, opt, batch)[2]['loss']))}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------- main -----------------------------------------
 def main() -> int:
     import torch
@@ -1010,11 +1424,13 @@ def main() -> int:
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
         f"decode o within {DECODE_REL:g} x max|plain|, lse within 1e-3; "
-        "ssd rtol=atol=2e-4; "
+        "ssd rtol=atol=2e-4; training attention each row within "
+        f"{TRAIN_ROW_REL:g} of its max|plain|; "
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
     numbers = check_kernels(torch, timer)
     numbers["ssd"] = check_ssd(torch, timer)
+    numbers.update(check_training_kernels(torch, timer))
     numbers.update(check_pricing(torch, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1041,20 +1457,40 @@ def main() -> int:
         "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=7)
     say(f"    pricing events profiled after the serving profiles: "
         f"{profiler_recheck(torch, kernels)}")
-    by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse}
+    torch.cuda.empty_cache()
+
+    # 8. the training path
+    say("[8] training olmo_1b: full-width gradients against the plain "
+        "attention, SMOKE steps against the CPU, then run_train")
+    t0 = time.perf_counter()
+    say(f"    2-layer olmo_1b, {GRAD_BATCH} x {TRAIN_SEQ}: "
+        f"{check_train_grads(torch, kernels)}")
+    say(f"    SMOKE, 3 steps, card vs CPU: {check_smoke_training(torch)}")
+    train = check_training(torch, kernels)
+    say(f"    training phase in {time.perf_counter() - t0:.1f} s")
+    by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
+               "olmo_1b_train": train}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
-    # 8. result
+    # 9. result
+    fa = "src/repro/kernels/flash_attention"
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
-                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:112",
+                "flash_attention": f"{fa}/kernel.py:112",
+                "flash_attention_fwd_lse": f"{fa}/backward.py:109",
+                "flash_attention_bwd_dkv": f"{fa}/backward.py:252",
+                "flash_attention_bwd_dq": f"{fa}/backward.py:283",
                 "pricing": "src/repro/kernels/pricing/kernel.py:165",
                 "pricing_f32": "src/repro/kernels/pricing/kernel.py:235",
                 "ssd": "src/repro/kernels/ssd/kernel.py:86"}
+    sources = {"flash_attention_fwd_lse": "flash_attention",
+               "flash_attention_bwd_dkv": "flash_attention",
+               "flash_attention_bwd_dq": "flash_attention",
+               "pricing_f32": "pricing"}
     line = []
     for name, n in numbers.items():
-        src = name.removesuffix("_f32")
+        src = sources.get(name, name)
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
                      "replaces": replaces[name], "launches": counts[name],

@@ -2,8 +2,10 @@
 
 Each ported module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as in the reference
-package. The port serves a dense decoder (``mistral_nemo_12b``) and an
-attention-free Mamba2 stack (``mamba2_130m``). The reference names more
+package. The port runs dense decoders with RMSNorm and SwiGLU
+(``mistral_nemo_12b``) or LayerNorm and GELU (``olmo_1b``, ``minitron_4b``,
+``command_r_35b``, ``gpt3_175b``) and an attention-free Mamba2 stack
+(``mamba2_130m``). The reference names more
 architectures than the port runs yet; asking for one of those raises
 ``NotImplementedError`` naming the ROADMAP queue that holds it. One of
 them, ``qwen3_moe_235b``, is already here as data: the DSE scenarios
@@ -16,16 +18,13 @@ import importlib
 
 from ..models.config import ModelConfig
 
-#: Architectures the port serves today.
-ARCH_IDS = ["mistral_nemo_12b", "mamba2_130m"]
+#: Architectures the port runs today.
+ARCH_IDS = ["mistral_nemo_12b", "mamba2_130m", "olmo_1b", "minitron_4b",
+            "command_r_35b", "gpt3_175b"]
 
 #: Architectures of the reference package that wait for a later slice,
 #: each with the ROADMAP queue 1 item that ports what it needs.
 PENDING = {
-    "command_r_35b": "queue 1: LayerNorm dense configs",
-    "minitron_4b": "queue 1: LayerNorm dense configs",
-    "olmo_1b": "queue 1: LayerNorm dense configs (non-parametric, tied embeddings)",
-    "gpt3_175b": "queue 1: LayerNorm dense configs",
     "llama32_vision_11b": "queue 1: cross-attention memory",
     "seamless_m4t_medium": "queue 1: cross-attention memory and the encoder",
     "olmoe_1b_7b": "queue 1: MoE layers",

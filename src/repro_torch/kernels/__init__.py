@@ -4,8 +4,12 @@
                      ``fused_rmsnorm_fwd``).
   decode_attention — split-KV decode attention with exported LSE, reading
                      the cache in its model layout (``decode_attention_fwd``).
-  flash_attention  — FlashAttention-2 forward on bf16 tensor cores, GQA,
-                     causal or full (``flash_attention_fwd``).
+  flash_attention  — FlashAttention-2 on bf16 tensor cores, GQA, causal
+                     or full: the serving forward (``flash_attention_fwd``),
+                     the training forward with LSE
+                     (``flash_attention_fwd_lse``) and the dK/dV and dQ
+                     backward kernels (``flash_attention_bwd``), tied
+                     together by ``flash_attention_train``.
   pricing          — the DSE price phase's elementwise column formulas, f64
                      bit-identical and f32 drift-banded (``run_columns``,
                      ``run_columns_f32``).
@@ -18,14 +22,21 @@ tensors, plain version for CPU tensors, a ``launches`` counter) and
 ``ref.py`` (the plain PyTorch version).
 """
 from .decode_attention.ops import decode_attention
-from .flash_attention.ops import flash_attention
+from .flash_attention.ops import (flash_attention, flash_attention_bwd_dkv,
+                                  flash_attention_bwd_dq,
+                                  flash_attention_fwd_lse,
+                                  flash_attention_train)
 from .pricing.ops import pricing_f32, pricing_f64
 from .rmsnorm.ops import fused_rmsnorm
 from .ssd.ops import ssd_chunk
 
 #: Every wrapper whose ``launches`` counter a run can read or reset.
 WRAPPERS = {"rmsnorm": fused_rmsnorm, "decode_attention": decode_attention,
-            "flash_attention": flash_attention, "pricing": pricing_f64,
+            "flash_attention": flash_attention,
+            "flash_attention_fwd_lse": flash_attention_fwd_lse,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "pricing": pricing_f64,
             "pricing_f32": pricing_f32, "ssd": ssd_chunk}
 
 
@@ -38,6 +49,8 @@ def launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["decode_attention", "flash_attention", "fused_rmsnorm",
+__all__ = ["decode_attention", "flash_attention", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_fwd_lse",
+           "flash_attention_train", "fused_rmsnorm",
            "pricing_f32", "pricing_f64", "ssd_chunk", "WRAPPERS", "launches",
            "reset_launches"]

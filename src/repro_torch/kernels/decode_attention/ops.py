@@ -34,6 +34,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("decode_attention: q (B, H, hd), k = v (B, Hkv, S, hd)")
     b, h, hd = q.shape

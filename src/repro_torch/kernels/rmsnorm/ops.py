@@ -22,6 +22,7 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
         return fused_rmsnorm_ref(x, w, residual, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm: no kernel for device {x.device}")
+    _build.refuse_grad("fused_rmsnorm", x, w, residual)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_rmsnorm: dtype {x.dtype} not supported")
     if x.dim() != 2 or not x.is_contiguous():

@@ -49,6 +49,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         return y.transpose(1, 2).contiguous(), h
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    _build.refuse_grad("ssd_chunk", x, dt, B, C, dA)
     if x.dim() not in (3, 4):
         raise ValueError("ssd_chunk: x must be (B, S, H, P) or (BH, S, P)")
     lead = x.shape[:-1]

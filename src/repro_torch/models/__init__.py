@@ -1,8 +1,11 @@
 """Model stack of the port (PyTorch)."""
 from .config import ModelConfig
 from .convert import params_from_jax_numpy
+from .inputs import synth_batch
 from .transformer import (decode_step, forward, init_cache, init_params,
-                          prefill, to_device)
+                          loss_fn, param_count, param_dtype, prefill,
+                          to_device)
 
 __all__ = ["ModelConfig", "decode_step", "forward", "init_cache",
-           "init_params", "params_from_jax_numpy", "prefill", "to_device"]
+           "init_params", "loss_fn", "param_count", "param_dtype",
+           "params_from_jax_numpy", "prefill", "synth_batch", "to_device"]

@@ -32,11 +32,15 @@ def _convert(tree, dtype, device, index=None):
     return _tensor(tree if index is None else tree[index], dtype, device)
 
 
-def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
-    """The port's parameters, equal to ``tree``'s, on ``device``."""
+def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device=None,
+                          dtype: torch.dtype | None = None) -> dict:
+    """The port's parameters, equal to ``tree``'s, on ``device``; matrices
+    in ``dtype`` (default the compute dtype; training passes float32), 1-D
+    leaves (norm weights and biases) in float32. Empty subtrees (a
+    non-parametric norm) stay ``{}``."""
     check_supported(cfg)
     device = resolve_device(device)
-    dtype = compute_dtype(cfg)
+    dtype = compute_dtype(cfg) if dtype is None else dtype
     params = {k: _convert(v, dtype, device)
               for k, v in tree.items() if k != "stack"}
     params["stack"] = [_convert(tree["stack"], dtype, device, index=b)

@@ -6,11 +6,15 @@ Each function mirrors the reference layer of the same name in
 port's kernels at the points where the reference computes what a kernel
 computes:
 
-* prefill attention goes through ``flash_attention``;
+* prefill attention goes through ``flash_attention``, and attention that
+  autograd differentiates through ``flash_attention_train`` (the forward
+  with LSE, then the dK/dV and dQ kernels in backward);
 * decode attention goes through ``decode_attention``, which reads the KV
   cache in place;
-* the block's residual adds and norms go through ``fused_rmsnorm``
+* the block's residual adds and RMSNorms go through ``fused_rmsnorm``
   (``models/transformer.py``), and so does the SSM layer's gated norm;
+  LayerNorm and the GELU MLP stay plain tensor ops, as the reference has
+  no kernel for them;
 * the SSM layer's chunked scan goes through ``ssd_chunk``. The decode
   recurrence, the causal convolution, softplus, SiLU and the D skip stay
   plain tensor ops, as the reference computes them outside any kernel.
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import flash_attention, flash_attention_train
 from ..kernels.rmsnorm.ops import fused_rmsnorm
 from ..kernels.ssd.ops import ssd_chunk
 from .config import ModelConfig
@@ -50,15 +54,32 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor | None,
     return y.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor | None,
+              b: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
+    """f32 math with the population variance, result in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if w is not None:
+        y = y * w
+    if b is not None:
+        y = y + b
+    return y.to(x.dtype)
+
+
 def make_norm(cfg: ModelConfig):
-    """Returns (init_fn, apply_fn) for the config's norm flavor. The port
-    runs RMSNorm configs; LayerNorm ones wait in ROADMAP queue 1."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r} is not ported yet "
-            "(ROADMAP.md queue 1: LayerNorm dense configs)")
-    return (lambda d, device: {"w": torch.ones(d, dtype=torch.float32,
-                                               device=device)},
+    """Returns (init_fn, apply_fn) for the config's norm flavor. OLMo's
+    non-parametric LayerNorm has no parameters: its tree is ``{}``."""
+    f32 = dict(dtype=torch.float32)
+    if cfg.norm == "nonparam_ln":
+        return (lambda d, device: {},
+                lambda p, x: layernorm(x, None, None))
+    if cfg.norm == "layernorm":
+        return (lambda d, device: {"w": torch.ones(d, **f32, device=device),
+                                   "b": torch.zeros(d, **f32, device=device)},
+                lambda p, x: layernorm(x, p["w"], p["b"]))
+    return (lambda d, device: {"w": torch.ones(d, **f32, device=device)},
             lambda p, x: rmsnorm(x, p["w"]))
 
 
@@ -100,8 +121,11 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
     v = _mm(x, p["wv"]).view(b, s, cfg.n_kv_heads, hd)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal)   # (B, H, S, hd)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    attend = flash_attention_train if wants_grad else flash_attention
+    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               causal=causal)                               # (B, H, S, hd)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     return _mm(o, p["wo"]), k, v
 
@@ -132,8 +156,14 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
 # ================================= MLP =======================================
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU: silu(x wg) * (x wi), then wo."""
-    h = F.silu(_mm(x, p["wg"])) * _mm(x, p["wi"])
+    """SwiGLU, silu(x wg) * (x wi), or (without ``wg``) GELU(x wi); then
+    wo. GELU is the tanh form, ``jax.nn.gelu``'s default (PyTorch's
+    default, the erf form, differs by ~1e-3)."""
+    h = _mm(x, p["wi"])
+    if "wg" in p:
+        h = F.silu(_mm(x, p["wg"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
     return _mm(h, p["wo"])
 
 
@@ -256,6 +286,8 @@ def init_ssm(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 def init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi": dense_init(gen, d, (d, f), dtype, device),
-            "wg": dense_init(gen, d, (d, f), dtype, device),
-            "wo": dense_init(gen, f, (f, d), dtype, device)}
+    p = {"wi": dense_init(gen, d, (d, f), dtype, device)}
+    if cfg.gated:
+        p["wg"] = dense_init(gen, d, (d, f), dtype, device)
+    p["wo"] = dense_init(gen, f, (f, d), dtype, device)
+    return p

@@ -1,21 +1,30 @@
 """Model assembly of the port: embedding → blocks → final norm → head.
 
 Public entry points, mirroring ``repro/models/transformer.py``:
-  init_params(cfg, seed, device)                     -> params
+  init_params(cfg, seed, device, dtype)              -> params
   forward(cfg, params, tokens)                       -> logits
+  loss_fn(cfg, params, batch)                        -> scalar loss
   init_cache(cfg, batch, max_len, device)            -> cache
   prefill(cfg, params, tokens, max_len)              -> logits, cache
   decode_step(cfg, params, cache, token, pos)        -> logits, cache
 
-Two layer kinds run: attention + SwiGLU MLP layers (dense decoders) and
-Mamba2 SSM layers without an MLP (attention-free configs, ``d_ff == 0``).
-Parameters are nested dictionaries with the reference's names and shapes;
-the reference's stacked ``params["stack"]`` (leading axis n_blocks) is a
-list of n_blocks block dictionaries here. Projection matrices, the SSM
-convolution and the embedding are held in the compute dtype, norm weights
-and the SSM's 1-D leaves in float32.
+Two layer kinds run: attention + MLP layers (dense decoders, SwiGLU or
+GELU) and Mamba2 SSM layers without an MLP (attention-free configs,
+``d_ff == 0``). Parameters are nested dictionaries with the reference's
+names and shapes; the reference's stacked ``params["stack"]`` (leading axis
+n_blocks) is a list of n_blocks block dictionaries here. Projection
+matrices, the SSM convolution and the embedding are held in the compute
+dtype for serving, or in ``cfg.param_dtype`` (float32) for training, and
+``_mm`` casts them per call, as the reference does; norm weights and the
+SSM's 1-D leaves are float32. A non-parametric LayerNorm's leaf is ``{}``.
 
-The block applies its residual adds through the fused RMSNorm kernel:
+LayerNorm configs add the residual in the compute dtype and norm with the
+plain ``layernorm``, as the reference does (it has no LayerNorm kernel).
+When autograd records, each such layer is checkpointed as ``cfg.remat``
+says: ``"full"`` recomputes the layer in backward, ``"none"`` saves its
+activations.
+
+An RMSNorm block applies its residual adds through the fused RMSNorm kernel:
 each branch output is added to the residual and normed by the next norm in
 one launch, ``(h, x) = fused_rmsnorm(branch_out, w_next, residual=x)``, so a
 pass over L dense layers launches it 1 + 2L times, and over L SSM layers
@@ -35,6 +44,7 @@ prefill fills the cache in the same pass that computes the logits, and
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.rmsnorm.ops import fused_rmsnorm
@@ -47,8 +57,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense RMSNorm SwiGLU decoders and attention-free
-    Mamba2 stacks; everything else raises."""
+    """The port runs dense decoders (RMSNorm or LayerNorm, SwiGLU or GELU)
+    and attention-free Mamba2 stacks; everything else raises."""
     missing = []
     if cfg.moe_experts:
         missing.append("MoE layers")
@@ -56,10 +66,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("hybrid attention/SSM blocks")
     if cfg.cross_attn_every or cfg.is_enc_dec:
         missing.append("cross-attention memory")
-    if cfg.norm != "rmsnorm":
-        missing.append("LayerNorm dense configs")
-    if not cfg.gated:
-        missing.append("the GELU MLP")
     if missing:
         raise NotImplementedError(
             f"{cfg.name} needs {', '.join(missing)}, not ported yet "
@@ -80,12 +86,21 @@ def _init_layer(gen, cfg: ModelConfig, idx: int, dtype, device) -> dict:
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype training holds matrices in (``cfg.param_dtype``)."""
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: torch.dtype | None = None) -> dict:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``:
-    the reference's shapes, Normal(0, 1/sqrt(fan_in)) matrices, norms at 1."""
+    the reference's shapes, Normal(0, 1/sqrt(fan_in)) matrices, norms at 1
+    (LayerNorm biases at 0). Matrices and the embedding are drawn in f32
+    and held in ``dtype``, by default the compute dtype (serving);
+    training passes ``param_dtype(cfg)``."""
     check_supported(cfg)
     device = resolve_device(device)
-    dtype = compute_dtype(cfg)
+    dtype = compute_dtype(cfg) if dtype is None else dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     norm_init, _ = L.make_norm(cfg)
     params: dict = {
@@ -101,6 +116,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                                          (cfg.d_model, cfg.vocab), dtype,
                                          device)
     return params
+
+
+def param_count(params) -> int:
+    """Number of parameters in a tree."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    vals = params.values() if isinstance(params, dict) else params
+    return sum(param_count(v) for v in vals)
 
 
 def to_device(params, device):
@@ -128,6 +151,8 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
     (B, S, d)."""
     shape = x.shape
     layers = list(_layers(cfg, params))
+    if cfg.norm != "rmsnorm":
+        return _run_stack_layernorm(cfg, params, x, mix, layers)
     h, x = fused_rmsnorm(x.reshape(-1, shape[-1]), layers[0][2]["ln1"]["w"])
     for n, (b, i, lp) in enumerate(layers):
         a = mix(b, i, lp, h.view(shape))
@@ -139,6 +164,29 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
                   else params["final_norm"]["w"])
         h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), w_next, residual=x)
     return h.view(shape)
+
+
+def _run_stack_layernorm(cfg, params, x, mix, layers) -> torch.Tensor:
+    """The LayerNorm block: plain residual adds in the compute dtype and
+    the plain ``layernorm``, each layer checkpointed per ``cfg.remat``
+    while autograd records."""
+    _, norm = L.make_norm(cfg)
+
+    def layer(x, b, i, lp):
+        x = x + mix(b, i, lp, norm(lp["ln1"], x))
+        if "mlp" in lp:
+            x = x + L.mlp(lp["mlp"], norm(lp["ln2"], x), cfg)
+        return x
+
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r} is not ported (ROADMAP.md queue 1 item "
+            "12: selective rematerialisation); use 'full' or 'none'")
+    for b, i, lp in layers:
+        x = (checkpoint(layer, x, b, i, lp, use_reentrant=False) if remat
+             else layer(x, b, i, lp))
+    return norm(params["final_norm"], x)
 
 
 def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -168,6 +216,20 @@ def forward(cfg: ModelConfig, params: dict,
 
     h = _run_stack(cfg, params, x, mix)
     return L._mm(h, _head(cfg, params))
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy over f32 logits (``logsumexp``),
+    weighted by ``batch["mask"]`` where given."""
+    logits = forward(cfg, params, batch["tokens"]).float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(logz)
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
 
 
 # ============================= KV / state cache ==============================

@@ -38,8 +38,9 @@ from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_r
 from repro.kernels.rmsnorm.ops import fused_rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.kernels.rmsnorm.ref import fused_rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 fused_rmsnorm, launches, pricing_f32,
-                                 pricing_f64, reset_launches, ssd_chunk)
+                                 flash_attention_train, fused_rmsnorm,
+                                 launches, pricing_f32, pricing_f64,
+                                 reset_launches, ssd_chunk)
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -156,8 +157,13 @@ def test_cpu_tensors_do_not_count_as_launches():
     pricing_f32(torch.ones(8, 4, dtype=torch.float64), "roofline")
     ssd_chunk(torch.ones(2, 8, 4), torch.ones(2, 8), torch.ones(2, 8, 4),
               torch.ones(2, 8, 4), -torch.ones(2, 8))
+    q = torch.ones(1, 2, 4, 32, requires_grad=True)
+    flash_attention_train(q, torch.ones(1, 1, 4, 32),
+                          torch.ones(1, 1, 4, 32)).sum().backward()
     assert launches() == {"rmsnorm": 0, "decode_attention": 0,
-                          "flash_attention": 0, "pricing": 0,
+                          "flash_attention": 0, "flash_attention_fwd_lse": 0,
+                          "flash_attention_bwd_dkv": 0,
+                          "flash_attention_bwd_dq": 0, "pricing": 0,
                           "pricing_f32": 0, "ssd": 0}
 
 
@@ -169,7 +175,7 @@ _FORBIDDEN = [re.compile(r"^\s*(import|from)\s+jax\b", re.M),
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():
-    files = [ROOT / "chip_smoke.py",
+    files = [ROOT / "chip_smoke.py", ROOT / "tools" / "flash_planted_faults.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
              *sorted((ROOT / "src" / "repro_torch").rglob("*.cu"))]
     assert len(files) > 10
@@ -180,7 +186,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     code = ("import sys, repro_torch.launch.serve, repro_torch.kernels, "
             "repro_torch.models.convert, repro_torch.core, "
             "repro_torch.workloads.scenarios, repro_torch.kernels.pricing, "
-            "repro_torch.kernels.ssd; "
+            "repro_torch.kernels.ssd, repro_torch.train, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
