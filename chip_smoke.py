@@ -16,11 +16,14 @@ Phases, each fatal on failure:
      time the card could take (bound); the pricing kernel at 2^20 rows, f64
      bit for bit and f32 within the drift band; the SSD scan in f32 within
      the reference's 2e-4, in the model's layout (B/C at head stride 0) and
-     in the Pallas kernel's; the three training attention kernels
-     (forward with LSE, dK/dV, dQ) at the olmo_1b training shape (8, 16,
-     2048, 128) causal, a GQA ragged shape and hd 64 full attention,
-     each row of o, dq (per query) and dk, dv (per key) within 2e-2 of
-     that row's largest plain value;
+     in the Pallas kernel's; the serving forward at the mistral prefill
+     shape, ragged lengths and its 128-row / 128-key tile edges, each
+     query row within 2e-2 of that row's largest plain value; the three
+     training attention kernels (forward with LSE, dK/dV, dQ) at the
+     olmo_1b training shape (8, 16, 2048, 128) causal, a GQA ragged shape,
+     hd 64 full attention and the same tile edges, each row of o, dq (per
+     query) and dk, dv (per key) within 2e-2 of that row's largest plain
+     value;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -317,6 +320,23 @@ def sdpa(F, q, k, v, causal: bool):
 
 
 # ------------------------------- phase 3 --------------------------------------
+def flash_cases(B, H, Hkv, S, hd):
+    """The serving forward's cases, (label, (B, H, Hkv, Sq, Sk, hd, causal)):
+    the mistral prefill, ragged lengths, and the edges of the kernel's
+    128-row blocks and 128-key tiles (127, 128, 129, 257), Sq > Sk causal,
+    n_rep 4, hd 32, 64 and 128."""
+    return (("serve", (B, H, Hkv, S, S, hd, True)),
+            ("ragged-causal", (2, H, Hkv, 1000, 1000, hd, True)),
+            ("ragged-full", (1, 8, 2, 70, 130, 64, False)),
+            ("ragged-causal-sq>sk", (2, 4, 2, 130, 70, 32, True)),
+            ("edge-127", (1, 8, 2, 127, 127, 128, True)),
+            ("edge-128", (1, 8, 2, 128, 128, 64, True)),
+            ("edge-129", (1, 8, 2, 129, 129, 32, True)),
+            ("edge-257", (2, 8, 2, 257, 257, 128, True)),
+            ("edge-257-full", (1, 8, 2, 257, 257, 64, False)),
+            ("edge-sq>sk", (1, 8, 2, 300, 129, 128, True)))
+
+
 def check_kernels(torch, timer) -> dict:
     """Each kernel against its plain version at the serving shapes and at
     ragged ones; times at the heaviest serving shape."""
@@ -414,28 +434,34 @@ def check_kernels(torch, timer) -> dict:
     say(f"  decode_attention serve {out['decode_attention']}")
 
     # ---- flash attention: the prefill's (B, S, H, hd) activations, read
-    # transposed; ragged lengths
-    errs = []
-    for label, (b, h, hkv, sq, sk, dh, causal) in (
-            ("serve", (B, H, Hkv, S, S, hd, True)),
-            ("ragged-causal", (2, H, Hkv, 1000, 1000, hd, True)),
-            ("ragged-full", (1, 8, 2, 70, 130, 64, False)),
-            ("ragged-causal-sq>sk", (2, 4, 2, 130, 70, 32, True))):
+    # transposed; ragged lengths and the 128-row / 128-key tile edges;
+    # element-wise and each query row within TRAIN_ROW_REL of its largest
+    # plain value (a whole-tensor scale would pass a dropped deep tile)
+    errs, rows = [], []
+    for label, (b, h, hkv, sq, sk, dh, causal) in flash_cases(B, H, Hkv, S, hd):
         qa, ka, va = randn(b, sq, h, dh), randn(b, sk, hkv, dh), randn(b, sk, hkv, dh)
         args = (qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2))
         o = flash_attention(*args, causal=causal)
-        errs.append(compare(torch, o, flash_attention_ref(*args, causal=causal),
-                            f"flash {label}"))
+        want = flash_attention_ref(*args, causal=causal)
+        errs.append(compare(torch, o, want, f"flash {label}"))
+        rows.append(row_scaled_errs(o, want)[1])
+        if not rows[-1] <= TRAIN_ROW_REL:
+            raise AssertionError(
+                f"flash {label}: a row's max |kernel - plain| is {rows[-1]:.3g} x "
+                f"its max |plain| (limit {TRAIN_ROW_REL:g})")
         say(f"  flash_attention {label} q {tuple(args[0].shape)} k "
-            f"{tuple(args[1].shape)} causal {causal} max|err| {errs[-1]:.3g}")
+            f"{tuple(args[1].shape)} causal {causal} max|err| {errs[-1]:.3g}, "
+            f"worst row |err| / row max {rows[-1]:.3g}")
         if label == "serve":
             main = args
+        del qa, ka, va, args, o, want
     qf, kf, vf = main
     pairs = S * (S + 1) / 2
     nb = (2 * qf.numel() + 2 * kf.numel()) * 2
     b_ms, b_by = bound(nb, 4.0 * B * H * hd * pairs, BF16_FLOP_PER_S)
     out["flash_attention"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs), max_row_scaled_err=max(rows),
+        row_scaled_err_limit=TRAIN_ROW_REL,
         ms=timer.ms(lambda: flash_attention(qf, kf, vf, causal=True), 20),
         plain_ms=timer.ms(lambda: flash_attention_ref(qf, kf, vf, causal=True), 5),
         library_ms=timer.ms(lambda: sdpa(F, qf, kf, vf, causal=True), 20),
@@ -664,7 +690,13 @@ TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
 # the training kernels' cases: (label, (B, H, Hkv, Sq, Sk, hd, causal))
 TRAIN_CASES = (("train", (TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, True)),
                ("gqa-ragged", (2, 24, 8, 1000, 1000, 128, True)),
-               ("hd64-full", (2, 8, 2, 700, 900, 64, False)))
+               ("hd64-full", (2, 8, 2, 700, 900, 64, False)),
+               # the forward's 128-row / 128-key tile edges, n_rep 4
+               ("edge-127", (1, 8, 2, 127, 127, 128, True)),
+               ("edge-128-full", (1, 8, 2, 128, 128, 128, False)),
+               ("edge-129", (1, 8, 2, 129, 129, 64, True)),
+               ("edge-257", (1, 8, 2, 257, 257, 32, True)),
+               ("edge-sq>sk", (1, 8, 2, 300, 129, 128, True)))
 
 
 def training_inputs(torch, shape, seed: int = SEED + 3):

@@ -154,5 +154,5 @@ def test_planted_faults_apply_to_the_kernel_source():
     tool = _load("flash_planted_faults", root / "tools" / "flash_planted_faults.py")
     src = (root / "src" / tool.SOURCE).read_text()
     planted = {name: tool.plant(src, edits) for name, (_, edits, _) in tool.FAULTS.items()}
-    assert len(set(planted.values())) == len(planted) == 8
+    assert len(set(planted.values())) == len(planted) == 9
     assert all(text != src for text in planted.values())
