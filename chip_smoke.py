@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one NVIDIA card: serve
-Mistral-NeMo-12B, serve Mamba2-130M, run the DSE price phase, and train
-OLMo-1B.
+"""Drive the PyTorch port's paths on one NVIDIA card: serve
+Mistral-NeMo-12B, serve Mamba2-130M, run the DSE price phase, train
+OLMo-1B, and serve Minitron-4B (GQA group 3) at full width.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -9,21 +9,23 @@ Phases, each fatal on failure:
   1. the card and the toolchain;
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc
      (sm_90a), one process per source, all in parallel, printing
-     ``-Xptxas -v``;
+     ``-Xptxas -v``; every flash-attention instantiation's registers,
+     spills (none allowed) and dynamic shared memory;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at ragged ones, with its time, the plain
      version's, one PyTorch library call's (where one exists) and the least
      time the card could take (bound); the pricing kernel at 2^20 rows, f64
      bit for bit and f32 within the drift band; the SSD scan in f32 within
      the reference's 2e-4, in the model's layout (B/C at head stride 0) and
-     in the Pallas kernel's; the serving forward at the mistral prefill
-     shape, ragged lengths and its 128-row / 128-key tile edges, each
+     in the Pallas kernel's; decode attention also at GQA groups 3 and 16;
+     the serving forward at the mistral and minitron_4b prefill shapes,
+     ragged lengths and its 128-row / 128-key tile edges, each
      query row within 2e-2 of that row's largest plain value; the three
      training attention kernels (forward with LSE, dK/dV, dQ) at the
      olmo_1b training shape (8, 16, 2048, 128) causal, a GQA ragged shape,
      hd 64 full attention and the same tile edges, each row of o, dq (per
      query) and dk, dv (per key) within 2e-2 of that row's largest plain
-     value;
+     value, and the backward kernels bit-identical across two calls;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -60,7 +62,12 @@ Phases, each fatal on failure:
      starts near ln V + 1/2 and falls, step time, tokens/s, the FLOP
      shares of the 989 TFLOP/s peak and peak memory; and a profile of one
      full step;
-  9. one JSON line of kernel numbers, the card's name and power limit, and
+  9. a GQA group-3 serving path: ``run_serve`` on minitron_4b at full width
+     (d_model 3072, 24/8 heads, vocab 256,000), its depth cut to
+     MINITRON_LAYERS layers, counters zeroed just before and read just
+     after, and its decode path's logits against a prefill of the same
+     tokens;
+ 10. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -87,6 +94,9 @@ F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
 SSM_REQUESTS = 8                   # mamba2_130m: 8 x 2048 + 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 8   # olmo_1b: 8 x 2048
+# minitron_4b (GQA group 3) serves at full width, its depth cut from 32 to
+# this many layers to keep the phase short
+MINITRON_LAYERS = 4
 GRAD_LAYERS, GRAD_BATCH = 2, 2     # the full-width gradient check
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 kernel vs plain, element-wise
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's SSD tolerance, f32 math
@@ -319,13 +329,48 @@ def sdpa(F, q, k, v, causal: bool):
                                           enable_gqa=True)
 
 
+# ------------------------------- phase 2 --------------------------------------
+FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_bwd_dkv_kernel": 1,
+                 "flash_bwd_dq_kernel": 2}
+
+
+def flash_build_report(log: str) -> dict:
+    """Per flash-attention kernel instantiation (``kernel<hd[, lse]>``), from
+    ``nvcc -Xptxas -v``: registers at entry (consumers get more through
+    setmaxnreg) and spilled bytes; and the dynamic shared memory a launch
+    takes, from the library."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    smem = _build.bind("flash_attention", "flash_attention_smem_bytes",
+                       [ctypes.c_int, ctypes.c_int])
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(" + "|".join(FLASH_KERNELS)
+                      + r")ILi(\d+)E(Lb(\d)E)?", line)
+        if m:
+            kernel, hd = m.group(1), int(m.group(2))
+            name = f"{kernel}<{hd}{', lse' if m.group(4) == '1' else ''}>"
+            out[name] = {"smem_bytes": smem(FLASH_KERNELS[kernel], hd)}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return out
+
+
 # ------------------------------- phase 3 --------------------------------------
 def flash_cases(B, H, Hkv, S, hd):
     """The serving forward's cases, (label, (B, H, Hkv, Sq, Sk, hd, causal)):
-    the mistral prefill, ragged lengths, and the edges of the kernel's
-    128-row blocks and 128-key tiles (127, 128, 129, 257), Sq > Sk causal,
-    n_rep 4, hd 32, 64 and 128."""
+    the mistral prefill, the minitron_4b prefill (GQA group 3), ragged
+    lengths, and the edges of the kernel's 128-row blocks and 128-key tiles
+    (127, 128, 129, 257), Sq > Sk causal, n_rep 4, hd 32, 64 and 128."""
     return (("serve", (B, H, Hkv, S, S, hd, True)),
+            ("gqa3-minitron", (B, 24, 8, S, S, 128, True)),
             ("ragged-causal", (2, H, Hkv, 1000, 1000, hd, True)),
             ("ragged-full", (1, 8, 2, 70, 130, 64, False)),
             ("ragged-causal-sq>sk", (2, 4, 2, 130, 70, 32, True)),
@@ -400,7 +445,11 @@ def check_kernels(torch, timer) -> dict:
             ("serve", (B, H, Hkv, max_len, hd, kv_last)),
             ("serve-first", (B, H, Hkv, max_len, hd, PROMPT_LEN + 1)),
             ("ragged", (3, 8, 2, 37, 64, 29)),
-            ("ragged-mha", (2, 4, 4, 300, 32, 300))):
+            ("ragged-mha", (2, 4, 4, 300, 32, 300)),
+            # GQA group 3 (minitron_4b's 24/8 heads) and 16 (qwen3_moe_235b's
+            # 64/4), compiled as it is and in chunks of 8 heads
+            ("gqa3-minitron", (B, 24, 8, max_len, hd, kv_last)),
+            ("gqa16", (2, 64, 4, 600, hd, 577))):
         q = randn(b, h, dh)
         ck, cv = randn(b, s, hkv, dh), randn(b, s, hkv, dh)
         k, v = ck.transpose(1, 2), cv.transpose(1, 2)
@@ -716,7 +765,9 @@ def training_case(torch, q, k, v, do, causal: bool, label: str,
     """Run the three training kernels once on (q, k, v, dO) and hold each
     output against its plain version: o, dq (per query row), dk, dv (per
     key row) within TRAIN_ROW_REL of their row's largest plain value, lse
-    within 1e-3. Returns, per output, the max abs error, the error over the
+    within 1e-3; with ``check``, a second call of each backward kernel must
+    give the same bits (no atomics: one thread sums each output in one
+    order). Returns, per output, the max abs error, the error over the
     whole tensor's max |plain| and the worst row's ratio. ``check=False``
     only measures (the planted-fault tool reads what would have failed)."""
     from repro_torch.kernels.flash_attention.ops import (
@@ -758,6 +809,14 @@ def training_case(torch, q, k, v, do, causal: bool, label: str,
     del dkr, dvr
     dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
     held("dq", dq, flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal))
+    if check:
+        dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+        dq2 = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+        out["bit_identical"] = all(bool(torch.equal(a, b)) for a, b in (
+            (dk, dk2), (dv, dv2), (dq, dq2)))
+        if not out["bit_identical"]:
+            raise AssertionError(f"{label}: two calls of the backward kernels "
+                                 f"gave different bits")
     out["inputs"] = (lse, dd)
     return out
 
@@ -800,7 +859,8 @@ def check_training_kernels(torch, timer) -> dict:
             f"{tuple(k.shape)} causal {causal}: worst row |err| / row max "
             + ", ".join(f"{x} {res[x]['row_scaled_err']:.3g}"
                         for x in ("o", "dk", "dv", "dq"))
-            + f"; lse max|err| {res['lse']['max_abs_err']:.3g}")
+            + f"; lse max|err| {res['lse']['max_abs_err']:.3g}; backward "
+            f"bit-identical across two calls {res['bit_identical']}")
         if label == "train":
             main = (q, k, v, do, *res["inputs"])
         del res
@@ -822,6 +882,10 @@ def check_training_kernels(torch, timer) -> dict:
                         lambda: flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd, True)),
              names[2]: (lambda: flash_attention_bwd_dq(q, k, v, do, lse, dd, True),
                         lambda: flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, True))}
+    # the kernels first, then the library, then the plain versions: a kernel
+    # timed right after a plain version (GBs of f32 temporaries) can read
+    # slower (dQ right after the plain dK/dV read 12 % slower on an H100)
+    kernel_ms = {name: timer.ms(calls[name][0], 20) for name in names}
     lib_fwd = timer.ms(lambda: sdpa(F, q, k, v, causal=True), 20)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
@@ -833,7 +897,7 @@ def check_training_kernels(torch, timer) -> dict:
     del leaves
     out = {}
     for name in names:
-        kernel, plain = calls[name]
+        plain = calls[name][1]
         nb, fl = work[name]
         b_ms, b_by = bound(nb, fl, BF16_FLOP_PER_S)
         # no one library call computes dK/dV or dQ alone: SDPA's backward
@@ -846,7 +910,7 @@ def check_training_kernels(torch, timer) -> dict:
                                  "dK/dV and dQ together"))
         out[name] = dict(max_abs_err=errs[name], max_row_scaled_err=rel[name],
                          row_scaled_err_limit=TRAIN_ROW_REL,
-                         ms=timer.ms(kernel, 20),
+                         ms=kernel_ms[name],
                          plain_ms=timer.ms(plain, 3), **lib,
                          bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9,
                          shape=[b, h, k.shape[1], s, s, hd])
@@ -1171,16 +1235,20 @@ def ssm_layers_alone(torch, cfg, params, seq, s: int) -> list[float]:
 
 
 def check_serving(torch, kernels, arch: str, requests: int,
-                  want: dict[str, int], phase: int) -> dict[str, int]:
-    """The serving path of ``arch`` at full size (phase N), then steady
-    state and correctness (phase N + 1 for the dense path, the same phase
-    for the SSM one). Returns the launch counts of the ``run_serve`` call."""
+                  want: dict[str, int], phase: int, cfg=None,
+                  short: bool = False) -> dict[str, int]:
+    """The serving path of ``arch`` (or of ``cfg``, a cut of it) at full
+    size (phase N), then steady state and correctness (phase N + 1 for the
+    dense path, the same phase for the SSM one). ``short`` keeps the
+    counted ``run_serve`` and the full-size decode-vs-prefill check and
+    leaves out the second run, steady decode, the profiles and the small
+    config. Returns the launch counts of the ``run_serve`` call."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     say(f"[{phase}] run_serve {cfg.name}: {requests} requests x {PROMPT_LEN} "
         f"prompt tokens x {NEW_TOKENS} new tokens, seed {SEED}")
     torch.cuda.reset_peak_memory_stats()
@@ -1201,37 +1269,41 @@ def check_serving(torch, kernels, arch: str, requests: int,
         raise AssertionError(f"{arch}: generated tokens malformed")
 
     params = init_params(cfg, seed=SEED)
-    engine = ServeEngine(cfg, params, max_batch=requests,
-                         max_len=PROMPT_LEN + NEW_TOKENS + 1)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompts = torch.randint(0, cfg.vocab, (requests, PROMPT_LEN),
                             generator=gen, device="cuda")
-    warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
-    if warm.tokens != res.tokens:
-        raise AssertionError(f"{arch}: a second run from the same seed gave "
-                             f"other tokens")
-    steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
-    if not cfg.attention_free:
-        phase += 1
-    say(f"[{phase}] warm generate: TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
-        f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
-    say(f"    decode_steady: TPOT mean {steady.tpot * 1e3:.4f} ms, min "
-        f"{min(steady.step_times) * 1e3:.4f}, max "
-        f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
-        f"steps; {steady.tokens_per_s:.2f} tokens/s")
+    if not short:
+        engine = ServeEngine(cfg, params, max_batch=requests,
+                             max_len=PROMPT_LEN + NEW_TOKENS + 1)
+        warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
+        if warm.tokens != res.tokens:
+            raise AssertionError(f"{arch}: a second run from the same seed gave "
+                                 f"other tokens")
+        steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
+        del engine
+        if not cfg.attention_free:
+            phase += 1
+        say(f"[{phase}] warm generate: TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
+            f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
+        say(f"    decode_steady: TPOT mean {steady.tpot * 1e3:.4f} ms, min "
+            f"{min(steady.step_times) * 1e3:.4f}, max "
+            f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
+            f"steps; {steady.tokens_per_s:.2f} tokens/s")
     full = check_full_model(torch, cfg, params, prompts, res.tokens)
     say(f"    full-size consistency: {full}")
-    with torch.no_grad():
-        logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
-        tok = logits[:, -1].argmax(-1)
-        decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
-        say(f"    profile of one decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
-        del logits, cache
-        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
-    del engine, params
+    if not short:
+        with torch.no_grad():
+            logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
+            tok = logits[:, -1].argmax(-1)
+            decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
+            say(f"    profile of one decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
+            del logits, cache
+            say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
+    del params
     torch.cuda.empty_cache()
-    small = check_small_model(torch, arch)
-    say(f"    small config, card vs CPU plain: {small}")
+    if not short:
+        small = check_small_model(torch, arch)
+        say(f"    small config, card vs CPU plain: {small}")
     return counts
 
 
@@ -1414,6 +1486,8 @@ def check_training(torch, kernels) -> dict[str, int]:
 
 # ------------------------------- main -----------------------------------------
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1452,6 +1526,13 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "smem", "error", "warning")):
                 say(f"    {name}: {line.strip()}")
+    flash_build = flash_build_report(logs["flash_attention"])
+    say(f"    flash-attention kernels (registers at entry, spilled bytes, "
+        f"dynamic shared memory): {json.dumps(flash_build)}")
+    spilled = [k for k, v in flash_build.items() if v.get("spill_bytes", 1)]
+    if len(flash_build) != 12 or spilled:
+        return fail(f"flash-attention build: {len(flash_build)} kernels, "
+                    f"spills in {spilled}")
 
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
@@ -1463,6 +1544,11 @@ def main() -> int:
     numbers = check_kernels(torch, timer)
     numbers["ssd"] = check_ssd(torch, timer)
     numbers.update(check_training_kernels(torch, timer))
+    for name, kernel in (("flash_attention", "flash_fwd_kernel<128>"),
+                         ("flash_attention_fwd_lse", "flash_fwd_kernel<128, lse>"),
+                         ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel<128>"),
+                         ("flash_attention_bwd_dq", "flash_bwd_dq_kernel<128>")):
+        numbers[name]["build_hd128"] = flash_build[kernel]
     numbers.update(check_pricing(torch, timer))
     del timer
     torch.cuda.empty_cache()
@@ -1500,12 +1586,23 @@ def main() -> int:
     say(f"    SMOKE, 3 steps, card vs CPU: {check_smoke_training(torch)}")
     train = check_training(torch, kernels)
     say(f"    training phase in {time.perf_counter() - t0:.1f} s")
+
+    # 9. a GQA group-3 serving path: minitron_4b at full width, depth cut
+    full = get_config("minitron_4b")
+    cfg = dataclasses.replace(full, n_layers=MINITRON_LAYERS)
+    say(f"[9] minitron_4b serving, GQA {cfg.n_heads}/{cfg.n_kv_heads} (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}), d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}; depth cut from {full.n_layers} to {cfg.n_layers} layers")
+    gqa3 = check_serving(torch, kernels, "minitron_4b", REQUESTS, {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}, phase=9,
+        cfg=cfg, short=True)
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
-               "olmo_1b_train": train}
+               "olmo_1b_train": train, "minitron_4b": gqa3}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
-    # 9. result
+    # 10. result
     fa = "src/repro/kernels/flash_attention"
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",

@@ -22,8 +22,12 @@
 //   wave at the kernel's occupancy. Positions at or past kv_len are never
 //   read, so no tile past kv_len is loaded, and a cache length that is not a
 //   multiple of any tile needs no padding.
-// * The GQA group size is a template parameter, so registers hold exactly
-//   the n_rep query rows and their accumulators.
+// * The query heads a block serves are a template parameter NREP, so
+//   registers hold exactly those rows and their accumulators. Groups 1, 2,
+//   3, 4 and 8 are compiled as they are; any other group is cut into
+//   ceil(n_rep / 8) chunks of 8 heads, each chunk a block reading its kv
+//   head, the last chunk's missing rows computed on a valid row and never
+//   written (group 16 reads each kv head twice, groups 5-7 once).
 // * Inside a block each warp takes 8 keys per step: each lane holds hd/32
 //   contiguous elements of a row (256-byte coalesced rows), and the next
 //   step's 8 K and 8 V rows are loaded before this step's arithmetic, so
@@ -65,8 +69,8 @@ template <int HD, int NREP>
 __global__ void __launch_bounds__(NW * 32)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, float* __restrict__ part_acc,
-                    float* __restrict__ part_ml, int H, int Hkv, int kv_len, int chunk,
-                    int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                    float* __restrict__ part_ml, int H, int Hkv, int group, int kv_len,
+                    int chunk, int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                     int64_t v_sb, int64_t v_sh, int64_t v_ss, float scale_log2) {
   constexpr int E = HD / 32;  // elements of a row per lane
   using Raw = Slice<E>;
@@ -74,7 +78,15 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ float sm_acc[NW][NREP][HD];
 
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  // blockIdx.y = (b * Hkv + kvh) * n_chunks + part: heads h0 .. h0 + valid - 1;
+  // only NREP 8 serves a group in chunks, the others serve group == NREP
+  constexpr bool CHUNKED = NREP == 8;
+  const int n_chunks = CHUNKED ? (group + NREP - 1) / NREP : 1;
+  const int part = CHUNKED ? blockIdx.y % n_chunks : 0;
+  const int bkv = CHUNKED ? blockIdx.y / n_chunks : blockIdx.y;
+  const int b = bkv / Hkv, kvh = bkv % Hkv;
+  const int h0 = kvh * (CHUNKED ? group : NREP) + part * NREP;
+  const int valid = CHUNKED ? min(NREP, group - part * NREP) : NREP;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int start = split * chunk;
   const int end = min(kv_len, start + chunk);
@@ -85,7 +97,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m[r] = -INFINITY;
     l[r] = 0.f;
     unpack<E>(*reinterpret_cast<const Raw*>(
-        q + b * q_sb + (int64_t)(kvh * NREP + r) * q_sh + lane * E), qr[r]);
+        q + b * q_sb + (int64_t)(h0 + min(r, valid - 1)) * q_sh + lane * E), qr[r]);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       qr[r][e] *= scale_log2;
@@ -179,7 +191,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < E; ++e) sm_acc[warp][r][lane * E + e] = acc[r][e];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NREP * HD; i += blockDim.x) {
+  for (int i = threadIdx.x; i < valid * HD; i += blockDim.x) {
     const int r = i / HD, d = i % HD;
     float M = -INFINITY;
 #pragma unroll
@@ -193,7 +205,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         a += sm_acc[w][r][d] * c;
       }
     }
-    const int64_t row = ((int64_t)(b * H + kvh * NREP + r)) * n_split + split;
+    const int64_t row = ((int64_t)(b * H + h0 + r)) * n_split + split;
     part_acc[row * HD + d] = a;
     if (d == 0) {
       part_ml[row * 2] = M;
@@ -256,12 +268,13 @@ template <int HD, int NREP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    float* part_acc, float* part_ml, int B, int H, int Hkv, int kv_len,
                    int max_split, const int64_t* st, float scale_log2, cudaStream_t stream) {
+  const int group = H / Hkv, blocks = B * Hkv * ((group + NREP - 1) / NREP);
   int n_split, chunk;
-  plan_splits<HD, NREP>(B * Hkv, kv_len, max_split, &n_split, &chunk);
-  decode_split_kernel<HD, NREP><<<dim3(n_split, B * Hkv), NW * 32, 0, stream>>>(
+  plan_splits<HD, NREP>(blocks, kv_len, max_split, &n_split, &chunk);
+  decode_split_kernel<HD, NREP><<<dim3(n_split, blocks), NW * 32, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      part_acc, part_ml, H, Hkv, kv_len, chunk, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], scale_log2);
+      part_acc, part_ml, H, Hkv, group, kv_len, chunk, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
@@ -291,9 +304,9 @@ cudaError_t dispatch_group(const Args& a) {
   switch (a.H / a.Hkv) {
     case 1: return run<HD, 1>(a);
     case 2: return run<HD, 2>(a);
+    case 3: return run<HD, 3>(a);
     case 4: return run<HD, 4>(a);
-    case 8: return run<HD, 8>(a);
-    default: return cudaErrorInvalidValue;
+    default: return run<HD, 8>(a);  // 8, or chunks of 8 heads
   }
 }
 
@@ -315,7 +328,7 @@ extern "C" {
 // bf16; lse: contiguous (B, H) f32. part_acc: (B*H*max_split*hd) f32 and
 // part_ml: (B*H*max_split*2) f32 scratch. strides: q_sb, q_sh, k_sb, k_sh,
 // k_ss, v_sb, v_sh, v_ss in elements. Only [0, kv_len) is read, split in
-// at most max_split chunks. hd in {32, 64, 128}; H / Hkv in {1, 2, 4, 8}.
+// at most max_split chunks. hd in {32, 64, 128}; any H / Hkv.
 // Returns cudaGetLastError().
 int decode_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          void* part_acc, void* part_ml, int B, int H, int Hkv, int hd,

@@ -20,9 +20,15 @@ from .. import _build
 from .ref import decode_attention_ref
 
 _HEAD_DIMS = (32, 64, 128)
-_GROUPS = (1, 2, 4, 8)              # GQA group sizes (H / Hkv) compiled
 _MAX_SPLIT = 64                     # room for partials per (b, h); the
                                     # kernel picks how many it writes
+
+
+def supports(hd: int, n_rep: int) -> bool:
+    """Whether the kernel takes head dim ``hd`` and GQA group ``n_rep``
+    (H / Hkv): groups 1, 2, 3, 4 and 8 are compiled as they are, any other
+    runs in chunks of 8 query heads per block."""
+    return hd in _HEAD_DIMS and n_rep >= 1
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,9 +47,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, hkv, s, _ = k.shape
     if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError("decode_attention: q and k disagree in B or hd")
-    if hd not in _HEAD_DIMS or h % hkv or h // hkv not in _GROUPS:
+    if h % hkv or not supports(hd, h // hkv):
         raise ValueError(f"decode_attention: hd {hd} not in {_HEAD_DIMS} or "
-                         f"GQA group {h}/{hkv} not in {_GROUPS}")
+                         f"{h} query heads not a multiple of {hkv} kv heads")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"decode_attention: dtypes q {q.dtype}, k {k.dtype}, "
                         f"v {v.dtype} not supported")

@@ -60,8 +60,15 @@
 //   with m2 kept in the log2 domain.
 // * A pipeline fault (a load never issued, a wrong phase parity) would
 //   leave a thread spinning on its mbarrier; after ~2^32 cycles the wait
-//   gives up and the block writes NaN, so a fault fails every check
-//   instead of hanging the card.
+//   gives up and sets a block-wide flag in shared memory. Every later wait
+//   of the block returns at once, the producer issues no further load and
+//   waits for the loads it did issue to land, and the block writes NaN
+//   rows and exits cleanly, so a fault fails every check without hanging
+//   the card or breaking the CUDA context. (A producer that goes on
+//   loading once the waits return at once issues loads back to back into
+//   stages whose phases have not completed, and the launch fails with
+//   "unspecified launch failure", a drain or not: measured with the
+//   planted faults of tools/flash_planted_faults.py.)
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,21 +77,8 @@
 
 namespace {
 
-constexpr int BM = 64;    // query rows per block (backward)
-constexpr int BN = 64;    // keys per tile (backward)
-constexpr int NWARP = 4;  // 16 rows per warp (backward)
-constexpr int PAD = 8;    // elements of padding per shared-memory row (backward)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -95,44 +89,24 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. TRANS delivers each matrix transposed.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* row) {
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(row)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(row)));
+// The first 1024-byte aligned address of dynamic shared memory (the
+// swizzled tiles' alignment).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + ROWS) of a (rows, HD) matrix with row stride
-// `stride` into shared memory, by asynchronous 16-byte copies; rows at or
-// past `n_valid` are zero-filled (a copy of 0 source bytes).
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(uint16_t* sm, const __nv_bfloat16* __restrict__ g,
-                                          int64_t stride, int row0, int n_valid) {
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NWARP * 32) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = r < n_valid;
-    const __nv_bfloat16* src = ok ? g + (int64_t)(row0 + r) * stride + c : g;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 ::"r"(smem_addr(sm + r * (HD + PAD) + c)), "l"(src), "r"(ok ? 16 : 0));
-  }
-}
+// Swizzled shared-memory geometry of a row of HD bf16 values, shared by
+// every kernel here: rows are cut into chunks of one swizzle span (128
+// bytes; 64 at hd 32), each chunk its own TMA box and its own tile region.
+template <int HD>
+struct Geo {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span: bytes per chunk row
+  static constexpr int CW = SW / 2;                       // columns per chunk (TMA box width)
+  static constexpr int NC = HD / CW;                      // chunks per row
+  static constexpr int KPC = SW / 32;                     // 16-column k-steps per chunk
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
+};
 
 // ------------------------------- forward -------------------------------------
 
@@ -142,21 +116,17 @@ constexpr int FWD_THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
 constexpr int CONSUMER_WARPS = 8;
 
 template <int HD>
-struct Fwd {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span: bytes per chunk row
-  static constexpr int CW = SW / 2;                       // columns per chunk (TMA box width)
-  static constexpr int NC = HD / CW;                      // chunks per row
-  static constexpr int KPC = SW / 32;                     // 16-column k-steps per chunk
-  static constexpr int Q_CHUNK = FBM * SW;                // bytes of one chunk of Q
-  static constexpr int KV_CHUNK = FBN * SW;               // bytes of one chunk of a K or V tile
-  static constexpr int Q_BYTES = NC * Q_CHUNK;  // one of two Q buffers
-  static constexpr int KV_BYTES = NC * KV_CHUNK;
+struct Fwd : Geo<HD> {
+  using G = Geo<HD>;
+  static constexpr int Q_CHUNK = FBM * G::SW;   // bytes of one chunk of Q
+  static constexpr int KV_CHUNK = FBN * G::SW;  // bytes of one chunk of a K or V tile
+  static constexpr int Q_BYTES = G::NC * Q_CHUNK;  // one of two Q buffers
+  static constexpr int KV_BYTES = G::NC * KV_CHUNK;
   static constexpr int STAGES = HD == 128 ? 2 : 4;  // per ring (K, V)
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
   // tiles (1024-byte aligned): two Q buffers, the K ring, the V ring; then
-  // 4 + 4 * STAGES mbarriers; plus alignment slack
-  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (4 + 4 * STAGES);
+  // 4 + 4 * STAGES mbarriers and the stuck flag; plus alignment slack
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (4 + 4 * STAGES) + 16;
 };
 
 // ---- mbarriers
@@ -189,19 +159,43 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 // Wait until the phase of `bar` with parity `parity` has completed. A wait
 // that never ends is a pipeline fault (a load never issued, a wrong
 // parity): after ~2^32 cycles (~2.4 s; a whole launch takes under a
-// millisecond) the thread gives up and marks itself `stuck`, later waits
-// return at once, and the epilogue writes NaN, so a fault fails every
-// check instead of hanging the card. (No __trap: a trap block shared by
-// both roles makes ptxas cap the consumers at the launch's 168 registers.)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, bool& stuck) {
+// millisecond) the thread gives up and sets the block's `stuck` flag in
+// shared memory; every wait of the block then returns at once, the
+// producer stops loading and drains, and the epilogues write NaN, so a
+// fault fails every check instead of hanging the card. (No __trap: a trap
+// block shared by both roles makes ptxas cap the consumers at the
+// launch's 168 registers.)
+constexpr long long WATCHDOG_CYCLES = 1ll << 32;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, volatile int* stuck) {
   const uint32_t a = smem_addr(bar);
-  if (stuck || mbar_try_wait(a, parity)) return;
+  if (*stuck || mbar_try_wait(a, parity)) return;
   const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 32)) {
-      stuck = true;
+  while (!mbar_try_wait(a, parity)) {
+    if (*stuck) return;
+    if (clock64() - t0 > WATCHDOG_CYCLES) {
+      *stuck = 1;
       return;
     }
+  }
+}
+
+// The producer's last wait, whatever the flag says: until the load that
+// completes phase `parity` of `bar` has landed, so that no bulk copy into
+// shared memory is in flight when the block exits. Bounded by the same
+// watchdog, in case a fault left the phase without its arrival.
+__device__ __forceinline__ void mbar_drain(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity) && clock64() - t0 <= WATCHDOG_CYCLES) {
+  }
+}
+
+// Drain the last min(count, stages) loads of a ring of `stages` full
+// barriers into which `count` loads were issued in order.
+__device__ __forceinline__ void drain_ring(uint64_t* full, int stages, int count) {
+  for (int n = count > stages ? count - stages : 0; n < count; ++n)
+    mbar_drain(full + n % stages, (n / stages) & 1);
 }
 
 // 2^x as one MUFU.EX2, subnormal results flushed to zero (exp2f without
@@ -224,16 +218,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Rows [row, row + 128) of one head into a tile: one box per chunk, all
-// completing on `bar`.
-template <int HD>
+// Rows [row, row + ROWS) of one head into a tile: one box per chunk (the
+// map's box is ROWS rows high), all completing on `bar`.
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(const CUtensorMap* map, uint8_t* dst, uint64_t* bar,
                                           int row, int head, int batch) {
-  using C = Fwd<HD>;
-  mbar_expect_tx(bar, C::NC * 128 * C::SW);
+  using C = Geo<HD>;
+  mbar_expect_tx(bar, C::NC * ROWS * C::SW);
 #pragma unroll
   for (int c = 0; c < C::NC; ++c)
-    tma_load_4d(dst + c * 128 * C::SW, map, bar, c * C::CW, head, row, batch);
+    tma_load_4d(dst + c * ROWS * C::SW, map, bar, c * C::CW, head, row, batch);
+}
+
+// Two tiles of ROWS rows (Q and dO, or K and V) into dst and dst2, both
+// completing on `bar`.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_pair(const CUtensorMap* map, const CUtensorMap* map2,
+                                          uint8_t* dst, uint8_t* dst2, uint64_t* bar, int row,
+                                          int head, int batch) {
+  using C = Geo<HD>;
+  mbar_expect_tx(bar, 2 * C::NC * ROWS * C::SW);
+#pragma unroll
+  for (int c = 0; c < C::NC; ++c) {
+    tma_load_4d(dst + c * ROWS * C::SW, map, bar, c * C::CW, head, row, batch);
+    tma_load_4d(dst2 + c * ROWS * C::SW, map2, bar, c * C::CW, head, row, batch);
+  }
 }
 
 // ---- wgmma
@@ -279,20 +288,41 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
   "%" #a ", %" #b ", %" #c ", %" #e ", %" #f ", %" #g ", %" #h ", %" #i ", %" #j ", %" #k \
   ", %" #l ", %" #m ", %" #n ", %" #o ", %" #p ", %" #q
 
-// d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) B^T (B: 128 x 16,
+// d (64 x N, f32) (+)= A (64 x 16, shared, K-major) B^T (B: N x 16,
 // shared, K-major); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      WG_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
-      WG_R16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31) ", "
-      WG_R16(32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47) ", "
-      WG_R16(48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63)
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24), WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        WG_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : WG_F8(0), WG_F8(8)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        WG_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+        WG_R16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31)
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    static_assert(N == 128, "wgmma_ss: N in {32, 64, 128}");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        WG_R16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+        WG_R16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31) ", "
+        WG_R16(32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47) ", "
+        WG_R16(48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63)
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24), WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
 // d (64 x N, f32) += A (64 x 16, bf16 fragments in registers, as
@@ -332,29 +362,59 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
-// S = Q K^T for one warpgroup: wgmma k-steps of 16 columns, C::KPC per
-// swizzled chunk; Q and K both K-major in shared memory.
-template <int HD>
-__device__ __forceinline__ void qk_product(float (&s)[FBN / 2], uint32_t q_base, uint32_t k_base) {
-  using C = Fwd<HD>;
+// d (64 x N) = A B^T for one warpgroup, A (64 x HD) and B (N x HD) both
+// K-major swizzled tiles whose 64-column chunks lie a_chunk and b_chunk
+// bytes apart: wgmma k-steps of 16 columns, KPC per chunk.
+template <int HD, int N>
+__device__ __forceinline__ void kmajor_product(float (&d)[N / 2], uint32_t a, uint32_t a_chunk,
+                                               uint32_t b, uint32_t b_chunk) {
+  using C = Geo<HD>;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int c = kk / C::KPC;
     const uint32_t off = (kk % C::KPC) * 32;  // bytes into the chunk's swizzled rows
-    wgmma_ss_n128(s, smem_desc(q_base + c * C::Q_CHUNK + off, 16, 8 * C::SW, C::LAYOUT),
-                  smem_desc(k_base + c * C::KV_CHUNK + off, 16, 8 * C::SW, C::LAYOUT), kk > 0);
+    wgmma_ss<N>(d, smem_desc(a + c * a_chunk + off, 16, 8 * C::SW, C::LAYOUT),
+                smem_desc(b + c * b_chunk + off, 16, 8 * C::SW, C::LAYOUT), kk > 0);
   }
 }
 
-// O += P V: V is (keys, hd) with hd contiguous, the B operand MN-major;
-// 8-key groups are 8 rows apart, hd chunks a whole chunk apart.
+// d (64 x HD) += A B for one warpgroup: A (64 x K) as bf16 fragments, K / 16
+// k-steps; B (K rows x HD) a swizzled tile read MN-major (transposed), its
+// 8-row groups 8 rows apart and its 64-column chunks b_chunk bytes apart.
+template <int HD, int K>
+__device__ __forceinline__ void mn_product(float (&d)[HD / 2], const uint32_t (&a)[K / 16][4],
+                                           uint32_t b, uint32_t b_chunk) {
+  using C = Geo<HD>;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<HD>(d, a[kk], smem_desc(b + kk * 16 * C::SW, b_chunk, 8 * C::SW, C::LAYOUT));
+}
+
+// S = Q K^T for one forward warpgroup: Q and K both K-major.
+template <int HD>
+__device__ __forceinline__ void qk_product(float (&s)[FBN / 2], uint32_t q_base, uint32_t k_base) {
+  kmajor_product<HD, FBN>(s, q_base, Fwd<HD>::Q_CHUNK, k_base, Fwd<HD>::KV_CHUNK);
+}
+
+// O += P V: V is (keys, hd) with hd contiguous, the B operand MN-major.
 template <int HD>
 __device__ __forceinline__ void pv_product(float (&o)[HD / 2], const uint32_t (&pa)[FBN / 16][4],
                                            uint32_t v_base) {
-  using C = Fwd<HD>;
+  mn_product<HD, FBN>(o, pa, v_base, Fwd<HD>::KV_CHUNK);
+}
+
+// The accumulator of a 64 x N product (f32; columns 16 kk .. 16 kk + 15 are
+// its 8-column tiles 2 kk and 2 kk + 1) as bf16 A fragments of the next
+// product, with no shuffle.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < FBN / 16; ++kk)
-    wgmma_rs<HD>(o, pa[kk], smem_desc(v_base + kk * 16 * C::SW, C::KV_CHUNK, 8 * C::SW, C::LAYOUT));
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
 }
 
 // Named barriers 1 and 2 pass the turn to issue products between the two
@@ -389,7 +449,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int NT = FBN / 8;  // 8-key column tiles of S
   constexpr int DT = HD / 8;   // 8-wide column tiles of O
   extern __shared__ uint8_t fwd_smem[];
-  uint8_t* Qs = fwd_smem + ((1024 - (smem_addr(fwd_smem) & 1023)) & 1023);
+  uint8_t* Qs = align_1024(fwd_smem);
   uint8_t* Ks = Qs + 2 * C::Q_BYTES;    // Q buffer i at Qs + i Q_BYTES; K stage s at Ks + s KV_BYTES
   uint8_t* Vs = Ks + ST * C::KV_BYTES;  // V stage s at Vs + s KV_BYTES
   uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + ST * C::KV_BYTES);
@@ -398,6 +458,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty_k = full_k + ST;
   uint64_t* full_v = empty_k + ST;
   uint64_t* empty_v = full_v + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(empty_v + ST);  // a wait gave up
 
   const int nm = (Sq + FBM - 1) / FBM, bh_all = B * H, items = bh_all * nm;
   const int n_rep = H / Hkv;
@@ -421,20 +482,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(empty_k + s, CONSUMER_WARPS);
       mbar_init(empty_v + s, CONSUMER_WARPS);
     }
+    *stuck = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp >= CONSUMER_WARPS) {  // ---- producer warpgroup: one thread loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    bool stuck = false;
     if (warp == CONSUMER_WARPS && lane == 0) {
       // Per item: Q, K_0, then K_{it+1} ahead of V_it (the consumers need
       // tile it + 1's K before tile it's V). kt and vt count the tiles
-      // loaded into each ring over the whole launch; each ring's first lap
-      // finds it free.
-      int kt = 0, vt = 0, qi = 0;
-      for (int L = blockIdx.x; L < items; L = next_item(L), ++qi) {
+      // loaded into each ring over the whole launch, nq the Q loads; each
+      // ring's first lap finds it free. Once a wait has given up, nothing
+      // more is loaded, and the loads issued are drained before exit.
+      int kt = 0, vt = 0, qi = 0, nq = 0;
+      for (int L = blockIdx.x; L < items && !*stuck; L = next_item(L), ++qi) {
         int bh, m0;
         work_item(L, nm, bh_all, group, bh, m0);
         const int b = bh / H, h = bh % H, kvh = h / n_rep;
@@ -442,26 +504,32 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         const int n_tiles = (n_end + FBN - 1) / FBN;
         const int qb = qi & 1;  // Q buffer of this item
         mbar_wait(empty_q + qb, ((qi >> 1) & 1) ^ 1, stuck);
-        load_rows<HD>(&qmap, Qs + qb * C::Q_BYTES, full_q + qb, m0, h, b);
+        if (*stuck) break;
+        load_rows<HD, FBM>(&qmap, Qs + qb * C::Q_BYTES, full_q + qb, m0, h, b);
+        ++nq;
         for (int it = -1; it < n_tiles; ++it) {
           if (it + 1 < n_tiles) {
             const int sk = kt % ST;
             mbar_wait(empty_k + sk, ((kt / ST) & 1) ^ 1, stuck);
-            load_rows<HD>(&kmap, Ks + sk * C::KV_BYTES, full_k + sk, (it + 1) * FBN, kvh, b);
+            if (*stuck) break;
+            load_rows<HD, FBN>(&kmap, Ks + sk * C::KV_BYTES, full_k + sk, (it + 1) * FBN, kvh, b);
             ++kt;
           }
           if (it >= 0) {
             const int sv = vt % ST;
             mbar_wait(empty_v + sv, ((vt / ST) & 1) ^ 1, stuck);
-            load_rows<HD>(&vmap, Vs + sv * C::KV_BYTES, full_v + sv, it * FBN, kvh, b);
+            if (*stuck) break;
+            load_rows<HD, FBN>(&vmap, Vs + sv * C::KV_BYTES, full_v + sv, it * FBN, kvh, b);
             ++vt;
           }
         }
       }
+      drain_ring(full_q, 2, nq);
+      drain_ring(full_k, ST, kt);
+      drain_ring(full_v, ST, vt);
     }
   } else {  // ---- consumer warpgroups: 64 query rows of each item
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    bool stuck = false;
     const int wg = warp >> 2;
     const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
     const int r0 = (warp & 3) * 16 + g;     // this thread's rows r0 and r0 + 8 of the group's 64
@@ -538,13 +606,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         oacc[4 * d + 2] *= alpha[1];
         oacc[4 * d + 3] *= alpha[1];
       }
-#pragma unroll
-      for (int kk = 0; kk < FBN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      pack_a<FBN>(pa, s);
     };
 
     int kt = 0, vt = 0, qi = 0;
@@ -632,16 +694,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       }
 
       float inv[2];
+      const bool bad = *stuck != 0;  // a wait of the block gave up: poison the rows
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         float l = lrow[rh];
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
-        inv[rh] = (l == 0.f) ? 1.f : 1.f / l;  // fully masked rows -> 0
-        if (stuck) inv[rh] = NAN;               // a wait gave up: poison the rows
-        if (LSE && t == 0 && qrow[rh] < Sq)     // m is per row, log2 domain
+        inv[rh] = bad ? NAN : (l == 0.f) ? 1.f : 1.f / l;  // fully masked rows -> 0
+        if (LSE && t == 0 && qrow[rh] < Sq)                 // m is per row, log2 domain
           lse[(int64_t)bh * Sq + qrow[rh]] =
-              (l == 0.f ? mrow[rh] : mrow[rh] + log2f(l)) * LN2 * (stuck ? NAN : 1.f);
+              (l == 0.f ? mrow[rh] : mrow[rh] + log2f(l)) * LN2 * (bad ? NAN : 1.f);
       }
       __nv_bfloat16* ob = o + b * o_sb + h * o_sh + 2 * t;
 #pragma unroll
@@ -692,19 +754,19 @@ EncodeTiled tensor_map_encoder() {
 
 // The TMA map of a (B, heads, S, hd) bf16 view with element strides
 // st = (sb, sh, ss) and a unit last stride: dims (hd, heads, S, B), boxes
-// of (CW, 1, 128, 1), swizzled as the products read them; rows past S
+// of (CW, 1, rows, 1), swizzled as the products read them; rows past S
 // read as zeros.
 template <int HD>
 cudaError_t make_map(CUtensorMap* map, const void* base, int B, int heads, int S,
-                     const int64_t* st) {
-  using C = Fwd<HD>;
+                     const int64_t* st, int rows) {
+  using C = Geo<HD>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)(S > 0 ? S : 1),
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, 128, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
@@ -732,9 +794,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   cudaError_t err = allow_smem(flash_fwd_kernel<HD, LSE>, C::SMEM, configured);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if ((err = make_map<HD>(&qm, q, B, H, Sq, st)) != cudaSuccess) return err;
-  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3)) != cudaSuccess) return err;
-  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, FBM)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, FBN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, FBN)) != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -749,319 +811,426 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // ------------------------------ backward -------------------------------------
 //
 // FlashAttention-2 backward (FA-2 section 3.2), the reference's deterministic
-// two-kernel partition, without atomics. P = exp(s * scale - LSE) is
-// recomputed tile by tile from the forward's LSE, so no (Sq, Sk) tensor
-// exists; D = rowsum(dO * O) comes from outside (one elementwise pass).
+// two-kernel partition, without atomics: every output element is summed by
+// one thread in one order, so two calls give the same bits. P = exp(s *
+// scale - LSE) is recomputed tile by tile from the forward's LSE, so no
+// (Sq, Sk) tensor exists; D = rowsum(dO * O) comes from outside (one
+// elementwise pass).
+//
+// Replaces src/repro/kernels/flash_attention/backward.py,
+// flash_attention_bwd: the dK/dV kernel (_fa_bwd_dkv_kernel, the
+// pallas_call at backward.py:252) and the dQ kernel (_fa_bwd_dq_kernel,
+// backward.py:283).
 //
 // Bound on this card: operations. At the training shape (8 x 16 heads x
 // 2048 x 128, causal) the dK/dV kernel does four products (S, dP, dV, dK;
-// 275 GFLOP) and the dQ kernel three (S, dP, dQ; 206 GFLOP) over ~0.1 GB.
-//
-// * dK/dV: a block owns 64 keys of one (batch, kv head) and keeps its K and
-//   V tiles in shared memory; each of its 4 warps owns 16 keys. It walks
-//   the query heads of the GQA group and, for each, the 32-row query tiles
-//   at or below the diagonal, Q and dO double-buffered by cp.async. It
-//   computes the transposed scores S^T = K Q^T and dP^T = V dO^T, so that
-//   P^T and dS^T = P^T * (dP^T - D) sit in the accumulators with the keys
-//   as rows and go straight into A fragments for dV += P^T dO and
-//   dK += dS^T Q. The group is summed inside the block: no (B, H, Sk, hd)
-//   per-query-head buffer as in the reference.
-// * dQ: a block owns 64 query rows of one (batch, head), 16 per warp, and
-//   walks the 64-key K/V tiles up to the diagonal, double-buffered; S and
-//   dP are row-major, dS goes straight into A fragments for dQ += dS K.
+// 275 GFLOP, 0.278 ms at 989 TFLOP/s) and the dQ kernel three (S, dP, dQ;
+// 206 GFLOP, 0.209 ms) over ~0.1 GB. Only warpgroup products (wgmma) fed
+// by loads that overlap them approach that rate, so both kernels take the
+// forward's shape:
+// * 384 threads: two consumer warpgroups and one producer warp, the roles
+//   split once (setmaxnreg: 232 registers per consumer thread, 40 per
+//   producer thread). One block per work item, the heaviest items first,
+//   so the block scheduler balances the causal triangle.
+// * The producer loads with TMA through the forward's swizzled 4-D maps
+//   into mbarrier rings; the consumers release a stage on its "empty"
+//   mbarrier once the last product reading it has finished. Its waits are
+//   the forward's watchdog: a wait that gives up stops the loads, drains
+//   them, and the block writes NaN.
+// * dQ (row 7): an item is 128 query rows of one (batch, head), 64 per
+//   warpgroup, with Q and dO resident. The producer streams 64-key tiles
+//   of K and V into one ring. For each tile, S = Q K^T and dP = dO V^T are
+//   wgmma with both operands K-major in shared memory (m64n64k16);
+//   P = ex2(S scale log2 e - LSE log2 e) with the row's LSE and D in
+//   registers, dS = P (dP - D), masked by the forward's per-row column
+//   limit; dS packs into bf16 A fragments and dQ += dS K is wgmma with K
+//   read MN-major. S and dP of tile j are in flight with dQ += dS_{j-1}
+//   K_{j-1}, and dS_j is computed while that product runs.
+// * dK/dV (row 6): an item is 128 keys of one (batch, kv head), 64 per
+//   warpgroup, with K and V resident; the block walks the n_rep query
+//   heads of the group and, for each, the 64-query tiles at or below the
+//   diagonal, summing the group in registers (no (B, H, Sk, hd) buffer as
+//   in the reference). The producer warp streams Q and dO tiles by TMA and
+//   copies each tile's LSE log2 e and D into the same ring stage. S^T =
+//   K Q^T and dP^T = V dO^T are wgmma with K and V as A (K-major) and Q
+//   and dO as B (K-major); P^T and dS^T = P^T (dP^T - D) pack into A
+//   fragments, and dV += P^T dO and dK += dS^T Q read the same swizzled Q
+//   and dO tiles MN-major, as the forward reads K and V. The f32 dK and dV
+//   of 64 keys x hd 128 take 128 registers per thread, S^T and dP^T 64 more,
+//   so one warpgroup's tiles run one after another (S/dP, then P/dS, then
+//   dV/dK), and the two warpgroups take turns to issue their products
+//   (ping-pong), each one's elementwise work under the other's products.
 // * Accumulators are f32; P and dS are rounded to bf16 for their products,
 //   as the forward rounds P. Masked entries are set to 0 by a select, never
 //   through exp of an infinity. Causal masking is top-left aligned
-//   (key <= query), as in the reference; ragged Sq and Sk are masked in
-//   the kernels; all tensors are read and written through strides.
+//   (key <= query), as in the reference; rows past Sq or Sk read as zeros
+//   through TMA, masked columns give 0, and output rows past the end are
+//   not written; all tensors are read and written through strides; any
+//   GQA group.
 
 struct Str3 {  // element strides of a (B, heads, S, hd) tensor
   int64_t b, h, s;
 };
 
-constexpr int BQ2 = 32;  // query rows per tile of the dK/dV kernel
+constexpr int BWD_THREADS = 384;  // warpgroups 0 and 1 consume, warp 8 produces
 
-// A fragments (m16n8k16) of rows row0..row0+15 and k-steps kk and kk + 1 of
-// a row-major tile in shared memory.
-__device__ __forceinline__ void load_a2(uint32_t (&a0)[4], uint32_t (&a1)[4], const uint16_t* sm,
-                                        int lds, int row0, int kk, int lane) {
-  const int r = row0 + ((lane >> 3) & 1) * 8 + (lane & 7), c = kk * 16 + (lane >> 4) * 8;
-  ldmatrix_x4<false>(a0, sm + r * lds + c);
-  ldmatrix_x4<false>(a1, sm + r * lds + c + 16);
+// Write this thread's rows row0 and row0 + 8 of a 64 x HD f32 accumulator
+// as bf16, times `mul`; rows at or past n_rows are not written.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride,
+                                           const float (&acc)[HD / 2], int row0, int n_rows,
+                                           int t, float mul) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = row0 + 8 * rh;
+    if (row < n_rows) {
+      __nv_bfloat16* out = base + (int64_t)row * row_stride + 2 * t;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(out + d * 8) =
+            __floats2bfloat162_rn(acc[4 * d + 2 * rh] * mul, acc[4 * d + 2 * rh + 1] * mul);
+    }
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ dd,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
-                     int Hkv, int Sq, int Sk, int causal, float scale, Str3 qs, Str3 ks,
-                     Str3 vs, Str3 dos, Str3 dks, Str3 dvs) {
-  constexpr int LDS = HD + PAD;
-  constexpr int KSTEPS = HD / 16;
-  constexpr int NTQ = BQ2 / 8;  // 8-query column tiles of S^T
-  constexpr int DT = HD / 8;
-  constexpr int QSTAGE = 2 * BQ2 * LDS;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Ks = smem;
-  uint16_t* Vs = Ks + BN * LDS;
-  uint16_t* qd = Vs + BN * LDS;  // stage s: Q tile at qd + s * QSTAGE, dO after it
-  float* rowv = reinterpret_cast<float*>(qd + 2 * QSTAGE);  // stage s: LSE*log2 e, D
+struct Dq : Geo<HD> {
+  using G = Geo<HD>;
+  static constexpr int BM = 128;  // query rows per item: two warpgroups of 64
+  static constexpr int BN = 64;   // keys per K/V tile
+  static constexpr int ST = 4;    // ring stages (K and V tile pairs)
+  static constexpr int Q_CHUNK = BM * G::SW;
+  static constexpr int Q_BYTES = G::NC * Q_CHUNK;  // Q, and dO after it
+  static constexpr int KV_CHUNK = BN * G::SW;
+  static constexpr int KV_BYTES = G::NC * KV_CHUNK;  // K, and V after it
+  // Q, dO, the ring; 1 + 2 ST mbarriers and the stuck flag; alignment slack
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + ST * 2 * KV_BYTES + 8 * (1 + 2 * ST) + 16;
+};
 
-  const int n0 = blockIdx.x * BN;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int B, int H,
+                    int Hkv, int Sq, int Sk, int causal, float scale, Str3 dqs) {
+  using C = Dq<HD>;
+  constexpr int ST = C::ST, BN = C::BN;
+  constexpr int NT = BN / 8;  // 8-key column tiles of S
+  extern __shared__ uint8_t dq_smem[];
+  uint8_t* Qs = align_1024(dq_smem);            // Q, then dO at Qs + Q_BYTES
+  uint8_t* KVs = Qs + 2 * C::Q_BYTES;           // stage s: K at KVs + 2 s KV_BYTES, V after it
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(KVs + ST * 2 * C::KV_BYTES);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(empty + ST);
+
+  // the last query blocks, the most keys, first
+  const int nm = (Sq + C::BM - 1) / C::BM, bh_all = B * H;
+  const int m0 = (nm - 1 - (int)blockIdx.x / bh_all) * C::BM;
+  const int bh = blockIdx.x % bh_all, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  const int n_end = causal ? min(Sk, m0 + C::BM) : Sk;
+  const int n_tiles = (n_end + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {  // ---- producer: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      load_pair<HD, C::BM>(&qmap, &domap, Qs, Qs + C::Q_BYTES, full_q, m0, h, b);
+      int j = 0;  // tiles loaded
+      for (; j < n_tiles; ++j) {
+        const int s = j % ST;
+        mbar_wait(empty + s, ((j / ST) & 1) ^ 1, stuck);
+        if (*stuck) break;
+        uint8_t* kv = KVs + s * 2 * C::KV_BYTES;
+        load_pair<HD, BN>(&kmap, &vmap, kv, kv + C::KV_BYTES, full + s, j * BN, kvh, b);
+      }
+      drain_ring(full_q, 1, 1);
+      drain_ring(full, ST, j);
+    }
+  } else {  // ---- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2;
+    const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+    const int r0 = (warp & 3) * 16 + g;     // this thread's rows r0 and r0 + 8 of the group's 64
+    const int m0w = m0 + wg * 64;
+    const int qrow[2] = {m0w + r0, m0w + r0 + 8};
+    const float scale_log2 = scale * LOG2E;
+    float lse2[2], Dr[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {  // rows past Sq: zero Q and dO give dS = 0
+      const bool ok = qrow[rh] < Sq;
+      const int64_t idx = (int64_t)bh * Sq + qrow[rh];
+      lse2[rh] = ok ? lse[idx] * LOG2E : 0.f;
+      Dr[rh] = ok ? dd[idx] : 0.f;
+    }
+    const uint32_t q_base = smem_addr(Qs) + wg * 64 * C::SW;
+    const uint32_t do_base = q_base + C::Q_BYTES;
+    const uint32_t kv_base = smem_addr(KVs);
+
+    float dqa[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+    float s[BN / 2], dp[BN / 2];  // S and dP of one tile, then P and dS
+    uint32_t da[BN / 16][4];      // the previous tile's dS as bf16 A fragments
+
+    // S, dP of the tile at keys n0 -> dS in dp (f32)
+    auto grad_scores = [&](int n0) {
+      int vis[2] = {BN, BN};  // columns c of row rh with c - 2t >= vis[rh] are masked
+      if ((n0 + BN > Sk) || (causal && n0 + BN - 1 > m0w)) {
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+          vis[rh] = (causal ? min(Sk, qrow[rh] + 1) : Sk) - n0 - 2 * t;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, rh = e >> 1;
+          const float p = ex2_ftz(fmaf(s[i], scale_log2, -lse2[rh]));
+          const float pv = j * 8 + (e & 1) < vis[rh] ? p : 0.f;
+          dp[i] = pv * (dp[i] - Dr[rh]);
+        }
+    };
+
+    mbar_wait(full_q, 0, stuck);
+    if (n_tiles > 0) {  // tile 0: S and dP alone
+      mbar_wait(full, 0, stuck);
+      wgmma_fence();
+      kmajor_product<HD, BN>(s, q_base, C::Q_CHUNK, kv_base, C::KV_CHUNK);
+      kmajor_product<HD, BN>(dp, do_base, C::Q_CHUNK, kv_base + C::KV_BYTES, C::KV_CHUNK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      grad_scores(0);
+      pack_a<BN>(da, dp);
+    }
+    // Tile j: S_j and dP_j in flight with dQ += dS_{j-1} K_{j-1}; dS_j is
+    // computed while that product runs.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % ST, ps = (j - 1) % ST;
+      const uint32_t kv = kv_base + st * 2 * C::KV_BYTES;
+      mbar_wait(full + st, (j / ST) & 1, stuck);
+      wgmma_fence();
+      kmajor_product<HD, BN>(s, q_base, C::Q_CHUNK, kv, C::KV_CHUNK);
+      kmajor_product<HD, BN>(dp, do_base, C::Q_CHUNK, kv + C::KV_BYTES, C::KV_CHUNK);
+      wgmma_commit();
+      mn_product<HD, BN>(dqa, da, kv_base + ps * 2 * C::KV_BYTES, C::KV_CHUNK);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j and dP_j are done
+      fence_regs(s);
+      fence_regs(dp);
+      grad_scores(j * BN);
+      wgmma_wait<0>();  // dS_{j-1} K_{j-1} is done: its stage is free
+      fence_regs(dqa);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + ps);
+      pack_a<BN>(da, dp);
+    }
+    if (n_tiles > 0) {  // the last tile's dS K alone
+      const int ls = (n_tiles - 1) % ST;
+      wgmma_fence();
+      mn_product<HD, BN>(dqa, da, kv_base + ls * 2 * C::KV_BYTES, C::KV_CHUNK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + ls);
+    }
+    const float mul = *stuck ? NAN : scale;  // a wait of the block gave up: poison the rows
+    store_rows<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, dqa, qrow[0], Sq, t, mul);
+  }
+}
+
+template <int HD>
+struct Dkv : Geo<HD> {
+  using G = Geo<HD>;
+  static constexpr int BK = 128;  // keys per item: two warpgroups of 64
+  static constexpr int BQ = 64;   // queries per Q/dO tile
+  static constexpr int ST = HD == 128 ? 3 : 4;  // ring stages (Q, dO and row statistics)
+  static constexpr int KV_CHUNK = BK * G::SW;
+  static constexpr int KV_BYTES = G::NC * KV_CHUNK;  // K, and V after it
+  static constexpr int Q_CHUNK = BQ * G::SW;
+  static constexpr int Q_BYTES = G::NC * Q_CHUNK;  // a Q tile, and the dO tile after it
+  static constexpr int ROWS = 2 * BQ;              // floats: LSE log2 e, then D, of a tile
+  // K, V, the ring, the ring's row statistics; 1 + 2 ST mbarriers and the
+  // stuck flag; alignment slack
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + ST * 2 * Q_BYTES + ST * ROWS * 4 + 8 * (1 + 2 * ST) + 16;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                     const float* __restrict__ dd, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int B, int H, int Hkv, int Sq, int Sk,
+                     int causal, float scale, Str3 dks, Str3 dvs) {
+  using C = Dkv<HD>;
+  constexpr int ST = C::ST, BQ = C::BQ;
+  constexpr int NT = BQ / 8;  // 8-query column tiles of S^T
+  extern __shared__ uint8_t dkv_smem[];
+  uint8_t* KVs = align_1024(dkv_smem);       // K, then V at KVs + KV_BYTES
+  uint8_t* Qs = KVs + 2 * C::KV_BYTES;       // stage s: Q at Qs + 2 s Q_BYTES, dO after it
+  float* rows = reinterpret_cast<float*>(Qs + ST * 2 * C::Q_BYTES);  // stage s at s ROWS
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(rows + ST * C::ROWS);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(empty + ST);
+
+  // the first keys, the most query tiles, first
+  const int bkv_all = B * Hkv;
+  const int n0 = ((int)blockIdx.x / bkv_all) * C::BK;
+  const int bkv = blockIdx.x % bkv_all, b = bkv / Hkv, kvh = bkv % Hkv;
   const int n_rep = H / Hkv;
+  // query tiles wholly above the diagonal see no key of this item
+  const int m_begin = causal ? (n0 / BQ) * BQ : 0;
+  const int nqt = m_begin < Sq ? (Sq - m_begin + BQ - 1) / BQ : 0;
+  const int tiles = n_rep * nqt;  // (query head, query tile) pairs
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ld_row = lane & 7, ld_mat = lane >> 3;
-  const float scale_log2 = scale * LOG2E;
 
-  load_tile<HD, BN>(Ks, k + b * ks.b + kvh * ks.h, ks.s, n0, Sk - n0);
-  load_tile<HD, BN>(Vs, v + b * vs.b + kvh * vs.h, vs.s, n0, Sk - n0);
-  // query tiles wholly above the diagonal see no key of this block
-  const int m_begin = causal ? (n0 / BQ2) * BQ2 : 0;
-  const int nqt = m_begin < Sq ? (Sq - m_begin + BQ2 - 1) / BQ2 : 0;
-  const int items = n_rep * nqt;  // (query head, query tile) pairs
-
-  auto load_item = [&](int i, int st) {
-    const int h = kvh * n_rep + i / nqt, m0 = m_begin + (i % nqt) * BQ2;
-    uint16_t* Qs = qd + st * QSTAGE;
-    load_tile<HD, BQ2>(Qs, q + b * qs.b + h * qs.h, qs.s, m0, Sq - m0);
-    load_tile<HD, BQ2>(Qs + BQ2 * LDS, dout + b * dos.b + h * dos.h, dos.s, m0, Sq - m0);
-    float* rv = rowv + st * 2 * BQ2;
-    for (int r = threadIdx.x; r < BQ2; r += NWARP * 32) {
-      const bool ok = m0 + r < Sq;
-      const int64_t idx = (int64_t)(b * H + h) * Sq + m0 + r;
-      rv[r] = ok ? lse[idx] * LOG2E : 0.f;
-      rv[BQ2 + r] = ok ? dd[idx] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA bytes, and each producer lane's rows
+      mbar_init(empty + s, CONSUMER_WARPS);
     }
-  };
-  if (items > 0) load_item(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  float dka[DT][4], dva[DT][4];
+  if (warp >= CONSUMER_WARPS) {  // ---- producer: one warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == CONSUMER_WARPS) {
+      // lane 0 loads the tiles, every lane copies two rows' LSE log2 e and D
+      if (lane == 0) load_pair<HD, C::BK>(&kmap, &vmap, KVs, KVs + C::KV_BYTES, full_kv, n0, kvh, b);
+      int i = 0;  // tiles loaded
+      for (; i < tiles; ++i) {
+        const int s = i % ST;
+        mbar_wait(empty + s, ((i / ST) & 1) ^ 1, stuck);
+        if (__any_sync(0xffffffffu, *stuck)) break;
+        const int h = kvh * n_rep + i / nqt, m0 = m_begin + (i % nqt) * BQ;
+        if (lane == 0) {
+          uint8_t* qd = Qs + s * 2 * C::Q_BYTES;
+          load_pair<HD, BQ>(&qmap, &domap, qd, qd + C::Q_BYTES, full + s, m0, h, b);
+        }
+        float* rv = rows + s * C::ROWS;
+        const int64_t base = (int64_t)(b * H + h) * Sq;
 #pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-  const int key0 = n0 + warp * 16 + g;  // this thread's keys key0 and key0 + 8
-
-  for (int it = 0; it < items; ++it) {
-    const int st = it & 1;
-    if (it + 1 < items) load_item(it + 1, st ^ 1);
-    cp_async_commit();
-    const uint16_t* Qs = qd + st * QSTAGE;
-    const uint16_t* dOs = Qs + BQ2 * LDS;
-    const float* lse2 = rowv + st * 2 * BQ2;
-    const float* Dr = lse2 + BQ2;
-    const int m0 = m_begin + (it % nqt) * BQ2;
-
-    // S^T = K Q^T and dP^T = V dO^T: rows this warp's 16 keys, columns BQ2 queries
-    float s[NTQ][4], dp[NTQ][4];
-#pragma unroll
-    for (int j = 0; j < NTQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; kk += 2) {
-      uint32_t a0[4], a1[4], c0[4], c1[4];
-      load_a2(a0, a1, Ks, LDS, warp * 16, kk, lane);
-      load_a2(c0, c1, Vs, LDS, warp * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NTQ; ++j) {
-        uint32_t bq[4], bo[4];
-        ldmatrix_x4<false>(bq, Qs + (j * 8 + ld_row) * LDS + kk * 16 + ld_mat * 8);
-        ldmatrix_x4<false>(bo, dOs + (j * 8 + ld_row) * LDS + kk * 16 + ld_mat * 8);
-        mma_bf16(s[j], a0, bq[0], bq[1]);
-        mma_bf16(s[j], a1, bq[2], bq[3]);
-        mma_bf16(dp[j], c0, bo[0], bo[1]);
-        mma_bf16(dp[j], c1, bo[2], bo[3]);
+        for (int r = lane; r < BQ; r += 32) {  // rows past Sq: masked
+          const bool ok = m0 + r < Sq;
+          rv[r] = ok ? lse[base + m0 + r] * LOG2E : 0.f;
+          rv[BQ + r] = ok ? dd[base + m0 + r] : 0.f;
+        }
+        mbar_arrive(full + s);
+      }
+      if (lane == 0) {
+        drain_ring(full_kv, 1, 1);
+        drain_ring(full, ST, i);
       }
     }
-    // P^T and dS^T = P^T * (dP^T - D)
+  } else {  // ---- consumer warpgroups: 64 keys each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2;
+    const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+    const int r0 = (warp & 3) * 16 + g;     // this thread's keys r0 and r0 + 8 of the group's 64
+    const int n0w = n0 + wg * 64;
+    const int key[2] = {n0w + r0, n0w + r0 + 8};
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t k_base = smem_addr(KVs) + wg * 64 * C::SW;
+    const uint32_t v_base = k_base + C::KV_BYTES;
+    const uint32_t q_ring = smem_addr(Qs);
+
+    float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-    for (int j = 0; j < NTQ; ++j) {
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    float s[BQ / 2], dp[BQ / 2];     // S^T and dP^T of one tile, then P^T and dS^T
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+
+    // Ping-pong: the groups take turns to issue their products (named
+    // barriers 1 and 2), so one's run on the tensor cores while the other
+    // computes P^T and dS^T. Group 0 goes first; its last sync takes group
+    // 1's last turn.
+    mbar_wait(full_kv, 0, stuck);
+    const int my_turn = 1 + wg, their_turn = 2 - wg;
+    if (wg == 1) turn_arrive(1);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % ST;
+      const int m0 = m_begin + (i % nqt) * BQ;
+      const uint32_t qt = q_ring + st * 2 * C::Q_BYTES, dot = qt + C::Q_BYTES;
+      mbar_wait(full + st, (i / ST) & 1, stuck);
+      __syncwarp();
+      turn_sync(my_turn);
+      // S^T = K Q^T and dP^T = V dO^T: rows this group's 64 keys, columns BQ queries
+      wgmma_fence();
+      kmajor_product<HD, BQ>(s, k_base, C::KV_CHUNK, qt, C::Q_CHUNK);
+      kmajor_product<HD, BQ>(dp, v_base, C::KV_CHUNK, dot, C::Q_CHUNK);
+      wgmma_commit();
+      turn_arrive(their_turn);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T and dS^T = P^T (dP^T - D): visible columns c (queries m0 + c)
+      // of key row rh are c - 2t in [lo[rh], hi)
+      const float* lse2 = rows + st * C::ROWS;
+      const float* Dc = lse2 + BQ;
+      int lo[2] = {-BQ, -BQ}, hi = BQ;
+      if ((m0 + BQ > Sq) || (causal && m0 < n0w + 63)) {
+        hi = Sq - m0 - 2 * t;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + 2 * t + (e & 1), key = key0 + (e >> 1) * 8;
-        const bool ok = m0 + qc < Sq && !(causal && key > m0 + qc);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[qc]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - Dr[qc]);
+        for (int rh = 0; rh < 2; ++rh) lo[rh] = causal ? key[rh] - m0 - 2 * t : -BQ;
       }
-    }
-    // dV += P^T dO, dK += dS^T Q (the k dimension is the query)
-#pragma unroll
-    for (int kk = 0; kk < BQ2 / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const int r = kk * 16 + (ld_mat & 1) * 8 + ld_row;
-#pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4<true>(ob, dOs + r * LDS + (d + (ld_mat >> 1)) * 8);
-        ldmatrix_x4<true>(qb, Qs + r * LDS + (d + (ld_mat >> 1)) * 8);
-        mma_bf16(dva[d], pa, ob[0], ob[1]);
-        mma_bf16(dva[d + 1], pa, ob[2], ob[3]);
-        mma_bf16(dka[d], da, qb[0], qb[1]);
-        mma_bf16(dka[d + 1], da, qb[2], qb[3]);
-      }
-    }
-    cp_async_wait<0>();  // the next item has landed
-    __syncthreads();     // and every warp is done with this one
-  }
-
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    const int key = key0 + rh * 8;
-    if (key < Sk) {
-      __nv_bfloat16* krow = dk + b * dks.b + kvh * dks.h + (int64_t)key * dks.s + 2 * t;
-      __nv_bfloat16* vrow = dv + b * dvs.b + kvh * dvs.h + (int64_t)key * dvs.s + 2 * t;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        *reinterpret_cast<__nv_bfloat162*>(krow + d * 8) =
-            __floats2bfloat162_rn(dka[d][2 * rh] * scale, dka[d][2 * rh + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(vrow + d * 8) =
-            __floats2bfloat162_rn(dva[d][2 * rh], dva[d][2 * rh + 1]);
-      }
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NWARP * 32)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dd,
-                    __nv_bfloat16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int causal,
-                    float scale, Str3 qs, Str3 ks, Str3 vs, Str3 dos, Str3 dqs) {
-  constexpr int LDS = HD + PAD;
-  constexpr int KSTEPS = HD / 16;
-  constexpr int NT = BN / 8;
-  constexpr int DT = HD / 8;
-  constexpr int STAGE = 2 * BN * LDS;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Qs = smem;
-  uint16_t* dOs = Qs + BM * LDS;
-  uint16_t* kv = dOs + BM * LDS;  // stage s: K tile at kv + s * STAGE, V tile after it
-
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heaviest blocks first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ld_row = lane & 7, ld_mat = lane >> 3;
-  const float scale_log2 = scale * LOG2E;
-
-  const __nv_bfloat16* kg = k + b * ks.b + kvh * ks.h;
-  const __nv_bfloat16* vg = v + b * vs.b + kvh * vs.h;
-  const int n_end = causal ? min(Sk, m0 + BM) : Sk;
-  load_tile<HD, BM>(Qs, q + b * qs.b + h * qs.h, qs.s, m0, Sq - m0);
-  load_tile<HD, BM>(dOs, dout + b * dos.b + h * dos.h, dos.s, m0, Sq - m0);
-  if (n_end > 0) {
-    load_tile<HD, BN>(kv, kg, ks.s, 0, Sk);
-    load_tile<HD, BN>(kv + BN * LDS, vg, vs.s, 0, Sk);
-  }
-  cp_async_commit();
-
-  const int r0 = warp * 16 + g;
-  const int qrow[2] = {m0 + r0, m0 + r0 + 8};
-  float lse2[2], Dr[2];
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    const bool ok = qrow[rh] < Sq;
-    const int64_t idx = (int64_t)blockIdx.y * Sq + qrow[rh];
-    lse2[rh] = ok ? lse[idx] * LOG2E : 0.f;
-    Dr[rh] = ok ? dd[idx] : 0.f;
-  }
-  float dqa[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
-  cp_async_wait<0>();
-  __syncthreads();
-
-  for (int n0 = 0, it = 0; n0 < n_end; n0 += BN, ++it) {
-    const uint16_t* Ks = kv + (it & 1) * STAGE;
-    const uint16_t* Vs = Ks + BN * LDS;
-    if (n0 + BN < n_end) {
-      uint16_t* nxt = kv + ((it + 1) & 1) * STAGE;
-      load_tile<HD, BN>(nxt, kg, ks.s, n0 + BN, Sk - n0 - BN);
-      load_tile<HD, BN>(nxt + BN * LDS, vg, vs.s, n0 + BN, Sk - n0 - BN);
-    }
-    cp_async_commit();
-
-    // S = Q K^T and dP = dO V^T: rows this warp's 16 queries, columns BN keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; kk += 2) {
-      uint32_t a0[4], a1[4], c0[4], c1[4];
-      load_a2(a0, a1, Qs, LDS, warp * 16, kk, lane);
-      load_a2(c0, c1, dOs, LDS, warp * 16, kk, lane);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4<false>(kb, Ks + (j * 8 + ld_row) * LDS + kk * 16 + ld_mat * 8);
-        ldmatrix_x4<false>(vb, Vs + (j * 8 + ld_row) * LDS + kk * 16 + ld_mat * 8);
-        mma_bf16(s[j], a0, kb[0], kb[1]);
-        mma_bf16(s[j], a1, kb[2], kb[3]);
-        mma_bf16(dp[j], c0, vb[0], vb[1]);
-        mma_bf16(dp[j], c1, vb[2], vb[3]);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(Dc + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e, c = 8 * j + (e & 1);
+          const float p = ex2_ftz(fmaf(s[x], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          const float pv = c >= lo[e >> 1] && c < hi ? p : 0.f;
+          s[x] = pv;
+          dp[x] = pv * (dp[x] - ((e & 1) ? d2.y : d2.x));
+        }
       }
+      pack_a<BQ>(pa, s);
+      pack_a<BQ>(da, dp);
+      // dV += P^T dO, dK += dS^T Q (the k dimension is the query)
+      turn_sync(my_turn);
+      wgmma_fence();
+      mn_product<HD, BQ>(dva, pa, dot, C::Q_CHUNK);
+      mn_product<HD, BQ>(dka, da, qt, C::Q_CHUNK);
+      wgmma_commit();
+      turn_arrive(their_turn);
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
     }
-    const bool mask = (n0 + BN > Sk) || (causal && n0 + BN - 1 > m0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + j * 8 + 2 * t + (e & 1), rh = e >> 1;
-        const bool ok = !mask || (key < Sk && !(causal && key > qrow[rh]));
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[rh]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - Dr[rh]);
-      }
-    }
-    // dQ += dS K (the k dimension is the key)
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4<true>(kb, Ks + (kk * 16 + (ld_mat & 1) * 8 + ld_row) * LDS +
-                                  (d + (ld_mat >> 1)) * 8);
-        mma_bf16(dqa[d], da, kb[0], kb[1]);
-        mma_bf16(dqa[d + 1], da, kb[2], kb[3]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-
-  __nv_bfloat16* qb = dq + b * dqs.b + h * dqs.h + 2 * t;
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    if (qrow[rh] < Sq) {
-      __nv_bfloat16* row = qb + (int64_t)qrow[rh] * dqs.s;
-#pragma unroll
-      for (int d = 0; d < DT; ++d)
-        *reinterpret_cast<__nv_bfloat162*>(row + d * 8) = __floats2bfloat162_rn(
-            dqa[d][2 * rh] * scale, dqa[d][2 * rh + 1] * scale);
-    }
+    if (wg == 0) turn_sync(1);
+    const bool bad = *stuck != 0;  // a wait of the block gave up: poison the rows
+    store_rows<HD>(dk + b * dks.b + kvh * dks.h, dks.s, dka, key[0], Sk, t, bad ? NAN : scale);
+    store_rows<HD>(dv + b * dvs.b + kvh * dvs.h, dvs.s, dva, key[0], Sk, t, bad ? NAN : 1.f);
   }
 }
 
@@ -1070,18 +1239,20 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* dd, void* dk, void* dv, int B, int H,
                        int Hkv, int Sq, int Sk, int causal, float scale, const int64_t* st,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BN + 4 * BQ2) * (HD + PAD) * sizeof(uint16_t) +
-                      4 * BQ2 * sizeof(float);
+  using C = Dkv<HD>;
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD>, smem, configured);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD>, C::SMEM, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BN - 1) / BN, B * Hkv);  // the first keys, the most work, first
-  flash_bwd_dkv_kernel<HD><<<grid, NWARP * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, dd,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Sk, causal,
-      scale, Str3{st[0], st[1], st[2]}, Str3{st[3], st[4], st[5]}, Str3{st[6], st[7], st[8]},
-      Str3{st[9], st[10], st[11]}, Str3{st[12], st[13], st[14]}, Str3{st[15], st[16], st[17]});
+  CUtensorMap qm, km, vm, dom;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, C::BQ)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, C::BK)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, C::BK)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&dom, dout, B, H, Sq, st + 9, C::BQ)) != cudaSuccess) return err;
+  const int items = (Sk + C::BK - 1) / C::BK * B * Hkv;
+  flash_bwd_dkv_kernel<HD><<<items, BWD_THREADS, C::SMEM, stream>>>(
+      qm, km, vm, dom, lse, dd, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), B, H, Hkv, Sq, Sk, causal, scale,
+      Str3{st[12], st[13], st[14]}, Str3{st[15], st[16], st[17]});
   return cudaGetLastError();
 }
 
@@ -1089,17 +1260,19 @@ template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* dd, void* dq, int B, int H, int Hkv, int Sq,
                       int Sk, int causal, float scale, const int64_t* st, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BM + 4 * BN) * (HD + PAD) * sizeof(uint16_t);
+  using C = Dq<HD>;
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD>, smem, configured);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD>, C::SMEM, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
-  flash_bwd_dq_kernel<HD><<<grid, NWARP * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, dd,
-      static_cast<__nv_bfloat16*>(dq), H, Hkv, Sq, Sk, causal, scale,
-      Str3{st[0], st[1], st[2]}, Str3{st[3], st[4], st[5]}, Str3{st[6], st[7], st[8]},
-      Str3{st[9], st[10], st[11]}, Str3{st[12], st[13], st[14]});
+  CUtensorMap qm, km, vm, dom;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, C::BM)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, C::BN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, C::BN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&dom, dout, B, H, Sq, st + 9, C::BM)) != cudaSuccess) return err;
+  const int items = (Sq + C::BM - 1) / C::BM * B * H;
+  flash_bwd_dq_kernel<HD><<<items, BWD_THREADS, C::SMEM, stream>>>(
+      qm, km, vm, dom, lse, dd, static_cast<__nv_bfloat16*>(dq), B, H, Hkv, Sq, Sk, causal,
+      scale, Str3{st[12], st[13], st[14]});
   return cudaGetLastError();
 }
 
@@ -1170,6 +1343,17 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
     case 64: return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 128: return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a launch takes, in bytes: kernel 0 the forward
+// (with or without LSE), 1 dK/dV, 2 dQ; 0 for another hd.
+int flash_attention_smem_bytes(int kernel, int hd) {
+  switch (hd) {
+    case 32: return kernel == 0 ? Fwd<32>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;
+    case 64: return kernel == 0 ? Fwd<64>::SMEM : kernel == 1 ? Dkv<64>::SMEM : Dq<64>::SMEM;
+    case 128: return kernel == 0 ? Fwd<128>::SMEM : kernel == 1 ? Dkv<128>::SMEM : Dq<128>::SMEM;
+    default: return 0;
   }
 }
 

@@ -28,6 +28,13 @@ _HEAD_DIMS = (32, 64, 128)
 _LOG2E = math.log2(math.e)
 
 
+def supports(hd: int, n_rep: int) -> bool:
+    """Whether the forward, forward-with-LSE and backward kernels take head
+    dim ``hd`` and GQA group ``n_rep`` (H / Hkv): every kernel reads the kv
+    head h // n_rep of query head h, so any group."""
+    return hd in _HEAD_DIMS and n_rep >= 1
+
+
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *more: torch.Tensor) -> None:
     """Raise on what the kernels do not take: q (B, H, Sq, hd), k = v
@@ -40,7 +47,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, _, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[1]:
         raise ValueError(f"{name}: q and k disagree in B, hd or GQA")
-    if hd not in _HEAD_DIMS:
+    if not supports(hd, h // k.shape[1]):
         raise ValueError(f"{name}: hd {hd} not in {_HEAD_DIMS}")
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: dO must have q's shape")
@@ -136,6 +143,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
     dk, dv = _like_model(b, hkv, sk, hd, k), _like_model(b, hkv, sk, hd, k)
     if b * hkv * sk == 0:
         return dk, dv
+    if sq == 0:                     # no query: the gradients are zero
+        return dk.zero_(), dv.zero_()
     fn = _build.bind("flash_attention", "flash_attention_bwd_dkv", [
         *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
@@ -160,6 +169,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
     dq = _like_model(b, h, sq, hd, q)
     if b * h * sq == 0:
         return dq
+    if sk == 0:                     # no key: the gradient is zero
+        return dq.zero_()
     fn = _build.bind("flash_attention", "flash_attention_bwd_dq", [
         *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])

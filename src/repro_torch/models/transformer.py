@@ -16,7 +16,9 @@ n_blocks) is a list of n_blocks block dictionaries here. Projection
 matrices, the SSM convolution and the embedding are held in the compute
 dtype for serving, or in ``cfg.param_dtype`` (float32) for training, and
 ``_mm`` casts them per call, as the reference does; norm weights and the
-SSM's 1-D leaves are float32. A non-parametric LayerNorm's leaf is ``{}``.
+SSM's 1-D leaves are float32, but for LayerNorm training under
+``param_dtype="bfloat16"``, where the reference casts them to bf16 too. A
+non-parametric LayerNorm's leaf is ``{}``.
 
 LayerNorm configs add the residual in the compute dtype and norm with the
 plain ``layernorm``, as the reference does (it has no LayerNorm kernel).
@@ -97,7 +99,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     the reference's shapes, Normal(0, 1/sqrt(fan_in)) matrices, norms at 1
     (LayerNorm biases at 0). Matrices and the embedding are drawn in f32
     and held in ``dtype``, by default the compute dtype (serving);
-    training passes ``param_dtype(cfg)``."""
+    training passes ``param_dtype(cfg)``. Under ``param_dtype="bfloat16"``
+    with bf16 ``dtype`` the LayerNorm ``w``/``b`` leaves are bf16 too, as
+    the reference casts every f32 leaf (RMSNorm weights stay f32: the fused
+    norm kernel takes f32 weights, and RMSNorm configs do not train)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
@@ -115,6 +120,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["lm_head"] = L.dense_init(gen, cfg.d_model,
                                          (cfg.d_model, cfg.vocab), dtype,
                                          device)
+    if (cfg.norm == "layernorm" and cfg.param_dtype == "bfloat16"
+            and dtype == torch.bfloat16):
+        norms = [params] + [lp for blk in params["stack"] for lp in blk.values()]
+        for node in norms:
+            for k in ("ln1", "ln2", "final_norm"):
+                if k in node:
+                    node[k] = {n: t.to(dtype) for n, t in node[k].items()}
     return params
 
 

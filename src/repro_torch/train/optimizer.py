@@ -67,12 +67,13 @@ def tree_unflatten(tree, leaves: list):
 
 # ------------------------------- AdamW -----------------------------------------
 def adamw_init(params, master: bool = False) -> dict:
-    """{"m", "v", "step"}; with ``master`` (mixed precision) the moments
-    are f32 whatever the params' dtype, and an f32 ``master`` copy of the
-    weights is kept. ``step`` is a 0-d int64 tensor on the CPU."""
-    zeros = ((lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)) if master
-             else (lambda p: torch.zeros_like(p, memory_format=torch.contiguous_format)))
+    """{"m", "v", "step"}: the moments f32 whatever the params' dtype (the
+    reference's bf16 moments become f32 at its first update, where the f32
+    gradient promotes them); with ``master`` (mixed precision) an f32
+    ``master`` copy of the weights is kept too. ``step`` is a 0-d int64
+    tensor on the CPU."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     with torch.no_grad():
         out = {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                "step": torch.zeros((), dtype=torch.int64)}

@@ -153,6 +153,6 @@ def test_planted_faults_apply_to_the_kernel_source():
     root = Path(__file__).resolve().parents[1]
     tool = _load("flash_planted_faults", root / "tools" / "flash_planted_faults.py")
     src = (root / "src" / tool.SOURCE).read_text()
-    planted = {name: tool.plant(src, edits) for name, (_, edits, _) in tool.FAULTS.items()}
-    assert len(set(planted.values())) == len(planted) == 9
+    planted = {name: tool.plant(src, edits) for name, (_, _, edits, _) in tool.FAULTS.items()}
+    assert len(set(planted.values())) == len(planted) == 13
     assert all(text != src for text in planted.values())

@@ -111,7 +111,11 @@ def test_rmsnorm_kernel_matches_plain(cuda, t, d):
 
 @pytest.mark.parametrize("b,h,hkv,s,hd,kv_len", [
     (4, 32, 8, 2081, 128, 2079), (2, 4, 2, 37, 32, 37),
-    (3, 8, 8, 300, 64, 1), (2, 8, 2, 50, 128, 0)])
+    (3, 8, 8, 300, 64, 1), (2, 8, 2, 50, 128, 0),
+    # GQA group 3 (minitron_4b), compiled as it is; groups 16
+    # (qwen3_moe_235b) and 5, in chunks of 8 query heads
+    (4, 24, 8, 2081, 128, 2079), (2, 6, 2, 50, 64, 33),
+    (2, 64, 4, 600, 128, 577), (1, 10, 2, 90, 32, 90)])
 def test_decode_kernel_matches_plain(cuda, b, h, hkv, s, hd, kv_len):
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(b, h, hd, generator=g, device=cuda).bfloat16()
@@ -148,7 +152,8 @@ FLASH_SHAPES = [(2, 32, 8, 512, 512, 128, True), (1, 4, 2, 100, 100, 32, True),
                 (1, 8, 2, 127, 127, 128, True), (1, 8, 2, 128, 128, 64, True),
                 (1, 8, 2, 129, 129, 32, True), (1, 8, 2, 257, 257, 128, True),
                 (1, 8, 8, 257, 257, 64, False), (1, 8, 2, 300, 129, 128, True),
-                (1, 4, 1, 129, 257, 32, False)]
+                (1, 4, 1, 129, 257, 32, False),
+                (2, 24, 8, 2048, 2048, 128, True)]   # minitron_4b's prefill, group 3
 
 
 @pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal", FLASH_SHAPES)
@@ -190,6 +195,31 @@ def test_model_on_card_matches_cpu_and_counts_launches(cuda):
     want_step, want_cache = decode_step(SMOKE, cpu, want_cache, tok, 12)
     assert _scaled_err(step, want_step) <= 2e-2
     assert _scaled_err(cache["v"], want_cache["v"]) <= 2e-2
+
+
+def test_minitron_serves_on_the_card(cuda):
+    """minitron_4b (GQA group 3) at full width, its depth cut to 2 layers
+    (its SMOKE config's hd 16 is not a kernel's): run_serve decodes through
+    the kernels, and the first decode step's logits match a prefill over
+    the same tokens."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("minitron_4b"), n_layers=2)
+    assert cfg.n_heads // cfg.n_kv_heads == 3 and cfg.hd == 128
+    reset_launches()
+    res = run_serve(cfg, requests=2, prompt_len=64, tokens=3)
+    assert len(res.tokens) == 3
+    assert launches()["decode_attention"] == cfg.n_layers * 2
+    assert launches()["flash_attention"] == cfg.n_layers
+    params = init_params(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(8))
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompt, max_len=66)
+        tok = logits[:, -1].argmax(-1)
+        step, _ = decode_step(cfg, params, cache, tok, 64)
+        want, _ = prefill(cfg, params, torch.cat([prompt, tok[:, None]], 1))
+    assert bool(torch.isfinite(step.float()).all())
+    assert _scaled_err(step, want[:, -1]) <= 2e-2
 
 
 def test_run_serve_defaults_to_the_card(cuda):
@@ -416,6 +446,24 @@ def test_flash_training_kernels_match_plain(cuda, b, h, hkv, sq, sk, hd,
     c = launches()
     assert [c[f"flash_attention_{k}"] - n[f"flash_attention_{k}"]
             for k in ("fwd_lse", "bwd_dkv", "bwd_dq")] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal", TRAIN_SHAPES)
+def test_flash_backward_is_bit_identical_across_calls(cuda, b, h, hkv, sq, sk,
+                                                     hd, causal):
+    """No atomics: one thread sums each dK, dV and dQ element in one order,
+    so two calls give the same bits."""
+    q, k, v, do = _train_inputs(cuda, b, h, hkv, sq, sk, hd, seed=7)
+    o, lse = flash_attention_fwd_lse(q, k, v, causal)
+    dd = attention_delta(o, do)
+    first = (*flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal),
+             flash_attention_bwd_dq(q, k, v, do, lse, dd, causal))
+    second = (*flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal),
+              flash_attention_bwd_dq(q, k, v, do, lse, dd, causal))
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal", TRAIN_SHAPES[1:4])

@@ -88,7 +88,9 @@ def test_rmsnorm_plain_matches_reference(t, d, with_residual, dt):
     (1, 8, 2, 512, 64, 300, "bf16", True),
     (2, 4, 4, 256, 32, 256, "bf16", True),
     (2, 4, 1, 300, 32, 257, "f32", False),     # ragged S: oracle only
-    (1, 8, 2, 37, 64, 37, "bf16", False)])
+    (1, 8, 2, 37, 64, 37, "bf16", False),
+    (2, 6, 2, 256, 32, 190, "bf16", True),     # GQA group 3 (minitron_4b)
+    (1, 32, 2, 128, 64, 77, "f32", True)])     # group 16 (qwen3_moe_235b)
 def test_decode_attention_plain_matches_reference(b, h, hkv, s, hd, kv_len,
                                                   dt, pallas):
     rng = np.random.default_rng(1)

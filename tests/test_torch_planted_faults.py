@@ -1,11 +1,14 @@
-"""The planted-fault tool's anchors against the flash-attention source.
+"""The flash-attention tools' anchors against the kernel source.
 
 ``tools/flash_planted_faults.py`` edits exact lines of
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` to plant
 its faults, and runs only on a CUDA card. These text checks run anywhere:
-every anchor occurs exactly once in the current source, and every fault
-plants edits that change the source, so a rewrite of the kernels cannot
-leave the tool aiming at lines that no longer exist.
+every anchor occurs exactly once in the current source, every fault
+plants edits that change the source, each of the three kernels has a
+pipeline fault, and each diagnosis run removes lines that exist, so a
+rewrite of the kernels cannot leave the tool aiming at lines that no
+longer exist. The same holds for the variants of
+``tools/flash_fwd_variants.py`` and ``tools/flash_bwd_variants.py``.
 """
 from __future__ import annotations
 
@@ -18,15 +21,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu"
 
 
-def _tool():
-    spec = importlib.util.spec_from_file_location(
-        "flash_planted_faults", ROOT / "tools" / "flash_planted_faults.py")
+def _tool(name: str = "flash_planted_faults"):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
 TOOL = _tool()
+FWD_VARIANTS = _tool("flash_fwd_variants")
+BWD_VARIANTS = _tool("flash_bwd_variants")
 
 
 def test_tool_names_the_source():
@@ -41,8 +45,9 @@ def test_anchor_occurs_once(anchor):
 @pytest.mark.parametrize("name", sorted(TOOL.FAULTS))
 def test_fault_plants_its_edits(name):
     text = SOURCE.read_text()
-    outputs, edits, what = TOOL.FAULTS[name]
-    assert outputs and what
+    kind, outputs, edits, what = TOOL.FAULTS[name]
+    assert kind in ("pipeline", "tile") and outputs and what
+    assert set(outputs) <= {"o", "dk", "dv", "dq"}
     planted = TOOL.plant(text, edits)
     for old, new in edits:
         assert old in TOOL.ANCHORS and new != old
@@ -50,6 +55,47 @@ def test_fault_plants_its_edits(name):
     assert len(planted) - len(text) == sum(len(n) - len(o) for o, n in edits)
 
 
+def test_every_kernel_has_a_pipeline_fault():
+    hit = {out for kind, outs, _, _ in TOOL.FAULTS.values() if kind == "pipeline"
+           for out in outs}
+    assert hit == {"o", "dk", "dv", "dq"}
+
+
+@pytest.mark.parametrize("name", sorted(TOOL.DIAGNOSIS))
+def test_diagnosis_takes_out_part_of_the_repair(name):
+    """Each diagnosis run plants a forward pipeline fault and removes the
+    producer's stop, its drain, or both: every removed line is in the
+    source once, and the planted copy no longer holds it."""
+    text = SOURCE.read_text()
+    fault, cut, what = TOOL.DIAGNOSIS[name]
+    assert TOOL.FAULTS[fault][0] == "pipeline" and what
+    planted = TOOL.plant(text, TOOL.FAULTS[fault][2] + cut)
+    for old, _ in cut:
+        assert text.count(old) == 1 and planted.count(old) == 0
+    assert ("drain_ring(full_k, ST, kt)" in planted) == (TOOL.FWD_DRAIN[0] not in cut)
+
+
 def test_plant_refuses_a_missing_anchor():
     with pytest.raises(SystemExit, match="occurs 0 times"):
         TOOL.plant("no anchors here", [(TOOL.FWD_MASK, "x")])
+
+
+@pytest.mark.parametrize("name", sorted(FWD_VARIANTS.VARIANTS))
+def test_forward_variant_finds_its_text(name):
+    assert FWD_VARIANTS.SOURCE == SOURCE
+    text = SOURCE.read_text()
+    edits, what = FWD_VARIANTS.VARIANTS[name]
+    assert what and all(old in text for old, _ in edits)
+    assert (FWD_VARIANTS.variant_source(name) == text) == (not edits)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_VARIANTS.VARIANTS))
+def test_backward_variant_edits_the_source_once(name):
+    assert BWD_VARIANTS.SOURCE == SOURCE
+    text = SOURCE.read_text()
+    edits, what = BWD_VARIANTS.VARIANTS[name]
+    assert what and all(text.count(old) == 1 and new != old for old, new in edits)
+    varied = BWD_VARIANTS.variant_source(name)
+    assert (varied == text) == (not edits)
+    # ping-pong keeps the turns balanced: one sync and one arrive a product
+    assert varied.count("turn_sync(my_turn)") == varied.count("turn_arrive(their_turn)")

@@ -35,7 +35,7 @@ SHAPES = ((4, 32, 8, 2048, 128, True), (8, 16, 16, 2048, 128, True),
 QK = "        qk_product<HD>(s, q_base, k_base + sk * C::KV_BYTES);\n"
 PV = "        pv_product<HD>(oacc, pa, v_base + sv * C::KV_BYTES);\n"
 EXP = "        s[i] = ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));"
-LOAD = """  mbar_expect_tx(bar, C::NC * 128 * C::SW);
+LOAD = """  mbar_expect_tx(bar, C::NC * ROWS * C::SW);
 #pragma unroll
   for (int c = 0; c < C::NC; ++c)"""
 TURNS = ("        turn_sync(my_turn);\n", "        turn_arrive(their_turn);\n",
