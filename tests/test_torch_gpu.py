@@ -233,6 +233,8 @@ def test_run_serve_defaults_to_the_card(cuda):
     (8, 2048, 24, 64, 128, torch.bfloat16, True),   # mamba2_130m serving
     (2, 100, 3, 64, 128, torch.bfloat16, True),     # ragged
     (2, 300, 4, 16, 32, torch.float32, True),       # P != N
+    (2, 300, 4, 40, 72, torch.bfloat16, True),      # warps and N not filled
+    (2, 300, 4, 40, 72, torch.float32, True),
     (48, 512, 0, 64, 128, torch.float32, False),    # the Pallas layout
     (1, 256, 0, 128, 128, torch.float32, False)])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, dtype, model):

@@ -99,3 +99,48 @@ def test_backward_variant_edits_the_source_once(name):
     assert (varied == text) == (not edits)
     # ping-pong keeps the turns balanced: one sync and one arrive a product
     assert varied.count("turn_sync(my_turn)") == varied.count("turn_arrive(their_turn)")
+
+
+# ------------------------------- the SSD scan ---------------------------------
+SSD_SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "ssd" / "csrc" / "ssd.cu"
+SSD_TOOL = _tool("ssd_planted_faults")
+SSD_VARIANTS = _tool("ssd_variants")
+
+
+def test_ssd_tools_name_the_source():
+    assert ROOT / "src" / SSD_TOOL.SOURCE == SSD_SOURCE
+    assert SSD_VARIANTS.SOURCE == SSD_SOURCE
+
+
+@pytest.mark.parametrize("anchor", SSD_TOOL.ANCHORS)
+def test_ssd_anchor_occurs_once(anchor):
+    assert SSD_SOURCE.read_text().count(anchor) == 1
+
+
+@pytest.mark.parametrize("name", sorted(SSD_TOOL.FAULTS) + sorted(SSD_TOOL.DIAGNOSIS))
+def test_ssd_fault_plants_its_edits(name):
+    text = SSD_SOURCE.read_text()
+    edits, what = {**SSD_TOOL.FAULTS, **SSD_TOOL.DIAGNOSIS}[name]
+    assert what and edits
+    planted = SSD_TOOL.plant(text, edits)
+    for old, new in edits:
+        assert old in SSD_TOOL.ANCHORS and new != old
+        assert planted.count(new) == 1 and planted.count(old) == (old in new)
+    assert len(planted) - len(text) == sum(len(n) - len(o) for o, n in edits)
+
+
+def test_ssd_faults_cover_the_state_the_split_and_the_tail():
+    """The state rounded to bf16, a cross term too many dropped and the
+    ragged tail's last row left out of h_final are among the faults."""
+    assert {"state_rounded_to_bf16", "state_mid_term_dropped",
+            "ragged_tail_last_row_out_of_h"} <= set(SSD_TOOL.FAULTS)
+
+
+@pytest.mark.parametrize("name", sorted(SSD_VARIANTS.VARIANTS))
+def test_ssd_variant_finds_its_text_once(name):
+    text = SSD_SOURCE.read_text()
+    edits, what = SSD_VARIANTS.VARIANTS[name]
+    assert what and all(text.count(old) == 1 and new != old for old, new in edits)
+    assert (SSD_VARIANTS.variant_source(name) == text) == (not edits)
+    # a variant that leaves work out says so
+    assert (name == "as-is") != what.endswith(SSD_VARIANTS.OUTSIDE)
