@@ -18,8 +18,11 @@ Phases, each fatal on failure:
      bit for bit and f32 within the drift band; the SSD scan in f32 within
      the reference's 2e-4, in the model's layout (B/C at head stride 0, or
      per head) and in the Pallas kernel's, at ragged lengths, P != N and a
-     strong decay, two calls bit-identical; decode attention also at GQA
-     groups 3 and 16;
+     strong decay, two calls bit-identical; decode attention with a device
+     kv_len at the serving cache (also kv_len 0, 1 and S) and GQA groups 3
+     and 16, each output also within one bf16 ulp of its f64 value, and one
+     captured launch replayed with kv_len changed on the device; its time
+     with the L2 flushed by a write and, beside SDPA, by a read;
      the serving forward at the mistral and minitron_4b prefill shapes,
      ragged lengths and its 128-row / 128-key tile edges, each
      query row within 2e-2 of that row's largest plain value; the three
@@ -38,11 +41,16 @@ Phases, each fatal on failure:
   5. the serving path: ``run_serve`` on the full mistral_nemo_12b config, 4
      requests x 2048-token prompts x 32 new tokens, random weights from a
      seed; the kernels' launch counters are zeroed just before and read just
-     after, and must show every kernel on the path;
-  6. steady-state decode timings and correctness checks: the kernels'
-     model against the plain versions on a small config, and at full size
-     the decode path's logits against a teacher-forced prefill over the
-     generated tokens;
+     after, and must show every kernel on the path (the decode step runs as
+     a captured CUDA graph, whose replays count their launches); the
+     engine's graph tokens against eager ``decode_step`` calls for all 31
+     steps (identical; the largest logit difference printed);
+  6. a new engine's generate (one capture, its time), a warm one that
+     captures nothing, steady-state decode through the graph, profiles of
+     an eager and of a replayed decode step, and correctness checks: the
+     kernels' model against the plain versions on a small config, and at
+     full size the decode path's logits against a teacher-forced prefill
+     over the generated tokens;
   7. the SSM serving path: ``run_serve`` on the full mamba2_130m config, 8
      requests x 2048-token prompts x 32 new tokens, counters zeroed just
      before and read just after; a second run from the seed, steady-state
@@ -70,8 +78,12 @@ Phases, each fatal on failure:
   9. a GQA group-3 serving path: ``run_serve`` on minitron_4b at full width
      (d_model 3072, 24/8 heads, vocab 256,000), its depth cut to
      MINITRON_LAYERS layers, counters zeroed just before and read just
-     after, and its decode path's logits against a prefill of the same
-     tokens;
+     after, its graph tokens against eager ones, a new engine's generate,
+     a warm one, steady decode through the graph, profiles of an eager and
+     a replayed decode step, and its decode path's logits against a
+     prefill of the same tokens; then a child process
+     (``--capture-failure``) shows that a decode step that reads a value on
+     the host cannot be captured and the engine raises;
  10. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
@@ -167,7 +179,14 @@ class Timer:
     """Device time of one call. The call is captured once into a CUDA graph
     and the graph replayed, so the host's share (Python, ctypes, allocation)
     is left out; CUDA events around each replay, averaged, with the L2
-    cache flushed before each replay so every call reads device memory."""
+    cache flushed before each replay so every call reads device memory.
+
+    The flush writes 256 MB (``zero_``), so the L2 holds dirty lines when
+    the call starts, and a call that reads X bytes from device memory also
+    makes the L2 write about X bytes back: a memory-bound kernel pays about
+    twice its bytes. ``clean_l2=True`` flushes by reading the buffer
+    instead, which leaves clean lines: the L2 a decode step inside the
+    model finds (the weights it streams are read, not written)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -189,8 +208,9 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
-    def ms(self, fn, iters: int) -> float:
+    def ms(self, fn, iters: int, clean_l2: bool = False) -> float:
         torch = self.torch
+        flush = ((lambda: self.flush.max()) if clean_l2 else self.flush.zero_)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):       # warm up off the capture
@@ -202,7 +222,7 @@ class Timer:
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in ev:
-            self.flush.zero_()
+            flush()
             start.record()
             graph.replay()
             end.record()
@@ -376,6 +396,21 @@ def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
 SSD_ENTRY = r"ssd_chunk_kernelI(13__nv_bfloat16|f)Li(\d+)E"
 
 
+#: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
+DECODE_ENTRY = r"decode_attention_kernelILi(\d+)ELi(\d+)E"
+
+
+def decode_label(m) -> str:
+    return f"decode<{m.group(1)}, {m.group(2)}>"
+
+
+def decode_build_report(log: str) -> dict:
+    """Per decode kernel instantiation (``decode<hd, nrep>``):
+    :func:`ptxas_report` and the dynamic shared memory of a block."""
+    return ptxas_report(log, DECODE_ENTRY, decode_label, lambda m: {
+        "smem_bytes": decode_plan(1, int(m.group(2)), 1, int(m.group(1)))["smem_bytes"]})
+
+
 def ssd_label(m) -> str:
     return f"ssd<{'bf16' if m.group(1) != 'f' else 'f32'}, {m.group(2)}>"
 
@@ -427,6 +462,140 @@ def flash_cases(B, H, Hkv, S, hd):
             ("edge-257", (2, 8, 2, 257, 257, 128, True)),
             ("edge-257-full", (1, 8, 2, 257, 257, 64, False)),
             ("edge-sq>sk", (1, 8, 2, 300, 129, 128, True)))
+
+
+# Decode attention's phase-3 cases, (label, (B, H, Hkv, S, hd, kv_len)): the
+# serving cache of mistral_nemo_12b (B, S, Hkv, hd) = (4, 2081, 8, 128) read
+# transposed at the last and the first decode step's kv_len, kv_len 0, 1 and
+# S; ragged shapes; GQA group 3 (minitron_4b's 24/8 heads, compiled as it
+# is) and 16 (qwen3_moe_235b's 64/4, in chunks of 8 heads).
+def decode_cases() -> tuple:
+    s = PROMPT_LEN + NEW_TOKENS + 1
+    last = PROMPT_LEN + NEW_TOKENS - 1
+    return (("serve", (REQUESTS, 32, 8, s, 128, last)),
+            ("serve-first", (REQUESTS, 32, 8, s, 128, PROMPT_LEN + 1)),
+            ("kv_len 0", (REQUESTS, 32, 8, s, 128, 0)),
+            ("kv_len 1", (REQUESTS, 32, 8, s, 128, 1)),
+            ("kv_len S", (REQUESTS, 32, 8, s, 128, s)),
+            ("ragged", (3, 8, 2, 37, 64, 29)),
+            ("ragged-mha", (2, 4, 4, 300, 32, 300)),
+            ("gqa3-minitron", (REQUESTS, 24, 8, s, 128, last)),
+            ("gqa16", (2, 64, 4, 600, 128, 577)))
+
+
+#: the cases also run through one captured launch replayed at other kv_len
+DECODE_REPLAYED = ("serve", "gqa3-minitron", "gqa16")
+# Each decode output within one bf16 ulp of its f64 value, plus this share
+# of the largest |o|: the kernel's f32 arithmetic is ~1e-7 of the largest
+# output, its rounding to bf16 half an ulp; a P rounded once to bf16 moves
+# an output by ~1e-3 of the typical one, many ulps of the small ones.
+DECODE_ULP_FLOOR = 2.0 ** -14
+
+
+def decode_inputs(torch, g, shape):
+    """Seeded bf16 q (B, H, hd) and the cache (B, S, Hkv, hd) handed over as
+    (B, Hkv, S, hd) views, as the model passes it."""
+    b, h, hkv, s, hd, _ = shape
+
+    def randn(*dims):
+        return torch.randn(dims, generator=g, device="cuda").to(torch.bfloat16)
+    return randn(b, h, hd), randn(b, s, hkv, hd).transpose(1, 2), \
+        randn(b, s, hkv, hd).transpose(1, 2)
+
+
+def decode_exact(torch, q, k, v, kv_len: int):
+    """Decode attention over [0, kv_len) in float64: (o, lse)."""
+    rep = q.shape[1] // k.shape[1]
+    kk = k[:, :, :kv_len].double().repeat_interleave(rep, 1)
+    vv = v[:, :, :kv_len].double().repeat_interleave(rep, 1)
+    s = torch.einsum("bhd,bhkd->bhk", q.double(), kk) / q.shape[-1] ** 0.5
+    lse = torch.logsumexp(s, -1)
+    return torch.einsum("bhk,bhkd->bhd", torch.exp(s - lse[..., None]), vv), lse
+
+
+def bf16_ulp(torch, x):
+    """The bf16 unit in the last place at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def decode_check(torch, q, k, v, kv_len: int, o, lse, label: str,
+                 check: bool = True) -> dict:
+    """One decode call's outputs held: at kv_len 0, o = 0 and lse = -1e30;
+    otherwise o within DECODE_REL x max |plain| of the plain version (f32)
+    and element by element within one bf16 ulp + DECODE_ULP_FLOOR x max |o|
+    of the f64 value, lse within 1e-3. Returns the readings; with ``check``
+    raises on a failure."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    torch.cuda.synchronize()
+    kv_len = max(0, min(kv_len, k.shape[2]))
+    if kv_len == 0:
+        zero = bool((o == 0).all()) and bool((lse == -1e30).all())
+        if check and not zero:
+            raise AssertionError(f"{label}: kv_len 0 must give o = 0, lse = -1e30")
+        return {"o_err": 0.0 if zero else float("inf"), "lse_err": 0.0,
+                "ulp_excess": 0.0 if zero else float("inf")}
+    orf, lser = decode_attention_ref(q, k, v, kv_len, return_lse=True)
+    o64, lse64 = decode_exact(torch, q, k, v, kv_len)
+    finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
+    err = (o.float() - orf.float()).abs().max().item()
+    lim = DECODE_REL * orf.float().abs().max().item()
+    lse_err = (lse.double() - lse64).abs().max().item()
+    lse_lim = 1e-3 * max(1.0, lse64.abs().max().item())
+    off = (o.double() - o64).abs()
+    allowed = bf16_ulp(torch, o64) + DECODE_ULP_FLOOR * o64.abs().max()
+    out = {"o_err": err if finite else float("inf"), "o_lim": lim,
+           "lse_err": lse_err if finite else float("inf"),
+           "ulp_excess": (off / allowed).max().item() if finite else float("inf"),
+           "ulp_outside": int((off > allowed).sum())}
+    if check:
+        if not (finite and err <= lim):
+            raise AssertionError(f"{label}: finite {finite}, max |kernel - plain| "
+                                 f"{err:.3g} > {lim:.3g} ({DECODE_REL:g} x max |plain|)")
+        if not lse_err <= lse_lim:
+            raise AssertionError(f"{label}: lse error {lse_err:.3g}")
+        if out["ulp_outside"]:
+            raise AssertionError(
+                f"{label}: {out['ulp_outside']} outputs further than one bf16 ulp + "
+                f"{DECODE_ULP_FLOOR:g} x max |o| from the f64 value (worst "
+                f"{out['ulp_excess']:.3g} x the allowance)")
+    return out
+
+
+def decode_replay_check(torch, fn, q, k, v, lens, label: str,
+                        check: bool = True) -> dict:
+    """``fn(q, k, v, kv_len)`` captured once into a CUDA graph with a device
+    kv_len, then replayed with kv_len set on the device to each of ``lens``
+    (clamped to [0, S] by the kernel); each replay held by
+    :func:`decode_check`. Returns {kv_len: readings}."""
+    kl = torch.zeros(1, dtype=torch.int32, device=q.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capture
+        fn(q, k, v, kl)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = fn(q, k, v, kl)
+    out = {}
+    for n in lens:
+        kl.fill_(n)
+        graph.replay()
+        out[n] = decode_check(torch, q, k, v, n, o, lse, f"{label} at kv_len {n}",
+                              check)
+    return out
+
+
+def decode_bound(b: int, h: int, hkv: int, hd: int, kv_len: int) -> tuple[float, str]:
+    """Bytes: q and o (bf16), the kv_len valid K and V rows, the f32 lse;
+    operations: two products of 2 hd flops per (head, position)."""
+    nb = 2 * b * h * hd * 2 + 2 * b * hkv * kv_len * hd * 2 + b * h * 4
+    return bound(nb, 4.0 * b * h * kv_len * hd, BF16_FLOP_PER_S)
+
+
+def decode_plan(b: int, h: int, hkv: int, hd: int) -> dict:
+    from repro_torch.kernels.decode_attention.ops import plan
+    return plan(b, h, hkv, hd)
 
 
 def check_kernels(torch, timer) -> dict:
@@ -484,49 +653,51 @@ def check_kernels(torch, timer) -> dict:
     out["rmsnorm"] = dict(max_abs_err=max(errs), **numbers["prefill"],
                           decode=numbers["decode"])
 
-    # ---- decode attention: the serving cache (B, max_len, Hkv, hd), read
-    # transposed; the last decode step's kv_len; ragged shapes
-    errs = []
-    kv_last = PROMPT_LEN + NEW_TOKENS - 1
-    for label, (b, h, hkv, s, dh, kv_len) in (
-            ("serve", (B, H, Hkv, max_len, hd, kv_last)),
-            ("serve-first", (B, H, Hkv, max_len, hd, PROMPT_LEN + 1)),
-            ("ragged", (3, 8, 2, 37, 64, 29)),
-            ("ragged-mha", (2, 4, 4, 300, 32, 300)),
-            # GQA group 3 (minitron_4b's 24/8 heads) and 16 (qwen3_moe_235b's
-            # 64/4), compiled as it is and in chunks of 8 heads
-            ("gqa3-minitron", (B, 24, 8, max_len, hd, kv_last)),
-            ("gqa16", (2, 64, 4, 600, hd, 577))):
-        q = randn(b, h, dh)
-        ck, cv = randn(b, s, hkv, dh), randn(b, s, hkv, dh)
-        k, v = ck.transpose(1, 2), cv.transpose(1, 2)
-        o, lse = decode_attention(q, k, v, kv_len)
-        orf, lser = decode_attention_ref(q, k, v, kv_len, return_lse=True)
-        errs.append(compare_scaled(torch, o, orf, f"decode {label} o",
-                                   DECODE_REL))
-        lse_err = (lse - lser).abs().max().item()
-        if not lse_err <= 1e-3 * max(1.0, lser.abs().max().item()):
-            raise AssertionError(f"decode {label}: lse error {lse_err:.3g}")
+    # ---- decode attention: every phase-3 case (decode_cases), each called
+    # eagerly with a device kv_len and through one captured launch replayed
+    # with kv_len changed between replays; times at the serving shape
+    errs, ulps = [], []
+    for label, shape in decode_cases():
+        q, k, v = decode_inputs(torch, g, shape)
+        kv_len = shape[-1]
+        o, lse = decode_attention(q, k, v, torch.full((1,), kv_len, dtype=torch.int32,
+                                                      device=dev))
+        r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode {label}")
+        errs.append(r["o_err"])
+        ulps.append(r["ulp_excess"])
         say(f"  decode_attention {label} q {tuple(q.shape)} cache "
-            f"{tuple(ck.shape)} kv_len {kv_len} max|err| o {errs[-1]:.3g} "
-            f"lse {lse_err:.3g}")
+            f"{(shape[0], shape[3], shape[2], shape[4])} kv_len {kv_len}: {json.dumps(r)}")
+        if label in DECODE_REPLAYED:
+            lens = (0, 1, 17, kv_len // 2, kv_len, shape[3], shape[3] + 100)
+            reps = decode_replay_check(torch, decode_attention, q, k, v, lens,
+                                       f"decode {label} replayed")
+            errs += [x["o_err"] for x in reps.values()]
+            ulps += [x["ulp_excess"] for x in reps.values()]
+            say(f"    one captured launch replayed at kv_len {lens}: max|err| o "
+                f"{max(x['o_err'] for x in reps.values()):.3g}, lse "
+                f"{max(x['lse_err'] for x in reps.values()):.3g}")
         if label == "serve":
             main = (q, k, v, kv_len)
+        del q, k, v, o, lse
     q, k, v, kv_len = main
+    b, h, hd = q.shape
+    hkv = k.shape[1]
+    kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
     kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
-    nb = (q.numel() * 2 * 2 + 2 * B * Hkv * kv_len * hd * 2 + B * H * 4)
-    b_ms, b_by = bound(nb, 4.0 * B * H * kv_len * hd, BF16_FLOP_PER_S)
+    b_ms, b_by = decode_bound(b, h, hkv, hd, kv_len)
 
     def sdpa_decode():
         return sdpa(F, q[:, :, None], kc, vc, causal=False)
     out["decode_attention"] = dict(
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: decode_attention(q, k, v, kv_len), 200),
-        plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kv_len,
+        max_abs_err=max(errs), max_ulp_excess=max(ulps),
+        ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
+        plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
                                                        return_lse=True), 20),
         library_ms=timer.ms(sdpa_decode, 200),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=[B, H, Hkv, max_len, hd, kv_len])
+        bound_ms=b_ms, bound_by=b_by, plan=decode_plan(b, h, hkv, hd),
+        clean_l2={"ms": timer.ms(lambda: decode_attention(q, k, v, kl), 200, True),
+                  "library_ms": timer.ms(sdpa_decode, 200, True)},
+        shape=[b, h, hkv, k.shape[2], hd, kv_len])
     say(f"  decode_attention serve {out['decode_attention']}")
 
     # ---- flash attention: the prefill's (B, S, H, hd) activations, read
@@ -1445,15 +1616,88 @@ def ssm_layers_alone(torch, cfg, params, seq, s: int) -> list[float]:
     return errs
 
 
+def graph_vs_eager(torch, cfg, params, prompts, served=None) -> dict:
+    """The engine's decode path (the first step eager, then the captured
+    step replayed) against ``decode_step`` called eagerly, greedy, over all
+    NEW_TOKENS - 1 decode steps from the same prompts: the tokens must be
+    identical, to each other and to ``served`` (``run_serve``'s, where
+    given), and the largest logit difference is reported (expected 0: the
+    same kernels on the same inputs). Also the engine's capture count and
+    time."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import ServeEngine
+
+    b, s = prompts.shape
+    engine = ServeEngine(cfg, params, max_batch=b, max_len=s + NEW_TOKENS + 1)
+    with torch.no_grad():
+        logits, slot = engine._prefill(prompts)
+        graph_toks, graph_logits = [logits[:, -1].argmax(-1)], []
+        for i in range(NEW_TOKENS - 1):
+            lg = engine._decode(slot, graph_toks[-1], s + i)
+            graph_logits.append(lg.clone())
+            graph_toks.append(lg.argmax(-1))
+        captures, capture_s = engine.captures, engine.capture_s
+        del engine, slot
+        logits, cache = prefill(cfg, params, prompts, max_len=s + NEW_TOKENS + 1)
+        eager_toks, diff = [logits[:, -1].argmax(-1)], 0.0
+        for i in range(NEW_TOKENS - 1):
+            lg, cache = decode_step(cfg, params, cache, eager_toks[-1], s + i)
+            diff = max(diff, (lg.float() - graph_logits[i].float()).abs().max().item())
+            eager_toks.append(lg.argmax(-1))
+        del cache, graph_logits
+    graph_toks = [t.tolist() for t in graph_toks]
+    eager_toks = [t.tolist() for t in eager_toks]
+    out = {"steps": NEW_TOKENS - 1, "tokens_identical": graph_toks == eager_toks,
+           "served_identical": served is None or graph_toks == served,
+           "max_logit_diff": diff, "captures": captures, "capture_s": capture_s}
+    if not (out["tokens_identical"] and out["served_identical"] and captures == 1):
+        raise AssertionError(f"{cfg.name}: the captured decode step differs from "
+                             f"the eager one, or captured other than once: {out}")
+    return out
+
+
+def capture_failure_raises() -> int:
+    """Child process of phase 9: a decode step that reads a value on the
+    host (as a step still taking its position as a Python int would) cannot
+    be captured; the engine must raise, not decode eagerly."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, engine as engine_mod
+
+    cfg = get_config("mistral_nemo_12b", smoke=True)
+    step = engine_mod.decode_step
+
+    def host_reading_step(cfg, params, cache, token, pos):
+        if torch.cuda.is_current_stream_capturing():
+            int(pos.sum())
+        return step(cfg, params, cache, token, pos)
+
+    engine_mod.decode_step = host_reading_step
+    engine = ServeEngine(cfg, init_params(cfg, seed=SEED), max_batch=2, max_len=16)
+    prompts = torch.zeros((2, 8), dtype=torch.int64, device="cuda")
+    try:
+        engine.generate(prompts, n_tokens=4)
+    except RuntimeError as e:
+        if "does not decode eagerly" in str(e):
+            cause = " ".join(str(e.__cause__).split())
+            print(f"capture failure raised: {str(e)[:160]} (from "
+                  f"{type(e.__cause__).__name__}: {cause[:160]})")
+            return 0
+        raise
+    print("capture failure: generate returned", file=sys.stderr)
+    return 1
+
+
 def check_serving(torch, kernels, arch: str, requests: int,
                   want: dict[str, int], phase: int, cfg=None,
                   short: bool = False) -> dict[str, int]:
     """The serving path of ``arch`` (or of ``cfg``, a cut of it) at full
     size (phase N), then steady state and correctness (phase N + 1 for the
-    dense path, the same phase for the SSM one). ``short`` keeps the
-    counted ``run_serve`` and the full-size decode-vs-prefill check and
-    leaves out the second run, steady decode, the profiles and the small
-    config. Returns the launch counts of the ``run_serve`` call."""
+    dense path unless ``short``, the same phase for the SSM one). ``short``
+    leaves out the small config (a cut config has none the kernels take).
+    Returns the launch counts of the ``run_serve`` call."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import decode_step, prefill
@@ -1480,23 +1724,30 @@ def check_serving(torch, kernels, arch: str, requests: int,
         raise AssertionError(f"{arch}: generated tokens malformed")
 
     params, prompts = serve_inputs(torch, cfg, requests, SEED)
-    if not short:
-        engine = ServeEngine(cfg, params, max_batch=requests,
-                             max_len=PROMPT_LEN + NEW_TOKENS + 1)
-        warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
-        if warm.tokens != res.tokens:
-            raise AssertionError(f"{arch}: a second run from the same seed gave "
-                                 f"other tokens")
-        steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
-        del engine
-        if not cfg.attention_free:
-            phase += 1
-        say(f"[{phase}] warm generate: TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
-            f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
-        say(f"    decode_steady: TPOT mean {steady.tpot * 1e3:.4f} ms, min "
-            f"{min(steady.step_times) * 1e3:.4f}, max "
-            f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
-            f"steps; {steady.tokens_per_s:.2f} tokens/s")
+    say(f"    graph vs eager decode: {json.dumps(graph_vs_eager(torch, cfg, params, prompts, res.tokens))}")
+    engine = ServeEngine(cfg, params, max_batch=requests,
+                         max_len=PROMPT_LEN + NEW_TOKENS + 1)
+    cold = engine.generate(prompts, n_tokens=NEW_TOKENS)
+    captures = engine.captures
+    warm = engine.generate(prompts, n_tokens=NEW_TOKENS)
+    if warm.tokens != res.tokens or cold.tokens != res.tokens:
+        raise AssertionError(f"{arch}: a second run from the same seed gave "
+                             f"other tokens")
+    if captures != 1 or engine.captures != 1:
+        raise AssertionError(f"{arch}: captures {captures} in a new engine's "
+                             f"generate, {engine.captures} after a warm one")
+    steady = engine.decode_steady(prompts, n_steps=16, warmup=2)
+    if not (cfg.attention_free or short):
+        phase += 1
+    say(f"[{phase}] new engine's generate (captures the step once, "
+        f"{engine.capture_s * 1e3:.3f} ms): TTFT {cold.ttft * 1e3:.3f} ms, TPOT "
+        f"{cold.tpot * 1e3:.4f} ms")
+    say(f"    warm generate (captures nothing): TTFT {warm.ttft * 1e3:.3f} ms, "
+        f"TPOT {warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s")
+    say(f"    decode_steady through the graph: TPOT mean {steady.tpot * 1e3:.4f} "
+        f"ms, min {min(steady.step_times) * 1e3:.4f}, max "
+        f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
+        f"steps; {steady.tokens_per_s:.2f} tokens/s")
     if cfg.attention_free:
         say(f"    whole model, decode vs prefill, kernel and plain scan, seeds "
             f"{SSM_SEEDS}:")
@@ -1504,14 +1755,19 @@ def check_serving(torch, kernels, arch: str, requests: int,
     else:
         full = check_full_model(torch, cfg, params, prompts, res.tokens)
         say(f"    full-size consistency: {full}")
-    if not short:
-        with torch.no_grad():
-            logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
-            tok = logits[:, -1].argmax(-1)
-            decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
-            say(f"    profile of one decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
-            del logits, cache
-            say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
+        tok = logits[:, -1].argmax(-1)
+        decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
+        say(f"    profile of one eager decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
+        del logits, cache
+        logits, slot = engine._prefill(prompts)
+        tok = logits[:, -1].argmax(-1)
+        engine._decode(slot, tok, PROMPT_LEN)                 # a replay, warm
+        say(f"    profile of one replayed decode step (token and position "
+            f"writes, the graph): {profile(torch, lambda: engine._decode(slot, tok, PROMPT_LEN + 1))}")
+        del logits, slot, engine
+        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
     del params
     torch.cuda.empty_cache()
     if not short:
@@ -1746,6 +2002,12 @@ def main() -> int:
     if len(flash_build) != 12 or spilled:
         return fail(f"flash-attention build: {len(flash_build)} kernels, "
                     f"spills in {spilled}")
+    decode_build = decode_build_report(logs["decode_attention"])
+    say(f"    decode kernels (registers, spilled bytes, dynamic shared memory): "
+        f"{json.dumps(decode_build)}")
+    spilled = [k for k, v in decode_build.items() if v.get("spill_bytes", 1)]
+    if len(decode_build) != 15 or spilled:
+        return fail(f"decode build: {len(decode_build)} kernels, spills in {spilled}")
     ssd_build = ssd_build_report(logs["ssd"])
     say(f"    SSD kernels (registers, spilled bytes, dynamic shared memory "
         f"at P = 64): {json.dumps(ssd_build)}")
@@ -1761,6 +2023,7 @@ def main() -> int:
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
     numbers = check_kernels(torch, timer)
+    numbers["decode_attention"]["build"] = decode_build
     numbers["ssd"] = check_ssd(torch, timer) | {"build": ssd_build}
     numbers.update(check_training_kernels(torch, timer))
     for name, kernel in (("flash_attention", "flash_fwd_kernel<128>"),
@@ -1816,6 +2079,12 @@ def main() -> int:
         "flash_attention": cfg.n_layers,
         "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}, phase=9,
         cfg=cfg, short=True)
+    child = subprocess.run([sys.executable, __file__, "--capture-failure"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        return fail(f"a decode step that cannot be captured did not raise: "
+                    f"{child.stdout[-500:]} {child.stderr[-2000:]}")
+    say(f"    {child.stdout.strip().splitlines()[-1]}")
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "olmo_1b_train": train, "minitron_4b": gqa3}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
@@ -1855,4 +2124,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--capture-failure"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        sys.exit(capture_failure_raises())
     sys.exit(main())

@@ -10,9 +10,15 @@ at once, one ``nvcc`` process per source, all started together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a non-zero code into an exception.
+
+Each wrapper counts its kernel's executions with :func:`launched`. A launch
+made while a stream is captured into a CUDA graph runs only when the graph
+is replayed, so it goes to the tally of the :class:`CountedGraph` being
+captured, and each replay adds that tally to the counters.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +38,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_tallies: list[dict] = []      # the tallies of the graphs being captured
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
@@ -161,3 +168,43 @@ def refuse_grad(name: str, *tensors) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def launched(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel (its ``launches``). While
+    the current stream is capturing, the launch only runs at a replay: it
+    goes to the tally of the :class:`CountedGraph` being captured, or, in a
+    graph captured otherwise (a timing loop), is not counted."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        if _tallies:
+            _tallies[-1][wrapper] = _tallies[-1].get(wrapper, 0) + 1
+        return
+    wrapper.launches += 1
+
+
+class CountedGraph:
+    """A ``torch.cuda.CUDAGraph`` whose replays count the kernels they run:
+    :meth:`capture` collects the wrappers' launches into ``tally``, and
+    :meth:`replay` adds it to their counters."""
+
+    def __init__(self):
+        import torch
+        self.graph = torch.cuda.CUDAGraph()
+        self.tally: dict = {}
+
+    @contextlib.contextmanager
+    def capture(self, **kwargs):
+        """``torch.cuda.graph(self.graph, **kwargs)`` with the tally open."""
+        import torch
+        _tallies.append(self.tally)
+        try:
+            with torch.cuda.graph(self.graph, **kwargs):
+                yield self
+        finally:
+            _tallies.pop()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.tally.items():
+            wrapper.launches += n

@@ -1,9 +1,14 @@
-"""Wrapper of the split-KV decode-attention kernel.
+"""Wrapper of the decode-attention kernel.
 
 A CUDA tensor goes to the kernel in ``csrc/decode_attention.cu``; a CPU
-tensor goes to the plain version in :mod:`.ref`. ``decode_attention.launches``
-counts the kernel's launches (one per call: the split pass and the merge;
-the kernel chooses the split count from its occupancy).
+tensor goes to the plain version in :mod:`.ref`. The kernel is one launch
+per call: the blocks of a head group split ``[0, kv_len)`` among themselves
+and merge their partials in the same launch, and ``kv_len`` is read from
+device memory, so a call captured into a CUDA graph stays right while the
+position advances between replays. ``decode_attention.launches`` counts the
+kernel's executions: one per eager call; a call made while a stream is
+captured adds to the graph's tally instead, which each replay adds to the
+counter (:func:`repro_torch.kernels._build.launched`).
 
 K and V may be any strided view of shape (B, Hkv, S, hd) with a unit last
 stride: the model passes its (B, S, Hkv, hd) cache transposed, which the
@@ -20,21 +25,63 @@ from .. import _build
 from .ref import decode_attention_ref
 
 _HEAD_DIMS = (32, 64, 128)
-_MAX_SPLIT = 64                     # room for partials per (b, h); the
-                                    # kernel picks how many it writes
+_plans: dict[tuple, dict] = {}       # (B, H, Hkv, hd) -> the kernel's launch plan
+_scratch: dict[tuple, torch.Tensor] = {}  # (device, bytes) -> zeroed scratch
 
 
 def supports(hd: int, n_rep: int) -> bool:
     """Whether the kernel takes head dim ``hd`` and GQA group ``n_rep``
     (H / Hkv): groups 1, 2, 3, 4 and 8 are compiled as they are, any other
-    runs in chunks of 8 query heads per block."""
+    runs in chunks of 8 query heads per head group."""
     return hd in _HEAD_DIMS and n_rep >= 1
 
 
+def check_kv_len(kv_len: torch.Tensor, device: torch.device) -> None:
+    """A tensor ``kv_len`` is one int32 on the query's device."""
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"decode_attention: kv_len must be int32, not {kv_len.dtype}")
+    if kv_len.numel() != 1:
+        raise ValueError(f"decode_attention: kv_len must hold one value, not "
+                         f"{kv_len.numel()}")
+    if kv_len.device != device:
+        raise ValueError(f"decode_attention: kv_len on {kv_len.device}, q on {device}")
+
+
+def plan(b: int, h: int, hkv: int, hd: int) -> dict:
+    """The launch a call at this shape makes on the card, whatever kv_len:
+    ``n_split`` blocks per head group (the cluster size), ``groups`` head
+    groups, ``smem_bytes`` per block, ``cluster`` (the merge), the
+    ``scratch_bytes`` the counter merge needs (0 for the cluster) and the
+    ``clusters`` of that size the card runs at once. Cached per shape."""
+    key = (b, h, hkv, hd)
+    if key not in _plans:
+        info = (ctypes.c_int64 * 6)()
+        fn = _build.bind("decode_attention", "decode_attention_plan",
+                         [*[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int64)])
+        _build.check("decode_attention", fn(b, h, hkv, hd, info))
+        _plans[key] = dict(n_split=info[0], groups=info[1], smem_bytes=info[2],
+                           cluster=bool(info[3]), scratch_bytes=info[4],
+                           clusters=info[5])
+    return _plans[key]
+
+
+def _scratch_for(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The counter merge's scratch: allocated and zeroed once per device and
+    size; the kernel leaves its counters at zero after every launch."""
+    key = (device, nbytes)
+    if key not in _scratch:
+        _scratch[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    return _scratch[key]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: int, return_lse: bool = True):
-    """q: (B, H, hd); k, v: (B, Hkv, S, hd). Returns o [, lse]. The kernel
-    takes bfloat16 only."""
+                     kv_len, return_lse: bool = True):
+    """q: (B, H, hd); k, v: (B, Hkv, S, hd); kv_len: the valid prefix, a
+    one-element int32 tensor on q's device (the decode path's), or a Python
+    int (turned into one). Returns o [, lse]. The kernel takes bfloat16
+    only; it clamps kv_len to [0, S]."""
+    if isinstance(kv_len, torch.Tensor):
+        check_kv_len(kv_len, q.device)
     if q.device.type == "cpu":
         o, lse = decode_attention_ref(q, k, v, kv_len, return_lse=True)
         return (o, lse) if return_lse else o
@@ -57,24 +104,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: tensors on different devices")
     if not all(_build.rows_aligned(t) for t in (q, k, v)):
         raise ValueError("decode_attention: rows must start on 16 bytes")
-    kv_len = max(0, min(int(kv_len), s))
+    if not isinstance(kv_len, torch.Tensor):
+        kv_len = torch.full((1,), max(0, min(int(kv_len), s)), dtype=torch.int32,
+                            device=q.device)
     o = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b * h * _MAX_SPLIT * hd,), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b * h * _MAX_SPLIT * 2,), dtype=torch.float32,
-                          device=q.device)
+    nbytes = plan(b, h, hkv, hd)["scratch_bytes"]
+    scratch = _build.ptr(_scratch_for(q.device, nbytes)) if nbytes else None
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                    *v.stride()[:3])
     fn = _build.bind("decode_attention", "decode_attention_fwd", [
-        *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 6,
+        *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-             _build.ptr(lse), _build.ptr(part_acc), _build.ptr(part_ml),
-             b, h, hkv, hd, kv_len, _MAX_SPLIT, strides,
-             math.log2(math.e) / math.sqrt(hd), _build.stream_ptr(q.device))
+             _build.ptr(lse), _build.ptr(kv_len), scratch, b, h, hkv, s, hd,
+             strides, math.log2(math.e) / math.sqrt(hd),
+             _build.stream_ptr(q.device))
     _build.check("decode_attention", err)
-    decode_attention.launches += 1
+    _build.launched(decode_attention)
     return (o, lse) if return_lse else o
 
 

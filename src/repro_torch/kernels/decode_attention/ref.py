@@ -1,4 +1,4 @@
-"""Plain PyTorch version of split-KV decode attention (with LSE export)."""
+"""Plain PyTorch version of decode attention (with LSE export)."""
 from __future__ import annotations
 
 import math
@@ -7,8 +7,10 @@ import torch
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: int, return_lse: bool = False):
-    """q: (B, H, hd); k, v: (B, Hkv, S, hd); kv_len: valid prefix length.
+                         kv_len: int | torch.Tensor, return_lse: bool = False):
+    """q: (B, H, hd); k, v: (B, Hkv, S, hd); kv_len: valid prefix length, an
+    int or a one-element tensor on q's device (read on the device, no host
+    synchronisation).
 
     Returns o (B, H, hd) [, lse (B, H)]: f32 math, o in q's dtype.
     """

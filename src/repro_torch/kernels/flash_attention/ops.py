@@ -99,7 +99,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              b, h, hkv, sq, sk, hd, int(causal), _LOG2E / math.sqrt(hd),
              _strides(q, k, v, o), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    flash_attention.launches += 1
+    _build.launched(flash_attention)
     return o
 
 
@@ -125,7 +125,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              _LOG2E / math.sqrt(hd), _strides(q, k, v, o),
              _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    flash_attention_fwd_lse.launches += 1
+    _build.launched(flash_attention_fwd_lse)
     return o, lse
 
 
@@ -152,7 +152,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
              sk, hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dk, dv), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    flash_attention_bwd_dkv.launches += 1
+    _build.launched(flash_attention_bwd_dkv)
     return dk, dv
 
 
@@ -178,7 +178,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
              hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dq), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    flash_attention_bwd_dq.launches += 1
+    _build.launched(flash_attention_bwd_dq)
     return dq
 
 

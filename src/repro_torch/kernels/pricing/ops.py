@@ -57,7 +57,7 @@ def pricing_f64(x: torch.Tensor, entry: str = "price") -> torch.Tensor:
     if x.device.type == "cpu":
         return pricing_ref(x, entry)
     y = _launch(x, entry, f32=False)
-    pricing_f64.launches += 1
+    _build.launched(pricing_f64)
     return y
 
 
@@ -68,7 +68,7 @@ def pricing_f32(x: torch.Tensor, entry: str = "price") -> torch.Tensor:
     if x.device.type == "cpu":
         return pricing_ref(x, entry, f32=True)
     y = _launch(x, entry, f32=True)
-    pricing_f32.launches += 1
+    _build.launched(pricing_f32)
     return y
 
 

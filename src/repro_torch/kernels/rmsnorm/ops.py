@@ -53,7 +53,7 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
              _build.ptr(w), _build.ptr(y), _build.ptr(rout), t, d, eps, vec,
              _build.stream_ptr(x.device))
     _build.check("rmsnorm", err)
-    fused_rmsnorm.launches += 1
+    _build.launched(fused_rmsnorm)
     return y, rout
 
 

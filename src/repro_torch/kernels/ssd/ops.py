@@ -93,7 +93,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              (ctypes.c_longlong * len(strides))(*strides),
              _build.stream_ptr(x.device))
     _build.check("ssd", err)
-    ssd_chunk.launches += 1
+    _build.launched(ssd_chunk)
     return y, h
 
 

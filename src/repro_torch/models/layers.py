@@ -131,11 +131,13 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
 
 
 def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
-                          cache_v: torch.Tensor, pos: int, cfg: ModelConfig,
-                          rope):
+                          cache_v: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                          rope, kv_len: torch.Tensor):
     """One-token decode. x: (B, 1, d); cache_{k,v}: (B, Smax, Hkv, hd),
-    written in place at ``pos``; pos: a Python int; rope: ``rope_tables``
-    of ``[pos]``.
+    written in place at ``pos``; pos: the position, a (1,) int64 tensor on
+    x's device; rope: ``rope_tables`` of ``pos``; kv_len: ``pos + 1`` as a
+    (1,) int32 tensor. Nothing here reads a value on the host, so the step
+    can be captured in a CUDA graph and replayed at later positions.
 
     Returns (out (B, 1, d), cache_k, cache_v)."""
     b, _, _ = x.shape
@@ -145,10 +147,10 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     v = _mm(x, p["wv"]).view(b, 1, cfg.n_kv_heads, hd)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    cache_k.index_copy_(1, pos, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, pos, v.to(cache_v.dtype))
     o = decode_attention(q[:, 0], cache_k.transpose(1, 2),
-                         cache_v.transpose(1, 2), pos + 1,
+                         cache_v.transpose(1, 2), kv_len,
                          return_lse=False)                 # (B, H, hd)
     o = o.reshape(b, 1, cfg.n_heads * hd)
     return _mm(o, p["wo"]), cache_k, cache_v

@@ -5,7 +5,7 @@ Public entry points, mirroring ``repro/models/transformer.py``:
   forward(cfg, params, tokens)                       -> logits
   loss_fn(cfg, params, batch)                        -> scalar loss
   init_cache(cfg, batch, max_len, device)            -> cache
-  prefill(cfg, params, tokens, max_len)              -> logits, cache
+  prefill(cfg, params, tokens, max_len, cache)       -> logits, cache
   decode_step(cfg, params, cache, token, pos)        -> logits, cache
 
 Two layer kinds run: attention + MLP layers (dense decoders, SwiGLU or
@@ -40,8 +40,14 @@ The cache has the reference's layout and dtypes: for attention layers
 layers ``ssm`` (n_blocks, n_ssm, B, H, P, N) in float32 and ``conv``
 (n_blocks, n_ssm, B, K-1, d_inner + 2N) in bfloat16, whatever the compute
 dtype. The SSM entries do not depend on ``max_len``. Unlike the reference,
-prefill fills the cache in the same pass that computes the logits, and
-``decode_step`` writes it in place.
+prefill fills the cache in the same pass that computes the logits (into a
+given cache, if one is passed), and ``decode_step`` writes it in place.
+
+``decode_step`` takes the position as the reference's traced ``pos``: a
+one-element integer tensor on the model's device (a Python int is turned
+into one). The cache write, the RoPE angles and the attention's ``kv_len``
+are computed from it on the device, so one step captured in a CUDA graph
+(``serve/engine.py``) is replayed at every later position.
 """
 from __future__ import annotations
 
@@ -205,11 +211,11 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
-def _rope(cfg: ModelConfig, start: int, n: int, device):
-    """RoPE tables of positions start..start+n-1; None without attention."""
+def _rope(cfg: ModelConfig, n: int, device):
+    """RoPE tables of positions 0..n-1; None without attention."""
     if cfg.attention_free:
         return None
-    pos = torch.arange(start, start + n, device=device)
+    pos = torch.arange(n, device=device)
     return L.rope_tables(pos, cfg.hd, cfg.rope_theta)
 
 
@@ -219,7 +225,7 @@ def forward(cfg: ModelConfig, params: dict,
     """tokens: (B, S) int. Returns logits (B, S, V) in the compute dtype."""
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
-    rope = _rope(cfg, 0, tokens.shape[1], x.device)
+    rope = _rope(cfg, tokens.shape[1], x.device)
 
     def mix(b, i, lp, h):
         if "ssm" in lp:
@@ -268,18 +274,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            max_len: int | None = None):
+            max_len: int | None = None, cache: dict | None = None):
     """Logits for the prompt and a cache of ``max_len`` positions (default
     the prompt length) whose first S positions hold the prompt's K/V, and
-    the SSM layers' state and convolution tail after the prompt."""
+    the SSM layers' state and convolution tail after the prompt. With
+    ``cache`` (of ``init_cache``'s layout, for this batch and at least S
+    positions), prefill writes into it in place and returns it; positions
+    from S on keep what they held, which decode overwrites before it reads
+    them."""
     b, s = tokens.shape
-    max_len = s if max_len is None else max_len
-    if max_len < s:
-        raise ValueError(f"max_len {max_len} < prompt length {s}")
-    cache = init_cache(cfg, b, max_len, tokens.device)
+    if cache is None:
+        max_len = s if max_len is None else max_len
+        if max_len < s:
+            raise ValueError(f"max_len {max_len} < prompt length {s}")
+        cache = init_cache(cfg, b, max_len, tokens.device)
+    else:
+        _check_cache(cache, b, s)
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
-    rope = _rope(cfg, 0, s, x.device)
+    rope = _rope(cfg, s, x.device)
 
     def mix(blk, slot, lp, h):
         if "ssm" in lp:
@@ -296,14 +309,43 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return L._mm(h, _head(cfg, params)), cache
 
 
+def _check_cache(cache: dict, b: int, s: int) -> None:
+    """A cache given to prefill serves ``b`` sequences of ``s`` tokens."""
+    for name, t in cache.items():
+        if t.shape[2] != b:
+            raise ValueError(f"cache {name!r} holds {t.shape[2]} sequences, the "
+                             f"prompt batch {b}")
+    if "k" in cache and cache["k"].shape[3] < s:
+        raise ValueError(f"cache of {cache['k'].shape[3]} positions < prompt "
+                         f"length {s}")
+
+
+def position(pos, device) -> torch.Tensor:
+    """The decode position as a (1,) int64 tensor on ``device``: a Python
+    int is turned into one, a one-element integer tensor there is taken as
+    it is (no host read)."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.tensor([pos], dtype=torch.int64, device=device)
+    if pos.numel() != 1 or pos.dtype.is_floating_point or pos.dtype.is_complex:
+        raise ValueError(f"decode position: one integer, not {pos.dtype} of "
+                         f"shape {tuple(pos.shape)}")
+    if pos.device != device:
+        raise ValueError(f"decode position on {pos.device}, the model on {device}")
+    return pos.reshape(1).to(torch.int64)
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, pos: int):
-    """One autoregressive step. token: (B,) int; pos: the Python int
-    position being written. Updates ``cache`` in place and returns
-    (logits (B, V), cache)."""
+                token: torch.Tensor, pos):
+    """One autoregressive step. token: (B,) int; pos: the position being
+    written, a one-element integer tensor on the model's device, or a Python
+    int. Updates ``cache`` in place and returns (logits (B, V), cache).
+    Reads nothing on the host: CUDA-graph capturable."""
     dtype = compute_dtype(cfg)
     x = params["embed"][token][:, None, :].to(dtype)       # (B, 1, d)
-    rope = _rope(cfg, pos, 1, x.device)
+    pos = position(pos, x.device)
+    if not cfg.attention_free:
+        rope = L.rope_tables(pos, cfg.hd, cfg.rope_theta)
+        kv_len = (pos + 1).to(torch.int32)
 
     def mix(blk, slot, lp, h):
         if "ssm" in lp:
@@ -311,7 +353,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                      cache["conv"][blk, slot], cfg)[0]
         return L.decode_self_attention(lp["attn"], h, cache["k"][blk, slot],
                                        cache["v"][blk, slot], pos, cfg,
-                                       rope)[0]
+                                       rope, kv_len)[0]
 
     h = _run_stack(cfg, params, x, mix)
     return L._mm(h[:, 0], _head(cfg, params)), cache

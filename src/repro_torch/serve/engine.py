@@ -3,7 +3,7 @@
 
 Mirrors ``repro/serve/engine.py``: TTFT is the prefill latency up to the
 first sampled token, TPOT the decode step latency. Two decode loops share
-the model's ``decode_step``:
+one decode step:
 
 * :meth:`ServeEngine.generate` — the serving path: the card runs ahead of
   the host through the decode loop; the host waits for it once after the
@@ -11,10 +11,28 @@ the model's ``decode_step``:
 * :meth:`ServeEngine.decode_steady` — the measurement path: warm-up steps
   are discarded, then every steady-state step is synchronised and timed.
 
-The K/V cache holds ``max_len`` positions from the start and prefill writes
-the first S, which leaves the same contents as the reference's copy of the
-prefill cache into a serving-length one, without the copy; the SSM state
-and conv tail do not depend on ``max_len`` and carry over as they are.
+The reference compiles its decode step once (``jax.jit``); the port
+captures it once in a CUDA graph. The engine owns one cache per batch size
+at ``max_len`` positions, with static token and position buffers, and
+prefill writes the prompt into that cache in place. On the card the first
+decode step of a batch size runs eagerly (the warm-up, which also builds
+the kernels), then ``decode_step`` is captured in a
+:class:`~repro_torch.kernels._build.CountedGraph` that reads the cache,
+the token and the position by address, and every later step writes the
+token and position into their buffers and replays the graph, across
+``generate`` calls too: a warm call captures nothing. The position lives on
+the device, so the replayed step writes its K/V at the new position and
+attends over ``pos + 1`` keys. Sampling stays outside the graph. A capture
+that fails raises; the engine never falls back to eager decoding on the
+card. On the CPU, which the caller asks for explicitly, the same step runs
+eagerly. The kernels' launch counters count the graph's replays
+(``kernels.launches()``).
+
+Prefill writes the first S positions of the cache, which leaves the same
+contents as the reference's copy of the prefill cache into a serving-length
+one, without the copy; positions from S on keep what they held, and decode
+writes each before it reads it. The SSM state and conv tail do not depend
+on ``max_len`` and are overwritten by prefill.
 """
 from __future__ import annotations
 
@@ -24,7 +42,8 @@ import time
 import torch
 
 from ..device import resolve_device, synchronize
-from ..models import decode_step, prefill
+from ..kernels._build import CountedGraph
+from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
 
 
@@ -57,6 +76,19 @@ class SteadyTiming:
         return self.batch / t if t > 0 else 0.0
 
 
+class _Slot:
+    """One batch size's decode state: the cache at ``max_len`` positions,
+    the token and position the step reads, and on the card the captured
+    step with its logits buffer."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device):
+        self.cache = init_cache(cfg, batch, max_len, device)
+        self.token = torch.zeros(batch, dtype=torch.int64, device=device)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.graph: CountedGraph | None = None
+        self.logits: torch.Tensor | None = None
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int = 8,
                  max_len: int = 1024, device=None):
@@ -65,6 +97,9 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = resolve_device(device)
+        self._slots: dict[int, _Slot] = {}
+        self.captures = 0            # decode steps captured into a CUDA graph
+        self.capture_s = 0.0         # host seconds spent capturing them
 
     # --- shared plumbing ----------------------------------------------------
     def _check_window(self, b: int, s: int, n_tokens: int) -> None:
@@ -89,8 +124,55 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=rng)[:, 0]
 
     def _prefill(self, prompts: torch.Tensor):
-        return prefill(self.cfg, self.params, prompts.to(self.device),
-                       max_len=self.max_len)
+        """Prefill into the batch size's cache; returns (logits, slot)."""
+        b = prompts.shape[0]
+        slot = self._slots.get(b)
+        if slot is None:
+            slot = self._slots[b] = _Slot(self.cfg, b, self.max_len, self.device)
+        logits, _ = prefill(self.cfg, self.params, prompts.to(self.device),
+                            cache=slot.cache)
+        return logits, slot
+
+    def _decode(self, slot: _Slot, token: torch.Tensor, pos: int) -> torch.Tensor:
+        """One decode step at position ``pos`` after ``token``: the logits
+        (B, V), on the card the graph's buffer, valid until the next step."""
+        slot.token.copy_(token)
+        slot.pos.fill_(pos)
+        if self.device.type != "cuda":
+            return decode_step(self.cfg, self.params, slot.cache, slot.token,
+                               slot.pos)[0]
+        if slot.graph is None:
+            return self._warm_up_and_capture(slot)
+        slot.graph.replay()
+        return slot.logits
+
+    def _warm_up_and_capture(self, slot: _Slot) -> torch.Tensor:
+        """Run the step once eagerly on a side stream (it builds the kernels
+        and allocates what a first call allocates), then capture it; returns
+        the eager step's logits. A failed capture raises."""
+        def step():
+            return decode_step(self.cfg, self.params, slot.cache, slot.token,
+                               slot.pos)[0]
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            logits = step()
+        current.wait_stream(side)
+        graph = CountedGraph()
+        t0 = time.perf_counter()
+        try:
+            with graph.capture():
+                slot.logits = step()
+        except RuntimeError as e:    # torch raises CUDA errors as RuntimeErrors
+            raise RuntimeError(
+                f"ServeEngine: capturing the decode step of {self.cfg.name} at "
+                f"batch {slot.token.shape[0]} in a CUDA graph failed; the "
+                f"engine does not decode eagerly on the card") from e
+        self.capture_s += time.perf_counter() - t0
+        self.captures += 1
+        slot.graph = graph
+        return logits
 
     # --- serving path -------------------------------------------------------
     def generate(self, prompts: torch.Tensor, n_tokens: int,
@@ -102,19 +184,16 @@ class ServeEngine:
         self._check_window(b, s, n_tokens)
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, cache = self._prefill(prompts)
+            logits, slot = self._prefill(prompts)
             next_tok = self._sample(logits[:, -1], temperature, rng)
             synchronize(self.device)
             ttft = time.perf_counter() - t0
 
             toks = [next_tok]
             t1 = time.perf_counter()
-            pos = s
-            for _ in range(n_tokens - 1):
-                logits_i, cache = decode_step(self.cfg, self.params, cache,
-                                              toks[-1], pos)
+            for i in range(n_tokens - 1):
+                logits_i = self._decode(slot, toks[-1], s + i)
                 toks.append(self._sample(logits_i, temperature, rng))
-                pos += 1
             synchronize(self.device)
             dt = time.perf_counter() - t1
         tpot = dt / max(n_tokens - 1, 1)
@@ -126,31 +205,28 @@ class ServeEngine:
     def decode_steady(self, prompts: torch.Tensor, n_steps: int = 16,
                       warmup: int = 2) -> SteadyTiming:
         """Steady-state greedy decode with per-step timing: prefill,
-        ``warmup`` untimed decode steps, then ``n_steps`` steps each
-        synchronised and timed on its own."""
+        ``warmup`` untimed decode steps (on a new batch size the first one
+        also captures the step), then ``n_steps`` steps each synchronised
+        and timed on its own."""
         b, s = prompts.shape
         self._check_window(b, s, warmup + n_steps + 1)
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, cache = self._prefill(prompts)
+            logits, slot = self._prefill(prompts)
             tok = self._sample(logits[:, -1], 0.0, None)
             synchronize(self.device)
             ttft = time.perf_counter() - t0
 
             pos = s
             for _ in range(warmup):
-                logits_i, cache = decode_step(self.cfg, self.params, cache,
-                                              tok, pos)
-                tok = self._sample(logits_i, 0.0, None)
+                tok = self._sample(self._decode(slot, tok, pos), 0.0, None)
                 pos += 1
             synchronize(self.device)
 
             times: list[float] = []
             for _ in range(n_steps):
                 t1 = time.perf_counter()
-                logits_i, cache = decode_step(self.cfg, self.params, cache,
-                                              tok, pos)
-                tok = self._sample(logits_i, 0.0, None)
+                tok = self._sample(self._decode(slot, tok, pos), 0.0, None)
                 synchronize(self.device)
                 times.append(time.perf_counter() - t1)
                 pos += 1

@@ -119,7 +119,9 @@ def test_minitron_group3_decodes_like_the_reference():
 
 # ------------------------------ the import rule -------------------------------
 def _port_files() -> list[Path]:
-    return [ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("flash_*.py")),
+    return [ROOT / "chip_smoke.py",
+            *sorted(f for pat in ("flash_*.py", "ssd_*.py", "decode_*.py")
+                    for f in (ROOT / "tools").glob(pat)),
             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
 
 

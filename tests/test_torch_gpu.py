@@ -8,7 +8,8 @@ attention's outputs, averages over up to ~2000 values, are held within four
 bf16 ulps of the largest reference output instead. The SSD kernel computes
 in f32 and is held to the reference's 2e-4 on y and the final state. The
 models on the card are held against the plain versions on the CPU within
-2e-2 of the largest logit. The f64 pricing kernel must be
+2e-2 of the largest logit, and the engine's captured decode step against
+the eager one (identical tokens). The f64 pricing kernel must be
 bit-identical to its plain version and to the numpy formula, and the f32
 one within the drift band 1e-5 of the f64 reference. The training kernels
 (the forward with LSE, dK/dV, dQ) and the gradients through
@@ -131,6 +132,87 @@ def test_decode_kernel_matches_plain(cuda, b, h, hkv, s, hd, kv_len):
     assert bool(torch.isfinite(o.float()).all())
     assert _scaled_err(o, orf) <= 2.0 ** -6
     _close(lse, lser, 1e-3)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,hd", [
+    (4, 32, 8, 2081, 128),      # mistral_nemo_12b's serving cache
+    (4, 24, 8, 2081, 128),      # GQA group 3 (minitron_4b)
+    (2, 64, 4, 600, 128)])      # GQA group 16 (qwen3_moe_235b), in chunks
+def test_decode_kernel_replayed_with_kv_len_changed_on_the_card(cuda, b, h, hkv, s, hd):
+    """One launch captured in a CUDA graph with a device kv_len, replayed
+    with kv_len set on the device between replays (0, 1, ragged, S, past S):
+    each replay matches the plain version at that length, and the kernel
+    counts one launch per replay through a counted graph."""
+    from repro_torch.kernels._build import CountedGraph
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(b, h, hd, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, s, hkv, hd, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, s, hkv, hd, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    kl = torch.full((1,), 5, dtype=torch.int32, device=cuda)
+    decode_attention(q, k, v, kl)           # warm: builds the kernel
+    graph = CountedGraph()
+    with graph.capture():
+        o, lse = decode_attention(q, k, v, kl)
+    n = decode_attention.launches
+    for i, kv_len in enumerate((0, 1, 37, s // 2, s, s + 50)):
+        kl.fill_(kv_len)
+        graph.replay()
+        assert decode_attention.launches == n + i + 1
+        if kv_len == 0:
+            _close(o, torch.zeros_like(o), 0.0)
+            assert bool((lse == -1e30).all())
+            continue
+        orf, lser = decode_attention_ref(q, k, v, min(kv_len, s), return_lse=True)
+        assert _scaled_err(o, orf) <= 2.0 ** -6
+        _close(lse, lser, 1e-3)
+
+
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "mamba2_130m"])
+def test_engine_graph_tokens_match_eager_decode(cuda, arch):
+    """The engine on the card captures the decode step once and replays it:
+    its greedy tokens and logits equal decode_step called eagerly, a warm
+    generate captures nothing, and the launch counters count the replays
+    (decode attention: one per layer and decode step)."""
+    cfg = SMOKE if arch == "mistral_nemo_12b" else SSM_SMOKE
+    from repro_torch.serve import ServeEngine
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(9))
+    engine = ServeEngine(cfg, params, max_batch=2, max_len=16)
+    reset_launches()
+    first = engine.generate(prompts, n_tokens=6)
+    assert engine.captures == 1
+    if not cfg.attention_free:
+        assert launches()["decode_attention"] == cfg.n_layers * 5
+    again = engine.generate(prompts, n_tokens=6)
+    assert engine.captures == 1 and again.tokens == first.tokens
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=16)
+        tok = logits[:, -1].argmax(-1)
+        eager = [tok.tolist()]
+        for i in range(5):
+            lg, cache = decode_step(cfg, params, cache, tok, 8 + i)
+            tok = lg.argmax(-1)
+            eager.append(tok.tolist())
+    assert first.tokens == eager
+
+
+def test_engine_raises_when_the_step_cannot_be_captured(cuda, monkeypatch):
+    """A step that reads a value on the host cannot be captured: the engine
+    raises instead of decoding eagerly."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    step = engine_mod.decode_step
+
+    def host_reading_step(cfg, params, cache, token, pos):
+        if torch.cuda.is_current_stream_capturing():
+            int(pos.sum())
+        return step(cfg, params, cache, token, pos)
+    monkeypatch.setattr(engine_mod, "decode_step", host_reading_step)
+    engine = ServeEngine(SMOKE, init_params(SMOKE, seed=0, device=cuda),
+                         max_batch=1, max_len=16)
+    with pytest.raises(RuntimeError, match="does not decode eagerly"):
+        engine.generate(torch.zeros((1, 8), dtype=torch.int64, device=cuda), n_tokens=3)
 
 
 def test_kernels_refuse_float32_on_the_card(cuda):

@@ -8,7 +8,8 @@ plants edits that change the source, each of the three kernels has a
 pipeline fault, and each diagnosis run removes lines that exist, so a
 rewrite of the kernels cannot leave the tool aiming at lines that no
 longer exist. The same holds for the variants of
-``tools/flash_fwd_variants.py`` and ``tools/flash_bwd_variants.py``.
+``tools/flash_fwd_variants.py`` and ``tools/flash_bwd_variants.py``, and of
+the SSD and decode-attention tools.
 """
 from __future__ import annotations
 
@@ -144,3 +145,48 @@ def test_ssd_variant_finds_its_text_once(name):
     assert (SSD_VARIANTS.variant_source(name) == text) == (not edits)
     # a variant that leaves work out says so
     assert (name == "as-is") != what.endswith(SSD_VARIANTS.OUTSIDE)
+
+
+# ------------------------------- decode attention -----------------------------
+DECODE_TOOL = _tool("decode_planted_faults")
+DECODE_VARIANTS = _tool("decode_variants")
+DECODE_SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "decode_attention" / "csrc" / "decode_attention.cu"
+
+
+def test_decode_tools_name_the_sources():
+    assert ROOT / "src" / DECODE_TOOL.KERNEL == DECODE_SOURCE
+    assert (ROOT / "src" / DECODE_TOOL.ENGINE).is_file()
+    assert DECODE_VARIANTS.SOURCE == DECODE_SOURCE
+
+
+@pytest.mark.parametrize("path,anchor", [(path, a) for path, anchors in
+                                         DECODE_TOOL.ANCHORS.items() for a in anchors])
+def test_decode_anchor_occurs_once(path, anchor):
+    assert (ROOT / "src" / path).read_text().count(anchor) == 1
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_TOOL.FAULTS))
+def test_decode_fault_plants_its_edits(name):
+    path, edits, what = DECODE_TOOL.FAULTS[name]
+    text = (ROOT / "src" / path).read_text()
+    assert what and edits
+    planted = DECODE_TOOL.plant(text, edits)
+    for old, new in edits:
+        assert old in DECODE_TOOL.ANCHORS[path] and new != old
+        assert planted.count(new) == 1 and planted.count(old) == (old in new)
+    assert len(planted) - len(text) == sum(len(n) - len(o) for o, n in edits)
+
+
+def test_decode_faults_cover_the_split_the_length_p_and_the_graph():
+    """A dropped split, kv_len off by one, P rounded once to bf16 and a
+    kv_len frozen at its captured value are among the faults."""
+    assert set(DECODE_TOOL.FAULTS) == {"dropped_split", "kv_len_off_by_one",
+                                       "p_rounded_to_bf16", "kv_len_frozen_at_capture"}
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_VARIANTS.VARIANTS))
+def test_decode_variant_finds_its_text_once(name):
+    text = DECODE_SOURCE.read_text()
+    edits, what = DECODE_VARIANTS.VARIANTS[name]
+    assert what and all(text.count(old) == 1 and new != old for old, new in edits)
+    assert (DECODE_VARIANTS.variant_source(name) == text) == (not edits)
