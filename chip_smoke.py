@@ -8,13 +8,22 @@ OLMo-1B, and serve Minitron-4B (GQA group 3) at full width.
 Phases, each fatal on failure:
   1. the card and the toolchain;
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc
-     (sm_90a), one process per source, all in parallel, printing
-     ``-Xptxas -v``; every flash-attention and SSD instantiation's
-     registers, spills (none allowed) and dynamic shared memory;
+     (sm_90a), one process per source, and a small measurement helper
+     (PROBE_SOURCE), all in parallel, printing ``-Xptxas -v``; every
+     RMSNorm, flash-attention, decode and SSD instantiation's registers,
+     spills (none allowed) and shared memory;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at ragged ones, with its time, the plain
      version's, one PyTorch library call's (where one exists) and the least
-     time the card could take (bound); the pricing kernel at 2^20 rows, f64
+     time the card could take (bound); the fused RMSNorm at the six shapes
+     of the serving paths (RMSNORM_SHAPES: the residual norm of mistral and
+     mamba2 and Mamba2's gated norm, decode and prefill) and at ragged and
+     unaligned ones, y within one bf16 ulp of its f64 value, the residual
+     bit for bit, the gated norm within one ulp of the unfused chain, a race
+     check (a predecessor that writes x last, eagerly and replayed), each
+     decode shape timed as 81 launches captured in one graph beside an
+     empty kernel's, each prefill shape with the L2 flushed by a read and
+     by a write; the pricing kernel at 2^20 rows, f64
      bit for bit and f32 within the drift band; the SSD scan in f32 within
      the reference's 2e-4, in the model's layout (B/C at head stride 0, or
      per head) and in the Pallas kernel's, at ragged lengths, P != N and a
@@ -388,12 +397,25 @@ def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
             out[name]["spill_bytes"] = int(st) + int(ld)
         elif name and "Used" in line and "registers" in line:
             out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
             name = None
     return out
 
 
 #: Mangled entry names of the SSD kernel: ssd_chunk_kernel<T, NP>.
 SSD_ENTRY = r"ssd_chunk_kernelI(13__nv_bfloat16|f)Li(\d+)E"
+
+
+#: Mangled entry names of the RMSNorm kernel: rmsnorm_kernel<VW, PER, GATE>.
+RMSNORM_ENTRY = r"rmsnorm_kernelILi(\d+)ELi(\d+)ELb([01])E"
+#: its instantiations: (VW, PER) = (8, 1), (8, 2), (8, 4) and (1, 4), each
+#: with and without the gate but (8, 4)
+RMSNORM_BUILDS = 7
+
+
+def rmsnorm_label(m) -> str:
+    return f"rmsnorm<vw {m.group(1)}, per {m.group(2)}{', gated' if m.group(3) == '1' else ''}>"
 
 
 #: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
@@ -599,8 +621,9 @@ def decode_plan(b: int, h: int, hkv: int, hd: int) -> dict:
 
 
 def check_kernels(torch, timer) -> dict:
-    """Each kernel against its plain version at the serving shapes and at
-    ragged ones; times at the heaviest serving shape."""
+    """Decode and flash attention against their plain versions at the
+    serving shapes and at ragged ones; times at the heaviest serving
+    shape."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -608,13 +631,10 @@ def check_kernels(torch, timer) -> dict:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
 
     cfg = get_config("mistral_nemo_12b")
-    B, S, d = REQUESTS, PROMPT_LEN, cfg.d_model
+    B, S = REQUESTS, PROMPT_LEN
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    max_len = PROMPT_LEN + NEW_TOKENS + 1
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -623,35 +643,6 @@ def check_kernels(torch, timer) -> dict:
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
     out = {}
-
-    # ---- fused RMSNorm: prefill rows, decode rows, a ragged width
-    errs = []
-    cases = {}
-    for label, t, dd in (("prefill", B * S, d), ("decode", B, d),
-                         ("ragged", 7, 100)):
-        x, r = randn(t, dd), randn(t, dd)
-        w = torch.rand(dd, generator=g, device=dev) + 0.5
-        y, res = fused_rmsnorm(x, w, r)
-        yr, resr = fused_rmsnorm_ref(x, w, r)
-        errs += [compare(torch, y, yr, f"rmsnorm {label} y"),
-                 compare(torch, res, resr, f"rmsnorm {label} residual")]
-        cases[label] = (x, w, r)
-        say(f"  rmsnorm {label} ({t}, {dd}) max|err| {max(errs[-2:]):.3g}")
-    numbers = {}
-    for label in ("prefill", "decode"):
-        x, w, r = cases[label]
-        wb = w.to(bf)
-        t, dd = x.shape
-        nb, fl = 4 * t * dd * 2 + dd * 4, 5.0 * t * dd
-        b_ms, b_by = bound(nb, fl, F32_FLOP_PER_S)
-        numbers[label] = dict(
-            ms=timer.ms(lambda: fused_rmsnorm(x, w, r), 100),
-            plain_ms=timer.ms(lambda: fused_rmsnorm_ref(x, w, r), 20),
-            library_ms=timer.ms(lambda: F.rms_norm(x + r, (dd,), wb, 1e-6), 100),
-            bound_ms=b_ms, bound_by=b_by, shape=[t, dd])
-        say(f"  rmsnorm {label} {numbers[label]}")
-    out["rmsnorm"] = dict(max_abs_err=max(errs), **numbers["prefill"],
-                          decode=numbers["decode"])
 
     # ---- decode attention: every phase-3 case (decode_cases), each called
     # eagerly with a device kv_len and through one captured launch replayed
@@ -735,6 +726,340 @@ def check_kernels(torch, timer) -> dict:
         bound_ms=b_ms, bound_by=b_by, shape=[B, H, Hkv, S, S, hd])
     say(f"  flash_attention serve {out['flash_attention']}")
     return out
+
+
+# ------------------------------- phase 3: RMSNorm -----------------------------
+#: Row 1 at the shapes the serving paths give it, (label, rows, d, kind):
+#: kind "residual" (the block's add + norm), "plain" (the first norm, no
+#: residual) or "gated" (Mamba2's rmsnorm(y * silu(z), w): y float32, z a
+#: slice of in_proj's output read through its row stride).
+RMSNORM_SHAPES = (("mistral decode", REQUESTS, 5120, "residual"),
+                  ("mistral prefill", REQUESTS * PROMPT_LEN, 5120, "residual"),
+                  ("mamba2 decode", SSM_REQUESTS, 768, "residual"),
+                  ("mamba2 decode gated", SSM_REQUESTS, 1536, "gated"),
+                  ("mamba2 prefill", SSM_REQUESTS * PROMPT_LEN, 768, "residual"),
+                  ("mamba2 prefill gated", SSM_REQUESTS * PROMPT_LEN, 1536, "gated"))
+#: further cases, checked and not timed: the first norm of a pass, widths
+#: that take the scalar path, a gate whose rows do not start on 16 bytes
+RMSNORM_EXTRA = (("mistral first norm", REQUESTS, 5120, "plain"),
+                 ("ragged", 7, 100, "residual"), ("ragged gated", 7, 100, "gated"),
+                 ("ragged", 3, 770, "residual"), ("ragged first norm", 3, 770, "plain"),
+                 ("ragged gated", 3, 770, "gated"),
+                 ("gated unaligned", SSM_REQUESTS, 1536, "gated-unaligned"))
+#: launches a decode-shape timing graph holds, each on its own buffers: the
+#: norms of one mistral_nemo_12b decode step (1 + 2 x 40)
+GRAPH_LAUNCHES = 81
+#: rows above which a shape is timed one launch a replay (a launch moves far
+#: more than the L2 holds) instead of GRAPH_LAUNCHES
+GRAPH_ROWS = 64
+RMSNORM_EPS = 1e-6
+
+#: A helper library for row 1's measurements, not a kernel of the port:
+#: ``empty_launch`` launches an empty kernel with the geometry of a norm's
+#: launch (the floor under its time); ``slow_copy`` triggers its dependents
+#: at once, spins, then copies (the predecessor of the race check).
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void empty_kernel() {}
+__global__ void slow_copy_kernel(const uint4* src, uint4* dst, long long n, long long spin) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const long long t0 = clock64();
+  while (clock64() - t0 < spin) {}
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = src[i];
+}
+extern "C" {
+int empty_launch(int grid, int threads, void* stream) {
+  empty_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+int slow_copy(const void* src, void* dst, long long bytes, long long spin, void* stream) {
+  slow_copy_kernel<<<132, 256, 0, (cudaStream_t)stream>>>(
+      (const uint4*)src, (uint4*)dst, bytes / 16, spin);
+  return (int)cudaGetLastError();
+}
+}
+"""
+#: the race check's predecessor spins this many SM cycles (~0.1 ms)
+RACE_SPIN_CYCLES = 200_000
+
+
+def probe_build_start():
+    """Start ``nvcc`` on PROBE_SOURCE; :func:`probe_build_finish` loads it."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "rmsnorm-probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(PROBE_SOURCE)
+    return out, subprocess.Popen(
+        [_build.nvcc(), *_build.FLAGS, "-o", str(out / "libprobe.so"), str(out / "probe.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def probe_build_finish(started):
+    import ctypes
+
+    out, proc = started
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the measurement helper failed to build:\n{log}")
+    lib = ctypes.CDLL(str(out / "libprobe.so"))
+    lib.empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.slow_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_longlong, ctypes.c_void_p]
+    return lib
+
+
+def probe_library():
+    return probe_build_finish(probe_build_start())
+
+
+def rmsnorm_inputs(torch, g, rows: int, d: int, kind: str) -> dict:
+    """Seeded inputs of one call: bf16 x (float32 when gated), bf16 r (for
+    "residual"), f32 w in [0.5, 1.5); the gate z as the first d columns of a
+    (rows, 2 d + 280) bf16 tensor, as the model slices it out of in_proj's
+    output (one column further for "gated-unaligned")."""
+    dev = torch.device("cuda")
+    gated = kind.startswith("gated")
+    inp = {"w": torch.rand(d, generator=g, device=dev) + 0.5, "r": None, "z": None}
+    inp["x"] = torch.randn(rows, d, generator=g, device=dev)
+    if not gated:
+        inp["x"] = inp["x"].to(torch.bfloat16)
+    if kind == "residual":
+        inp["r"] = torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
+    if gated:
+        wide = (2 * torch.randn(rows, 2 * d + 280, generator=g, device=dev)).to(torch.bfloat16)
+        lo = int(kind == "gated-unaligned")
+        inp["z"] = wide[:, lo:lo + d]
+    return inp
+
+
+def rmsnorm_call(fn, inp):
+    """``fn`` (fused_rmsnorm or a stand-in) on one case's inputs."""
+    if inp["z"] is not None:
+        return fn(inp["x"], inp["w"], gate=inp["z"], eps=RMSNORM_EPS)
+    return fn(inp["x"], inp["w"], inp["r"], eps=RMSNORM_EPS)
+
+
+def rmsnorm_chain(torch, inp):
+    """The gated norm as the unfused chain computes it on the card: the cast,
+    F.silu, the product and the norm, four launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    return fused_rmsnorm(inp["x"].to(torch.bfloat16) * F.silu(inp["z"]), inp["w"],
+                         eps=RMSNORM_EPS)[0]
+
+
+def rmsnorm_check(torch, inp, y, rout, label: str, check: bool = True) -> dict:
+    """One call's outputs held: y within TOL of the plain version, and
+    element by element within one bf16 ulp of its f64 value computed from
+    the same inputs (gated: from the chain's g on the card); the new
+    residual bit-identical to bf16(f32(x) + f32(r)) (x without a residual);
+    gated, y within one bf16 ulp of the unfused chain (:func:`rmsnorm_chain`).
+    A kernel that drops a warp's partial sum at d 5120 moves every y by
+    ~2.6 %, inside TOL at |y| ~ 1 and several ulps off. Returns the
+    readings; with ``check`` raises on a failure."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+
+    torch.cuda.synchronize()
+    gated = inp["z"] is not None
+    yr = rmsnorm_call(fused_rmsnorm_ref, inp)[0]
+    finite = bool(torch.isfinite(y.float()).all())
+    err = (y.float() - yr.float()).abs()
+    out = {"max_abs_err": err.max().item() if finite else float("inf"),
+           "tol_outside": int((err > TOL["atol"] + TOL["rtol"] * yr.float().abs()).sum())}
+    if gated:
+        s = (inp["x"].to(torch.bfloat16) * F.silu(inp["z"])).double()
+    else:
+        s = inp["x"].double() + (inp["r"].double() if inp["r"] is not None else 0.0)
+    y64 = s * torch.rsqrt((s * s).mean(-1, keepdim=True) + RMSNORM_EPS) * inp["w"].double()
+    off = (y.double() - y64).abs() / bf16_ulp(torch, y64)
+    out["ulp_excess"] = off.max().item() if finite else float("inf")
+    out["ulp_outside"] = int((off > 1).sum()) if finite else y.numel()
+    if gated:
+        chain = rmsnorm_chain(torch, inp)
+        gap = (y.double() - chain.double()).abs() / bf16_ulp(torch, chain.double())
+        out["chain_ulp_excess"] = gap.max().item() if finite else float("inf")
+        out["chain_identical_share"] = (y == chain).double().mean().item()
+        out["residual_identical"] = rout is None
+    else:
+        want = (inp["x"].float() + (inp["r"].float() if inp["r"] is not None else 0.0))
+        out["residual_identical"] = bool(torch.equal(rout, want.to(torch.bfloat16)))
+    if check:
+        bad = []
+        if not finite or out["tol_outside"]:
+            bad.append(f"max |kernel - plain| {out['max_abs_err']:.3g} outside "
+                       f"rtol={TOL['rtol']:g}, atol={TOL['atol']:g} ({out['tol_outside']} outputs)")
+        if out["ulp_outside"]:
+            bad.append(f"{out['ulp_outside']} outputs further than one bf16 ulp from the f64 "
+                       f"value (worst {out['ulp_excess']:.3g} ulps)")
+        if not out["residual_identical"]:
+            bad.append("the new residual is not bf16(f32(x) + f32(r)) bit for bit")
+        if gated and not out["chain_ulp_excess"] <= 1:
+            bad.append(f"the gated norm is {out['chain_ulp_excess']:.3g} ulps from the unfused chain")
+        if bad:
+            raise AssertionError(f"rmsnorm {label}: " + "; ".join(bad))
+    return out
+
+
+def rmsnorm_bound(rows: int, d: int, kind: str) -> tuple[float, str]:
+    """Bytes: x (and r) read, y (and the new residual) written in bf16, w in
+    f32; gated: the f32 y and the bf16 z read, the bf16 output written.
+    Operations: ~5 an element (the add, the square, the scalings), ~15
+    gated (the exp and the divide of the SiLU, its product)."""
+    per = {"residual": 8, "plain": 6}.get(kind, 8)
+    return bound(rows * d * per + d * 4, (15.0 if kind.startswith("gated") else 5.0) * rows * d,
+                 F32_FLOP_PER_S)
+
+
+def rmsnorm_times(torch, timer, probe, fn, g, rows: int, d: int, kind: str,
+                  yardsticks: bool = True) -> dict:
+    """Device time per launch of ``fn`` at one shape. Up to GRAPH_ROWS rows
+    (decode): GRAPH_LAUNCHES launches, each on its own inputs and outputs,
+    captured in one graph, replayed with the L2 flushed by a read, per
+    launch; beside it the same graph of an empty kernel with the norm's
+    launch geometry (``floor_ms``) and of the library yardstick. More rows
+    (prefill): one launch a replay, with the L2 flushed by a read (``ms``)
+    and by a write (``write_flush_ms``). The yardstick: F.rms_norm(x + r),
+    or for the gated norm the four-kernel chain it replaces."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm.ops import plan
+
+    n = GRAPH_LAUNCHES if rows <= GRAPH_ROWS else 1
+    cases = [rmsnorm_inputs(torch, g, rows, d, kind) for _ in range(n)]
+    pl = plan(rows, d, kind.startswith("gated"))
+    stream = lambda: _build.stream_ptr(torch.device("cuda"))  # noqa: E731
+
+    def graph(call, clean=True, iters=30 if n > 1 else 50):
+        return timer.ms(lambda: [call(c) for c in cases], iters, clean) / n
+
+    def empty(_):
+        _build.check("rmsnorm", probe.empty_launch(pl["grid"], pl["threads"], stream()))
+
+    def library(c):
+        if c["z"] is not None:
+            return rmsnorm_chain(torch, c)
+        return F.rms_norm(c["x"] + c["r"], (d,), c["w"].to(torch.bfloat16), RMSNORM_EPS)
+    b_ms, b_by = rmsnorm_bound(rows, d, kind)
+    out = {"shape": [rows, d], "kind": kind, "launches_a_replay": n, "plan": pl,
+           "ms": graph(lambda c: rmsnorm_call(fn, c)), "floor_ms": graph(empty),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if yardsticks:
+        out["library_ms"] = graph(library)
+    if n == 1:
+        out["write_flush_ms"] = graph(lambda c: rmsnorm_call(fn, c), clean=False)
+        if yardsticks:
+            out["library_write_flush_ms"] = graph(library, clean=False)
+    out["bound_share"] = b_ms / out["ms"]
+    return out
+
+
+def rmsnorm_race_check(torch, probe, fn, check: bool = True, trials: int = 4) -> dict:
+    """The norm reads x only after its predecessor is done: a predecessor
+    that triggers its dependents at once, spins RACE_SPIN_CYCLES and only
+    then copies new data into x is followed by the norm of x, eagerly and
+    as one captured graph replayed with new data each time; every output
+    must equal, bit for bit, the norm of the new data computed on its own.
+    At the mistral and the gated mamba2 decode shapes. The port launches
+    the norm plainly, so stream order alone holds this; launched as a
+    programmatic dependent (``tools/rmsnorm_planted_faults.py``'s pdl_on
+    and wait_after_x_loads), it holds only while the kernel waits before
+    its first read of x. Returns the mismatching outputs per route; with
+    ``check`` raises on any."""
+    from repro_torch.kernels import _build
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    for label, rows, d, kind in (RMSNORM_SHAPES[0], RMSNORM_SHAPES[3]):
+        inp = rmsnorm_inputs(torch, g, rows, d, kind)
+        src = torch.empty_like(inp["x"])
+        case = dict(inp, x=torch.zeros_like(inp["x"]))
+
+        def step():
+            _build.check("rmsnorm", probe.slow_copy(
+                _build.ptr(src), _build.ptr(case["x"]), src.numel() * src.element_size(),
+                RACE_SPIN_CYCLES, _build.stream_ptr(src.device)))
+            return rmsnorm_call(fn, case)[0]
+
+        def fresh():
+            src.copy_(torch.randn(src.shape, generator=g, device="cuda").to(src.dtype))
+
+        def wrong(y):
+            torch.cuda.synchronize()
+            want = rmsnorm_call(fn, dict(inp, x=src.clone()))[0]
+            torch.cuda.synchronize()
+            return int((y != want).sum())
+        eager = []
+        for _ in range(trials):
+            fresh()
+            eager.append(wrong(step()))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = step()
+        replayed = []
+        for _ in range(trials):
+            fresh()
+            graph.replay()
+            replayed.append(wrong(y))
+        out[label] = {"eager_wrong": eager, "replayed_wrong": replayed}
+        if check and any(eager + replayed):
+            raise AssertionError(f"rmsnorm race check {label}: outputs that are not the "
+                                 f"norm of the new x: eager {eager}, replayed {replayed}")
+        del graph
+    return out
+
+
+def check_rmsnorm(torch, timer, probe) -> dict:
+    """Row 1: every case of RMSNORM_SHAPES and RMSNORM_EXTRA held by
+    :func:`rmsnorm_check`, one launch counted per call; the race check; the
+    six shapes timed (:func:`rmsnorm_times`). The top-level times are at the
+    mistral prefill shape with the L2 flushed by a write, as every earlier
+    reading of row 1 was taken and as row 2's are, the read flush's beside
+    them (``clean_l2``)."""
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = {}
+    for label, rows, d, kind in RMSNORM_SHAPES + RMSNORM_EXTRA:
+        inp = rmsnorm_inputs(torch, g, rows, d, kind)
+        n = fused_rmsnorm.launches
+        y, rout = rmsnorm_call(fused_rmsnorm, inp)
+        if fused_rmsnorm.launches != n + 1:
+            raise AssertionError(f"rmsnorm {label}: {fused_rmsnorm.launches - n} launches "
+                                 f"counted for one call")
+        key = f"{label} ({rows}, {d})"
+        checks[key] = rmsnorm_check(torch, inp, y, rout, key)
+        say(f"  rmsnorm {key} {kind}: {json.dumps(checks[key])}")
+    race = rmsnorm_race_check(torch, probe, fused_rmsnorm)
+    say(f"  rmsnorm race check (a predecessor that writes x last): {json.dumps(race)}")
+    shapes = {}
+    for label, rows, d, kind in RMSNORM_SHAPES:
+        shapes[label] = rmsnorm_times(torch, timer, probe, fused_rmsnorm, g, rows, d, kind)
+        say(f"  rmsnorm {label} {json.dumps(shapes[label])}")
+    main = rmsnorm_inputs(torch, g, *RMSNORM_SHAPES[1][1:])
+    top = shapes[RMSNORM_SHAPES[1][0]]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+                max_ulp_excess=max(c["ulp_excess"] for c in checks.values()),
+                ms=top["write_flush_ms"],
+                plain_ms=timer.ms(lambda: rmsnorm_call(fused_rmsnorm_ref, main), 10),
+                library_ms=top["library_write_flush_ms"],
+                clean_l2={"ms": top["ms"], "library_ms": top["library_ms"]},
+                bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], shape=top["shape"], shapes=shapes, race=race,
+                checks=checks)
 
 
 # ------------------------------- phase 3: SSD ---------------------------------
@@ -1987,7 +2312,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    probe_started = probe_build_start()
     logs = _build.build_all(verbose=True)
+    probe = probe_build_finish(probe_started)
     say(f"[2] built {len(logs)} kernels for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, log in logs.items():
@@ -1995,6 +2322,12 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "smem", "error", "warning")):
                 say(f"    {name}: {line.strip()}")
+    rmsnorm_build = ptxas_report(logs["rmsnorm"], RMSNORM_ENTRY, rmsnorm_label)
+    say(f"    rmsnorm kernels (registers, spilled bytes, static shared memory): "
+        f"{json.dumps(rmsnorm_build)}")
+    spilled = [k for k, v in rmsnorm_build.items() if v.get("spill_bytes", 1)]
+    if len(rmsnorm_build) != RMSNORM_BUILDS or spilled:
+        return fail(f"rmsnorm build: {len(rmsnorm_build)} kernels, spills in {spilled}")
     flash_build = flash_build_report(logs["flash_attention"])
     say(f"    flash-attention kernels (registers at entry, spilled bytes, "
         f"dynamic shared memory): {json.dumps(flash_build)}")
@@ -2017,12 +2350,14 @@ def main() -> int:
 
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
+        "rmsnorm also within one bf16 ulp of f64, the residual bit for bit; "
         f"decode o within {DECODE_REL:g} x max|plain|, lse within 1e-3; "
         "ssd rtol=atol=2e-4; training attention each row within "
         f"{TRAIN_ROW_REL:g} of its max|plain|; "
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
-    numbers = check_kernels(torch, timer)
+    numbers = {"rmsnorm": check_rmsnorm(torch, timer, probe) | {"build": rmsnorm_build}}
+    numbers.update(check_kernels(torch, timer))
     numbers["decode_attention"]["build"] = decode_build
     numbers["ssd"] = check_ssd(torch, timer) | {"build": ssd_build}
     numbers.update(check_training_kernels(torch, timer))

@@ -1,113 +1,372 @@
-// Fused residual add + RMSNorm for Hopper (sm_90a).
+// Fused residual add + RMSNorm for Hopper (sm_90a), with the Mamba2 gate.
 //
 // Replaces: src/repro/kernels/rmsnorm/kernel.py, fused_rmsnorm_fwd
 // (Pallas body _rms_kernel): s = x (+ residual) in f32, y = s * rsqrt(mean(s^2)
-// + eps) * w; writes y and the new residual s, each once, in x's dtype.
+// + eps) * w; writes y and the new residual s, each once, in x's dtype. The
+// gated form computes the reference's rmsnorm(y * silu(z), w)
+// (src/repro/models/layers.py:518, :558) in the same launch: x is the f32 y,
+// z the bf16 gate read through its row stride, g = bf16(bf16(y) *
+// bf16(silu(z))) with silu = z / (1 + expf(-z)) in f32 as PyTorch's CUDA
+// kernel computes it, then g is normalised with no residual and only the
+// output is written.
 //
-// Bound on this card: bytes. Per row it reads x, the residual and w and
-// writes y and the residual; two flops per element are nothing beside the
-// 295 flops per byte the H100 can afford. At prefill (8192 rows of 5120
-// bf16) it moves ~335 MB; in decode (4 rows) it is launch-bound.
+// Bound on this card: bytes. Each input is read once and each output
+// written once; ~5 flops an element (gated: ~15, an expf and a divide) are
+// nothing beside the 295 flops a byte the H100 affords. At the path's six
+// shapes (3.35 TB/s):
+//   mistral decode   (4, 5120) + residual       184,320 B   0.055 us
+//   mistral prefill  (8192, 5120) + residual    335.6 MB    0.1002 ms
+//   mamba2 decode    (8, 768) + residual         52,224 B   0.016 us
+//   mamba2 decode    (8, 1536) gated            104,448 B   0.031 us
+//   mamba2 prefill   (16384, 768) + residual    100.7 MB    0.0300 ms
+//   mamba2 prefill   (16384, 1536) gated        201.3 MB    0.0601 ms
+// (gated: 4 B of y, 2 of z and 2 of output an element, plus w).
 //
-// Design: one block per row, one 16-byte vector (8 bf16) per thread and
-// pass, so that each row is read from device memory exactly once. The
-// f32 sum s is kept in shared memory between the reduction and the scaling
-// pass, which is what the TPU kernel keeps in VMEM; the new residual is
-// written in the first pass. Rows whose width or addresses do not allow
-// 16-byte vectors take a scalar loop with the same arithmetic.
+// Design, measured on an H100 80GB HBM3 at 700 W with
+// tools/rmsnorm_variants.py, each variant an edit of this source (a decode
+// shape: 81 launches on their own buffers in one CUDA graph, L2 flushed by
+// a read, per launch; an empty kernel launched alike reads ~1.17 us, the
+// previous kernel, one block a row with the row in shared memory, 3.3 us
+// at (4, 5120); this one 2.65 us). At decode shapes the bytes take
+// nanoseconds and the time is latency: the launch, then memory round
+// trips. So:
+//  * w is loaded into registers first, with 16-byte vectors, then the
+//    kernel executes griddepcontrol.wait, and only then issues its x and r
+//    (or y and z) loads, all together: one round trip after the wait. The
+//    previous kernel waited for x and r, reduced, then read w: two.
+//    Reading w after the reduction (w-late) costs 2.65 -> 3.42 us at (4,
+//    5120) and 114.4 -> 118.0 us at (8192, 5120).
+//  * The wait is what a programmatic dependent launch needs (pdl:
+//    cudaLaunchAttributeProgrammaticStreamSerialization), whose blocks
+//    start while the predecessor drains: nothing but w is read, and
+//    nothing written, before it (the predecessor may still be writing x,
+//    and a captured graph's pool may hand this launch's outputs memory the
+//    predecessor still reads). PDL survives stream capture and saves
+//    ~0.15 us a launch in the graph of 81 (2.50 against 2.65 us), but no
+//    decode step showed it: decode_steady TPOT mistral_nemo_12b 11.79 ms
+//    with it, 11.70-11.81 without; mamba2_130m 2.07-2.15 and 2.02 (one
+//    call, in turns). So the kernel is launched plainly and the wait is a
+//    no-op.
+//  * The f32 row stays in registers, not shared memory; a block's sum of
+//    squares takes one barrier, then every thread adds the warps' partials
+//    in the same order. Shared memory holds only those partials,
+//    double-buffered so consecutive rows need no second barrier.
+//  * One block a row. Spreading a row over a thread-block cluster, the
+//    partials read through distributed shared memory (cluster-N), lost:
+//    4.13 us with 2 blocks a row, 4.51 with 4, 5.35 with 8, at (4, 5120).
+// At prefill shapes the bytes dominate: two copy_ calls that move the
+// norm's bytes take 112.5 us at (8192, 5120), 89 % of the bound.
+//  * A one-wave grid (from occupancy), each block walking rows grid-stride
+//    with w held in registers for all of them (the previous kernel re-read w
+//    from the L2 for every row, 168 MB at (8192, 5120)), and the next
+//    row's loads issued before this row is summed and written (PREFETCH:
+//    116.4 -> 114.4 us at (8192, 5120), 74.9 -> 72.2 gated).
+//  * Blocks of at most 256 threads (MANY_THREADS): at (8192, 5120) 160
+//    threads of 4 vectors, 114.4 us, against 320 of 2 at a 512 limit,
+//    114.0; at (16384, 1536) gated a 128 limit (96 threads of 2) costs
+//    72.2 -> 74.2 us.
+//  * rows <= FEW_ROWS (128) take the decode design, more the prefill one:
+//    at d 5120 one block a row wins up to 64 rows (3.30 against 3.41 us),
+//    ties at 128 (7.62 against 7.54) and loses at 256 (8.98 against 8.73);
+//    gated at d 1536 the two are within 2 % up to 1024 rows.
+// Rows whose width or addresses do not allow 16-byte vectors take the same
+// kernel with one element a vector (VW = 1), without the prefetch. Rows up
+// to 16384 wide (8192 gated, 4096 on the scalar path): every configuration
+// of the repo is at most 12288 wide, 8192 gated.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-using T = __nv_bfloat16;
-__device__ __forceinline__ float to_f32(T v) { return __bfloat162float(v); }
-__device__ __forceinline__ T from_f32(float v) { return __float2bfloat16(v); }
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) >> 5;
-  v = (lane < nw) ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;  // every thread holds the total
+// Launch configuration, picked from the shapes alone.
+constexpr int FEW_ROWS = 128;      // rows <= FEW_ROWS: one row a block
+constexpr int MANY_THREADS = 256;  // threads a block at most (prefill design)
+constexpr bool PREFETCH = true;    // the next row's loads before this one's sum
+
+// The most threads a block of an instantiation may have: its launch bound,
+// which leaves each thread 64 registers at 1024 and 128 at 512.
+__host__ __device__ constexpr int max_threads(int vw, int per) {
+  return vw == 1 || per == 1 ? 1024 : 512;
 }
 
-template <bool VEC>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                               const float* __restrict__ w, T* __restrict__ y,
-                               T* __restrict__ rout, int d, float eps) {
-  extern __shared__ float s[];  // the row's f32 sum, d floats
-  __shared__ float red[32];
-  const int64_t base = (int64_t)blockIdx.x * d;
-  constexpr int V = 16 / sizeof(T);
-  float sq = 0.f;
-  if (VEC) {
-    for (int i = threadIdx.x * V; i < d; i += blockDim.x * V) {
-      alignas(16) T px[V], pr[V], po[V];
-      *reinterpret_cast<uint4*>(px) = *reinterpret_cast<const uint4*>(x + base + i);
-      if (r) *reinterpret_cast<uint4*>(pr) = *reinterpret_cast<const uint4*>(r + base + i);
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Loads of data another kernel may have just written go through the L2
+// (ld.global.cg), never the non-coherent path; w, which nothing writes,
+// through the read-only path.
+template <int VW>
+__device__ __forceinline__ void load_bf16(const bf16* src, bf16 (&dst)[VW]) {
+  if constexpr (VW == 8) {
+    *reinterpret_cast<uint4*>(dst) = __ldcg(reinterpret_cast<const uint4*>(src));
+  } else {
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float v = to_f32(px[j]) + (r ? to_f32(pr[j]) : 0.f);
-        s[i + j] = v;
-        sq += v * v;
-        po[j] = from_f32(v);
+    for (int j = 0; j < VW; ++j) dst[j] = __ldcg(src + j);
+  }
+}
+
+template <int VW, bool READ_ONLY = false>
+__device__ __forceinline__ void load_f32(const float* src, float (&dst)[VW]) {
+  auto ld = [](const auto* q) { return READ_ONLY ? __ldg(q) : __ldcg(q); };
+  if constexpr (VW == 8) {
+    const float4 a = ld(reinterpret_cast<const float4*>(src));
+    const float4 b = ld(reinterpret_cast<const float4*>(src) + 1);
+    dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
+    dst[4] = b.x, dst[5] = b.y, dst[6] = b.z, dst[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) dst[j] = ld(src + j);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_bf16(bf16* dst, const float (&v)[VW]) {
+  alignas(VW == 8 ? 16 : 2) bf16 o[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) o[j] = __float2bfloat16(v[j]);
+  if constexpr (VW == 8) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) dst[j] = o[j];
+  }
+}
+
+struct Params {
+  const void* x;   // (rows, d): bf16, or the f32 y when gated
+  const bf16* r;   // residual (rows, d) or null
+  const bf16* z;   // gate (rows, d) at row stride zs, or null
+  const float* w;  // (d,)
+  bf16* y;         // (rows, d)
+  bf16* rout;      // new residual (rows, d); null when gated
+  int rows, d;
+  int64_t zs;
+  float eps;
+};
+
+// The loads of one row, every one issued before any of them is used: x and
+// r, or the f32 y and the gate z.
+template <int VW, int PER, bool GATE>
+__device__ __forceinline__ void load_row(const Params& p, int row, int first,
+                                         bf16 (&xb)[PER][VW], bf16 (&rb)[PER][VW],
+                                         float (&yf)[PER][VW]) {
+  const int nvec = p.d / VW, T = blockDim.x;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int v = first + k * T;
+    if (row < p.rows && v < nvec) {
+      const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
+      if constexpr (GATE) {
+        load_f32<VW>(static_cast<const float*>(p.x) + off, yf[k]);
+        load_bf16<VW>(p.z + (int64_t)row * p.zs + (int64_t)v * VW, rb[k]);
+      } else {
+        load_bf16<VW>(static_cast<const bf16*>(p.x) + off, xb[k]);
+        if (p.r) load_bf16<VW>(p.r + off, rb[k]);
       }
-      *reinterpret_cast<uint4*>(rout + base + i) = *reinterpret_cast<const uint4*>(po);
     }
-  } else {
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      float v = to_f32(x[base + i]) + (r ? to_f32(r[base + i]) : 0.f);
-      s[i] = v;
-      sq += v * v;
-      rout[base + i] = from_f32(v);
-    }
-  }
-  const float inv = rsqrtf(block_sum(sq, red) / (float)d + eps);
-  if (VEC) {
-    for (int i = threadIdx.x * V; i < d; i += blockDim.x * V) {
-      alignas(16) T po[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) po[j] = from_f32(s[i + j] * inv * w[i + j]);
-      *reinterpret_cast<uint4*>(y + base + i) = *reinterpret_cast<const uint4*>(po);
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      y[base + i] = from_f32(s[i] * inv * w[i]);
   }
 }
 
-cudaError_t launch(const void* x, const void* r, const float* w, void* y, void* rout,
-                   int rows, int d, float eps, int vec, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const int per = vec ? (d + V - 1) / V : d;
-  int threads = ((per + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  const size_t smem = (size_t)d * sizeof(float);
-  auto kernel = vec ? rmsnorm_kernel<true> : rmsnorm_kernel<false>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<rows, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), w, static_cast<T*>(y),
-      static_cast<T*>(rout), d, eps);
+// VW elements a vector (8: 16 bytes of bf16; 1: the scalar path), PER
+// vectors a thread and row: thread t holds vectors first + k * T, k < PER,
+// of each row its block takes.
+template <int VW, int PER, bool GATE>
+__global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Params p) {
+  __shared__ float red[2][32];  // the warps' partial sums, two rows' worth
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int nvec = p.d / VW;
+  const int first = tid;
+
+  float wv[PER][VW];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int v = first + k * T;
+    if (v < nvec) {
+      load_f32<VW, true>(p.w + (int64_t)v * VW, wv[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) wv[k][j] = 0.f;
+    }
+  }
+  // The predecessor's writes are visible from here on; nothing above reads
+  // them or writes anything. (A no-op as launched; it holds the kernel to
+  // the contract of a programmatic dependent launch.)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  const int warp = tid >> 5, lane = tid & 31, nw = (T + 31) >> 5;
+  const int step = gridDim.x;
+  // the raw loads of one row: x and r, or y and z
+  alignas(VW == 8 ? 16 : 2) bf16 xb[PER][VW];
+  alignas(VW == 8 ? 16 : 2) bf16 rb[PER][VW];
+  float yf[PER][VW];
+  // (the scalar path, for odd widths and unaligned rows, does not prefetch:
+  // its loads take too many registers)
+  constexpr bool prefetch = PREFETCH && VW == 8;
+  int buf = 0, row = blockIdx.x;
+  if (prefetch) load_row<VW, PER, GATE>(p, row, first, xb, rb, yf);
+  for (; row < p.rows; row += step, buf ^= 1) {
+    if (!prefetch) load_row<VW, PER, GATE>(p, row, first, xb, rb, yf);
+    float s[PER][VW], sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int v = first + k * T;
+      const bool ok = v < nvec;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        float e;
+        if constexpr (GATE) {
+          const float zf = to_f32(rb[k][j]);
+          const float sz = round_bf16(zf / (1.f + expf(-zf)));
+          e = round_bf16(round_bf16(yf[k][j]) * sz);
+        } else {
+          e = to_f32(xb[k][j]) + (p.r ? to_f32(rb[k][j]) : 0.f);
+        }
+        s[k][j] = e;
+        if (ok) sq += e * e;
+      }
+      if constexpr (!GATE) {
+        if (ok) store_bf16<VW>(p.rout + (int64_t)row * p.d + (int64_t)v * VW, s[k]);
+      }
+    }
+    // the next row's loads fly while this one is summed and written
+    if (prefetch) load_row<VW, PER, GATE>(p, row + step, first, xb, rb, yf);
+    // one cross-warp step: each warp's partial to shared memory, one
+    // barrier, then every thread adds them in the same order
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    if (lane == 0) red[buf][warp] = sq;
+    __syncthreads();
+    float tot = 0.f;
+    for (int u = 0; u < nw; ++u) tot += red[buf][u];
+    const float inv = rsqrtf(tot / (float)p.d + p.eps);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int v = first + k * T;
+      if (v < nvec) {
+        float o[VW];
+#pragma unroll
+        for (int j = 0; j < VW; ++j) o[j] = s[k][j] * inv * wv[k][j];
+        store_bf16<VW>(p.y + (int64_t)row * p.d + (int64_t)v * VW, o);
+      }
+    }
+  }
+}
+
+// The launch geometry of one call.
+struct Plan {
+  int grid, threads, per, vw;
+};
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+int round_warp(int n) { return ceil_div(n, 32) * 32; }
+
+// The vectors a thread and row of each instantiation, in order: the first
+// that holds a block's nb vectors within limit threads is taken, else the
+// one with the fewest threads within its launch bound (sets pl.per and
+// pl.threads). Gated rows stop at 8192 wide (no PER 4 with 16-byte vectors).
+bool pick(Plan* pl, int nb, int limit, bool many, bool gated) {
+  static const int vec_few[] = {1, 4}, vec_many[] = {1, 2, 4}, scalar[] = {4};
+  const int* c = pl->vw == 1 ? scalar : many ? vec_many : vec_few;
+  int n = pl->vw == 1 ? 1 : many ? 3 : 2;
+  if (gated && pl->vw == 8) --n;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j = 0; j < n; ++j) {
+      const int i = pass == 0 ? j : n - 1 - j;
+      const int bound = max_threads(pl->vw, c[i]);
+      const int t = round_warp(ceil_div(nb, c[i]));
+      if (t <= (pass == 0 && limit < bound ? limit : bound)) {
+        pl->per = c[i], pl->threads = t;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int VW, int PER, bool GATE>
+cudaError_t run(Plan pl, const Params* p, cudaStream_t stream, Plan* plan_only) {
+  auto kernel = rmsnorm_kernel<VW, PER, GATE>;
+  if (pl.grid == 0) {  // the prefill design: one wave of blocks, from occupancy
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, pl.threads, 0);
+    if (e != cudaSuccess) return e;
+    const int wave = sms * (per_sm > 0 ? per_sm : 1);
+    pl.grid = p->rows < wave ? p->rows : wave;
+  }
+  if (plan_only) {
+    *plan_only = pl;
+    return cudaSuccess;
+  }
+  kernel<<<pl.grid, pl.threads, 0, stream>>>(*p);
   return cudaGetLastError();
+}
+
+template <bool GATE>
+cudaError_t dispatch(const Plan& pl, const Params* p, cudaStream_t s, Plan* plan_only) {
+  if (pl.vw == 1) return run<1, 4, GATE>(pl, p, s, plan_only);
+  if constexpr (!GATE) {
+    if (pl.per == 4) return run<8, 4, GATE>(pl, p, s, plan_only);
+  }
+  if (pl.per == 1) return run<8, 1, GATE>(pl, p, s, plan_only);
+  return run<8, 2, GATE>(pl, p, s, plan_only);
+}
+
+cudaError_t launch(const Params& p, bool vec, cudaStream_t stream, Plan* plan_only) {
+  if (p.rows <= 0 || p.d <= 0 || (vec && p.d % 8)) return cudaErrorInvalidValue;
+  Plan pl{};
+  pl.vw = vec ? 8 : 1;
+  const int nvec = p.d / pl.vw;
+  const bool gated = p.z != nullptr;
+  bool ok;
+  if (p.rows <= FEW_ROWS) {  // decode design: one row a block
+    ok = pick(&pl, nvec, 1024, false, gated);
+    pl.grid = p.rows;
+  } else {  // prefill design: one wave from occupancy, rows grid-stride
+    ok = pick(&pl, nvec, MANY_THREADS, true, gated);
+    pl.grid = 0;
+  }
+  if (!ok) return cudaErrorInvalidValue;  // wider than the kernel takes
+  return gated ? dispatch<true>(pl, &p, stream, plan_only)
+               : dispatch<false>(pl, &p, stream, plan_only);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, residual, y and the new residual are bfloat16; w is float32. r may be
-// null (no residual). vec: 1 when d and every pointer allow 16-byte vectors.
-// Returns cudaGetLastError().
-int rmsnorm_fwd(const void* x, const void* r, const void* w, void* y, void* rout,
-                int rows, int d, float eps, int vec, void* stream) {
-  return (int)launch(x, r, static_cast<const float*>(w), y, rout, rows, d, eps, vec,
-                     static_cast<cudaStream_t>(stream));
+// x, the residual, y and the new residual are bfloat16; w is float32. r may
+// be null (no residual). Gated (z not null): x is the float32 y, z the
+// bfloat16 gate at row stride zs (elements), r and rout null, only y is
+// written. vec: 1 when d % 8 == 0 and every row and w start on 16 bytes.
+// Returns cudaGetLastError() after the launch.
+int rmsnorm_fwd(const void* x, const void* r, const void* z, const void* w, void* y,
+                void* rout, int rows, int d, long long zs, float eps, int vec, void* stream) {
+  const Params p{x, static_cast<const bf16*>(r), static_cast<const bf16*>(z),
+                 static_cast<const float*>(w), static_cast<bf16*>(y),
+                 static_cast<bf16*>(rout), rows, d, (int64_t)zs, eps};
+  return (int)launch(p, vec != 0, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The launch a call of these shapes makes, launching nothing: out[0..3] =
+// blocks, threads a block, vectors a thread and row, elements a vector.
+// Returns a CUDA error code (cudaErrorInvalidValue for a width the kernel
+// does not take).
+int rmsnorm_plan(int rows, int d, int gated, int vec, int* out) {
+  Params p{};
+  p.rows = rows, p.d = d;
+  p.z = gated ? reinterpret_cast<const bf16*>(16) : nullptr;
+  Plan pl{};
+  const cudaError_t err = launch(p, vec != 0, nullptr, &pl);
+  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
+  return (int)err;
 }
 
 const char* kernel_error_string(int err) {

@@ -192,9 +192,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor):
-    """rmsnorm(y * silu(z), w) through the fused RMSNorm (no residual)."""
-    g = y * F.silu(z)
-    return fused_rmsnorm(g.reshape(-1, g.shape[-1]), w)[0].view(g.shape)
+    """rmsnorm(y * silu(z), w): one launch of the fused RMSNorm on the card
+    (no residual). y (..., d) float32, z (..., d) in the compute dtype, read
+    in place through its row stride (a slice of ``in_proj``'s output); y
+    and silu(z) are each rounded to z's dtype, multiplied and rounded, then
+    normed. Returns z's dtype."""
+    d = z.shape[-1]
+    return fused_rmsnorm(y.reshape(-1, d), w, gate=z.reshape(-1, d))[0].view(z.shape)
 
 
 def ssm_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -220,7 +224,7 @@ def ssm_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     y, state = ssd_chunk(xs, dt, Bm[:, :, None].expand(b, s, h, n),
                          Cm[:, :, None].expand(b, s, h, n), dA)
     y = y + p["D"][:, None] * xs.float()
-    y = _gated_norm(y.view(b, s, d_in).to(x.dtype), z, p["norm_w"])
+    y = _gated_norm(y.view(b, s, d_in), z, p["norm_w"])
     return _mm(y, p["out_proj"]), state, conv_tail
 
 
@@ -245,7 +249,7 @@ def ssm_decode_step(p: dict, x: torch.Tensor, state: torch.Tensor,
         torch.einsum("bhp,bn,bh->bhpn", xs, Bm.float(), dt))
     y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
     y = y + p["D"][:, None] * xs
-    y = _gated_norm(y.reshape(b, d_in).to(x.dtype), z, p["norm_w"])
+    y = _gated_norm(y.reshape(b, d_in), z, p["norm_w"])
     return _mm(y, p["out_proj"])[:, None], state, conv_cache
 
 

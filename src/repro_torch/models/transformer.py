@@ -30,10 +30,11 @@ An RMSNorm block applies its residual adds through the fused RMSNorm kernel:
 each branch output is added to the residual and normed by the next norm in
 one launch, ``(h, x) = fused_rmsnorm(branch_out, w_next, residual=x)``, so a
 pass over L dense layers launches it 1 + 2L times, and over L SSM layers
-1 + L times plus L gated norms inside the layers. The kernel normalises the
-f32 sum before rounding it, where the reference normalises the residual
-after rounding; the two agree exactly in float32 and to the last bf16 bit
-in bfloat16.
+1 + 2L times: 1 + L residual norms and L gated norms inside the layers,
+each one launch with the SiLU gate and its product fused in. The kernel
+normalises the f32 sum before rounding it, where the reference normalises
+the residual after rounding; the two agree exactly in float32 and to the
+last bf16 bit in bfloat16.
 
 The cache has the reference's layout and dtypes: for attention layers
 ``k``/``v`` (n_blocks, n_attn, B, max_len, Hkv, hd) in bfloat16; for SSM

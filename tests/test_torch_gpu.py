@@ -5,7 +5,10 @@ Each kernel is held against its plain PyTorch version on the same inputs on
 the card, at serving and ragged shapes, element-wise within the bf16
 tolerance of the reference's kernel tests (rtol = atol = 2e-2); decode
 attention's outputs, averages over up to ~2000 values, are held within four
-bf16 ulps of the largest reference output instead. The SSD kernel computes
+bf16 ulps of the largest reference output instead. The fused RMSNorm is
+also held within one bf16 ulp of its f64 value, its new residual bit for
+bit, and its gated form within one ulp of the unfused chain it replaces,
+at the serving paths' six shapes and ragged ones. The SSD kernel computes
 in f32 and is held to the reference's 2e-4 on y and the final state. The
 models on the card are held against the plain versions on the CPU within
 2e-2 of the largest logit, and the engine's captured decode step against
@@ -108,6 +111,92 @@ def test_rmsnorm_kernel_matches_plain(cuda, t, d):
     y0, res0 = fused_rmsnorm(x, w)
     _close(y0, fused_rmsnorm_ref(x, w)[0])
     _close(res0, x, 0.0)
+
+
+def _rmsnorm_case(cuda, rows, d, kind, seed=0):
+    """Seeded inputs of one RMSNorm call: bf16 x and r ("residual"), bf16 x
+    alone ("plain"), or the f32 y and a bf16 gate sliced out of a wider
+    tensor as the Mamba2 layer passes it ("gated")."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.rand(d, generator=g, device=cuda) + 0.5
+    x = torch.randn(rows, d, generator=g, device=cuda)
+    if kind == "gated":
+        z = (2 * torch.randn(rows, 2 * d + 280, generator=g, device=cuda)).bfloat16()[:, :d]
+        return x, w, dict(gate=z)
+    r = torch.randn(rows, d, generator=g, device=cuda).bfloat16()
+    return x.bfloat16(), w, dict(residual=r if kind == "residual" else None)
+
+
+def _ulps_from(got, want64):
+    """|got - want| in bf16 ulps at want (8 significant bits)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want64.abs().clamp_min(1e-30))) - 7)
+    return ((got.double() - want64).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("rows,d,kind", [
+    (4, 5120, "residual"), (8192, 5120, "residual"), (8, 768, "residual"),
+    (8, 1536, "gated"), (16384, 768, "residual"), (16384, 1536, "gated"),
+    (4, 5120, "plain"), (7, 100, "residual"), (3, 770, "residual"),
+    (7, 100, "gated"), (3, 770, "gated")])
+def test_rmsnorm_kernel_within_one_ulp_of_f64(cuda, rows, d, kind):
+    """y within TOL of the plain version and within one bf16 ulp of its f64
+    value from the same bf16 inputs (a dropped warp's partial sum, 1/20 of
+    it at d 5120, moves y ~2.6 %: many ulps); the new residual
+    bit-identical to bf16(f32(x) + f32(r)); the gated norm from the chain's
+    g (the cast, F.silu, the product, on the card) and within one ulp of
+    the chain's norm; one launch counted."""
+    import torch.nn.functional as F
+
+    x, w, kw = _rmsnorm_case(cuda, rows, d, kind)
+    n = fused_rmsnorm.launches
+    y, rout = fused_rmsnorm(x, w, **kw)
+    assert fused_rmsnorm.launches == n + 1
+    if kind == "gated":
+        g = x.bfloat16() * F.silu(kw["gate"])
+        s = g.double()
+        assert rout is None
+        chain = fused_rmsnorm(g, w)[0]
+        assert _ulps_from(y, chain.double()) <= 1
+    else:
+        r = kw["residual"]
+        want = x.float() + (r.float() if r is not None else 0.0)
+        assert torch.equal(rout, want.bfloat16())
+        s = x.double() + (r.double() if r is not None else 0.0)
+    y64 = s * torch.rsqrt((s * s).mean(-1, keepdim=True) + 1e-6) * w.double()
+    _close(y, fused_rmsnorm_ref(x, w, **kw)[0])
+    assert _ulps_from(y, y64) <= 1
+
+
+def test_rmsnorm_plan_switches_at_the_measured_row_count(cuda):
+    """One block a row up to 128 rows (the decode design), then a one-wave
+    grid of at most 256 threads a block; odd widths, gated too, on the
+    scalar path."""
+    from repro_torch.kernels.rmsnorm.ops import plan
+
+    few, many = plan(128, 5120), plan(129, 5120)
+    assert (few["grid"], few["threads"], few["vectors_per_thread"]) == (128, 640, 1)
+    assert many["threads"] <= 256 and many["grid"] <= 129
+    assert plan(4, 1536, gated=True)["grid"] == 4
+    assert plan(16384, 768)["vectors_per_thread"] == 1
+    for gated in (False, True):
+        assert plan(7, 100, gated=gated, vec=False) == dict(
+            grid=7, threads=32, vectors_per_thread=4, vector=1)
+
+
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
+    bf = torch.bfloat16
+    z = torch.ones(4, 64, dtype=bf, device=cuda)
+    with pytest.raises(TypeError, match="fused_rmsnorm"):      # gated: x f32, z bf16
+        fused_rmsnorm(torch.ones(4, 64, dtype=bf, device=cuda), torch.ones(64, device=cuda),
+                      gate=z)
+    with pytest.raises(TypeError, match="fused_rmsnorm"):
+        fused_rmsnorm(torch.ones(4, 64, device=cuda), torch.ones(64, device=cuda),
+                      gate=z.float())
+    for d, kw in ((16392, {}), (4100, {}), (8200, {"gated": True})):
+        x = torch.ones(2, d, dtype=torch.float32 if kw else bf, device=cuda)
+        gate = dict(gate=torch.ones(2, d, dtype=bf, device=cuda)) if kw else {}
+        with pytest.raises(ValueError, match="wider than the kernel takes"):
+            fused_rmsnorm(x, torch.ones(d, device=cuda), **gate)
 
 
 @pytest.mark.parametrize("b,h,hkv,s,hd,kv_len", [

@@ -37,6 +37,7 @@ from repro.kernels.flash_attention.ops import flash_attention as pallas_flash  #
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.rmsnorm.ops import fused_rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.kernels.rmsnorm.ref import fused_rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
                                  flash_attention_train, fused_rmsnorm,
                                  launches, pricing_f32, pricing_f64,
@@ -80,6 +81,55 @@ def test_rmsnorm_plain_matches_reference(t, d, with_residual, dt):
         np.testing.assert_allclose(_np(y), _np(yj), **_tol(dt))
         np.testing.assert_allclose(_np(res), _np(resj), **_tol(dt))
     assert y.dtype == xt.dtype and res.dtype == xt.dtype
+
+
+# ------------------------------ gated rmsnorm --------------------------------
+@pytest.mark.parametrize("t,d,dt", [(8, 128, "f32"), (8, 128, "bf16"),
+                                    (5, 96, "bf16"), (6, 100, "f32"),
+                                    (3, 1536, "bf16")])
+def test_gated_rmsnorm_plain_matches_reference(t, d, dt):
+    """The gated norm (Mamba2's) against the reference's rmsnorm(y *
+    silu(z), w) (src/repro/models/layers.py:518): y float32 rounded to the
+    compute dtype, z a column slice of a wider array, as ssm_layer takes it
+    out of in_proj's output, read through its row stride."""
+    rng = np.random.default_rng(4)
+    y = rng.standard_normal((t, d), dtype=np.float32)
+    wide = 2 * rng.standard_normal((t, 2 * d + 40), dtype=np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    jdt, tdt = DTYPES[dt]
+    zj, zt = _both(wide, dt)
+    zt = zt[:, :d]
+    assert zt.stride() == (2 * d + 40, 1)
+    out, res = fused_rmsnorm(torch.from_numpy(y), torch.from_numpy(w), gate=zt)
+    want = jax_layers.rmsnorm(jnp.asarray(y).astype(jdt) * jax.nn.silu(zj[:, :d]),
+                              jnp.asarray(w))
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dt))
+    assert res is None and out.dtype == tdt and out.shape == (t, d)
+
+
+def _gate_case(case: str):
+    """(x, w, kwargs) of a gated call the wrapper must refuse."""
+    x, w = torch.ones(4, 16), torch.ones(16)
+    z = torch.ones(4, 16, dtype=torch.bfloat16)
+    return {"gate dtype": (x, w, dict(gate=z.half())),
+            "x dtype": (x.half(), w, dict(gate=z)),
+            "gate shape": (x, w, dict(gate=z[:, :8])),
+            "gate rank": (x, w, dict(gate=z[None])),
+            "gate device": (x, w, dict(gate=z.to("meta"))),
+            "with a residual": (x, w, dict(gate=z, residual=x)),
+            "gate last stride": (x, w, dict(gate=torch.ones(16, 4, dtype=torch.bfloat16).t())),
+            }[case]
+
+
+@pytest.mark.parametrize("case,error", [
+    ("gate dtype", TypeError), ("x dtype", TypeError), ("gate shape", ValueError),
+    ("gate rank", ValueError), ("gate device", ValueError),
+    ("with a residual", ValueError), ("gate last stride", ValueError)])
+def test_gated_rmsnorm_refuses_what_it_does_not_take(case, error):
+    """Refused on every device, before the CPU's plain version runs."""
+    x, w, kwargs = _gate_case(case)
+    with pytest.raises(error, match="fused_rmsnorm"):
+        fused_rmsnorm(x, w, **kwargs)
 
 
 # ----------------------------- decode attention ------------------------------
@@ -151,6 +201,7 @@ def test_cpu_tensors_do_not_count_as_launches():
     reset_launches()
     x = torch.ones(4, 32)
     fused_rmsnorm(x, torch.ones(32), x)
+    fused_rmsnorm(x, torch.ones(32), gate=torch.ones(4, 64, dtype=torch.bfloat16)[:, :32])
     flash_attention(torch.ones(1, 2, 4, 32), torch.ones(1, 1, 4, 32),
                     torch.ones(1, 1, 4, 32))
     decode_attention(torch.ones(1, 2, 32), torch.ones(1, 1, 4, 32),

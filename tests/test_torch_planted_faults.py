@@ -9,7 +9,7 @@ pipeline fault, and each diagnosis run removes lines that exist, so a
 rewrite of the kernels cannot leave the tool aiming at lines that no
 longer exist. The same holds for the variants of
 ``tools/flash_fwd_variants.py`` and ``tools/flash_bwd_variants.py``, and of
-the SSD and decode-attention tools.
+the SSD, decode-attention and RMSNorm tools.
 """
 from __future__ import annotations
 
@@ -190,3 +190,69 @@ def test_decode_variant_finds_its_text_once(name):
     edits, what = DECODE_VARIANTS.VARIANTS[name]
     assert what and all(text.count(old) == 1 and new != old for old, new in edits)
     assert (DECODE_VARIANTS.variant_source(name) == text) == (not edits)
+
+
+# ------------------------------- the fused RMSNorm ----------------------------
+RMSNORM_TOOL = _tool("rmsnorm_planted_faults")
+RMSNORM_VARIANTS = _tool("rmsnorm_variants")
+RMSNORM_SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "rmsnorm" / "csrc" / "rmsnorm.cu"
+
+
+def test_rmsnorm_tools_name_the_source():
+    assert ROOT / "src" / RMSNORM_TOOL.KERNEL == RMSNORM_SOURCE
+    assert RMSNORM_VARIANTS.SOURCE == RMSNORM_SOURCE
+
+
+@pytest.mark.parametrize("anchor", RMSNORM_TOOL.ANCHORS)
+def test_rmsnorm_anchor_occurs_once(anchor):
+    assert RMSNORM_SOURCE.read_text().count(anchor) == 1
+
+
+@pytest.mark.parametrize("name", sorted(RMSNORM_TOOL.FAULTS) + sorted(RMSNORM_TOOL.BASELINES))
+def test_rmsnorm_fault_plants_its_edits(name):
+    text = RMSNORM_SOURCE.read_text()
+    edits, what = {**RMSNORM_TOOL.FAULTS, **RMSNORM_TOOL.BASELINES}[name]
+    assert what and (edits or name == "baseline")
+    planted = RMSNORM_TOOL.plant(text, edits)
+    for old, new in edits:
+        assert old in RMSNORM_TOOL.ANCHORS and new != old
+        # gone, unless an edit puts it back elsewhere (a moved line)
+        assert planted.count(old) == sum(n.count(old) for _, n in edits)
+    assert len(planted) - len(text) == sum(len(n) - len(o) for o, n in edits)
+
+
+def test_rmsnorm_faults_cover_the_sum_w_the_wait_and_the_gate():
+    """A dropped warp's partial sum, w read one vector off, the dependency
+    wait after the first x loads and SiLU not rounded are the faults; the
+    wait is moved in a copy launched as a programmatic dependent, where it
+    is not a no-op."""
+    assert set(RMSNORM_TOOL.FAULTS) == {"warp_partial_dropped", "w_one_vector_off",
+                                        "wait_after_x_loads", "silu_not_rounded"}
+    assert RMSNORM_TOOL.PDL_ON in RMSNORM_TOOL.FAULTS["wait_after_x_loads"][0]
+    planted = RMSNORM_TOOL.plant(RMSNORM_SOURCE.read_text(),
+                                 RMSNORM_TOOL.FAULTS["wait_after_x_loads"][0])
+    assert planted.index(RMSNORM_TOOL.FIRST_LOAD) < planted.index(RMSNORM_TOOL.WAIT)
+
+
+@pytest.mark.parametrize("name", sorted(RMSNORM_VARIANTS.VARIANTS))
+def test_rmsnorm_variant_finds_its_text_once(name):
+    text = RMSNORM_SOURCE.read_text()
+    edits, what = RMSNORM_VARIANTS.VARIANTS[name]
+    assert what and all(text.count(old) == 1 and new != old for old, new in edits)
+    assert (RMSNORM_VARIANTS.variant_source(name) == text) == (not edits)
+    # a variant that leaves work out says so
+    assert (name == "loads-alone") == what.endswith(RMSNORM_VARIANTS.OUTSIDE)
+
+
+@pytest.mark.parametrize("name,attribute", [("pdl", "ProgrammaticStreamSerialization"),
+                                            ("cluster-4", "ClusterDimension")])
+def test_rmsnorm_launch_variants_plant_their_attribute(name, attribute):
+    """The committed kernel is launched plainly, with no launch attribute;
+    the pdl and cluster variants replace that one launch by
+    cudaLaunchKernelEx with theirs."""
+    text = RMSNORM_SOURCE.read_text()
+    planted = RMSNORM_VARIANTS.variant_source(name)
+    assert text.count("<<<") == 1 and "cudaLaunchKernelEx" not in text
+    assert "<<<" not in planted and planted.count("cudaLaunchKernelEx(") == 1
+    key = f"cudaLaunchAttribute{attribute};"
+    assert planted.count(key) == 1 and key not in text

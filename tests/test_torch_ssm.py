@@ -214,6 +214,36 @@ def test_ssm_decode_step_matches_reference():
     _within_one_bf16_ulp(cc, want_conv)
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 7), (3,)], ids=["prefill", "decode"])
+def test_gated_norm_bits_match_the_unfused_chain(dt, shape):
+    """The layer's gated norm, one call of the fused RMSNorm with the gate,
+    gives the bits of the chain it replaces: the cast of y, F.silu(z), the
+    product, then the norm (z a slice of a wider in_proj output); and it
+    computes the reference's rmsnorm(y * silu(z), w) (jax's
+    ``layers.rmsnorm``, y cast to the compute dtype as the layer casts it)
+    at the tolerances of tests/test_torch_kernels.py: jax rounds its bf16
+    SiLU otherwise, a few bf16 ulps."""
+    from repro_torch.kernels import fused_rmsnorm
+
+    rng = np.random.default_rng(5)
+    d = 96
+    y_np = rng.standard_normal((*shape, d), dtype=np.float32)
+    wide = 2 * rng.standard_normal((*shape, 3 * d), dtype=np.float32)
+    w_np = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    y, w = torch.from_numpy(y_np), torch.from_numpy(w_np)
+    z = torch.from_numpy(wide).to(dt)[..., :d]
+    g = y.to(dt) * torch.nn.functional.silu(z)
+    want = fused_rmsnorm(g.reshape(-1, d), w)[0].view(g.shape)
+    got = L._gated_norm(y, z, w)
+    assert got.dtype == dt and torch.equal(got, want)
+    jdt = jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
+    zj = jnp.asarray(wide).astype(jdt)[..., :d]
+    ref = jl.rmsnorm(jnp.asarray(y_np).astype(jdt) * jax.nn.silu(zj), jnp.asarray(w_np))
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=tol, atol=tol)
+
+
 # ------------------------------- the model -----------------------------------
 @pytest.fixture(scope="module")
 def tokens():
