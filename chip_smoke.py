@@ -47,6 +47,20 @@ Phases, each fatal on failure:
      after; the price phase split into plan, copies and kernel (it runs
      before the serving paths' profiles, after which torch.profiler has
      missed the pricing kernel's event);
+ 4b. the DSE features that run through the pricing kernels, under a
+     watchdog: the learned ranker fitted from the smoke sweeps on the
+     kernel backend (equal to numpy's, recall at its target), every smoke
+     scenario rank on and off on kernel, kernel-f32 and torch (rows and
+     rank survivors equal numpy's); ``reprice_grid`` rank on at 100,224
+     cells on both kernels (counts equal numpy's, price_s beside rank
+     off); certified ``search`` (random, halving, surrogate on the llm
+     smoke grid, halving on dense grids up to the largest that finishes
+     within SEARCH_LIMIT_S), each equal to numpy's; then the DSE service
+     daemon started after CUDA is initialized (its warm pool by
+     forkserver, a serial session refused): two clients with 6
+     overlapping cells, a search and a reprice request, rows equal to the
+     numpy engine's, dedup hits equal to the overlap, pricing launches
+     during the requests, a clean shutdown;
   5. the serving path: ``run_serve`` on the full mistral_nemo_12b config, 4
      requests x 2048-token prompts x 32 new tokens, random weights from a
      seed; the kernels' launch counters are zeroed just before and read just
@@ -166,6 +180,14 @@ DRIFT_BAND = 1e-5                  # f32 pricing vs the f64 reference
 F32_PLAIN_REL = 2.0 ** -19
 SMOKE_SCENARIOS = ("llm", "dlrm", "hpl", "fft", "moe", "mamba2", "serving")
 PARALLEL_TIMEOUT_S = 600
+# phase 4b: certified halving searches on dense grids of growing size
+# (None: DenseGridSpec(), 864 cells; else DenseGridSpec.dense(size)); a
+# size runs while its time, extrapolated from the last one, stays within
+# SEARCH_LIMIT_S; the phase's watchdog is PHASE4B_TIMEOUT_S
+SEARCH_LADDER = (None, 20_000, 50_000, 100_000)
+SEARCH_LIMIT_S = 120
+PHASE4B_TIMEOUT_S = 720
+REPRICE_TURNS = 3
 
 
 def fail(msg: str) -> int:
@@ -1522,9 +1544,9 @@ def exact_rows(rows: list[dict]) -> list[dict]:
             for r in rows]
 
 
-def _timed_out(what: str) -> None:
-    print(f"chip_smoke: FAILED: {what} did not finish in "
-          f"{PARALLEL_TIMEOUT_S} s", file=sys.stderr, flush=True)
+def _timed_out(what: str, seconds: float = PARALLEL_TIMEOUT_S) -> None:
+    print(f"chip_smoke: FAILED: {what} did not finish in {seconds} s",
+          file=sys.stderr, flush=True)
     os._exit(1)
 
 
@@ -1691,6 +1713,327 @@ def profiler_recheck(torch, kernels) -> dict:
             on = "device" if getattr(e, "device_type", None) == DeviceType.CUDA else "host"
             seen[f"{e.key[:40]} ({on})"] = e.count
     return {"counter": kernels.launches()["pricing"], "profiler": seen}
+
+
+# ------------------------------- phase 4b -------------------------------------
+def _search_policy(search, name: str, n: int):
+    """A shipped policy and its certification budget: random and surrogate
+    walk the whole grid, halving runs on a quarter of it."""
+    if name == "random":
+        return search.RandomSearch(seed=0, batch_size=8), n
+    if name == "halving":
+        return search.SuccessiveHalving(eta=4), max(1, -(-n // 4))
+    return search.SurrogateSearch(seed=0, batch_size=6, min_train=6), n
+
+
+def _search_key(res) -> tuple:
+    return (res.evals_used, res.cheap_evals, res.best_index, res.oracle_index)
+
+
+def check_dse_features(kernels) -> dict[str, int]:
+    """Phase 4b: the learned rank stage, budgeted search and the DSE service
+    daemon on the card, each against the numpy backend in this process.
+    Every step is fatal; the launch counters are zeroed just before each
+    step and read just after. Returns the pricing launches summed."""
+    import warnings
+
+    from repro_torch import learned, search
+    from repro_torch.core import DSEEngine, clear_caches
+    from repro_torch.search import DenseGridSpec
+    from repro_torch.service import DSEClient, DSEService
+    from repro_torch.workloads.scenarios import get_scenario
+
+    total = {"pricing": 0, "pricing_f32": 0}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        c = kernels.launches()
+        if any(v for k, v in c.items() if k not in total):
+            raise AssertionError(f"serving kernels launched on the DSE path: {c}")
+        for k in total:
+            total[k] += c[k]
+        return out, c
+
+    def launched(backend: str, c: dict) -> int:
+        key = "pricing_f32" if backend == "kernel-f32" else "pricing"
+        n = c[key] if backend != "torch" else 0
+        if backend in ("kernel", "kernel-f32") and not n:
+            raise AssertionError(f"{backend}: no pricing launch")
+        return n
+
+    # 1. the ranker: fitted from the smoke sweeps' harvest on the card and
+    # on numpy, then every scenario rank on against rank off
+    t0 = time.perf_counter()
+    models = {}
+    for backend in ("kernel", "numpy"):
+        clear_caches()
+        eng = DSEEngine(parallel=False, pricing_backend=backend, prune="on")
+        _, c = counted(lambda: [eng.sweep_scenario(n, smoke=True)
+                                for n in SMOKE_SCENARIOS])
+        launched(backend, c)
+        models[backend] = learned.fit_ranker()
+    got, want = models["kernel"], models["numpy"]
+    fields = ("n_train", "n_groups", "keep_frac", "recall")
+    say(f"  ranker from the seven smoke sweeps on kernel: "
+        + ", ".join(f"{f} {getattr(got, f)!r}" for f in fields)
+        + f" (recall target {got.recall_target}); numpy: "
+        + ", ".join(f"{f} {getattr(want, f)!r}" for f in fields))
+    if got.recall < got.recall_target:
+        raise AssertionError(f"ranker recall {got.recall} < {got.recall_target}")
+    if ([getattr(got, f) for f in fields] != [getattr(want, f) for f in fields]
+            or got.fingerprint != want.fingerprint):
+        raise AssertionError("the ranker fitted on kernel differs from numpy's")
+    for name in SMOKE_SCENARIOS:
+        ref = DSEEngine(parallel=False, pricing_backend="numpy", prune="on",
+                        rank="on")
+        rows = exact_rows(ref.sweep_scenario(name, smoke=True).rows())
+        want = ref.last_plan_stats
+        off = exact_rows(DSEEngine(parallel=False, pricing_backend="numpy",
+                                   prune="on").sweep_scenario(
+            name, smoke=True).rows())
+        if rows != off or not want["rank"]:
+            raise AssertionError(f"{name}: numpy rank on differs from off")
+        note = []
+        for backend in ("kernel", "kernel-f32", "torch"):
+            for rank in ("on", "off"):
+                eng = DSEEngine(parallel=False, pricing_backend=backend,
+                                prune="on", rank=rank)
+                res, c = counted(lambda: eng.sweep_scenario(name, smoke=True))
+                st = eng.last_plan_stats
+                if exact_rows(res.rows()) != rows:
+                    raise AssertionError(f"{name} {backend} rank {rank}: "
+                                         f"rows differ from numpy's")
+                if rank == "on" and (not st["rank"] or any(
+                        st[k] != want[k] for k in ("survived", "rank_survived",
+                                                   "priced"))):
+                    raise AssertionError(f"{name} {backend}: rank stats {st} "
+                                         f"against numpy's {want}")
+                note.append(f"{backend}/{rank} {launched(backend, c)}")
+        say(f"  {name}: rank on prices {want['rank_survived']} of "
+            f"{want['survived']} dominance survivors; rows identical to numpy "
+            f"rank on and off; launches {', '.join(note)}")
+    say(f"  ranker step in {time.perf_counter() - t0:.1f} s")
+
+    # 2. reprice_grid with rank on at 100,224 cells: the grid's rank-off pass
+    # first (it fills the harvest, so every rank-on engine below fits the
+    # same model), then numpy's rank-on report as the reference
+    t0 = time.perf_counter()
+    spec = DenseGridSpec.dense(100_000).spec()
+    work = get_scenario("llm", smoke=True).work_fn
+    keys = ("cells", "enumerated", "survived", "rank_survived", "priced_rows",
+            "chunks")
+    DSEEngine(parallel=False, pricing_backend="numpy").reprice_grid(work, spec)
+    ref = DSEEngine(parallel=False, pricing_backend="numpy",
+                    rank="on").reprice_grid(work, spec)
+    say(f"  reprice_grid numpy rank on: "
+        + ", ".join(f"{k} {ref[k]}" for k in keys + ("rank", "rank_keep_frac")))
+    if not ref["rank"] or ref["rank_survived"] >= ref["survived"]:
+        raise AssertionError(f"reprice_grid numpy: the rank stage did not run: {ref}")
+    for backend in ("kernel", "kernel-f32"):
+        engines = {rank: DSEEngine(parallel=False, pricing_backend=backend,
+                                   rank=rank) for rank in ("off", "on")}
+        for eng in engines.values():
+            eng.reprice_grid(work, spec)                      # warm the plan
+        price_s = {"off": [], "on": []}
+        rows = {}
+        for _ in range(REPRICE_TURNS):                        # in turns
+            for rank, eng in engines.items():
+                rep, c = counted(lambda: eng.reprice_grid(work, spec))
+                n = launched(backend, c)
+                if n != rep["chunks"] or not rep["winners_identical"]:
+                    raise AssertionError(
+                        f"reprice_grid {backend} rank {rank}: {n} launches "
+                        f"for {rep['chunks']} chunks")
+                if rank == "on" and {k: rep[k] for k in keys} != {
+                        k: ref[k] for k in keys}:
+                    raise AssertionError(f"reprice_grid {backend} rank on: "
+                                         f"{rep} against numpy's {ref}")
+                price_s[rank].append(rep["price_s"])
+                rows[rank] = (rep["priced_rows"], rep["drift"]["repriced"]
+                              if rep["drift"] else 0)
+        say(f"  reprice_grid {backend}: winners identical to numpy, one "
+            f"launch a pass; price_s in turns, rank on ({rows['on'][0]} "
+            f"rows, {rows['on'][1]} re-priced exactly) "
+            + ", ".join(f"{t:.6f}" for t in price_s["on"])
+            + f" s against rank off ({rows['off'][0]} rows, "
+            f"{rows['off'][1]} re-priced exactly) "
+            + ", ".join(f"{t:.6f}" for t in price_s["off"]) + " s")
+    say(f"  reprice step in {time.perf_counter() - t0:.1f} s")
+
+    # 3. certified searches on the card against numpy's
+    t0 = time.perf_counter()
+    sc = get_scenario("llm", smoke=True)
+
+    def run_search(backend, work_fn, spec, make):
+        eng = DSEEngine(parallel=False, pricing_backend=backend)
+        pol, budget = make()
+        t = time.perf_counter()
+        res, c = counted(lambda: eng.search(work_fn, spec, policy=pol,
+                                            budget=budget))
+        secs = time.perf_counter() - t
+        if not res.certified or res.best_index != res.oracle_index:
+            raise AssertionError(f"search {res.policy} on {backend}: "
+                                 f"not certified ({res.best_index}, "
+                                 f"{res.oracle_index})")
+        return res, launched(backend, c), secs
+
+    def both(label, work_fn, spec, make):
+        got, n, secs = run_search("kernel", work_fn, spec, make)
+        want, _, _ = run_search("numpy", work_fn, spec, make)
+        if _search_key(got) != _search_key(want):
+            raise AssertionError(f"search {label}: {_search_key(got)} against "
+                                 f"numpy's {_search_key(want)}")
+        say(f"  search {label}: certified, best {got.best_index} = oracle, "
+            f"{got.evals_used} full evaluations of {len(spec.grid())} cells, "
+            f"{got.cheap_evals} cheap bounds, identical to numpy; "
+            f"{n} launches; {secs:.2f} s on kernel")
+        return secs
+
+    n = len(sc.spec.grid())
+    for policy in ("random", "halving", "surrogate"):
+        both(f"{policy} llm smoke", sc.work_fn, sc.spec,
+             lambda: _search_policy(search, policy, n))
+    largest, secs, cells = None, 0.0, 0
+    for size in SEARCH_LADDER:
+        spec = (DenseGridSpec() if size is None
+                else DenseGridSpec.dense(size)).spec()
+        n = len(spec.grid())
+        if cells and secs * n / cells > SEARCH_LIMIT_S:
+            say(f"  search halving: dense({size}) ({n} cells) skipped, "
+                f"predicted {secs * n / cells:.0f} s > {SEARCH_LIMIT_S} s")
+            break
+        secs = both(f"halving dense {n}", work, spec,
+                    lambda: (search.SuccessiveHalving(eta=8), max(1, n // 5)))
+        cells = n
+        if secs <= SEARCH_LIMIT_S:
+            largest = (n, secs)
+    if largest is None:
+        raise AssertionError(f"no dense search finished within "
+                             f"{SEARCH_LIMIT_S} s")
+    say(f"  largest dense grid searched (halving, certified) within "
+        f"{SEARCH_LIMIT_S} s on the card: {largest[0]} cells in "
+        f"{largest[1]:.2f} s")
+    say(f"  search step in {time.perf_counter() - t0:.1f} s")
+
+    # 4. the daemon: started after CUDA is initialized, its warm pool by
+    # forkserver; two clients with 6 overlapping cells, a search, a reprice
+    t0 = time.perf_counter()
+    sc = get_scenario("llm", smoke=True)
+    grid = sc.spec.grid()
+    want = {it.index: (None if it.point is None else exact_rows([it.point.row()])[0])
+            for it in DSEEngine(parallel=False, pricing_backend="numpy")
+            .sweep_cells_iter(sc.work_fn, grid, sc.spec)}
+    n = len(grid)
+    a_cells, b_cells = list(range(0, 2 * n // 3)), list(range(n // 3, n))
+    overlap = len(set(a_cells) & set(b_cells))
+    svc = DSEService(max_workers=2, shared_cache=True,
+                     pricing_backend="kernel", rank="on")
+    method = svc.engine._start_method()
+    if method != "forkserver":
+        raise AssertionError(f"CUDA is initialized but the daemon's pool "
+                             f"starts by {method}")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="warm session pool unavailable")
+        svc.start()
+    try:
+        pool = svc.engine._session_pool
+        if pool is None:
+            raise AssertionError("the daemon has no warm pool")
+        workers = list(pool._processes.values())
+        replies: dict = {}
+
+        def client(name, cells):
+            with DSEClient(svc.path) as cli:
+                replies[name] = cli.sweep(scenario="llm", smoke=True,
+                                          cells=cells, client=name)
+
+        kernels.reset_launches()
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=("A", a_cells)),
+                   threading.Thread(target=client, args=("B", b_cells))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        cold_s = time.perf_counter() - t
+        with DSEClient(svc.path) as cli:
+            sched = cli.stats()["scheduler"]
+            t = time.perf_counter()
+            warm = cli.sweep(scenario="llm", smoke=True)
+            warm_s = time.perf_counter() - t
+            found = cli.search(scenario="llm", smoke=True, policy="halving")
+            rep = cli.reprice(scenario="llm", smoke=True)
+            # a scenario no request has planned yet, on the warm workers
+            t = time.perf_counter()
+            other = cli.sweep(scenario="dlrm", smoke=True)
+            other_s = time.perf_counter() - t
+            stats = cli.stats()
+        c = kernels.launches()
+        for k in total:
+            total[k] += c[k]
+        for name, cells in (("A", a_cells), ("B", b_cells)):
+            r = replies.get(name)
+            got = {i: None if p is None else exact_rows([p.row()])[0]
+                   for i, p in zip(r.indices, r.points)} if r else {}
+            if got != {i: want[i] for i in cells}:
+                raise AssertionError(f"daemon client {name}: rows differ from "
+                                     f"the numpy engine's")
+        if exact_rows(warm.rows()) != [want[i] for i in range(n) if want[i]]:
+            raise AssertionError("daemon warm sweep: rows differ")
+        if exact_rows(other.rows()) != exact_rows(
+                p.row() for p in DSEEngine(parallel=False,
+                                           pricing_backend="numpy")
+                .sweep_scenario("dlrm", smoke=True).points):
+            raise AssertionError("daemon dlrm sweep: rows differ")
+        if sched["dedup_hits"] != overlap or sched["cells_priced"] != n:
+            raise AssertionError(f"daemon dedup: {sched}, overlap {overlap}")
+        ref = DSEEngine(parallel=False, pricing_backend="numpy").search(
+            sc.work_fn, sc.spec, policy=search.SuccessiveHalving(), budget=n)
+        s = found.summary
+        if (not s["certified"] or (s["evals_used"], s["cheap_evals"],
+                                   s["best_index"], s["oracle_index"])
+                != _search_key(ref)):
+            raise AssertionError(f"daemon search: {s} against numpy's "
+                                 f"{_search_key(ref)}")
+        if not rep["winners_identical"] or rep["backend"] != "kernel":
+            raise AssertionError(f"daemon reprice: {rep}")
+        if not c["pricing"]:
+            raise AssertionError(f"daemon: no pricing launch during the "
+                                 f"requests ({c})")
+        say(f"  daemon (forkserver pool of 2, mmap store, rank on): cold "
+            f"request (two clients, {overlap} overlapping of {n} cells) "
+            f"{cold_s:.4f} s, warm repeat {warm_s:.4f} s, a new scenario "
+            f"(dlrm, 18 cells) on the warm workers {other_s:.4f} s; rows "
+            f"identical to "
+            f"numpy; {sched['dedup_hits']} dedup hits, {sched['cells_priced']} "
+            f"cells priced; search halving certified, best "
+            f"{s['best_index']}, {s['evals_used']} evaluations; reprice "
+            f"winners identical; {c['pricing']} pricing launches; "
+            f"ranker fitted {stats['engine']['rank_model']}; store "
+            f"{json.dumps(stats['shared_store_delta'])}")
+    finally:
+        svc.close()
+    if os.path.exists(svc.path) or svc.engine._session_pool is not None:
+        raise AssertionError("the daemon left its socket or its pool")
+    for p in workers:
+        p.join(timeout=10)
+    alive = [p.pid for p in workers if p.is_alive()]
+    if alive:
+        raise AssertionError(f"daemon pool workers still alive: {alive}")
+    # what a fresh pool worker pays before its first plan: the import of
+    # the scenario registry a request's work_fn lives in (reported only)
+    probe = subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); "
+         "import repro_torch.workloads.scenarios; "
+         "print(time.perf_counter() - t)"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    say(f"  daemon step in {time.perf_counter() - t0:.1f} s (shut down: "
+        f"socket gone, {len(workers)} workers gone); importing "
+        f"repro_torch.workloads.scenarios in a fresh process: "
+        f"{probe.stdout.strip() or probe.stderr[-300:]} s")
+    return total
 
 
 # ------------------------------- phases 5-7 -----------------------------------
@@ -2378,6 +2721,22 @@ def main() -> int:
     say(f"    DSE path in {time.perf_counter() - t0:.1f} s; pricing launches "
         f"{dse['pricing']}, pricing_f32 launches {dse['pricing_f32']}")
 
+    # 4b. the learned rank stage, budgeted search and the service daemon
+    say("[4b] DSE rank stage, certified searches and the service daemon on "
+        "the kernel backends against numpy")
+    t0 = time.perf_counter()
+    watchdog = threading.Timer(PHASE4B_TIMEOUT_S, _timed_out,
+                               ("phase 4b", PHASE4B_TIMEOUT_S))
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        features = check_dse_features(kernels)
+    finally:
+        watchdog.cancel()
+    say(f"    phase 4b in {time.perf_counter() - t0:.1f} s; pricing launches "
+        f"{features['pricing']}, pricing_f32 launches "
+        f"{features['pricing_f32']}")
+
     # 5.-7. the serving paths
     cfg = get_config("mistral_nemo_12b")
     dense = check_serving(torch, kernels, "mistral_nemo_12b", REQUESTS, {
@@ -2421,6 +2780,7 @@ def main() -> int:
                     f"{child.stdout[-500:]} {child.stderr[-2000:]}")
     say(f"    {child.stdout.strip().splitlines()[-1]}")
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
+               "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}

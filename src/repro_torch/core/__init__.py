@@ -11,7 +11,11 @@ Public surface:
                         pareto_frontier (parallel+cached: dse_engine.py);
                         plan phase: plan_design_cells → PlannedPoint,
                         plan_design_groups → PlannedGroup (candidate
-                        matrices shipped worker → parent)
+                        matrices shipped worker → parent);
+                        streaming: DSEEngine.sweep_iter → SweepItem;
+                        budgeted search: DSEEngine.search (repro_torch.search);
+                        learned rank stage: DSEEngine(rank="on")
+                        (repro_torch.learned)
   candidates (columnar): CandidateSet, candidate_matrix, select_plans —
                         the batched (tp, pp, dp) × dim-assignment argmin
   pruning             : PrunedCandidates, prune_matrix, select_candidates —
@@ -23,7 +27,10 @@ Public surface:
   pricing (batched)   : PlanVector, PlanMatrix, price_plans,
                         price_plan_scalar, stack_plans, batched_roofline
                         (numpy | torch | the f64 / f32 CUDA kernel)
-  memo cache          : cache_stats, clear_caches (process-local)
+  memo cache          : cache_stats, clear_caches, caching_disabled;
+                        cross-process tier (memo_store.py): create_store,
+                        StoreHandle — mmap table / socket server shared by
+                        sweep workers, DSEEngine(shared_cache=...)
 
 The reference's ``roofline`` and ``serving`` modules are not part of the
 DSE price phase and are not copied.
@@ -46,10 +53,14 @@ from .costpower import (cost_efficiency, power_efficiency, silicon_power_w,
 from .dse import (DesignPoint, PlannedGroup, PlannedPoint, design_grid,
                   plan_design_cells, plan_design_groups, price_planned,
                   sweep)
-from .dse_engine import DSEEngine, ScenarioResult, SweepSpec, pareto_frontier
+from .dse_engine import (DSEEngine, ScenarioResult, SweepItem, SweepSpec,
+                         pareto_frontier, stop_after_feasible)
 from .pricing import (PlanMatrix, PlanVector, batched_roofline,
                       price_plan_scalar, price_plans, stack_plans)
-from .memo import CacheStats, SolveCache, cache_stats, clear_caches
+from .memo import (CacheStats, SolveCache, cache_stats, caching_disabled,
+                   clear_caches)
+from .memo_store import (MmapStore, ServerStore, StoreHandle, choose_backend,
+                         create_store)
 
 __all__ = [
     "DataflowGraph", "Kernel", "KernelKind", "Tensor", "chain_graph",
@@ -68,8 +79,12 @@ __all__ = [
     "silicon_price_usd",
     "DesignPoint", "PlannedGroup", "PlannedPoint", "design_grid",
     "plan_design_cells", "plan_design_groups", "price_planned", "sweep",
-    "DSEEngine", "ScenarioResult", "SweepSpec", "pareto_frontier",
+    "DSEEngine", "ScenarioResult", "SweepItem", "SweepSpec",
+    "pareto_frontier", "stop_after_feasible",
     "PlanMatrix", "PlanVector", "batched_roofline", "price_plan_scalar",
     "price_plans", "stack_plans",
-    "CacheStats", "SolveCache", "cache_stats", "clear_caches",
+    "CacheStats", "SolveCache", "cache_stats", "caching_disabled",
+    "clear_caches",
+    "MmapStore", "ServerStore", "StoreHandle", "choose_backend",
+    "create_store",
 ]

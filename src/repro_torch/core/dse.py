@@ -38,6 +38,8 @@ The production engine lives in :mod:`repro_torch.core.dse_engine`:
   same grid (plan groups shipped to a worker pool) + one batched pricing
   call, with a deterministic ordered reduce: the returned list is
   element-for-element identical to this module's sweep.
+* ``DSEEngine.sweep_iter(work_fn, spec)`` — streaming variant yielding
+  grid-index-tagged points in completion order, with early-exit.
 * ``DSEEngine.sweep_scenario(name, smoke=...)`` — named sweeps over the
   workload families (``repro_torch.workloads.scenarios``) plus Pareto-frontier
   extraction over utilization × cost_eff × power_eff.
@@ -374,6 +376,8 @@ def plan_design_groups(work_fn: Callable[[SystemSpec], TrainWorkload],
                        ship_matrix: bool = True,
                        prune: str | bool = "auto",
                        certify: bool | str = "sample",
+                       ranker=None,
+                       rank_keep_frac: float | None = None,
                        device=None, band: float = DRIFT_BAND
                        ) -> list[PlannedGroup]:
     """Plan phase emitting one :class:`PlannedGroup` per system group.
@@ -407,11 +411,22 @@ def plan_design_groups(work_fn: Callable[[SystemSpec], TrainWorkload],
     unpruned matrix so the engine parent can repeat the scalar-scan
     certification on its side of the IPC boundary.
 
+    ``ranker`` (a :class:`repro_torch.learned.model.LearnedModel`,
+    pruning on only) inserts the learned rank stage between the dominance
+    filter and pricing: every ``pruned(...)`` view this call takes — the
+    selection, the backend-certification re-pricing and the shipped
+    matrix — is the SAME rank-filtered view, so the survivor maps stay
+    consistent across the IPC boundary.  The sampled scalar
+    certification above runs against the full enumeration and therefore
+    re-proves the rank union guarantee on every sampled group.
+
     ``device`` is where a non-numpy ``pricing_backend`` prices (``None``:
     the CUDA card); ``band`` is the drift band of an approximate one.
     """
     backend = resolve_backend(pricing_backend)
     pruning = resolve_prune(prune)
+    if ranker is not None and not pruning:
+        ranker = None  # the rank stage is a refinement of the prune stage
     out: list[PlannedGroup] = []
     for gi, (idxs, work, systems) in enumerate(_group_cells(
             work_fn, cells, n_chips, execution)):
@@ -419,7 +434,15 @@ def plan_design_groups(work_fn: Callable[[SystemSpec], TrainWorkload],
                                  max_pp=max_pp, execution=execution,
                                  prune=prune)
         caps = tuple(s.memory.capacity for s in systems)
-        sel = select_candidates(cands, caps, prune=prune)  # numpy winners
+        rank_ctx = None
+        if ranker is not None:
+            from ..learned.features import system_features
+
+            rank_ctx = system_features(systems[0].chip, systems[0].n_chips,
+                                       systems[0].topology.name)
+        sel = select_candidates(cands, caps, prune=prune, ranker=ranker,
+                                rank_keep_frac=rank_keep_frac,
+                                rank_context=rank_ctx)  # numpy winners
         sampled = pruning and (gi % CERTIFY_EVERY == 0
                                if certify == "sample" else bool(certify))
         if sampled and len(cands):
@@ -428,7 +451,11 @@ def plan_design_groups(work_fn: Callable[[SystemSpec], TrainWorkload],
                                 caps, sel.rows, context=f"group {gi}")
         drift_stats: dict | None = None
         if len(cands) and backend != "numpy":
-            src = cands.pruned(max(caps)) if pruning else cands
+            src = (cands.pruned(max(caps), ranker=ranker,
+                                keep_frac=rank_keep_frac,
+                                rank_context=rank_ctx,
+                                rank_capacities=caps)
+                   if pruning else cands)
             check = src.priced(backend, device)
             if is_approx_backend(backend):
                 # approximate columns: winner identity is certified under
@@ -457,7 +484,10 @@ def plan_design_groups(work_fn: Callable[[SystemSpec], TrainWorkload],
                                         _plan_vector(work, system, plan,
                                                      intra)))
         if ship_matrix:
-            matrix = (cands.pruned(max(caps)).matrix
+            matrix = (cands.pruned(max(caps), ranker=ranker,
+                                   keep_frac=rank_keep_frac,
+                                   rank_context=rank_ctx,
+                                   rank_capacities=caps).matrix
                       if pruning and len(cands) else cands.matrix)
         else:
             matrix = PlanMatrix.concat([])
@@ -484,6 +514,8 @@ def plan_design_cells(work_fn: Callable[[SystemSpec], TrainWorkload],
                       pricing_backend: str = "numpy",
                       prune: str | bool = "auto",
                       certify: bool | str = "sample",
+                      ranker=None,
+                      rank_keep_frac: float | None = None,
                       device=None, band: float = DRIFT_BAND
                       ) -> list[PlannedPoint | None]:
     """Plan phase over a list of grid cells (output aligned to ``cells``).
@@ -502,6 +534,8 @@ def plan_design_cells(work_fn: Callable[[SystemSpec], TrainWorkload],
                                     max_pp=max_pp, execution=execution,
                                     pricing_backend=pricing_backend,
                                     prune=prune, certify=certify,
+                                    ranker=ranker,
+                                    rank_keep_frac=rank_keep_frac,
                                     device=device, band=band):
         for pos, planned in zip(group.indices, group.planned):
             out[pos] = planned

@@ -34,33 +34,48 @@ The engine evaluates the same design grid as the serial reference
   / serving, see :mod:`repro_torch.workloads.scenarios`) and extracts the
   Pareto frontier over ``utilization × cost_eff × power_eff`` — the
   decision surface the paper's heat maps (Figs 10-17) visualize.
+  ``DSEEngine(phased=False)`` keeps the per-point path (each worker plans
+  *and* prices one cell, scalar numpy) as a baseline.
+* **streaming**: :meth:`DSEEngine.sweep_iter` yields grid-index-tagged
+  :class:`SweepItem`\\ s in completion order with windowed submission, so
+  an early-exit predicate (e.g. :func:`stop_after_feasible`) stops
+  submitting new work.
 * **at scale**: :meth:`DSEEngine.reprice_grid` streams a whole grid's
   candidate space through the pricing backend in fixed-size chunks.
-
-The reference engine's streaming API (``sweep_iter``), warm sessions,
-cross-process shared memo store, per-point and uncached baselines serve
-its search layer and service daemon, which are not ported yet (ROADMAP.md
-queue 1, item 5); the port's engine has none of them.
+* **learned rank stage and budgeted search**: ``rank="on"`` fits a ridge
+  ranker on the memo harvest (:mod:`repro_torch.learned`) and prices only
+  its calibrated top fraction union the certified safety set;
+  :meth:`DSEEngine.search` drives a :mod:`repro_torch.search` policy under
+  an evaluation budget and certifies its winner against the exhaustive
+  argmin.
+* **warm sessions**: :meth:`DSEEngine.start` keeps one pool and (with
+  ``shared_cache``) one cross-process memo store
+  (:mod:`repro_torch.core.memo_store`) alive across calls — what the DSE
+  service daemon (:mod:`repro_torch.service`) runs on.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import multiprocessing
 import os
 import pickle
 import sys
 import time
 import warnings
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Iterator, Sequence
 
 from ..systems.system import SystemSpec
 from .dse import (CERTIFY_EVERY, DEFAULT_CHIPS, DEFAULT_MEM_NET,
                   DEFAULT_TOPOLOGIES, DesignPoint, GridCell, PlannedGroup,
-                  PlannedPoint, design_grid, plan_design_groups,
-                  price_planned)
+                  PlannedPoint, _group_cells, design_grid,
+                  evaluate_design_point, plan_design_cells,
+                  plan_design_groups, price_planned)
 from .interchip import (TrainWorkload, candidate_matrix, certify_scalar_rows,
                         certify_winner_rows, resolve_prune,
-                        select_candidates)
+                        select_candidates, winner_rows)
+from .memo import GLOBAL_CACHE, caching_disabled
+from .memo_store import StoreHandle, choose_backend, create_store
 from .pricing import (DRIFT_BAND, PlanMatrix, is_approx_backend, price_plans,
                       resolve_backend)
 
@@ -93,6 +108,30 @@ class ScenarioResult:
 
     def rows(self) -> list[dict]:
         return [{"workload": self.name, **p.row()} for p in self.points]
+
+
+@dataclasses.dataclass
+class SweepItem:
+    """One streamed sweep result: the grid index, its cell, and the priced
+    point (``None`` for undecomposable cells, which ``sweep`` would skip)."""
+
+    index: int
+    cell: GridCell
+    point: DesignPoint | None
+
+
+def stop_after_feasible(n: int) -> Callable[[SweepItem], bool]:
+    """Early-exit predicate for :meth:`DSEEngine.sweep_iter`: stop once
+    ``n`` memory-feasible points have streamed out."""
+    seen = 0
+
+    def _stop(item: SweepItem) -> bool:
+        nonlocal seen
+        if item.point is not None and item.point.plan.feasible:
+            seen += 1
+        return seen >= n
+
+    return _stop
 
 
 def pareto_frontier(points: Sequence[DesignPoint],
@@ -138,6 +177,42 @@ def pareto_frontier(points: Sequence[DesignPoint],
 _WORKER_CTX: dict = {}
 
 
+def _init_worker_shared(handle: StoreHandle) -> None:
+    """Pool-worker initializer: attach a fresh connection to the sweep's
+    shared memo store.  Runs before any task in every worker, for every
+    start method — fork children must not reuse the parent's socket or
+    lock-owning fd, so inheriting the parent's attached client is never
+    enough.  The exit hook flushes whatever the client still buffers
+    (trailing puts, stats deltas) when the pool retires the worker; it is
+    a ``multiprocessing.util.Finalize``, NOT ``atexit`` — pool children
+    leave via ``os._exit``, which skips atexit handlers."""
+    from multiprocessing.util import Finalize
+
+    client = handle.connect()
+    GLOBAL_CACHE.attach_shared(client)
+    Finalize(None, client.close, exitpriority=10)
+
+
+def _noop(_i: int) -> None:
+    """Warm-up task for :meth:`DSEEngine.start` (module-level so every
+    start method can pickle it)."""
+    return None
+
+
+def _eval_index(i: int) -> DesignPoint | None:
+    ctx = _WORKER_CTX
+    return evaluate_design_point(ctx["work_fn"], ctx["grid"][i],
+                                 ctx["n_chips"], max_tp=ctx["max_tp"],
+                                 max_pp=ctx["max_pp"],
+                                 execution=ctx["execution"])
+
+
+def _eval_args(args: tuple) -> DesignPoint | None:
+    work_fn, cell, n_chips, max_tp, max_pp, execution = args
+    return evaluate_design_point(work_fn, cell, n_chips, max_tp=max_tp,
+                                 max_pp=max_pp, execution=execution)
+
+
 # Workers always select on the numpy reference backend (CUDA stays in the
 # parent). With a non-numpy parent backend they also ship
 # the candidate matrix so the parent can re-price it and certify the
@@ -158,17 +233,20 @@ def _plan_group_index(task: tuple) -> list[PlannedGroup]:
                                 max_tp=ctx["max_tp"], max_pp=ctx["max_pp"],
                                 execution=ctx["execution"],
                                 ship_matrix=ctx["ship_matrix"],
-                                prune=ctx["prune"], certify=certify)
+                                prune=ctx["prune"], certify=certify,
+                                ranker=ctx.get("ranker"),
+                                rank_keep_frac=ctx.get("rank_keep_frac"))
     return [_remap_group(g, idxs) for g in groups]
 
 
 def _plan_group_args(args: tuple) -> list[PlannedGroup]:
     (work_fn, cells, idxs, n_chips, max_tp, max_pp, execution, ship,
-     prune, certify) = args
+     prune, ranker, rank_keep_frac, certify) = args
     groups = plan_design_groups(work_fn, cells, n_chips, max_tp=max_tp,
                                 max_pp=max_pp, execution=execution,
                                 ship_matrix=ship, prune=prune,
-                                certify=certify)
+                                certify=certify, ranker=ranker,
+                                rank_keep_frac=rank_keep_frac)
     return [_remap_group(g, idxs) for g in groups]
 
 
@@ -242,23 +320,6 @@ def _require_picklable(work_fn) -> None:
             f"pool transport requires: {exc}") from exc
 
 
-RANK_MODES = ("on", "off", "auto")
-
-
-def check_rank(policy: str | bool) -> None:
-    """Validate a ``rank=`` policy as the reference does (a bool or one of
-    :data:`RANK_MODES`; ``"auto"`` means off). The learned rank stage is
-    not ported, so a policy that turns it on raises
-    ``NotImplementedError``."""
-    if not isinstance(policy, bool) and policy not in RANK_MODES:
-        raise ValueError(f"unknown rank policy {policy!r}; "
-                         f"expected a bool or one of {RANK_MODES}")
-    if policy is True or policy == "on":
-        raise NotImplementedError(
-            "the learned rank stage is not ported yet; ROADMAP.md queue 1, "
-            "item 5 (the learned/ and search/ layers)")
-
-
 class DSEEngine:
     """Parallel + cached + phase-split design-space sweep engine.
 
@@ -269,6 +330,10 @@ class DSEEngine:
     parallel:
         ``"auto"`` (parallel when >1 CPU and the grid is big enough),
         ``True`` (force), or ``False`` (serial in-process, still cached).
+    use_cache:
+        ``False`` runs every solve cold — the serial baseline. (Fork
+        workers inherit the disabled flag; spawn workers start fresh
+        either way.)
     mp_context:
         Explicit multiprocessing start method (``"fork"``, ``"spawn"``,
         ``"forkserver"``) or a ``multiprocessing`` context object. Default
@@ -276,6 +341,10 @@ class DSEEngine:
         context is live in this process, forkserver otherwise. Non-fork
         transports ship full task arguments, so ``work_fn`` must be
         picklable.
+    phased:
+        ``True`` (default) splits evaluation into a parallel plan phase +
+        batched pricing calls; ``False`` keeps the per-point path where
+        each worker plans and prices a single cell (scalar numpy).
     pricing_backend:
         ``"numpy"``, ``"torch"`` (eager f64 tensors), ``"kernel"`` (the f64
         CUDA pricing kernel, :mod:`repro_torch.kernels.pricing`),
@@ -307,8 +376,20 @@ class DSEEngine:
         :meth:`reprice_grid`. Bounds peak memory when the grid carries
         10⁵–10⁶ candidate rows; the default (65536) keeps one f32 block
         comfortably cache-sized while amortizing dispatch.
+    shared_cache:
+        ``False`` (default) keeps worker memo caches process-private.
+        ``True``/``"auto"`` layers a cross-process shared memo store
+        (:mod:`repro_torch.core.memo_store`) under every worker's cache
+        for the duration of each parallel sweep, so workers reuse each
+        other's plan/sharding/minmax/subdiv/candmat solves; the backend
+        follows the pool transport (mmap table for fork/forkserver,
+        unix-socket server for spawn). ``"mmap"``/``"server"`` force a
+        backend. The store lives for one sweep (or one warm session): it
+        is created next to the pool and torn down — even on pool failure
+        — before the sweep returns, leaving its aggregated cross-process
+        stats in ``last_shared_stats``.
     prune:
-        Candidate-pruning policy for the plan phase: ``"on"``,
+        Candidate-pruning policy for the phased plan phase: ``"on"``,
         ``"off"``, a bool, or ``"auto"`` (on). With pruning on, workers
         apply the hard feasibility mask + dominance filter
         (``interchip.prune_matrix``) before pricing and ship the
@@ -321,54 +402,111 @@ class DSEEngine:
         shrinks how many rows get priced (``last_plan_stats`` reports
         enumerated / survived / priced).
     rank:
-        Learned rank-stage policy: ``"on"``, ``"off"``, a bool, or
-        ``"auto"`` (off). The learned stage is not ported yet, so a policy
-        that turns it on raises ``NotImplementedError``.
+        Learned rank-stage policy (:mod:`repro_torch.learned`): ``"on"``,
+        ``"off"``, a bool, or ``"auto"`` (**off** — the learned stage is
+        opt-in). With rank on (and pruning on — the rank stage refines
+        the dominance survivors, so prune off implies rank off), the
+        engine fits a ridge ranker on the memo cache's ``candmat`` harvest
+        once per sweep (warm sessions refit incrementally when
+        :meth:`repro_torch.core.memo.SolveCache.diff_stats` shows the
+        harvest grew) and ships it to the workers; each group then prices
+        only the model's calibrated top fraction union the staircase
+        safety set (:func:`repro_torch.learned.rank.rank_keep`). When the
+        harvest is below the staleness guard
+        (:data:`repro_torch.learned.model.MIN_TRAIN_ROWS`) the engine
+        degrades to rank-off for that sweep. Winners stay certified
+        identical to the unranked pipeline (same sampled scalar
+        certification); ``last_plan_stats`` reports ``rank`` /
+        ``rank_survived`` / ``rank_keep_frac``.
+    rank_keep_frac:
+        Override for the model's calibrated keep fraction, a float in
+        (0, 1] (default ``None``: the calibrated fraction).
+    rank_model_path:
+        Optional persistence path for the trained
+        :class:`repro_torch.learned.model.LearnedModel`: loaded when the
+        in-process harvest is too small to fit (a cold service process
+        reusing the previous session's model), saved after every
+        successful fit.
     """
 
     def __init__(self, max_workers: int | None = None,
                  parallel: bool | str = "auto",
+                 use_cache: bool = True,
                  mp_context: str | multiprocessing.context.BaseContext | None
                  = None,
+                 phased: bool = True,
                  pricing_backend: str = "auto",
+                 shared_cache: bool | str = False,
                  prune: str | bool = "auto",
                  price_chunk_rows: int = 65536,
                  rank: str | bool = "auto",
+                 rank_keep_frac: float | None = None,
+                 rank_model_path: str | None = None,
                  device=None,
                  drift_band: float = DRIFT_BAND) -> None:
         self.max_workers = max_workers or (os.cpu_count() or 1)
         self.parallel = parallel
+        self.use_cache = use_cache
         if isinstance(mp_context, str):
             if mp_context not in multiprocessing.get_all_start_methods():
                 raise ValueError(
                     f"mp_context {mp_context!r} not available on this "
                     f"platform; have {multiprocessing.get_all_start_methods()}")
         self.mp_context = mp_context
+        self.phased = phased
         resolve_backend(pricing_backend)  # reject unknown backends now
         self.pricing_backend = pricing_backend
         self.device = device
         from ..kernels.pricing.drift import drift_band as _check_band
 
         self.drift_band = _check_band(drift_band)
+        if shared_cache not in (False, True, "auto", "mmap", "server"):
+            raise ValueError(
+                f"shared_cache {shared_cache!r}; expected False, True, "
+                f"'auto', 'mmap' or 'server'")
+        self.shared_cache = shared_cache
         resolve_prune(prune)  # reject unknown policies at construction
         self.prune = prune
         if not isinstance(price_chunk_rows, int) or price_chunk_rows < 1:
             raise ValueError(f"price_chunk_rows must be a positive int, "
                              f"got {price_chunk_rows!r}")
         self.price_chunk_rows = price_chunk_rows
-        check_rank(rank)
+        from ..learned.rank import resolve_rank
+
+        resolve_rank(rank)  # reject unknown policies at construction
         self.rank = rank
-        #: Plan-phase accounting of the last sweep: {"groups",
+        if rank_keep_frac is not None and not 0.0 < rank_keep_frac <= 1.0:
+            raise ValueError(f"rank_keep_frac must lie in (0, 1], "
+                             f"got {rank_keep_frac!r}")
+        self.rank_keep_frac = rank_keep_frac
+        self.rank_model_path = rank_model_path
+        # learned rank-stage session state: the current fitted model and
+        # the cache-stats snapshot its harvest was taken at (warm-session
+        # incremental retrain compares against it; see _ranker_for_run)
+        self._ranker = None
+        self._rank_snapshot = None
+        #: Plan-phase accounting of the last phased sweep: {"groups",
         #: "candidates", "cells", "backend", "verified", "prune",
-        #: "enumerated", "survived", "priced", ...}. ``None`` until a sweep
-        #: completes.
+        #: "enumerated", "survived", "priced", "rank", "rank_survived",
+        #: "rank_keep_frac", ...}. ``None`` until a phased sweep completes.
         self.last_plan_stats: dict | None = None
+        #: Aggregated cross-process stats of the last parallel sweep's
+        #: shared memo store ({"backend", "hits", "misses", "inserts",
+        #: "dropped", "entries", "by_space"}), or ``None`` when no shared
+        #: store ran. ``hits`` counts lookups served by *another*
+        #: process's solve.
+        self.last_shared_stats: dict | None = None
         #: Aggregated drift-band accounting of the last sweep's banded
         #: certifications on an approximate backend ({"backend", "band",
         #: "groups", "rows", "caps", "repriced", "ambiguous_mem",
         #: "band_hits", "fallback_caps", "max_iter_drift",
         #: "max_mem_drift"}), or ``None`` when no banded selection ran.
         self.last_drift_stats: dict | None = None
+        # warm-session state (:meth:`start` / :meth:`shutdown`): one
+        # process pool + one shared memo store reused across calls
+        self._session = False
+        self._session_pool = None
+        self._session_store = None
 
     # -- core sweep ----------------------------------------------------------
     def sweep(self, work_fn: Callable[[SystemSpec], TrainWorkload],
@@ -380,7 +518,10 @@ class DSEEngine:
         """
         grid = spec.grid()
         self.last_plan_stats = None
+        self.last_shared_stats = None
         self.last_drift_stats = None
+        if not self.phased:
+            return self._sweep_perpoint(work_fn, spec, grid)
         planned: list[PlannedPoint | None] | None = None
         if self._should_parallelize(len(grid)):
             try:
@@ -390,20 +531,92 @@ class DSEEngine:
                               f"falling back to serial", RuntimeWarning,
                               stacklevel=2)
         if planned is None:
-            # the serial path goes through the same group reduce as the
-            # pool path, so ``last_plan_stats`` (incl. the pruning
-            # accounting) is populated either way; the matrices are not
-            # shipped anywhere — backend and sampled scalar certification
-            # already ran inside the call
-            groups = plan_design_groups(
-                work_fn, grid, spec.n_chips, max_tp=spec.max_tp,
-                max_pp=spec.max_pp, execution=spec.execution,
-                pricing_backend=self.pricing_backend,
-                ship_matrix=False, prune=self.prune,
-                device=self.device, band=self.drift_band)
-            planned = self._finish_plan_groups(groups, len(grid))
+            with self._cache_mode():
+                # the serial phased path goes through the same group
+                # reduce as the pool path, so ``last_plan_stats`` (incl.
+                # the pruning accounting) is populated either way; the
+                # matrices are not shipped anywhere — backend and sampled
+                # scalar certification already ran inside the call
+                ranker, rkf = self._ranker_for_run()
+                groups = plan_design_groups(
+                    work_fn, grid, spec.n_chips, max_tp=spec.max_tp,
+                    max_pp=spec.max_pp, execution=spec.execution,
+                    pricing_backend=self.pricing_backend,
+                    ship_matrix=False, prune=self.prune,
+                    ranker=ranker, rank_keep_frac=rkf,
+                    device=self.device, band=self.drift_band)
+                planned = self._finish_plan_groups(groups, len(grid))
         return price_planned(planned, backend=self.pricing_backend,
                              device=self.device)
+
+    def sweep_iter(self, work_fn: Callable[[SystemSpec], TrainWorkload],
+                   spec: SweepSpec = SweepSpec(),
+                   stop: Callable[[SweepItem], bool] | None = None
+                   ) -> Iterator[SweepItem]:
+        """Stream :class:`SweepItem`\\ s as plan groups finish.
+
+        Items carry their grid index so consumers can re-order; every index
+        of the grid is delivered exactly once (unless ``stop`` ends the
+        sweep early). ``stop`` is called after each yield; a truthy return
+        cancels all not-yet-running work and ends the iteration. Work is
+        submitted in a bounded window (≈2 tasks per worker), so an early
+        stop genuinely avoids planning the rest of the grid.
+
+        Points are priced through the same batched backend as :meth:`sweep`
+        (one batch per plan group) — pricing is elementwise over the batch
+        axis, so streamed values are bit-identical to a full sweep's.
+        """
+        return self._iter_cells(work_fn, spec, spec.grid(), stop)
+
+    def sweep_cells_iter(self, work_fn: Callable[[SystemSpec], TrainWorkload],
+                         cells: Sequence[GridCell],
+                         spec: SweepSpec = SweepSpec(),
+                         stop: Callable[[SweepItem], bool] | None = None
+                         ) -> Iterator[SweepItem]:
+        """Stream :class:`SweepItem`\\ s for an explicit list of grid cells.
+
+        Identical machinery (and therefore bit-identical points) to
+        :meth:`sweep_iter`, but over ``cells`` instead of ``spec``'s own
+        cartesian grid — ``spec`` contributes only the non-grid sweep
+        parameters (``n_chips``, ``max_tp``, ``max_pp``, ``execution``).
+        Item indices are positions in ``cells``; every position is
+        delivered exactly once (unless ``stop`` fires).
+
+        This is the warm-service entry point: the service scheduler
+        (:mod:`repro_torch.service`) batches deduplicated cells from many
+        concurrent requests and streams each batch through the same
+        certified plan → price pipeline, usually on a warm session pool
+        (:meth:`start`).
+        """
+        return self._iter_cells(work_fn, spec, list(cells), stop)
+
+    def _iter_cells(self, work_fn, spec: SweepSpec, grid, stop
+                    ) -> Iterator[SweepItem]:
+        self.last_shared_stats = None
+        self.last_drift_stats = None
+        delivered: set[int] = set()
+        if self._should_parallelize(len(grid)):
+            gen = self._parallel_iter(work_fn, spec, grid, stop)
+            while True:
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    # the parallel stream completed (or stop() fired in it)
+                    return
+                except _pool_infra_errors() as exc:
+                    # mid-stream pool failure: fall through to the serial
+                    # path for the *undelivered* indices only, preserving
+                    # the exactly-once contract (and any state the stop
+                    # predicate accumulated so far)
+                    warnings.warn(f"parallel sweep unavailable ({exc!r}); "
+                                  f"streaming serially", RuntimeWarning,
+                                  stacklevel=2)
+                    break
+                delivered.add(item.index)
+                yield item
+        pending = [(i, cell) for i, cell in enumerate(grid)
+                   if i not in delivered]
+        yield from self._serial_iter(work_fn, spec, pending, stop)
 
     def sweep_scenario(self, name: str, smoke: bool = False
                        ) -> ScenarioResult:
@@ -424,19 +637,294 @@ class DSEEngine:
         return {n: self.sweep_scenario(n, smoke=smoke)
                 for n in (names or scenario_names())}
 
+    # -- warm-session lifecycle ----------------------------------------------
+    @property
+    def session_active(self) -> bool:
+        """True between :meth:`start` and :meth:`shutdown`."""
+        return self._session
+
+    def start(self) -> "DSEEngine":
+        """Switch the engine into *warm-session* mode.
+
+        One process pool and (with ``shared_cache``) one cross-process
+        memo store are created now — workers forked/spawned up front,
+        store attached to the parent's cache — and reused by every
+        subsequent ``sweep`` / ``sweep_iter`` / ``sweep_cells_iter`` /
+        ``search`` / ``reprice_grid`` call until :meth:`shutdown`,
+        instead of being built and torn down per sweep. This is what the
+        DSE service daemon (:mod:`repro_torch.service`) runs on: request
+        latency stops paying pool spin-up, and solves harvested by one
+        request seed every later one through the persistent store.
+
+        Two session-mode consequences:
+
+        * all workers predate later calls, so even the fork transport
+          ships full task arguments — ``work_fn`` must be picklable
+          (the scenario registry's builders all are);
+        * calls must not run concurrently from multiple threads — the
+          engine serializes nothing internally (the service scheduler
+          owns exactly one engine thread for this reason).
+
+        Idempotent; returns ``self`` so it nests in ``with``:
+        ``with DSEEngine(...) as engine: ...``. If the pool cannot be
+        built (or ``parallel=False`` / one worker), the session still
+        starts — sweeps run serially against the warm store.
+        """
+        if self._session:
+            return self
+        store = self._open_shared_store()
+        self._session_store = store
+        self._session = True
+        pool = None
+        if self.parallel is not False and self.max_workers > 1:
+            import concurrent.futures as cf
+
+            try:
+                pool = cf.ProcessPoolExecutor(
+                    max_workers=self.max_workers,
+                    mp_context=self._mp_context(),
+                    **self._pool_kwargs(store))
+                # force every worker into existence NOW: the daemon
+                # starts its accept/scheduler threads after this, and
+                # forking a multithreaded process later is the exact
+                # hazard the transport auto-pick exists to avoid
+                list(pool.map(_noop, range(self.max_workers * 4),
+                              chunksize=1))
+            except _pool_infra_errors() as exc:
+                warnings.warn(
+                    f"warm session pool unavailable ({exc!r}); session "
+                    f"continues serially", RuntimeWarning, stacklevel=2)
+                if pool is not None:
+                    pool.shutdown(wait=False, cancel_futures=True)
+                pool = None
+        self._session_pool = pool
+        return self
+
+    def shutdown(self) -> None:
+        """End the warm session: drain + close the session pool, detach
+        and tear down the session store (its aggregated cross-process
+        stats land in ``last_shared_stats``). Idempotent."""
+        pool, self._session_pool = self._session_pool, None
+        store, self._session_store = self._session_store, None
+        self._session = False
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if store is not None:
+            self._close_shared_store(store)
+
+    def __enter__(self) -> "DSEEngine":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.shutdown()
+        return False
+
     # -- budgeted search -----------------------------------------------------
     def search(self, work_fn: Callable[[SystemSpec], TrainWorkload],
-               spec: SweepSpec = SweepSpec(), **kwargs):
-        """Budgeted adaptive exploration of ``spec``'s design grid: the
-        reference's search policies are not ported yet."""
-        raise NotImplementedError(
-            "DSEEngine.search is not ported yet; ROADMAP.md queue 1, item 5 "
-            "(the learned/ and search/ layers)")
+               spec: SweepSpec = SweepSpec(), *,
+               policy, budget: int,
+               certify: bool = True,
+               progress: Callable[[dict], None] | None = None):
+        """Budgeted adaptive exploration of ``spec``'s design grid.
+
+        ``policy`` (a :class:`repro_torch.search.SearchPolicy`) proposes
+        batches of grid indices; each batch is planned + priced through
+        the same columnar pipeline as :meth:`sweep` (one batched
+        ``plan_design_cells`` + ``price_planned`` call per batch on the
+        configured pricing backend) and the priced observations feed
+        back into the policy.  The loop ends when the policy stops
+        asking or ``budget`` full evaluations are spent.
+
+        The proposal contract is enforced strictly — an index out of
+        range, proposed twice, or past the budget raises RuntimeError
+        (exactly-once evaluation accounting is part of the result's
+        meaning, not a best-effort hint).  Per-round progress records
+        (evals, elapsed, ETA) accumulate in the result and stream
+        through ``progress`` when given.
+
+        ``certify=True`` (default, the house rule) evaluates the FULL
+        grid through the identical machinery afterwards and requires the
+        search winner to be the exhaustive argmin of the lexicographic
+        ``(infeasible, iter_time, index)`` objective — a policy that
+        misses the true winner raises rather than returning silently
+        wrong results.  All values are bit-identical between search and
+        oracle (same certified planning/pricing path), so the
+        comparison is exact, not tolerance-based.
+        """
+        from ..search.policy import SearchContext, SearchResult
+        from ..search.surrogate import cell_features
+
+        grid = spec.grid()
+        n = len(grid)
+        if n == 0:
+            raise ValueError("search needs a non-empty design grid")
+        if int(budget) < 1:
+            raise ValueError(f"budget must be >= 1, got {budget}")
+        granted = min(int(budget), n)
+        t0 = time.perf_counter()
+        cheap_evals = 0
+
+        def cheap_bound(indices: Sequence[int]) -> list[tuple[bool, float]]:
+            nonlocal cheap_evals
+            idx = [int(i) for i in indices]
+            bad = [i for i in idx if not 0 <= i < n]
+            if bad:
+                raise IndexError(f"cheap_bound indices out of range "
+                                 f"(grid size {n}): {bad[:5]}")
+            out: list = [None] * len(idx)
+            cells = [grid[i] for i in idx]
+            with self._cache_mode():
+                for pos_list, work, systems in _group_cells(
+                        work_fn, cells, spec.n_chips, spec.execution):
+                    caps = [s.memory.capacity for s in systems]
+                    cands = candidate_matrix(
+                        work, systems[0], max_tp=spec.max_tp,
+                        max_pp=spec.max_pp, execution=spec.execution,
+                        prune=self.prune)
+                    if not len(cands):
+                        for pos in pos_list:
+                            out[pos] = (True, math.inf)
+                        continue
+                    sel = cands.selection()
+                    rows = winner_rows(sel["iter_time"],
+                                       sel["per_chip_mem_bytes"], caps)
+                    for pos, cap, r in zip(pos_list, caps, rows):
+                        out[pos] = (
+                            bool(sel["per_chip_mem_bytes"][r] > cap),
+                            float(sel["iter_time"][r]))
+            cheap_evals += len(idx)
+            return out
+
+        topo_vocab = {t: k for k, t in enumerate(spec.topologies)}
+
+        def features(index: int):
+            return cell_features(grid[int(index)], spec.n_chips, topo_vocab)
+
+        policy.reset(SearchContext(n_points=n, budget=granted,
+                                   cheap_bound=cheap_bound,
+                                   features=features))
+        evaluated: dict = {}
+        rounds: list[dict] = []
+        round_no = 0
+        while len(evaluated) < granted:
+            asked = [int(i) for i in policy.ask()]
+            if not asked:
+                break
+            self._check_proposals(policy, asked, evaluated, granted, n)
+            obs = self._search_eval(work_fn, spec, grid, asked,
+                                    certify=round_no % CERTIFY_EVERY == 0)
+            for o in obs:
+                evaluated[o.index] = o
+            policy.tell(obs)
+            round_no += 1
+            elapsed = time.perf_counter() - t0
+            done = len(evaluated)
+            best = min(evaluated.values(), key=lambda o: o.objective)
+            record = {"round": round_no, "asked": len(asked),
+                      "evals": done, "budget": granted,
+                      "elapsed_s": elapsed,
+                      "eta_s": elapsed / done * (granted - done),
+                      "best_index": best.index,
+                      "best_iter_time": best.iter_time,
+                      "best_feasible": best.feasible}
+            rounds.append(record)
+            if progress is not None:
+                progress(record)
+        best = (min(evaluated.values(), key=lambda o: o.objective)
+                if evaluated else None)
+        oracle_index = None
+        if certify:
+            oracle = min(
+                self._search_eval(work_fn, spec, grid, list(range(n)),
+                                  certify="sample"),
+                key=lambda o: o.objective)
+            oracle_index = oracle.index
+            if best is None or best.index != oracle.index:
+                raise RuntimeError(
+                    f"search policy {policy.name!r} missed the true argmin: "
+                    f"policy best "
+                    f"{(best.index, best.objective[:2]) if best else None} "
+                    f"vs exhaustive argmin "
+                    f"{(oracle.index, oracle.objective[:2])} "
+                    f"(budget {granted}/{n}, evals {len(evaluated)})")
+        return SearchResult(
+            policy=policy.name, budget=granted, evals_used=len(evaluated),
+            cheap_evals=cheap_evals, rounds=rounds,
+            best_index=best.index if best else -1,
+            best_point=best.point if best else None,
+            best_objective=((best.feasible, best.iter_time)
+                            if best else None),
+            evaluated=evaluated, certified=certify,
+            oracle_index=oracle_index,
+            seconds=time.perf_counter() - t0)
+
+    @staticmethod
+    def _check_proposals(policy, asked, evaluated, budget: int,
+                         n: int) -> None:
+        """Exactly-once/bounded proposal contract (violations raise)."""
+        seen: set[int] = set()
+        for i in asked:
+            if not 0 <= i < n:
+                raise RuntimeError(
+                    f"search policy {policy.name!r} proposed out-of-range "
+                    f"index {i} (grid size {n})")
+            if i in seen or i in evaluated:
+                raise RuntimeError(
+                    f"search policy {policy.name!r} proposed index {i} "
+                    f"more than once")
+            seen.add(i)
+        if len(evaluated) + len(asked) > budget:
+            raise RuntimeError(
+                f"search policy {policy.name!r} exceeded the evaluation "
+                f"budget: {len(evaluated)} evaluated + {len(asked)} "
+                f"proposed > {budget}")
+
+    def _search_eval(self, work_fn, spec: SweepSpec, grid, indices,
+                     certify: bool | str):
+        """Plan + price one proposed batch; one Observation per index.
+
+        The same columnar path as :meth:`sweep` — memory variants in the
+        batch share candidate enumerations, the backend prices one
+        batch, and ``certify`` (the engine's sampled cadence) runs the
+        scalar-scan check inside the planning call."""
+        from ..search.policy import Observation
+
+        cells = [grid[i] for i in indices]
+        ranker, rkf = self._ranker_for_run()
+        with self._cache_mode():
+            planned = plan_design_cells(
+                work_fn, cells, spec.n_chips, max_tp=spec.max_tp,
+                max_pp=spec.max_pp, execution=spec.execution,
+                pricing_backend=self.pricing_backend, prune=self.prune,
+                ranker=ranker, rank_keep_frac=rkf, certify=certify,
+                device=self.device, band=self.drift_band)
+            pts = price_planned(planned, backend=self.pricing_backend,
+                                device=self.device)
+        live = [i for i, p in zip(indices, planned) if p is not None]
+        by_index = dict(zip(live, pts))
+        out = []
+        for i in indices:
+            pt = by_index.get(i)
+            if pt is None:
+                out.append(Observation(index=i, cell=grid[i], feasible=False,
+                                       iter_time=math.inf, utilization=0.0,
+                                       point=None))
+            else:
+                out.append(Observation(
+                    index=i, cell=grid[i],
+                    feasible=bool(pt.plan.feasible),
+                    iter_time=float(pt.plan.iter_time),
+                    utilization=float(pt.utilization), point=pt))
+        return out
 
     # -- internals -----------------------------------------------------------
     def _should_parallelize(self, grid_size: int) -> bool:
         if self.parallel is False:
             return False
+        if self._session_pool is not None:
+            # the warm session pool is already paid for — even a small
+            # service batch routes through it
+            return True
         if self.parallel is True:
             return self.max_workers > 1
         return self.max_workers > 1 and grid_size >= 4
@@ -470,6 +958,176 @@ class DSEEngine:
             return self.mp_context
         return multiprocessing.get_context(self._start_method())
 
+    # -- shared memo store (one per parallel sweep) --------------------------
+    def _open_shared_store(self):
+        """Create the sweep's cross-process memo store and attach it to
+        the parent's cache too (the parent's own misses then seed the
+        workers).  ``None`` when disabled — or when caching is off, which
+        must stay genuinely cold.
+
+        In warm-session mode the session's persistent store is returned
+        (re-attached if something detached it) instead of creating a new
+        one — the store is shared across *requests*, not per-sweep."""
+        if self._session_store is not None:
+            if GLOBAL_CACHE.shared is not self._session_store:
+                GLOBAL_CACHE.attach_shared(self._session_store)
+            return self._session_store
+        if not self.shared_cache or not self.use_cache:
+            return None
+        try:
+            backend = (self.shared_cache
+                       if self.shared_cache in ("mmap", "server")
+                       else choose_backend(self._start_method()))
+            store = create_store(backend, mp_context=self._mp_context())
+        except (RuntimeError, OSError) as exc:
+            # no usable backend on this platform (no fcntl, no AF_UNIX) or
+            # the store could not materialize (unwritable TMPDIR, socket
+            # bind failure — an OSError escaping here would otherwise land
+            # in the callers' pool-infra fallback and needlessly serialize
+            # the sweep): the cache tier must never take the sweep down —
+            # keep the parallel pool, just with process-private caches
+            warnings.warn(f"shared memo store unavailable ({exc}); "
+                          f"sweeping with private caches", RuntimeWarning,
+                          stacklevel=3)
+            return None
+        GLOBAL_CACHE.attach_shared(store)
+        return store
+
+    def _close_shared_store(self, store) -> None:
+        """Detach + tear down the sweep's store, keeping its aggregated
+        cross-process stats.  Runs in ``finally`` blocks so a pool failure
+        (and the serial fallback after it) never leaks a store, a server
+        process, or a stale attachment.
+
+        The session store is NOT torn down here — it outlives individual
+        sweeps by design; only its running stats are snapshotted.
+        :meth:`shutdown` (which clears ``_session_store`` first) owns its
+        teardown."""
+        if store is None:
+            return
+        if store is self._session_store:
+            try:
+                self.last_shared_stats = store.stats()
+            except Exception:
+                self.last_shared_stats = None
+            return
+        if GLOBAL_CACHE.shared is store:
+            GLOBAL_CACHE.detach_shared()
+        try:
+            self.last_shared_stats = store.stats()
+        except Exception:
+            self.last_shared_stats = None
+        store.close()
+
+    def _pool_kwargs(self, store) -> dict:
+        """Extra ``ProcessPoolExecutor`` kwargs wiring workers to ``store``."""
+        if store is None:
+            return {}
+        return {"initializer": _init_worker_shared,
+                "initargs": (store.handle(),)}
+
+    def _pool(self, workers: int, store):
+        """Pool acquisition: the warm session pool when one is live
+        (kept open on exit; rebuilt first if a dead worker poisoned it),
+        else a fresh per-sweep pool torn down on exit."""
+        import concurrent.futures as cf
+        import contextlib
+
+        if self._session_pool is not None:
+            if getattr(self._session_pool, "_broken", False):
+                # a BrokenProcessPool is permanent for its executor —
+                # rebuild on the same session store so the warm session
+                # (and the daemon on top of it) survives a worker death
+                self._session_pool.shutdown(wait=False, cancel_futures=True)
+                self._session_pool = None
+                self._session = False
+                self.start()
+            if self._session_pool is not None:
+                return contextlib.nullcontext(self._session_pool)
+        pool = cf.ProcessPoolExecutor(max_workers=workers,
+                                      mp_context=self._mp_context(),
+                                      **self._pool_kwargs(store))
+
+        @contextlib.contextmanager
+        def owned():
+            try:
+                yield pool
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+        return owned()
+
+    # -- per-point path (the baseline) ---------------------------------------
+    def _sweep_perpoint(self, work_fn, spec: SweepSpec, grid):
+        results = None
+        if self._should_parallelize(len(grid)):
+            try:
+                results = self._parallel_eval(work_fn, spec, grid)
+            except _pool_infra_errors() as exc:
+                # pool infrastructure failed (no start method, worker died,
+                # unpicklable work_fn under spawn) — the sweep itself is
+                # still fine serially. work_fn errors are NOT caught: they
+                # propagate with their real traceback.
+                warnings.warn(f"parallel sweep unavailable ({exc!r}); "
+                              f"falling back to serial", RuntimeWarning,
+                              stacklevel=2)
+        if results is None:
+            results = self._serial_eval(work_fn, spec, grid)
+        return [p for p in results if p is not None]
+
+    def _serial_eval(self, work_fn, spec: SweepSpec, grid):
+        with self._cache_mode():
+            return [evaluate_design_point(work_fn, cell, spec.n_chips,
+                                          max_tp=spec.max_tp,
+                                          max_pp=spec.max_pp,
+                                          execution=spec.execution)
+                    for cell in grid]
+
+    def _parallel_eval(self, work_fn, spec: SweepSpec, grid):
+        # Submission order: group the memory variants of each
+        # (chip, net, topology) so they land in one worker chunk and share
+        # the memory-independent plan solve. The reduce below restores grid
+        # order exactly, so submission order never affects the result.
+        order = sorted(range(len(grid)),
+                       key=lambda i: (grid[i][0], grid[i][2], grid[i][3],
+                                      grid[i][1]))
+        group = max(1, len(grid) //
+                    max(1, len({(c, n, t) for c, _m, n, t in grid})))
+        workers = min(self.max_workers, len(grid))
+        per_worker = math.ceil(len(grid) / workers)
+        # keep chunks small enough that every worker gets work
+        chunk = min(max(group, 1), max(1, per_worker))
+        method = self._start_method()
+        store = self._open_shared_store()
+        try:
+            if method != "fork" or self._session_pool is not None:
+                # spawn/forkserver ship full task args — requires a
+                # picklable work_fn; an unpicklable one is an infra error
+                # → serial fallback. A warm session pool's workers were
+                # forked at start(), before this call could park anything
+                # in _WORKER_CTX, so the session always ships args too.
+                _require_picklable(work_fn)
+                tasks = [(work_fn, grid[i], spec.n_chips, spec.max_tp,
+                          spec.max_pp, spec.execution) for i in order]
+                fn, payload = _eval_args, tasks
+            else:
+                _WORKER_CTX.update(work_fn=work_fn, grid=grid,
+                                   n_chips=spec.n_chips, max_tp=spec.max_tp,
+                                   max_pp=spec.max_pp,
+                                   execution=spec.execution)
+                fn, payload = _eval_index, order
+            with self._cache_mode():
+                with self._pool(workers, store) as pool:
+                    mapped = pool.map(fn, payload, chunksize=chunk)
+                    out: list[DesignPoint | None] = [None] * len(grid)
+                    for j, point in zip(order, mapped):
+                        out[j] = point
+                    return out
+        finally:
+            _WORKER_CTX.clear()
+            self._close_shared_store(store)
+
+    # -- phased path ---------------------------------------------------------
     def _plan_tasks(self, work_fn, spec: SweepSpec, grid):
         """(worker fn, payload per group, cleanup-needed) for the pool."""
         groups = _group_indices(grid)
@@ -484,48 +1142,53 @@ class DSEEngine:
         prune_on = self._resolved_prune()
         certify = [prune_on and ti % CERTIFY_EVERY == 0
                    for ti in range(len(groups))]
-        if self._start_method() != "fork":
-            # non-fork transports ship full task arguments instead of
-            # _WORKER_CTX
+        # the parent trains (or refits) the ranker ONCE per sweep and
+        # ships the frozen model with the tasks — every worker of every
+        # transport ranks with the identical model, so results stay
+        # deterministic across fork/spawn/forkserver and worker count
+        ranker, rkf = self._ranker_for_run()
+        method = self._start_method()
+        if method != "fork" or self._session_pool is not None:
+            # non-fork transports — and the warm session pool, whose
+            # workers were forked at start() before this call existed —
+            # ship full task arguments instead of _WORKER_CTX
             _require_picklable(work_fn)
             payload = [(work_fn, [grid[i] for i in idxs], idxs, spec.n_chips,
                         spec.max_tp, spec.max_pp, spec.execution, ship,
-                        self.prune, cert)
+                        self.prune, ranker, rkf, cert)
                        for idxs, cert in zip(groups, certify)]
             return _plan_group_args, payload, False
         _WORKER_CTX.update(work_fn=work_fn, grid=grid, n_chips=spec.n_chips,
                            max_tp=spec.max_tp, max_pp=spec.max_pp,
                            execution=spec.execution, ship_matrix=ship,
-                           prune=self.prune)
+                           prune=self.prune, ranker=ranker,
+                           rank_keep_frac=rkf)
         return _plan_group_index, list(zip(groups, certify)), True
 
     def _parallel_plan(self, work_fn, spec: SweepSpec, grid
                        ) -> list[PlannedPoint | None]:
-        import concurrent.futures as cf
-
         workers = min(self.max_workers, max(1, len(grid) // 2))
+        store = self._open_shared_store()
         used_ctx = False
         try:
             fn, payload, used_ctx = self._plan_tasks(work_fn, spec, grid)
-            pool = cf.ProcessPoolExecutor(max_workers=workers,
-                                          mp_context=self._mp_context())
-            try:
-                groups = [g for result in pool.map(fn, payload)
-                          for g in result]
-            finally:
-                pool.shutdown(wait=True, cancel_futures=True)
+            with self._cache_mode():
+                with self._pool(workers, store) as pool:
+                    groups = [g for result in pool.map(fn, payload)
+                              for g in result]
         finally:
             if used_ctx:
                 _WORKER_CTX.clear()
+            self._close_shared_store(store)
         return self._finish_plan_groups(groups, len(grid))
 
     def _finish_plan_groups(self, groups: list[PlannedGroup], n_cells: int
                             ) -> list[PlannedPoint | None]:
-        """Reduce plan groups into a grid-aligned list.
+        """Reduce worker-shipped plan groups into a grid-aligned list.
 
         With a non-numpy backend, the shipped candidate matrices —
         PRUNED to the surviving rows when pruning ran — are
-        row-concatenated and priced in batched ``price_plans`` calls,
+        row-concatenated and priced in ONE batched ``price_plans`` call,
         and the resulting per-group argmins (remapped through each
         group's survivor index map) are certified against the workers'
         numpy selection before the winners are accepted. When the backend
@@ -555,7 +1218,7 @@ class DSEEngine:
                         priced["iter_time"][off:off + n],
                         priced["per_chip_mem_bytes"][off:off + n], g)
                     off += n
-        # serial path: the banded certification ran inside
+        # serial phased path: the banded certification ran inside
         # plan_design_groups (matrices never shipped) and left its stats
         # on the group — fold them in so last_drift_stats is populated
         # on both sides of the IPC boundary
@@ -587,11 +1250,14 @@ class DSEEngine:
             "scalar_certified_groups": sum(
                 1 for s in pstats if s.get("scalar_certified")),
             "parent_certified_groups": parent_certified,
-            # the reference's learned rank stage (not ported): ``rank``
-            # stays False and ``rank_survived`` equals ``survived``
+            # learned rank stage: ``survived`` keeps its meaning
+            # (dominance survivors); ``rank_survived`` is what actually
+            # got priced when the rank stage ran (== survived otherwise)
             "rank": any(s.get("ranked") for s in pstats),
             "rank_survived": sum(s.get("rank_survived", s["survived"])
                                  for s in pstats),
+            "rank_keep_frac": next((s["rank_keep_frac"] for s in pstats
+                                    if s.get("ranked")), None),
         }
         return out
 
@@ -613,6 +1279,50 @@ class DSEEngine:
 
     def _resolved_prune(self) -> bool:
         return resolve_prune(self.prune)
+
+    def _resolved_rank(self) -> bool:
+        from ..learned.rank import resolve_rank
+
+        return resolve_rank(self.rank)
+
+    def _ranker_for_run(self):
+        """``(ranker, keep_frac)`` for the sweep about to run, or
+        ``(None, None)`` when the rank stage is off / must degrade.
+
+        The model is fitted from the memo cache's ``candmat`` harvest
+        (:func:`repro_torch.learned.model.fit_ranker`) the first time a
+        ranked sweep runs and REFITTED only when
+        :meth:`repro_torch.core.memo.SolveCache.diff_stats` shows the harvest
+        gained entries since the last fit — warm service sessions retrain
+        incrementally across requests instead of once per sweep.  When
+        the in-process harvest is below the staleness guard, a persisted
+        model at ``rank_model_path`` (if any) is loaded instead; with
+        neither, the sweep degrades to rank-off — correctness never
+        depends on the model, so degrading is always safe."""
+        if not (self._resolved_rank() and self._resolved_prune()):
+            return None, None
+        from ..learned.model import LearnedModel, fit_ranker
+
+        delta = GLOBAL_CACHE.diff_stats(self._rank_snapshot)
+        grew = delta["by_space"].get("candmat", (0, 0, 0))[2] > 0
+        if self._ranker is None or grew:
+            self._rank_snapshot = GLOBAL_CACHE.stats()
+            model = fit_ranker()
+            if model is not None:
+                self._ranker = model
+                if self.rank_model_path:
+                    try:
+                        model.save(self.rank_model_path)
+                    except OSError:
+                        pass  # unwritable path never takes the sweep down
+            elif self._ranker is None and self.rank_model_path:
+                try:
+                    self._ranker = LearnedModel.load(self.rank_model_path)
+                except (OSError, ValueError):
+                    pass  # absent/stale file: degrade, don't die
+        if self._ranker is None:
+            return None, None
+        return self._ranker, self.rank_keep_frac
 
     def _verify_group_winners(self, iter_time, mem,
                               group: PlannedGroup) -> None:
@@ -705,48 +1415,62 @@ class DSEEngine:
             return cap
 
         t0 = time.perf_counter()
+        ranker, rkf = self._ranker_for_run()
         groups: list[_RepriceGroup] = []
         enumerated = 0
         empty_groups = 0
         dom_survived = 0
         rank_survived = 0
-        for idxs in _group_indices(grid):
-            system = build_system(grid[idxs[0]], spec.n_chips)
-            work = work_fn(system)
-            cands = candidate_matrix(work, system, max_tp=spec.max_tp,
-                                     max_pp=spec.max_pp,
-                                     execution=spec.execution,
-                                     prune=self.prune)
-            enumerated += len(cands)
-            if not len(cands):
-                empty_groups += 1
-                continue
-            caps = tuple(capacity(grid[i][1]) for i in idxs)
-            sel = select_candidates(cands, caps, prune=self.prune)
-            dom_survived += sel.stats["survived"]
-            rank_survived += sel.stats["rank_survived"]
-            matrix = (cands.pruned(max(caps)).matrix
-                      if prune_on else cands.matrix)
-            groups.append(_RepriceGroup(matrix, caps, tuple(sel.rows),
-                                        sel.survivors))
+        with self._cache_mode():
+            for idxs in _group_indices(grid):
+                system = build_system(grid[idxs[0]], spec.n_chips)
+                work = work_fn(system)
+                cands = candidate_matrix(work, system, max_tp=spec.max_tp,
+                                         max_pp=spec.max_pp,
+                                         execution=spec.execution,
+                                         prune=self.prune)
+                enumerated += len(cands)
+                if not len(cands):
+                    empty_groups += 1
+                    continue
+                caps = tuple(capacity(grid[i][1]) for i in idxs)
+                rank_ctx = None
+                if ranker is not None:
+                    from ..learned.features import system_features
+
+                    rank_ctx = system_features(system.chip, system.n_chips,
+                                               system.topology.name)
+                sel = select_candidates(cands, caps, prune=self.prune,
+                                        ranker=ranker, rank_keep_frac=rkf,
+                                        rank_context=rank_ctx)
+                dom_survived += sel.stats["survived"]
+                rank_survived += sel.stats["rank_survived"]
+                matrix = (cands.pruned(max(caps), ranker=ranker,
+                                       keep_frac=rkf,
+                                       rank_context=rank_ctx,
+                                       rank_capacities=caps).matrix
+                          if prune_on else cands.matrix)
+                groups.append(_RepriceGroup(matrix, caps, tuple(sel.rows),
+                                            sel.survivors))
         plan_s = time.perf_counter() - t0
 
         t1 = time.perf_counter()
         priced_rows = 0
         chunks = 0
-        for batch in _chunk_groups(groups, chunk):
-            big = PlanMatrix.concat([g.matrix for g in batch])
-            priced = price_plans(big.cols, backend=backend,
-                                 device=self.device)
-            off = 0
-            for g in batch:
-                n = len(g.matrix)
-                self._verify_group_winners(
-                    priced["iter_time"][off:off + n],
-                    priced["per_chip_mem_bytes"][off:off + n], g)
-                off += n
-            priced_rows += len(big)
-            chunks += 1
+        with self._cache_mode():
+            for batch in _chunk_groups(groups, chunk):
+                big = PlanMatrix.concat([g.matrix for g in batch])
+                priced = price_plans(big.cols, backend=backend,
+                                     device=self.device)
+                off = 0
+                for g in batch:
+                    n = len(g.matrix)
+                    self._verify_group_winners(
+                        priced["iter_time"][off:off + n],
+                        priced["per_chip_mem_bytes"][off:off + n], g)
+                    off += n
+                priced_rows += len(big)
+                chunks += 1
         price_s = time.perf_counter() - t1
         total_s = time.perf_counter() - t0
 
@@ -757,7 +1481,10 @@ class DSEEngine:
             "groups": len(groups),
             "empty_groups": empty_groups,
             "enumerated": enumerated,
-            "rank": False,
+            "rank": ranker is not None,
+            "rank_keep_frac": (None if ranker is None
+                               else rkf if rkf is not None
+                               else ranker.keep_frac),
             "survived": dom_survived,
             "rank_survived": rank_survived,
             "priced_rows": priced_rows,
@@ -775,3 +1502,95 @@ class DSEEngine:
             "repriced_frac": (drift["repriced"] / max(1, drift["rows"])
                               if drift else 0.0),
         }
+
+    def _serial_iter(self, work_fn, spec: SweepSpec, cells, stop):
+        """Lazily stream (index, cell) pairs in order."""
+        ranker, rkf = self._ranker_for_run()
+        with self._cache_mode():
+            for j, (i, cell) in enumerate(cells):
+                # one cell per planning call: pick the scalar-certify
+                # sample here (the call-local "sample" cadence would
+                # certify every single-group call)
+                planned = plan_design_cells(
+                    work_fn, [cell], spec.n_chips, max_tp=spec.max_tp,
+                    max_pp=spec.max_pp, execution=spec.execution,
+                    pricing_backend=self.pricing_backend,
+                    prune=self.prune, ranker=ranker, rank_keep_frac=rkf,
+                    certify=j % CERTIFY_EVERY == 0,
+                    device=self.device, band=self.drift_band)
+                pts = price_planned(planned, backend=self.pricing_backend,
+                                    device=self.device)
+                item = SweepItem(i, cell, pts[0] if pts else None)
+                yield item
+                if stop is not None and stop(item):
+                    return
+
+    def _parallel_iter(self, work_fn, spec: SweepSpec, grid, stop):
+        import concurrent.futures as cf
+
+        workers = min(self.max_workers, max(1, len(grid) // 2))
+        window = max(2 * workers, workers + 1)
+        store = self._open_shared_store()
+        used_ctx = False
+        try:
+            fn, payload, used_ctx = self._plan_tasks(work_fn, spec, grid)
+            with self._pool(workers, store) as pool:
+                with self._cache_mode():
+                    queue = iter(payload)
+                    pending: set = set()
+                    for task in queue:
+                        pending.add(pool.submit(fn, task))
+                        if len(pending) >= window:
+                            break
+                    try:
+                        while pending:
+                            done, pending = cf.wait(
+                                pending, return_when=cf.FIRST_COMPLETED)
+                            for fut in done:
+                                for group in fut.result():
+                                    for item in self._stream_group(grid,
+                                                                   group):
+                                        yield item
+                                        if stop is not None and stop(item):
+                                            return
+                                for task in queue:
+                                    pending.add(pool.submit(fn, task))
+                                    if len(pending) >= window:
+                                        break
+                    finally:
+                        # early stop / abandoned generator: cancel what
+                        # never started (matters on the session pool,
+                        # which outlives this call)
+                        for f in pending:
+                            f.cancel()
+        finally:
+            if used_ctx:
+                _WORKER_CTX.clear()
+            self._close_shared_store(store)
+
+    def _stream_group(self, grid, group: PlannedGroup) -> list[SweepItem]:
+        # certify the worker's candidate argmin on a non-numpy parent
+        # backend (over the pruned rows, remapped through the survivor
+        # map) and the sampled pruning certification, then price the
+        # group's winners (one batch per group — elementwise over the
+        # batch axis, so streamed values match a full sweep's bits)
+        if len(group.matrix) and self._resolved_backend() != "numpy":
+            priced = price_plans(group.matrix.cols,
+                                 backend=self._resolved_backend(),
+                                 device=self.device)
+            self._verify_group_winners(priced["iter_time"],
+                                       priced["per_chip_mem_bytes"], group)
+        self._certify_group_prune(group)
+        pairs = list(zip(group.indices, group.planned))
+        live = [(i, p) for i, p in pairs if p is not None]
+        pts = price_planned([p for _, p in live],
+                            backend=self.pricing_backend, device=self.device)
+        by_index = {i: pt for (i, _), pt in zip(live, pts)}
+        return [SweepItem(i, grid[i], by_index.get(i)) for i, _ in pairs]
+
+    def _cache_mode(self):
+        if self.use_cache:
+            import contextlib
+
+            return contextlib.nullcontext()
+        return caching_disabled()

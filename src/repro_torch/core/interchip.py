@@ -544,12 +544,24 @@ class PrunedCandidates:
 
 
 def prune_matrix(matrix: PlanMatrix, max_capacity: float,
-                 selection: dict[str, np.ndarray] | None = None
+                 selection: dict[str, np.ndarray] | None = None,
+                 ranker=None, keep_frac: float | None = None,
+                 rank_context: np.ndarray | None = None,
+                 rank_capacities: Sequence[float] | None = None
                  ) -> PrunedCandidates:
     """Apply the hard feasibility mask + the dominance filter to a
-    candidate matrix, columnar, before any full pricing runs. (The
-    reference's learned rank stage, a third filter, is not ported: the
-    ``ranked`` / ``rank_survived`` stats keep their unranked values.)"""
+    candidate matrix, columnar, before any full pricing runs.
+
+    With a ``ranker`` (a :class:`repro_torch.learned.model.LearnedModel`)
+    the learned **rank stage** runs as a third filter over the dominance
+    survivors: only the model's top ``keep_frac`` fraction (default: the
+    model's calibrated fraction) union the rows the dominance lower
+    bound cannot exclude at ``rank_capacities`` (the group's actual
+    per-variant capacities; default: just ``max_capacity``) stay —
+    winner-preserving by construction, see
+    :func:`repro_torch.learned.rank.rank_keep`.  ``rank_context`` is the
+    per-group system feature block
+    (:func:`repro_torch.learned.features.system_features`)."""
     sel = selection if selection is not None else selection_columns(
         matrix.cols)
     n = len(matrix)
@@ -566,6 +578,27 @@ def prune_matrix(matrix: PlanMatrix, max_capacity: float,
              "ranked": False,
              "rank_survived": int(survivors.shape[0])}
     pruned = matrix.take(survivors)
+    if ranker is not None and len(survivors) > 1:
+        from ..learned.features import (SYSTEM_FEATURE_NAMES,
+                                        candidate_features)
+        from ..learned.rank import rank_keep
+
+        if rank_context is None:
+            # featurizable without a system: the block is constant per
+            # group, so zeros never reorder rows within the group
+            rank_context = np.zeros(len(SYSTEM_FEATURE_NAMES))
+        frac = keep_frac if keep_frac is not None else ranker.keep_frac
+        caps = (rank_capacities if rank_capacities is not None
+                else (max_capacity,))
+        scores = ranker.score(candidate_features(pruned.cols, rank_context))
+        rk = rank_keep(scores, sel["iter_time"][survivors],
+                       sel["iter_lb"][survivors],
+                       sel["per_chip_mem_bytes"][survivors], caps, frac)
+        survivors = survivors[rk]
+        pruned = pruned.take(np.flatnonzero(rk).astype(np.int64))
+        stats["ranked"] = True
+        stats["rank_survived"] = int(survivors.shape[0])
+        stats["rank_keep_frac"] = float(frac)
     return PrunedCandidates(survivors=survivors, matrix=pruned, stats=stats)
 
 
@@ -607,14 +640,29 @@ class CandidateSet:
             self._selection = selection_columns(self.matrix.cols)
         return self._selection
 
-    def pruned(self, max_capacity: float) -> PrunedCandidates:
+    def pruned(self, max_capacity: float, ranker=None,
+               keep_frac: float | None = None,
+               rank_context: np.ndarray | None = None,
+               rank_capacities: Sequence[float] | None = None
+               ) -> PrunedCandidates:
         """The pruned candidate view for a capacity ceiling (cached per
         ceiling — the memory variants of one system share the pruning
-        pass through their common ``max(capacities)``)."""
-        out = self._pruned.get(max_capacity)
+        pass through their common ``max(capacities)``).  With a
+        ``ranker`` the view is additionally rank-filtered and cached per
+        (ceiling, model fingerprint, keep fraction, capacity set) — all
+        consumers of one ranked group (selection, backend certification,
+        the shipped matrix) see the SAME filtered view."""
+        key = (max_capacity if ranker is None
+               else (max_capacity, ranker.fingerprint, keep_frac,
+                     None if rank_capacities is None
+                     else tuple(sorted(set(map(float, rank_capacities))))))
+        out = self._pruned.get(key)
         if out is None:
-            out = prune_matrix(self.matrix, max_capacity, self.selection())
-            self._pruned[max_capacity] = out
+            out = prune_matrix(self.matrix, max_capacity, self.selection(),
+                               ranker=ranker, keep_frac=keep_frac,
+                               rank_context=rank_context,
+                               rank_capacities=rank_capacities)
+            self._pruned[key] = out
         return out
 
 
@@ -749,6 +797,8 @@ class SelectionResult:
 def select_candidates(cands: CandidateSet, capacities: Sequence[float],
                       backend: str = "numpy",
                       prune: str | bool = "auto",
+                      ranker=None, rank_keep_frac: float | None = None,
+                      rank_context: np.ndarray | None = None,
                       device=None, band: float = DRIFT_BAND
                       ) -> SelectionResult:
     """The per-memory-variant argmin for *every* capacity at once.
@@ -759,6 +809,11 @@ def select_candidates(cands: CandidateSet, capacities: Sequence[float],
     call on ``backend`` — strictly fewer rows priced, identical winners
     (the pruning filters are winner-preserving by construction, and the
     property is separately certified against the scalar scan).
+
+    A ``ranker`` (requires pruning on) inserts the learned rank stage
+    between the dominance filter and pricing — see
+    :func:`prune_matrix`; winners stay identical by the
+    :func:`repro_torch.learned.rank.rank_keep` union guarantee.
 
     On an *approximate* backend (``kernel-f32``) the argmin is the
     drift-banded selection (``repro_torch.kernels.pricing.drift``, band
@@ -790,7 +845,9 @@ def select_candidates(cands: CandidateSet, capacities: Sequence[float],
                            priced["per_chip_mem_bytes"], capacities)
         return SelectionResult(rows, list(rows), priced, None,
                                {**empty_stats, "priced": n})
-    pc = cands.pruned(max(capacities))
+    pc = cands.pruned(max(capacities), ranker=ranker,
+                      keep_frac=rank_keep_frac, rank_context=rank_context,
+                      rank_capacities=tuple(capacities))
     priced = pc.priced(backend, device)
     if approx:
         bsel = banded_winner_rows(pc.matrix.cols, priced, capacities,

@@ -14,9 +14,8 @@ cost efficiency, so the Pareto surface shifts instead of merely
 stretching, and the search policies have real structure to exploit.
 
 The default shape is 12 chips × 24 memory/interconnect combinations ×
-3 topologies = 864 cells — the ≥ 10×-the-paper grid
-``benchmarks/bench_dse.py``'s ``search`` block runs budgeted policies
-against.  :meth:`DenseGridSpec.dense` scales the same generator to the
+3 topologies = 864 cells — the ≥ 10×-the-paper grid the budgeted
+search policies are certified on.  :meth:`DenseGridSpec.dense` scales the same generator to the
 10⁵-cell regime by densifying the memory-scale lattice (memory variants
 share their group's plan phase, so cells along that axis are nearly
 free), and ``workload_scales`` multiplies the space once more through
@@ -93,7 +92,8 @@ class DenseGridSpec:
 
     ``spec()`` materializes the grid as a plain
     :class:`~repro_torch.core.dse_engine.SweepSpec`, so every engine entry
-    point (``sweep`` / ``reprice_grid``) consumes it unchanged.
+    point (``sweep`` / ``sweep_iter`` / ``search`` / ``reprice_grid``)
+    consumes it unchanged.
     """
 
     n_chips: int = 64

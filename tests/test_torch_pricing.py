@@ -236,12 +236,16 @@ def test_prune_policy_validated_like_the_reference(prune):
 
 
 def test_rank_policy_refuses_the_unported_learned_stage():
+    # the learned stage is ported now: what is refused is a policy or a
+    # keep fraction the reference refuses too, and an empty search budget
     with pytest.raises(ValueError, match="rank policy"):
         DSEEngine(rank="bogus")
     for rank in ("on", True):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            DSEEngine(rank=rank)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        DSEEngine(device="cpu").search(None, policy=None, budget=1)
+        assert DSEEngine(rank=rank).rank == rank
+    for frac in (0.0, 1.5):
+        with pytest.raises(ValueError, match="rank_keep_frac"):
+            DSEEngine(rank="on", rank_keep_frac=frac)
+    with pytest.raises(ValueError, match="budget"):
+        DSEEngine(device="cpu").search(None, policy=None, budget=0)
     with pytest.raises(ValueError, match="unknown pricing backend"):
         DSEEngine(pricing_backend="pallas")
