@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: serve
 Mistral-NeMo-12B, serve Mamba2-130M, run the DSE price phase, train
-OLMo-1B, and serve Minitron-4B (GQA group 3) at full width.
+OLMo-1B, serve Minitron-4B (GQA group 3) and OLMoE-1B-7B (MoE) at full
+width, and run the modeled-vs-measured validation loop.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -107,7 +108,28 @@ Phases, each fatal on failure:
      prefill of the same tokens; then a child process
      (``--capture-failure``) shows that a decode step that reads a value on
      the host cannot be captured and the engine raises;
- 10. one JSON line of kernel numbers, the card's name and power limit, and
+ 10. the MoE serving path: ``run_serve`` on the full olmoe_1b_7b config
+     (64 experts top-8, 16 layers, d_model 2048, MHA 16/16 at hd 128), 4
+     requests x 2048-token prompts x 32 new tokens, counters zeroed just
+     before and read just after (rmsnorm, flash forward, decode attention),
+     its graph tokens against eager ones;
+ 11. as phase 6 for it, and the tokens the default capacity factor drops
+     in a prefill (a reading); the decode path (dropless ``moe_dense``)
+     against a teacher-forced forward at the capacity where nothing drops,
+     each sequence held before the first token the two route otherwise
+     (bf16 near-ties), and the small config (olmoe_smoke) card vs CPU
+     likewise;
+ 12. validation: the card calibrated (the reference's host-clock protocol,
+     CUDA events beside it) and printed beside the catalog H100; the three
+     cases (serving, mamba2, moe) built (each certifies its twin),
+     predicted, their decode step counted on the kernels' route (the moe
+     twin's hd 16 on the plain route, without a wall clock, the reason
+     recorded) and timed; the reference's bands gate every row, and
+     BENCH_validation_torch.json is written;
+ 13. a reading: the paper's serving model (``serving_sweep`` on a one-chip
+     catalog H100) for mistral_nemo_12b and olmoe_1b_7b beside their
+     measured warm TTFT and steady TPOT;
+ 14. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -126,11 +148,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet, dense, at its 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet, dense, at its 700 W limit (the peak that the
+# kernels' bounds use too: repro_torch.kernels.cost)
 BF16_FLOP_PER_S = 989e12        # tensor cores
-F32_FLOP_PER_S = 67e12          # CUDA cores
-F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
 SSM_REQUESTS = 8                   # mamba2_130m: 8 x 2048 + 32
@@ -183,8 +203,11 @@ PARALLEL_TIMEOUT_S = 600
 # phase 4b: certified halving searches on dense grids of growing size
 # (None: DenseGridSpec(), 864 cells; else DenseGridSpec.dense(size)); a
 # size runs while its time, extrapolated from the last one, stays within
-# SEARCH_LIMIT_S; the phase's watchdog is PHASE4B_TIMEOUT_S
-SEARCH_LADDER = (None, 20_000, 50_000, 100_000)
+# SEARCH_LIMIT_S; the phase's watchdog is PHASE4B_TIMEOUT_S. The 100,000
+# rung (100,224 cells, 103 s on the card once, predicted over the limit
+# and skipped in two other runs) is cut to leave time for the MoE serving
+# and validation phases.
+SEARCH_LADDER = (None, 20_000, 50_000)
 SEARCH_LIMIT_S = 120
 PHASE4B_TIMEOUT_S = 720
 REPRICE_TURNS = 3
@@ -261,10 +284,17 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def profile(torch, fn) -> dict:
+#: Kernel-name words of a MoE layer's routing, dispatch and combine (the
+#: top-k sort, the rank scan, the scatters and gathers); the embedding's
+#: row gather and the cache write land in this group too.
+MOE_KERNEL_WORDS = ("sort", "scan", "scatter", "gather", "index", "topk")
+
+
+def profile(torch, fn, moe: bool = False) -> dict:
     """One call under torch.profiler: host wall time, device busy time by
     kernel group and the device's idle share (1 - busy / wall). Profiling
-    slows the host, so the idle share is an upper bound."""
+    slows the host, so the idle share is an upper bound. ``moe`` adds the
+    group ``moe_dispatch_combine`` (MOE_KERNEL_WORDS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -291,6 +321,8 @@ def profile(torch, fn) -> dict:
                  "ssd" if "ssd_chunk_kernel" in name else
                  "matmul" if any(w in name.lower() for w in
                                  ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+                 else "moe_dispatch_combine" if moe and any(
+                     w in name.lower() for w in MOE_KERNEL_WORDS)
                  else "other")
         groups[group] = groups.get(group, 0.0) + t
         kernels.append((t, e.count, name[:90]))
@@ -332,12 +364,6 @@ def device_split(torch, fn):
                        e.count, round(t, 6)))
     return out, {f"{k}_ms": t for k, (t, _) in split.items()} | {
         f"{k}_n": n for k, (_, n) in split.items()} | {"events": events}
-
-
-def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(torch, got, want, name: str, tol: dict = TOL) -> float:
@@ -630,13 +656,6 @@ def decode_replay_check(torch, fn, q, k, v, lens, label: str,
     return out
 
 
-def decode_bound(b: int, h: int, hkv: int, hd: int, kv_len: int) -> tuple[float, str]:
-    """Bytes: q and o (bf16), the kv_len valid K and V rows, the f32 lse;
-    operations: two products of 2 hd flops per (head, position)."""
-    nb = 2 * b * h * hd * 2 + 2 * b * hkv * kv_len * hd * 2 + b * h * 4
-    return bound(nb, 4.0 * b * h * kv_len * hd, BF16_FLOP_PER_S)
-
-
 def decode_plan(b: int, h: int, hkv: int, hd: int) -> dict:
     from repro_torch.kernels.decode_attention.ops import plan
     return plan(b, h, hkv, hd)
@@ -649,6 +668,7 @@ def check_kernels(torch, timer) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -697,7 +717,7 @@ def check_kernels(torch, timer) -> dict:
     hkv = k.shape[1]
     kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
     kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
-    b_ms, b_by = decode_bound(b, h, hkv, hd, kv_len)
+    b_ms, b_by = cost.decode_attention(b, h, hkv, hd, kv_len).bound_ms()
 
     def sdpa_decode():
         return sdpa(F, q[:, :, None], kc, vc, causal=False)
@@ -736,9 +756,7 @@ def check_kernels(torch, timer) -> dict:
             main = args
         del qa, ka, va, args, o, want
     qf, kf, vf = main
-    pairs = S * (S + 1) / 2
-    nb = (2 * qf.numel() + 2 * kf.numel()) * 2
-    b_ms, b_by = bound(nb, 4.0 * B * H * hd * pairs, BF16_FLOP_PER_S)
+    b_ms, b_by = cost.flash_attention(B, H, Hkv, S, S, hd, True).bound_ms()
     out["flash_attention"] = dict(
         max_abs_err=max(errs), max_row_scaled_err=max(rows),
         row_scaled_err_limit=TRAIN_ROW_REL,
@@ -929,16 +947,6 @@ def rmsnorm_check(torch, inp, y, rout, label: str, check: bool = True) -> dict:
     return out
 
 
-def rmsnorm_bound(rows: int, d: int, kind: str) -> tuple[float, str]:
-    """Bytes: x (and r) read, y (and the new residual) written in bf16, w in
-    f32; gated: the f32 y and the bf16 z read, the bf16 output written.
-    Operations: ~5 an element (the add, the square, the scalings), ~15
-    gated (the exp and the divide of the SiLU, its product)."""
-    per = {"residual": 8, "plain": 6}.get(kind, 8)
-    return bound(rows * d * per + d * 4, (15.0 if kind.startswith("gated") else 5.0) * rows * d,
-                 F32_FLOP_PER_S)
-
-
 def rmsnorm_times(torch, timer, probe, fn, g, rows: int, d: int, kind: str,
                   yardsticks: bool = True) -> dict:
     """Device time per launch of ``fn`` at one shape. Up to GRAPH_ROWS rows
@@ -952,6 +960,7 @@ def rmsnorm_times(torch, timer, probe, fn, g, rows: int, d: int, kind: str,
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cost
     from repro_torch.kernels.rmsnorm.ops import plan
 
     n = GRAPH_LAUNCHES if rows <= GRAPH_ROWS else 1
@@ -969,7 +978,7 @@ def rmsnorm_times(torch, timer, probe, fn, g, rows: int, d: int, kind: str,
         if c["z"] is not None:
             return rmsnorm_chain(torch, c)
         return F.rms_norm(c["x"] + c["r"], (d,), c["w"].to(torch.bfloat16), RMSNORM_EPS)
-    b_ms, b_by = rmsnorm_bound(rows, d, kind)
+    b_ms, b_by = cost.rmsnorm(rows, d, kind).bound_ms()
     out = {"shape": [rows, d], "kind": kind, "launches_a_replay": n, "plan": pl,
            "ms": graph(lambda c: rmsnorm_call(fn, c)), "floor_ms": graph(empty),
            "bound_ms": b_ms, "bound_by": b_by}
@@ -1085,18 +1094,6 @@ def check_rmsnorm(torch, timer, probe) -> dict:
 
 
 # ------------------------------- phase 3: SSD ---------------------------------
-def ssd_work(b: int, s: int, h: int, p: int, n: int) -> int:
-    """Multiply-adds of the chunked scan at the kernel's tile q, the causal
-    half of each q x q product counted: C B^T once per (sequence, chunk),
-    since B and C are shared by the heads; per (sequence, head, chunk) the
-    masked scores times x dt, C h and B^T x dt."""
-    from repro_torch.kernels.ssd.ref import CHUNK as q
-
-    nc = -(-s // q)
-    tri = q * (q + 1) // 2
-    return b * nc * tri * n + b * h * nc * (tri * p + 2 * q * n * p)
-
-
 def ssd_cases(torch, B, S, H, P, N):
     """(label, args, plain, (B, C) as stored) of every phase-3 SSD case: the
     serving shape of mamba2_130m in the model's layout, x, B and C slices of
@@ -1155,28 +1152,6 @@ def ssd_cases(torch, B, S, H, P, N):
             ("strong decay", *model_case(2, 1024, 4, P, N, bf, decay=2.0)))
 
 
-def ssd_bytes(args, bc) -> int:
-    """Bytes the scan must move: x, dt, dA, B and C as stored, read once;
-    y and the final state (f32) written once."""
-    x, dt, _, _, dA = args
-    b, s, h = dt.shape
-    p, n = x.shape[-1], bc[0].shape[-1]
-    return (x.numel() * x.element_size() + (dt.numel() + dA.numel()) * 4
-            + sum(t.numel() * t.element_size() for t in bc)
-            + x.numel() * 4 + b * h * p * n * 4)
-
-
-def ssd_split_work(b: int, s: int, h: int, p: int, n: int) -> int:
-    """Multiply-adds of the same scan on tensor cores at f32 accuracy from
-    bf16 inputs: C B^T one exact bf16 product, the other three with one
-    operand split into three bf16 terms (ssd.cu's header)."""
-    from repro_torch.kernels.ssd.ref import CHUNK as q
-
-    nc = -(-s // q)
-    tri = q * (q + 1) // 2
-    return b * nc * tri * n + 3 * b * h * nc * (tri * p + 2 * q * n * p)
-
-
 def check_ssd(torch, timer) -> dict:
     """The SSD kernel against its plain version (f32 math, rtol = atol =
     2e-4 on y and the final state) on every case of :func:`ssd_cases`; two
@@ -1185,6 +1160,7 @@ def check_ssd(torch, timer) -> dict:
     and the same f32-accurate work on the bf16 tensor cores, the larger of
     its bytes and its split products at 989 TFLOP/s (``bound_ms``)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ssd.ops import ssd_chunk
 
     cfg = get_config("mamba2_130m")
@@ -1208,9 +1184,11 @@ def check_ssd(torch, timer) -> dict:
             say("  ssd serve: two calls bit-identical (y and state)")
         del y, st, yr, sr
     args, plain, bc, serve_err = main
-    nb = ssd_bytes(args, bc)
-    b_ms, b_by = bound(nb, 2.0 * ssd_split_work(B, S, H, P, N), BF16_FLOP_PER_S)
-    f32_ms, _ = bound(nb, 2.0 * ssd_work(B, S, H, P, N), F32_FLOP_PER_S)
+    x, dt = args[:2]
+    nb = cost.ssd_bytes(x.numel(), x.element_size(), dt.numel(), bc[0].numel(),
+                        bc[0].element_size(), B * H * P * N)
+    b_ms, b_by = cost.ssd(B, S, H, P, N, nb).bound_ms()
+    f32_ms, _ = cost.ssd_f32_cores(B, S, H, P, N, nb).bound_ms()
     out = dict(max_abs_err=max(errs), serve_max_abs_err_y=serve_err,
                ms=timer.ms(lambda: ssd_chunk(*args), 20),
                plain_ms=timer.ms(plain, 5), library_ms=None,
@@ -1221,11 +1199,6 @@ def check_ssd(torch, timer) -> dict:
 
 
 # ------------------------------- phase 3: pricing -----------------------------
-# Arithmetic operations per row of each formula (additions, subtractions,
-# multiplications, divisions; comparisons and selects not counted).
-PRICING_OPS = {"price": 35, "roofline": 11}
-
-
 def _max_abs_finite(a, b) -> float:
     """Largest |a - b| over the entries where both are finite."""
     import numpy as np
@@ -1245,6 +1218,7 @@ def check_pricing(torch, timer) -> dict:
     import numpy as np
 
     from repro_torch.core.pricing import stack_plans
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pricing import (certify, certify_f32,
                                              pricing_f32, pricing_f64)
     from repro_torch.kernels.pricing.ops import f32_drift
@@ -1320,9 +1294,7 @@ def check_pricing(torch, timer) -> dict:
             n_in, n_out = len(FORMULAS[entry][1]), len(FORMULAS[entry][2])
             xb = x[:, :PRICE_ROWS].repeat(1, reps)
             n = xb.shape[1]
-            nb = n_in * n * 8 + n_out * n * (4 if f32 else 8)
-            b_ms, b_by = bound(nb, PRICING_OPS[entry] * n,
-                               F32_FLOP_PER_S if f32 else F64_FLOP_PER_S)
+            b_ms, b_by = cost.pricing(entry, n_in, n_out, n, f32).bound_ms()
             per[entry] = dict(
                 ms=timer.ms(lambda: kernel(xb, entry), 50),
                 plain_ms=timer.ms(lambda: pricing_ref(xb, entry, f32), 10),
@@ -1341,14 +1313,6 @@ def check_pricing(torch, timer) -> dict:
 
 
 # ------------------------------- phase 3: training attention ------------------
-def attention_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs attention computes: all, or those with key <=
-    query (top-left causal)."""
-    if not causal:
-        return sq * sk
-    return sum(min(i + 1, sk) for i in range(sq))
-
-
 TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
 # the training kernels' cases: (label, (B, H, Hkv, Sq, Sk, hd, causal))
@@ -1449,6 +1413,7 @@ def check_training_kernels(torch, timer) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_fwd_lse)
@@ -1483,14 +1448,8 @@ def check_training_kernels(torch, timer) -> dict:
 
     q, k, v, do, lse, dd = main
     b, h, s, hd = q.shape
-    pairs = attention_pairs(s, s, True)
-    mm = 2.0 * b * h * hd * pairs          # flops of one (S, S) x hd product
-    qb = q.numel() * 2                     # bytes of one bf16 (B, H, S, hd)
-    kb = k.numel() * 2
-    rows = lse.numel() * 4
-    work = {names[0]: (2 * qb + 2 * kb + rows, 2 * mm),
-            names[1]: (2 * qb + 4 * kb + 2 * rows, 4 * mm),
-            names[2]: (3 * qb + 2 * kb + 2 * rows, 3 * mm)}
+    work = {name: getattr(cost, name)(b, h, k.shape[1], s, s, hd, True)
+            for name in names}
     calls = {names[0]: (lambda: flash_attention_fwd_lse(q, k, v, True),
                         lambda: flash_attention_fwd_lse_ref(q, k, v, True)),
              names[1]: (lambda: flash_attention_bwd_dkv(q, k, v, do, lse, dd, True),
@@ -1513,8 +1472,7 @@ def check_training_kernels(torch, timer) -> dict:
     out = {}
     for name in names:
         plain = calls[name][1]
-        nb, fl = work[name]
-        b_ms, b_by = bound(nb, fl, BF16_FLOP_PER_S)
+        b_ms, b_by = work[name].bound_ms()
         # no one library call computes dK/dV or dQ alone: SDPA's backward
         # is both kernels' work, and is given as the pair's yardstick
         lib = (dict(library_ms=lib_fwd) if name == names[0] else
@@ -1527,7 +1485,8 @@ def check_training_kernels(torch, timer) -> dict:
                          row_scaled_err_limit=TRAIN_ROW_REL,
                          ms=kernel_ms[name],
                          plain_ms=timer.ms(plain, 3), **lib,
-                         bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9,
+                         bound_ms=b_ms, bound_by=b_by,
+                         gflop=work[name].flops / 1e9,
                          shape=[b, h, k.shape[1], s, s, hd])
     pair = out[names[1]]["ms"] + out[names[2]]["ms"]
     for name in names[1:]:
@@ -2067,6 +2026,8 @@ def check_small_model(torch, arch: str) -> dict:
                 outs.append(lg)
         return [o.cpu() for o in outs], {k: v.cpu() for k, v in cache.items()}
 
+    if cfg.moe_experts:
+        return check_small_moe_model(torch, cfg, cpu, run, s + steps)
     want, want_cache = run(cpu, "cpu")
     got, got_cache = run(to_device(cpu, "cuda"), "cuda")
     out = {"scaled_err": max(scaled_err(a, w) for a, w in zip(got, want)),
@@ -2074,6 +2035,229 @@ def check_small_model(torch, arch: str) -> dict:
                                    for k in want_cache)}
     if not max(out.values()) <= SCALED_TOL_SMALL:
         raise AssertionError(f"small model {arch}: card vs CPU {out}")
+    return out
+
+
+# ------------------------------- MoE ------------------------------------------
+@contextlib.contextmanager
+def recorded_routes(store: list):
+    """Record the experts every MoE layer call chooses (``layers._route``):
+    each call's (T, k) indices, sorted, on the CPU, in call order."""
+    from repro_torch.models import layers
+
+    route = layers._route
+
+    def recording(p, xt, k):
+        probs, gates, idx = route(p, xt, k)
+        store.append(idx.sort(dim=-1).values.cpu())
+        return probs, gates, idx
+
+    layers._route = recording
+    try:
+        yield
+    finally:
+        layers._route = route
+
+
+@contextlib.contextmanager
+def replayed_routes(torch, routes: list):
+    """Route the MoE layer calls made inside the block to the experts of
+    ``routes`` (one (T, k) index tensor per call, in call order), gates
+    taken from each call's own probabilities there: two runs then compute
+    the same function, whatever their bf16 near-ties, and differ only by
+    rounding."""
+    from repro_torch.models import layers
+
+    route, calls = layers._route, iter(routes)
+
+    def replaying(p, xt, k):
+        probs, _, _ = route(p, xt, k)
+        idx = next(calls).to(xt.device)
+        gates = probs.gather(1, idx)
+        return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+    layers._route = replaying
+    try:
+        yield
+    finally:
+        layers._route = route
+
+
+def routes_by_layer(torch, routes: list, n_layers: int, batch: int) -> list:
+    """Recorded routes, a sequence of passes of n_layers calls over
+    consecutive positions of every sequence (a prefill, then a position a
+    decode step), as one (batch, positions, k) tensor per layer."""
+    return [torch.cat([r.view(batch, -1, r.shape[-1])
+                       for r in routes[layer::n_layers]], 1)
+            for layer in range(n_layers)]
+
+
+def first_route_difference(torch, a: list, b: list, n_layers: int,
+                           batch: int) -> list[int]:
+    """Two runs' routes (:func:`recorded_routes`), each a sequence of passes
+    of n_layers calls over consecutive positions of every sequence (a
+    prefill, then one position a decode step): per sequence, the first
+    position where some layer chose other experts in the two runs (the
+    number of positions if none). A token routed otherwise changes its own
+    output and, through attention, every later position's; the positions
+    before it are computed alike (causal)."""
+    same = None
+    for la, lb in zip(routes_by_layer(torch, a, n_layers, batch),
+                      routes_by_layer(torch, b, n_layers, batch)):
+        eq = (la == lb).all(-1)
+        same = eq if same is None else same & eq
+    return [int((~row).nonzero()[0]) if bool((~row).any()) else row.numel()
+            for row in same]
+
+
+def check_small_moe_model(torch, cfg, cpu, run, positions: int) -> dict:
+    """The MoE SMOKE config on the card against the CPU (the plain
+    versions), bf16. The two round the hidden state in other places, so a
+    token whose top-k experts nearly tie may be routed otherwise on each,
+    both valid routes. Two checks, logits and K/V cache within
+    SCALED_TOL_SMALL of the largest value: with each run's own routes, each
+    sequence at every position before its first route difference
+    (:func:`first_route_difference`; some position must be held); and with
+    the card run routed as the CPU run was (:func:`replayed_routes`), at
+    every position."""
+    from repro_torch.models import to_device
+
+    want_routes, got_routes = [], []
+    card = to_device(cpu, "cuda")
+    with recorded_routes(want_routes):
+        want, want_cache = run(cpu, "cpu")
+    with recorded_routes(got_routes):
+        got, got_cache = run(card, "cuda")
+    with replayed_routes(torch, want_routes):
+        forced, forced_cache = run(card, "cuda")
+    b = want[0].shape[0]
+    clean = first_route_difference(torch, want_routes, got_routes,
+                                   cfg.n_layers, b)
+
+    def by_position(outs):
+        return torch.cat([outs[0], *[o[:, None] for o in outs[1:]]], 1)
+    lw, lg = by_position(want), by_position(got)
+    held = [(i, n) for i, n in enumerate(clean) if n]
+    out = {"scaled_err": max((scaled_err(lg[i, :n], lw[i, :n])
+                              for i, n in held), default=0.0),
+           "cache_scaled_err": max((scaled_err(got_cache[k][:, :, i, :n],
+                                               want_cache[k][:, :, i, :n])
+                                    for k in ("k", "v") for i, n in held),
+                                   default=0.0),
+           "positions_held": clean, "positions": positions,
+           "replayed_routes_scaled_err": scaled_err(by_position(forced), lw),
+           "replayed_routes_cache_scaled_err": max(
+               scaled_err(forced_cache[k], want_cache[k]) for k in want_cache)}
+    errs = [v for k, v in out.items() if k.endswith("scaled_err")]
+    if not (max(errs) <= SCALED_TOL_SMALL and held):
+        raise AssertionError(f"small model {cfg.name}: card vs CPU {out}")
+    return out
+
+
+def no_drop(cfg):
+    """``cfg`` with the capacity factor at which no token drops (E / k: an
+    expert then has room for every token)."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+
+
+def moe_drops(torch, cfg, params, prompts) -> dict:
+    """A reading: the (token, slot) pairs the default capacity factor drops
+    in one prefill of ``prompts``, per layer, of the pairs routed."""
+    from repro_torch.models import layers, prefill
+
+    dispatch, dropped = layers.moe_dispatch, []
+
+    def counting(p, xt, cfg_, capacity_factor=None):
+        out = dispatch(p, xt, cfg_, capacity_factor)
+        dropped.append(int((~out[3]).sum()))
+        return out
+
+    layers.moe_dispatch = counting
+    try:
+        with torch.no_grad():
+            prefill(cfg, params, prompts)
+    finally:
+        layers.moe_dispatch = dispatch
+    pairs = prompts.numel() * cfg.moe_top_k
+    return {"capacity_factor": cfg.moe_capacity_factor,
+            "dropped_by_layer": dropped, "routed_per_layer": pairs,
+            "dropped_share": sum(dropped) / (pairs * len(dropped))}
+
+
+def check_moe_model(torch, cfg, params, prompts) -> dict:
+    """At full size, with nothing dropped (:func:`no_drop`: a prefill at the
+    default capacity drops tokens, the dropless decode does not): greedy
+    decode (``moe_dense``) from a prefill of the prompts, against one
+    teacher-forced forward (``moe``, every token kept) over the prompts and
+    the generated tokens. Both run on the card in bf16 along different
+    paths, so a near-tie may route a token otherwise in each. Decode logits
+    within SCALED_TOL_FULL of the teacher's largest and greedy agreement at
+    least 0.8, as phase 6 holds the dense path: against the teacher with
+    its own routes, each sequence's steps before its first route
+    difference (:func:`first_route_difference`; the steps held are printed,
+    and some must be); against the teacher routed as the decode path was
+    (:func:`replayed_routes`), every step."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    nd = no_drop(cfg)
+    b, s = prompts.shape
+    n = NEW_TOKENS
+    dec_routes, teacher_routes = [], []
+    with torch.no_grad():
+        with recorded_routes(dec_routes):
+            logits, cache = prefill(nd, params, prompts, max_len=s + n)
+            gen, dec = [logits[:, -1].argmax(-1)], []
+            del logits
+            for i in range(n - 1):
+                lg, cache = decode_step(nd, params, cache, gen[-1], s + i)
+                dec.append(lg.float())
+                gen.append(lg.argmax(-1))
+        del cache
+        gen = torch.stack(gen, 1)                              # (B, n)
+        with recorded_routes(teacher_routes):
+            full = forward(nd, params, torch.cat([prompts, gen[:, :-1]], 1))
+        teacher = full[:, s - 1:].float()                      # (B, n, V)
+        del full
+        replay = [r.reshape(-1, r.shape[-1]) for r in
+                  routes_by_layer(torch, dec_routes, cfg.n_layers, b)]
+        with replayed_routes(torch, replay):
+            full = forward(nd, params, torch.cat([prompts, gen[:, :-1]], 1))
+        forced = full[:, s - 1:].float()
+        del full
+    clean = first_route_difference(torch, teacher_routes, dec_routes,
+                                   cfg.n_layers, b)
+    forced_errs = [((dec[i][j] - forced[j, i + 1]).abs().max()
+                    / forced[j, i + 1].abs().max()).item()
+                   for i in range(n - 1) for j in range(b)]
+    forced_agree = (forced.argmax(-1) == gen).float().mean().item()
+    held, all_errs, agree = [], [], []
+    for i in range(n - 1):
+        for j in range(b):
+            w = teacher[j, i + 1]
+            e = ((dec[i][j] - w).abs().max() / w.abs().max()).item()
+            all_errs.append(e)
+            if s + i < clean[j]:
+                held.append(e)
+    for i in range(n):
+        for j in range(b):
+            if s - 1 + i < clean[j]:
+                agree.append(bool(teacher[j, i].argmax() == gen[j, i]))
+    out = {"capacity_factor": nd.moe_capacity_factor,
+           "first_route_difference": clean, "prompt_len": s,
+           "steps_held": len(held), "steps": len(all_errs),
+           "decode_vs_prefill_scaled_err": max(held, default=None),
+           "greedy_agreement": sum(agree) / len(agree) if agree else None,
+           "all_steps_scaled_err": max(all_errs),
+           "replayed_routes_decode_vs_prefill_scaled_err": max(forced_errs),
+           "replayed_routes_greedy_agreement": forced_agree}
+    if not (held and out["decode_vs_prefill_scaled_err"] <= SCALED_TOL_FULL
+            and out["greedy_agreement"] >= 0.8
+            and max(forced_errs) <= SCALED_TOL_FULL and forced_agree >= 0.8):
+        raise AssertionError(f"full model ({cfg.name}): decode vs teacher-forced "
+                             f"forward beyond {SCALED_TOL_FULL:g}, greedy "
+                             f"agreement under 0.8, or no step held: {out}")
     return out
 
 
@@ -2365,7 +2549,8 @@ def check_serving(torch, kernels, arch: str, requests: int,
     size (phase N), then steady state and correctness (phase N + 1 for the
     dense path unless ``short``, the same phase for the SSM one). ``short``
     leaves out the small config (a cut config has none the kernels take).
-    Returns the launch counts of the ``run_serve`` call."""
+    Returns the launch counts of the ``run_serve`` call, and the warm
+    TTFT and steady TPOT (seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import decode_step, prefill
@@ -2420,6 +2605,11 @@ def check_serving(torch, kernels, arch: str, requests: int,
         say(f"    whole model, decode vs prefill, kernel and plain scan, seeds "
             f"{SSM_SEEDS}:")
         check_ssm_model(torch, cfg, requests, res.tokens)
+    elif cfg.moe_experts:
+        say(f"    prefill drops at the default capacity: "
+            f"{json.dumps(moe_drops(torch, cfg, params, prompts))}")
+        full = check_moe_model(torch, cfg, params, prompts)
+        say(f"    full-size consistency, nothing dropped: {json.dumps(full)}")
     else:
         full = check_full_model(torch, cfg, params, prompts, res.tokens)
         say(f"    full-size consistency: {full}")
@@ -2427,21 +2617,22 @@ def check_serving(torch, kernels, arch: str, requests: int,
         logits, cache = prefill(cfg, params, prompts, max_len=PROMPT_LEN + 2)
         tok = logits[:, -1].argmax(-1)
         decode_step(cfg, params, cache, tok, PROMPT_LEN)      # warm
-        say(f"    profile of one eager decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN))}")
+        moe = bool(cfg.moe_experts)
+        say(f"    profile of one eager decode step: {profile(torch, lambda: decode_step(cfg, params, cache, tok, PROMPT_LEN), moe)}")
         del logits, cache
         logits, slot = engine._prefill(prompts)
         tok = logits[:, -1].argmax(-1)
         engine._decode(slot, tok, PROMPT_LEN)                 # a replay, warm
         say(f"    profile of one replayed decode step (token and position "
-            f"writes, the graph): {profile(torch, lambda: engine._decode(slot, tok, PROMPT_LEN + 1))}")
+            f"writes, the graph): {profile(torch, lambda: engine._decode(slot, tok, PROMPT_LEN + 1), moe)}")
         del logits, slot, engine
-        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts))}")
+        say(f"    profile of one prefill: {profile(torch, lambda: prefill(cfg, params, prompts), moe)}")
     del params
     torch.cuda.empty_cache()
     if not short:
         small = check_small_model(torch, arch)
         say(f"    small config, card vs CPU plain: {small}")
-    return counts
+    return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot}
 
 
 # ------------------------------- phase 8: training ----------------------------
@@ -2555,6 +2746,8 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> dict:
     backward kernels' seven (S, S) x hd products per layer."""
     n_mm = n_params                     # every leaf is a matmul weight here
     t = batch * seq
+    from repro_torch.kernels.cost import attention_pairs
+
     attn_fwd = cfg.n_layers * 4.0 * batch * cfg.n_heads * cfg.hd * \
         attention_pairs(seq, seq, True)
     model = 6.0 * n_mm * t + 3 * attn_fwd
@@ -2619,6 +2812,101 @@ def check_training(torch, kernels) -> dict[str, int]:
     del params, opt
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------- phases 12-13 ---------------------------------
+def check_validation(card: str) -> dict:
+    """Phase 12: the modeled-vs-measured loop on the card. Calibrates the
+    card (the reference's host-clock protocol, CUDA events beside it),
+    builds the three cases (each certifies its twin), predicts each at the
+    calibrated rates, counts its decode step on the kernels' route (a twin
+    whose shape the kernels do not take: the plain route, on the CPU, and no
+    wall clock, the reason in its row) and times its steady decode; gates
+    every row with the reference's bands and writes
+    BENCH_validation_torch.json (with the card's name and power limit).
+    Fatal on any band violation."""
+    from repro_torch.systems.chips import H100, HBM
+    from repro_torch.validation import (REPORT_PATH, check_report,
+                                        measure_cases, write_report)
+
+    report = measure_cases(log=say)
+    cal = report["calibration"]
+    say(f"    catalog H100 (systems/chips.py): {H100.peak_flops / 1e12:.4g} "
+        f"TFLOP/s, HBM {HBM.bandwidth / 1e9:.6g} GB/s; calibrated / catalog: "
+        f"{cal['flop_rate'] / H100.peak_flops:.4f} (events "
+        f"{cal['event_flop_rate'] / H100.peak_flops:.4f}), "
+        f"{cal['mem_bw'] / HBM.bandwidth:.4f} (events "
+        f"{cal['event_mem_bw'] / HBM.bandwidth:.4f})")
+    for row in report["cases"]:
+        r, dry = row["ratios"], row["dryrun"]
+        line = (f"    {row['case']}: dry run on the {dry['route']} route "
+                f"({dry['aten_ops']} aten ops, kernel launches "
+                f"{dry['kernel_launches']}): flops {dry['flops']:.6g} "
+                f"(x{r['flops']:.4f} predicted), bytes {dry['bytes']:.6g} "
+                f"(x{r['bytes']:.4f}), collective {dry['collective_bytes']:g}")
+        if "wallclock" in row:
+            w = row["wallclock"]
+            line += (f"; TPOT {w['tpot'] * 1e3:.5f} ms (trimmed mean of "
+                     f"{w['repeats']}, min {w['step_time_min'] * 1e3:.5f}, max "
+                     f"{w['step_time_max'] * 1e3:.5f}), predicted "
+                     f"{row['predicted']['step_time'] * 1e3:.5f} ms "
+                     f"(x{r['step_time']:.4f}), compute term "
+                     f"x{r['compute_term']:.4f}, hybrid "
+                     f"{row['hybrid_step_time'] * 1e3:.5f} ms "
+                     f"(x{r['hybrid']:.4f}){' [gated]' if row['wall_gate'] else ''}")
+        else:
+            line += f"; no wall clock: {row['wallclock_absent']}"
+        say(line)
+    name, limit = (x.strip() for x in card.rsplit(",", 1))
+    report["device"] = {"name": name, "power_limit": limit}
+    write_report(report)
+    say(f"    wrote {REPORT_PATH.name}")
+    problems = check_report(report)
+    if problems:
+        raise AssertionError(f"validation bands broken: {problems}")
+    return report
+
+
+def serving_model_reading(measured: dict) -> dict:
+    """Phase 13 (a reading, no gate): the paper's serving model (§VIII.A,
+    ``serving_sweep``) for each served config on a one-chip system of the
+    catalog H100 and HBM, at the served shape (REQUESTS x PROMPT_LEN
+    prefill, decode at kv_len PROMPT_LEN + NEW_TOKENS; a MoE decode prices
+    every expert, as ``moe_dense`` runs them), beside the warm TTFT and
+    the steady TPOT measured in its serving phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import serving_sweep
+    from repro_torch.systems.chips import H100, HBM, NVLINK
+    from repro_torch.systems.system import SystemSpec
+    from repro_torch.systems.topology import ring
+    from repro_torch.workloads.llm import decode_layer_graph, gpt_layer_graph
+    from repro_torch.workloads.scenarios import _shape_from_config
+
+    system = SystemSpec("h100x1", H100, HBM, ring(1, NVLINK))
+    out = {}
+    for arch, got in measured.items():
+        cfg = get_config(arch)
+        shape = dataclasses.replace(_shape_from_config(cfg), seq=PROMPT_LEN,
+                                    batch=REQUESTS)
+        dec = dataclasses.replace(shape, seq=1)
+        if cfg.moe_experts:
+            dec = dataclasses.replace(dec, moe_top_k=cfg.moe_experts)
+        (pt,) = serving_sweep(gpt_layer_graph(shape),
+                              decode_layer_graph(dec, kv_len=PROMPT_LEN + NEW_TOKENS),
+                              n_layers=cfg.n_layers, system=system,
+                              batch=REQUESTS)
+        out[arch] = {"modeled_ttft_ms": pt.ttft * 1e3,
+                     "measured_warm_ttft_ms": got["warm_ttft"] * 1e3,
+                     "ttft_modeled_over_measured": pt.ttft / got["warm_ttft"],
+                     "modeled_tpot_ms": pt.tpot * 1e3,
+                     "measured_tpot_ms": got["tpot"] * 1e3,
+                     "tpot_modeled_over_measured": pt.tpot / got["tpot"],
+                     "breakdown_prefill": pt.breakdown_prefill,
+                     "breakdown_decode": pt.breakdown_decode}
+        say(f"    {arch}: {json.dumps(out[arch])}")
+    return out
 
 
 # ------------------------------- main -----------------------------------------
@@ -2739,14 +3027,14 @@ def main() -> int:
 
     # 5.-7. the serving paths
     cfg = get_config("mistral_nemo_12b")
-    dense = check_serving(torch, kernels, "mistral_nemo_12b", REQUESTS, {
+    dense, dense_t = check_serving(torch, kernels, "mistral_nemo_12b", REQUESTS, {
         "flash_attention": cfg.n_layers,
         "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
         "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=5)
     # an SSM layer has no MLP: per pass 1 + L residual norms and L gated
     # norms; the scan runs in prefill only, the decode step is a recurrence
     cfg = get_config("mamba2_130m")
-    ssm = check_serving(torch, kernels, "mamba2_130m", SSM_REQUESTS, {
+    ssm, _ = check_serving(torch, kernels, "mamba2_130m", SSM_REQUESTS, {
         "ssd": cfg.n_layers,
         "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=7)
     say(f"    pricing events profiled after the serving profiles: "
@@ -2769,7 +3057,7 @@ def main() -> int:
     say(f"[9] minitron_4b serving, GQA {cfg.n_heads}/{cfg.n_kv_heads} (group "
         f"{cfg.n_heads // cfg.n_kv_heads}), d_model {cfg.d_model}, vocab "
         f"{cfg.vocab}; depth cut from {full.n_layers} to {cfg.n_layers} layers")
-    gqa3 = check_serving(torch, kernels, "minitron_4b", REQUESTS, {
+    gqa3, _ = check_serving(torch, kernels, "minitron_4b", REQUESTS, {
         "flash_attention": cfg.n_layers,
         "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}, phase=9,
         cfg=cfg, short=True)
@@ -2779,13 +3067,40 @@ def main() -> int:
         return fail(f"a decode step that cannot be captured did not raise: "
                     f"{child.stdout[-500:]} {child.stderr[-2000:]}")
     say(f"    {child.stdout.strip().splitlines()[-1]}")
+    torch.cuda.empty_cache()
+
+    # 10.-11. the MoE serving path: olmoe_1b_7b at full width and depth
+    cfg = get_config("olmoe_1b_7b")
+    say(f"[10] olmoe_1b_7b serving: {cfg.moe_experts} experts top-"
+        f"{cfg.moe_top_k} (expert d_ff {cfg.d_ff}), d_model {cfg.d_model}, "
+        f"MHA {cfg.n_heads}/{cfg.n_kv_heads} at hd {cfg.hd}, vocab {cfg.vocab}, "
+        f"{cfg.n_layers} layers, nothing cut")
+    moe, moe_t = check_serving(torch, kernels, "olmoe_1b_7b", REQUESTS, {
+        "flash_attention": cfg.n_layers,
+        "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
+        "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=10)
+    torch.cuda.empty_cache()
+
+    # 12. the modeled-vs-measured validation loop
+    say("[12] validation: the card calibrated, the three cases predicted, "
+        "counted and timed, gated with the reference's bands")
+    t0 = time.perf_counter()
+    check_validation(card)
+    say(f"    validation phase in {time.perf_counter() - t0:.1f} s")
+
+    # 13. the paper's serving model beside the measured serving paths
+    say("[13] serving model (serving_sweep, one-chip catalog H100 + HBM) "
+        "against the measured warm TTFT and steady TPOT")
+    serving_model_reading({"mistral_nemo_12b": dense_t, "olmoe_1b_7b": moe_t})
+
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
-               "olmo_1b_train": train, "minitron_4b": gqa3}
+               "olmo_1b_train": train, "minitron_4b": gqa3,
+               "olmoe_1b_7b": moe}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
-    # 10. result
+    # 14. result
     fa = "src/repro/kernels/flash_attention"
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",

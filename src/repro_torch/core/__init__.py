@@ -7,6 +7,7 @@ Public surface:
   inter-chip (§IV)    : TrainWorkload, optimize_inter_chip, InterChipPlan
   intra-chip (§V)     : optimize_intra_chip, IntraChipResult
   solver              : minmax_partition, minsum_partition, branch_and_bound
+  roofline (Fig 18)   : HierPoint, RooflineTerms
   DSE (§VI.C)         : sweep, DesignPoint, DSEEngine, SweepSpec,
                         pareto_frontier (parallel+cached: dse_engine.py);
                         plan phase: plan_design_cells → PlannedPoint,
@@ -31,9 +32,7 @@ Public surface:
                         cross-process tier (memo_store.py): create_store,
                         StoreHandle — mmap table / socket server shared by
                         sweep workers, DSEEngine(shared_cache=...)
-
-The reference's ``roofline`` and ``serving`` modules are not part of the
-DSE price phase and are not copied.
+  serving (§VIII)     : serving_sweep, speculative_throughput
 """
 from .graph import DataflowGraph, Kernel, KernelKind, Tensor, chain_graph
 from .matrices import (assignment_matrix, matrix_B, matrix_D, matrix_H,
@@ -48,6 +47,8 @@ from .interchip import (CandidateSet, InterChipPlan, PrunedCandidates,
                         prune_matrix, resolve_prune, select_candidates,
                         select_plan, select_plans)
 from .intrachip import IntraChipResult, optimize_intra_chip
+from .roofline import (HierPoint, RooflineTerms, V5E_HBM_BW, V5E_ICI_BW,
+                       V5E_PEAK_FLOPS)
 from .costpower import (cost_efficiency, power_efficiency, silicon_power_w,
                         silicon_price_usd)
 from .dse import (DesignPoint, PlannedGroup, PlannedPoint, design_grid,
@@ -61,6 +62,8 @@ from .memo import (CacheStats, SolveCache, cache_stats, caching_disabled,
                    clear_caches)
 from .memo_store import (MmapStore, ServerStore, StoreHandle, choose_backend,
                          create_store)
+from .serving import (ServingPoint, SpecDecodePoint, expected_accepted,
+                      serving_sweep, speculative_throughput)
 
 __all__ = [
     "DataflowGraph", "Kernel", "KernelKind", "Tensor", "chain_graph",
@@ -75,6 +78,8 @@ __all__ = [
     "optimize_inter_chip", "prune_matrix", "resolve_prune",
     "select_candidates", "select_plan", "select_plans",
     "IntraChipResult", "optimize_intra_chip",
+    "HierPoint", "RooflineTerms", "V5E_HBM_BW", "V5E_ICI_BW",
+    "V5E_PEAK_FLOPS",
     "cost_efficiency", "power_efficiency", "silicon_power_w",
     "silicon_price_usd",
     "DesignPoint", "PlannedGroup", "PlannedPoint", "design_grid",
@@ -87,4 +92,6 @@ __all__ = [
     "clear_caches",
     "MmapStore", "ServerStore", "StoreHandle", "choose_backend",
     "create_store",
+    "ServingPoint", "SpecDecodePoint", "expected_accepted", "serving_sweep",
+    "speculative_throughput",
 ]

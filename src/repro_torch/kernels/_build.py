@@ -170,17 +170,22 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launched(wrapper) -> None:
+def launched(wrapper, work=None) -> None:
     """Count one launch of ``wrapper``'s kernel (its ``launches``). While
     the current stream is capturing, the launch only runs at a replay: it
     goes to the tally of the :class:`CountedGraph` being captured, or, in a
-    graph captured otherwise (a timing loop), is not counted."""
+    graph captured otherwise (a timing loop), is not counted. ``work``
+    (a callable giving the launch's :class:`~.cost.Work`) is added to an
+    active op count (:func:`.cost.counting`), and called only then."""
     import torch
     if torch.cuda.is_current_stream_capturing():
         if _tallies:
             _tallies[-1][wrapper] = _tallies[-1].get(wrapper, 0) + 1
         return
     wrapper.launches += 1
+    if work is not None:
+        from . import cost
+        cost.record(wrapper.__name__, work)
 
 
 class CountedGraph:

@@ -1,0 +1,190 @@
+"""The work of each kernel of the port: the bytes a call must move and the
+operations it does, from the call's shapes.
+
+One definition serves two readers: ``chip_smoke.py``'s bounds (the least
+time the card could take for a call, :meth:`Work.bound_ms`) and the
+dry-run op counter of ``repro_torch.validation.opcount``, which adds the
+work of every kernel launched while a count is active (:func:`counting`):
+the kernels are ``ctypes`` calls that no PyTorch dispatch mode sees.
+
+Bytes count each input read once and each output written once, in the
+dtypes the kernel reads and writes; operations count what the kernel
+executes, at the peak rate of the units it runs them on (H100 SXM data
+sheet, dense, at its 700 W limit).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12        # tensor cores
+F32_FLOP_PER_S = 67e12          # CUDA cores
+F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
+
+#: Arithmetic operations per row of each pricing formula (additions,
+#: subtractions, multiplications, divisions; comparisons and selects not
+#: counted).
+PRICING_OPS = {"price": 35, "roofline": 11}
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """One call's bytes, operations and the peak rate of those operations."""
+
+    bytes: float
+    flops: float
+    rate: float
+
+    def bound_ms(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the larger of bytes over the memory
+        rate and operations over their peak rate."""
+        t_bytes = self.bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = self.flops / self.rate * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: all, or those with key <=
+    query (top-left causal: query row i sees min(i + 1, sk) keys)."""
+    if not causal:
+        return sq * sk
+    m = min(sq, sk)
+    return m * (m + 1) // 2 + (sq - m) * sk
+
+
+# ------------------------------ row 1 ----------------------------------------
+def rmsnorm(rows: int, d: int, kind: str) -> Work:
+    """The fused RMSNorm over (rows, d). kind "residual": x and r read, y and
+    the new residual written in bf16; "plain": x read, y and the residual
+    written; "gated": the f32 y and the bf16 z read, the bf16 output
+    written; w in f32 once. Operations: ~5 an element (the add, the
+    square, the scalings), ~15 gated (the exp and the divide of the SiLU,
+    its product)."""
+    per = {"residual": 8, "plain": 6}.get(kind, 8)
+    ops = 15.0 if kind.startswith("gated") else 5.0
+    return Work(rows * d * per + d * 4, ops * rows * d, F32_FLOP_PER_S)
+
+
+# ------------------------------ row 2 ----------------------------------------
+def decode_attention(b: int, h: int, hkv: int, hd: int, kv_len: int) -> Work:
+    """One query token per sequence over the kv_len valid cache rows: q and
+    o in bf16, the K and V rows read, the f32 lse written; two products
+    of 2 hd operations per (head, position) on the tensor cores."""
+    nb = 2 * b * h * hd * 2 + 2 * b * hkv * kv_len * hd * 2 + b * h * 4
+    return Work(nb, 4.0 * b * h * kv_len * hd, BF16_FLOP_PER_S)
+
+
+# ------------------------------ rows 3, 5, 6, 7 ------------------------------
+def _attention_bytes(b, h, hkv, sq, sk, hd):
+    """(bytes of one bf16 (B, H, Sq, hd) tensor, of one (B, Hkv, Sk, hd)
+    one, of one f32 (B, H, Sq) row statistic)."""
+    return b * h * sq * hd * 2, b * hkv * sk * hd * 2, b * h * sq * 4
+
+
+def flash_attention(b, h, hkv, sq, sk, hd, causal) -> Work:
+    """The serving forward: q, k, v read, o written; two products of 2 hd
+    operations per (query, key) pair."""
+    qb, kb, _ = _attention_bytes(b, h, hkv, sq, sk, hd)
+    pairs = attention_pairs(sq, sk, causal)
+    return Work(2 * qb + 2 * kb, 4.0 * b * h * hd * pairs, BF16_FLOP_PER_S)
+
+
+def flash_attention_fwd_lse(b, h, hkv, sq, sk, hd, causal) -> Work:
+    """The training forward: as :func:`flash_attention`, plus the f32 LSE."""
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
+    return Work(2 * qb + 2 * kb + rows, 2 * mm, BF16_FLOP_PER_S)
+
+
+def flash_attention_bwd_dkv(b, h, hkv, sq, sk, hd, causal) -> Work:
+    """dK/dV: q, do, k, v, LSE and D read, dk and dv written; four products
+    (S = Q Kᵀ, dP = dO Vᵀ, dV += Pᵀ dO, dK += dSᵀ Q)."""
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
+    return Work(2 * qb + 4 * kb + 2 * rows, 4 * mm, BF16_FLOP_PER_S)
+
+
+def flash_attention_bwd_dq(b, h, hkv, sq, sk, hd, causal) -> Work:
+    """dQ: q, do, k, v, LSE and D read, dq written; three products (S, dP,
+    dQ += dS K)."""
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
+    return Work(3 * qb + 2 * kb + 2 * rows, 3 * mm, BF16_FLOP_PER_S)
+
+
+# ------------------------------ row 4 ----------------------------------------
+def ssd_multiply_adds(b: int, s: int, h: int, p: int, n: int,
+                      split: bool = False) -> int:
+    """Multiply-adds of the chunked scan at the kernel's chunk q, the causal
+    half of each q x q product counted: C Bᵀ once per (sequence, chunk),
+    since B and C are shared by the heads; per (sequence, head, chunk) the
+    masked scores times x dt, C h and Bᵀ x dt. ``split``: the same scan on
+    tensor cores at f32 accuracy from bf16 inputs, C Bᵀ one exact bf16
+    product, the other three with one operand split into three bf16 terms
+    (ssd.cu's header)."""
+    from .ssd.ref import CHUNK as q
+
+    nc = -(-s // q)
+    tri = q * (q + 1) // 2
+    return b * nc * tri * n + (3 if split else 1) * b * h * nc * (tri * p + 2 * q * n * p)
+
+
+def ssd_bytes(x_numel: int, x_size: int, dt_numel: int, bc_numel: int,
+              bc_size: int, state_numel: int) -> int:
+    """x, dt, dA (f32), B and C as stored, read once; y (f32, x's shape) and
+    the final f32 state written once. ``bc_numel`` counts one of B, C as
+    stored (B/C shared by the heads are stored once)."""
+    return (x_numel * x_size + 2 * dt_numel * 4 + 2 * bc_numel * bc_size
+            + x_numel * 4 + state_numel * 4)
+
+
+def ssd(b, s, h, p, n, nbytes: int) -> Work:
+    """The SSD scan on the tensor cores: its bytes, its split products."""
+    return Work(nbytes, 2.0 * ssd_multiply_adds(b, s, h, p, n, split=True),
+                BF16_FLOP_PER_S)
+
+
+def ssd_f32_cores(b, s, h, p, n, nbytes: int) -> Work:
+    """The same scan's f32 arithmetic on the CUDA cores: a second bound."""
+    return Work(nbytes, 2.0 * ssd_multiply_adds(b, s, h, p, n), F32_FLOP_PER_S)
+
+
+# ------------------------------ rows 8, 9 ------------------------------------
+def pricing(entry: str, n_in: int, n_out: int, n: int, f32: bool) -> Work:
+    """One pricing launch over n rows: the f64 columns read, the f64 (or
+    f32) outputs written; PRICING_OPS[entry] operations a row."""
+    nb = n_in * n * 8 + n_out * n * (4 if f32 else 8)
+    return Work(nb, PRICING_OPS[entry] * n,
+                F32_FLOP_PER_S if f32 else F64_FLOP_PER_S)
+
+
+# ------------------------------ the op counter's hook -------------------------
+_active: list[dict] = []
+
+
+@contextlib.contextmanager
+def counting():
+    """Collect the work of every kernel launched eagerly inside the block:
+    yields a dict ``{"flops", "bytes", "launches": {name: n}}`` that
+    :func:`record` fills. Launches captured into a CUDA graph are not
+    recorded (they run at the graph's replays)."""
+    tally = {"flops": 0.0, "bytes": 0.0, "launches": {}}
+    _active.append(tally)
+    try:
+        yield tally
+    finally:
+        _active.remove(tally)
+
+
+def record(name: str, work: Callable[[], Work]) -> None:
+    """Add one launch of kernel ``name`` to the innermost active count;
+    ``work`` is called only while a count is active."""
+    if not _active:
+        return
+    w = work()
+    tally = _active[-1]
+    tally["flops"] += w.flops
+    tally["bytes"] += w.bytes
+    tally["launches"][name] = tally["launches"].get(name, 0) + 1

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, cost
 from .ref import decode_attention_ref
 
 _HEAD_DIMS = (32, 64, 128)
@@ -121,7 +121,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              strides, math.log2(math.e) / math.sqrt(hd),
              _build.stream_ptr(q.device))
     _build.check("decode_attention", err)
-    _build.launched(decode_attention)
+    _build.launched(decode_attention, lambda: cost.decode_attention(
+        b, h, hkv, hd, max(0, min(int(kv_len.item()), s))))
     return (o, lse) if return_lse else o
 
 

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, cost
 from .ref import (attention_delta, flash_attention_bwd_dkv_ref,
                   flash_attention_bwd_dq_ref, flash_attention_fwd_lse_ref,
                   flash_attention_ref)
@@ -99,7 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              b, h, hkv, sq, sk, hd, int(causal), _LOG2E / math.sqrt(hd),
              _strides(q, k, v, o), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    _build.launched(flash_attention)
+    _build.launched(flash_attention, lambda: cost.flash_attention(
+        b, h, hkv, sq, sk, hd, causal))
     return o
 
 
@@ -125,7 +126,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              _LOG2E / math.sqrt(hd), _strides(q, k, v, o),
              _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    _build.launched(flash_attention_fwd_lse)
+    _build.launched(flash_attention_fwd_lse, lambda: cost.flash_attention_fwd_lse(
+        b, h, hkv, sq, sk, hd, causal))
     return o, lse
 
 
@@ -152,7 +154,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
              sk, hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dk, dv), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    _build.launched(flash_attention_bwd_dkv)
+    _build.launched(flash_attention_bwd_dkv, lambda: cost.flash_attention_bwd_dkv(
+        b, h, hkv, sq, sk, hd, causal))
     return dk, dv
 
 
@@ -178,7 +181,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
              hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dq), _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
-    _build.launched(flash_attention_bwd_dq)
+    _build.launched(flash_attention_bwd_dq, lambda: cost.flash_attention_bwd_dq(
+        b, h, hkv, sq, sk, hd, causal))
     return dq
 
 

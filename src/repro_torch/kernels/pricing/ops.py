@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ...core.pricing import price_plans, stack_plans
-from .. import _build
+from .. import _build, cost
 from .drift import DRIFT_BAND, drift_band
 from .ref import FORMULAS, price_rows_scalar, pricing_ref, random_plan_vectors
 
@@ -57,7 +57,8 @@ def pricing_f64(x: torch.Tensor, entry: str = "price") -> torch.Tensor:
     if x.device.type == "cpu":
         return pricing_ref(x, entry)
     y = _launch(x, entry, f32=False)
-    _build.launched(pricing_f64)
+    _build.launched(pricing_f64, lambda: cost.pricing(
+        entry, x.shape[0], y.shape[0], x.shape[1], f32=False))
     return y
 
 
@@ -68,7 +69,8 @@ def pricing_f32(x: torch.Tensor, entry: str = "price") -> torch.Tensor:
     if x.device.type == "cpu":
         return pricing_ref(x, entry, f32=True)
     y = _launch(x, entry, f32=True)
-    _build.launched(pricing_f32)
+    _build.launched(pricing_f32, lambda: cost.pricing(
+        entry, x.shape[0], y.shape[0], x.shape[1], f32=True))
     return y
 
 

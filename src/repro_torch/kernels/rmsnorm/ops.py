@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, cost
 from .ref import fused_rmsnorm_ref
 
 #: The widest row the kernel takes: with 16-byte vectors, gated, and with
@@ -95,7 +95,9 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
              t, d, gate.stride(0) if gate is not None else 0, eps, int(vec),
              _build.stream_ptr(x.device))
     _build.check("rmsnorm", err)
-    _build.launched(fused_rmsnorm)
+    _build.launched(fused_rmsnorm, lambda: cost.rmsnorm(
+        t, d, "gated" if gate is not None else
+        "plain" if residual is None else "residual"))
     return y, rout
 
 

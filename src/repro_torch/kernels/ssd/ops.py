@@ -10,11 +10,20 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, cost
 from .ref import ssd_scan_ref
 
 #: Largest state width and state size whose tiles fit a block's shared memory.
 MAX_P = MAX_N = 128
+
+
+def stored_numel(t: torch.Tensor) -> int:
+    """Elements a view reads from memory: its size along every dimension
+    of non-zero stride (B/C shared by the heads have a head stride of 0)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
 
 
 def _seq_head_pos(t: torch.Tensor, four_d: bool) -> tuple[int, int, int]:
@@ -93,7 +102,9 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              (ctypes.c_longlong * len(strides))(*strides),
              _build.stream_ptr(x.device))
     _build.check("ssd", err)
-    _build.launched(ssd_chunk)
+    _build.launched(ssd_chunk, lambda: cost.ssd(nb, s, nh, p, n, cost.ssd_bytes(
+        x.numel(), x.element_size(), dt.numel(), stored_numel(B),
+        B.element_size(), h.numel())))
     return y, h
 
 

@@ -17,7 +17,8 @@ from .transformer import check_supported, compute_dtype
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # 1-D leaves (norm weights; the SSM's A_log, D, dt_bias, norm_w) stay
-    # float32; matrices (projections, the SSM's conv_w) take the compute
+    # float32; matrices (projections, the SSM's conv_w, the MoE router and
+    # its (E, d, f) / (E, f, d) expert stacks) take the compute
     # dtype, as the reference casts them per use. bfloat16 numpy arrays
     # have no torch counterpart, so everything passes through float32
     # (exact for both source dtypes).

@@ -1,5 +1,5 @@
-"""Model layers of the port: the dense and SSM subsets, as plain functions
-on tensors.
+"""Model layers of the port: the dense, MoE and SSM subsets, as plain
+functions on tensors.
 
 Each function mirrors the reference layer of the same name in
 ``repro/models/layers.py`` and computes the same function, with the
@@ -15,6 +15,9 @@ computes:
   (``models/transformer.py``), and so does the SSM layer's gated norm;
   LayerNorm and the GELU MLP stay plain tensor ops, as the reference has
   no kernel for them;
+* the MoE layers' router and expert products are plain batched matrix
+  products (cuBLAS on the card), and their dispatch and combine plain
+  tensor ops, as the reference computes them outside any kernel;
 * the SSM layer's chunked scan goes through ``ssd_chunk``. The decode
   recurrence, the causal convolution, softplus, SiLU and the D skip stay
   plain tensor ops, as the reference computes them outside any kernel.
@@ -157,16 +160,129 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
 
 # ================================= MLP =======================================
+def _activation(h: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+    """The MLP's (and each expert's) activation: SwiGLU silu(g) * h, or
+    (without a gate) GELU(h), the tanh form."""
+    return F.silu(g) * h if g is not None else F.gelu(h, approximate="tanh")
+
+
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, silu(x wg) * (x wi), or (without ``wg``) GELU(x wi); then
     wo. GELU is the tanh form, ``jax.nn.gelu``'s default (PyTorch's
     default, the erf form, differs by ~1e-3)."""
-    h = _mm(x, p["wi"])
-    if "wg" in p:
-        h = F.silu(_mm(x, p["wg"])) * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    return _mm(h, p["wo"])
+    g = _mm(x, p["wg"]) if "wg" in p else None
+    return _mm(_activation(_mm(x, p["wi"]), g), p["wo"])
+
+
+# ================================= MoE =======================================
+def _route(p: dict, xt: torch.Tensor, k: int):
+    """Top-k token choice: f32 router probabilities of xt (T, d), their k
+    largest (gates, renormalised to sum 1) and the chosen experts, (T, k)
+    each. Returns (probs, gates, idx). Equal probabilities (bf16 router
+    logits tie often) go to the lower expert index, as ``jax.lax.top_k``
+    breaks ties: a stable descending sort, where ``torch.topk`` promises
+    no order."""
+    probs = torch.softmax(_mm(xt, p["router"]).float(), dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :k], idx[:, :k]
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def moe_dispatch(p: dict, xt: torch.Tensor, cfg: ModelConfig,
+                 capacity_factor: float | None = None):
+    """The capacity-bounded dispatch of :func:`moe` for tokens xt (T, d):
+    each (token, slot)'s expert ``idx`` and gate, its rank within that
+    expert's buffer, ``keep`` (rank < capacity) and the capacity. Returns
+    (gates, idx, rank, keep, cap), the first four (T, k)."""
+    t = xt.shape[0]
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    _, gates, idx = _route(p, xt, k)
+    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
+    cap = int(max(1, math.ceil(t * k / e * cf)))
+    # A pair's rank is the number of pairs before it, in (token, slot)
+    # order, routed to the same expert: the reference's cumsum over the
+    # one-hot (T k, E). A stable sort by expert keeps that order within an
+    # expert, so the rank is the pair's place in the sort less its expert's
+    # first place: the same integers, without a scan down a (T k, E) column
+    # (that scan alone took 23 ms a layer at OLMoE's prefill on an H100).
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    first = torch.cumsum(counts, 0) - counts
+    place = torch.arange(flat.numel(), device=flat.device)
+    rank = torch.empty_like(flat).scatter_(0, order, place - first[flat[order]])
+    rank = rank.reshape(t, k)
+    return gates, idx, rank, rank < cap, cap
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+        capacity_factor: float | None = None) -> torch.Tensor:
+    """Top-k token-choice MoE with capacity-bounded scatter dispatch
+    (Switch/GShard style), the reference's ``moe`` without a device mesh.
+    x: (B, S, d). Each (token, slot) goes to its expert's buffer (E, cap, d)
+    at its rank there; a slot past the capacity is dropped: its row is zero
+    and its combine reads slot (0, 0) with weight 0, as the reference. The
+    experts
+    are three batched products over (E, cap, d); the combine gathers each
+    slot's output back and weights it by its gate.
+
+    The reference's hand-scheduled expert-parallel dispatch
+    (``moe_dispatch="shard_map"``) needs a device mesh and raises here."""
+    if cfg.moe_dispatch == "shard_map":
+        raise NotImplementedError(
+            "moe_dispatch='shard_map' needs a device mesh (ROADMAP.md queue 1 "
+            "item 9); the port dispatches by scatter")
+    b, s, d = x.shape
+    e, t, k = cfg.moe_experts, b * s, cfg.moe_top_k
+    xt = x.reshape(t, d)
+    gates, idx, rank, keep, cap = moe_dispatch(p, xt, cfg, capacity_factor)
+    slot = torch.where(keep, idx * cap + rank, 0)          # (expert, rank)
+    w_keep = gates * keep
+    # The reference adds each pair's token, times (gate > 0), into its
+    # slot. Pairs with a gate > 0 have distinct slots, so plain row copies
+    # place them, one slot of every token at a time; every other pair would
+    # add zeros (the dropped ones to slot (0, 0)), which changes nothing:
+    # they go to a spare row past the buffer instead (an accumulating
+    # scatter took 20 ms a layer at OLMoE's prefill on an H100).
+    dest = torch.where(w_keep > 0, slot, e * cap)
+    rows = x.new_zeros((e * cap + 1, d))
+    for j in range(k):
+        rows.index_copy_(0, dest[:, j], xt)
+    buf = rows[:-1].view(e, cap, d)
+    h = torch.bmm(buf, p["wi"].to(x.dtype))
+    g = torch.bmm(buf, p["wg"].to(x.dtype)) if "wg" in p else None
+    out = torch.bmm(_activation(h, g), p["wo"].to(x.dtype))
+    y = out.view(e * cap, d).index_select(0, slot.reshape(-1)).view(t, k, d)
+    y = (y * w_keep[..., None].to(x.dtype)).sum(dim=1)
+    return y.reshape(b, s, d)
+
+
+def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dropless MoE for few tokens (decode): every expert processes every
+    token, and the outputs combine by the top-k gates. Exact (nothing
+    dropped) and free of host reads, so a decode step that runs it can be
+    captured in a CUDA graph. x: (B, S, d)."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    xt = x.reshape(b * s, d)
+    _, gates, idx = _route(p, xt, k)
+    combine = torch.zeros((b * s, e), dtype=torch.float32, device=x.device)
+    combine.scatter_add_(1, idx, gates)
+    h = torch.matmul(xt, p["wi"].to(x.dtype))                   # (E, T, f)
+    g = torch.matmul(xt, p["wg"].to(x.dtype)) if "wg" in p else None
+    y = torch.bmm(_activation(h, g), p["wo"].to(x.dtype))       # (E, T, d)
+    y = torch.einsum("etd,te->td", y, combine.to(x.dtype))
+    return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch §2.2): E times the sum over
+    experts of (share of top-k slots routed there) x (mean probability)."""
+    d = x.shape[-1]
+    probs, _, idx = _route(p, x.reshape(-1, d), cfg.moe_top_k)
+    frac = F.one_hot(idx, cfg.moe_experts).float().mean(dim=(0, 1))
+    return cfg.moe_experts * torch.sum(frac * probs.mean(0))
 
 
 # =========================== Mamba2 / SSD layer ==============================
@@ -296,4 +412,16 @@ def init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
     if cfg.gated:
         p["wg"] = dense_init(gen, d, (d, f), dtype, device)
     p["wo"] = dense_init(gen, f, (f, d), dtype, device)
+    return p
+
+
+def init_moe(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """The reference's leaves, expert axis leading: router (d, E), wi and
+    wg (E, d, f), wo (E, f, d)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    p = {"router": dense_init(gen, d, (d, e), dtype, device),
+         "wi": dense_init(gen, d, (e, d, f), dtype, device)}
+    if cfg.gated:
+        p["wg"] = dense_init(gen, d, (e, d, f), dtype, device)
+    p["wo"] = dense_init(gen, f, (e, f, d), dtype, device)
     return p

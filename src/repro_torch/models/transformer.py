@@ -8,9 +8,11 @@ Public entry points, mirroring ``repro/models/transformer.py``:
   prefill(cfg, params, tokens, max_len, cache)       -> logits, cache
   decode_step(cfg, params, cache, token, pos)        -> logits, cache
 
-Two layer kinds run: attention + MLP layers (dense decoders, SwiGLU or
-GELU) and Mamba2 SSM layers without an MLP (attention-free configs,
-``d_ff == 0``). Parameters are nested dictionaries with the reference's
+Two layer kinds run: attention layers with an MLP (dense decoders, SwiGLU
+or GELU) or a mixture of experts (MoE configs: ``moe`` with capacity
+dispatch in ``forward``, ``loss_fn`` and ``prefill``, the dropless
+``moe_dense`` in ``decode_step``, as the reference), and Mamba2 SSM layers
+without an MLP (attention-free configs, ``d_ff == 0``). Parameters are nested dictionaries with the reference's
 names and shapes; the reference's stacked ``params["stack"]`` (leading axis
 n_blocks) is a list of n_blocks block dictionaries here. Projection
 matrices, the SSM convolution and the embedding are held in the compute
@@ -66,11 +68,9 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense decoders (RMSNorm or LayerNorm, SwiGLU or GELU)
-    and attention-free Mamba2 stacks; everything else raises."""
+    """The port runs dense and MoE decoders (RMSNorm or LayerNorm, SwiGLU or
+    GELU) and attention-free Mamba2 stacks; everything else raises."""
     missing = []
-    if cfg.moe_experts:
-        missing.append("MoE layers")
     if cfg.attn_every > 0:
         missing.append("hybrid attention/SSM blocks")
     if cfg.cross_attn_every or cfg.is_enc_dec:
@@ -91,7 +91,10 @@ def _init_layer(gen, cfg: ModelConfig, idx: int, dtype, device) -> dict:
         p["ssm"] = L.init_ssm(gen, cfg, dtype, device)
     if cfg.d_ff:
         p["ln2"] = norm_init(cfg.d_model, device)
-        p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+        if cfg.layer_is_moe(idx):
+            p["moe"] = L.init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, dtype, device)
     return p
 
 
@@ -163,29 +166,39 @@ def _layers(cfg: ModelConfig, params: dict):
             yield b, i, bp[f"l{i}"]
 
 
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+         dense_moe: bool) -> torch.Tensor:
+    """The layer's MLP, or its MoE: the capacity dispatch, or with
+    ``dense_moe`` (decode) every expert densely."""
+    if "mlp" in lp:
+        return L.mlp(lp["mlp"], h, cfg)
+    return (L.moe_dense if dense_moe else L.moe)(lp["moe"], h, cfg)
+
+
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
-               mix) -> torch.Tensor:
+               mix, dense_moe: bool = False) -> torch.Tensor:
     """x: (B, S, d) embeddings. ``mix(block, slot, layer, h)`` returns the
-    layer's attention or SSM branch output. Returns the final-normed
-    (B, S, d)."""
+    layer's attention or SSM branch output; ``dense_moe`` runs MoE layers
+    dropless (:func:`_ffn`). Returns the final-normed (B, S, d)."""
     shape = x.shape
     layers = list(_layers(cfg, params))
     if cfg.norm != "rmsnorm":
-        return _run_stack_layernorm(cfg, params, x, mix, layers)
+        return _run_stack_layernorm(cfg, params, x, mix, layers, dense_moe)
     h, x = fused_rmsnorm(x.reshape(-1, shape[-1]), layers[0][2]["ln1"]["w"])
     for n, (b, i, lp) in enumerate(layers):
         a = mix(b, i, lp, h.view(shape))
-        if "mlp" in lp:
+        if "ln2" in lp:
             h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["ln2"]["w"],
                                  residual=x)
-            a = L.mlp(lp["mlp"], h.view(shape), cfg)
+            a = _ffn(cfg, lp, h.view(shape), dense_moe)
         w_next = (layers[n + 1][2]["ln1"]["w"] if n + 1 < len(layers)
                   else params["final_norm"]["w"])
         h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), w_next, residual=x)
     return h.view(shape)
 
 
-def _run_stack_layernorm(cfg, params, x, mix, layers) -> torch.Tensor:
+def _run_stack_layernorm(cfg, params, x, mix, layers,
+                         dense_moe: bool) -> torch.Tensor:
     """The LayerNorm block: plain residual adds in the compute dtype and
     the plain ``layernorm``, each layer checkpointed per ``cfg.remat``
     while autograd records."""
@@ -193,8 +206,8 @@ def _run_stack_layernorm(cfg, params, x, mix, layers) -> torch.Tensor:
 
     def layer(x, b, i, lp):
         x = x + mix(b, i, lp, norm(lp["ln1"], x))
-        if "mlp" in lp:
-            x = x + L.mlp(lp["mlp"], norm(lp["ln2"], x), cfg)
+        if "ln2" in lp:
+            x = x + _ffn(cfg, lp, norm(lp["ln2"], x), dense_moe)
         return x
 
     remat = torch.is_grad_enabled() and cfg.remat != "none"
@@ -356,5 +369,5 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                        cache["v"][blk, slot], pos, cfg,
                                        rope, kv_len)[0]
 
-    h = _run_stack(cfg, params, x, mix)
+    h = _run_stack(cfg, params, x, mix, dense_moe=True)
     return L._mm(h[:, 0], _head(cfg, params)), cache

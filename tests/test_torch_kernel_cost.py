@@ -1,0 +1,97 @@
+"""One definition of each kernel's bytes and operations
+(``repro_torch.kernels.cost``): the bounds ``chip_smoke.py`` prints and the
+dry-run op counter adds. Evaluated at the shapes of ``PERF.md`` §6, it
+finds the bounds recorded there (rounded as there); and each wrapper
+reports its launch's work to an active count."""
+from __future__ import annotations
+
+import pytest
+
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.pricing.ref import FORMULAS
+
+
+def _ms(work):
+    return work.bound_ms()
+
+
+@pytest.mark.parametrize("rows, d, kind, want_us", [
+    (4, 5120, "residual", 0.055), (8, 768, "residual", 0.016),
+    (8, 1536, "gated", 0.031), (8192, 5120, "residual", 100.2),
+    (16384, 768, "residual", 30.0), (16384, 1536, "gated", 60.1)])
+def test_row1_rmsnorm_bounds(rows, d, kind, want_us):
+    ms, by = _ms(cost.rmsnorm(rows, d, kind))
+    assert by == "bytes"
+    assert round(ms * 1e3, 3 if want_us < 1 else 1) == want_us
+
+
+def test_row2_decode_bound():
+    # (4, 32/8, cache 2081, 128, kv_len 2079)
+    ms, by = _ms(cost.decode_attention(4, 32, 8, 128, 2079))
+    assert (round(ms, 4), by) == (0.0102, "bytes")
+
+
+def test_row3_flash_bound():
+    ms, by = _ms(cost.flash_attention(4, 32, 8, 2048, 2048, 128, True))
+    assert (round(ms, 3), by) == (0.139, "operations")
+
+
+def test_row4_ssd_bounds():
+    b, s, h, p, n = 8, 2048, 24, 64, 128
+    nb = cost.ssd_bytes(b * s * h * p, 2, b * s * h, b * s * n, 2, b * h * p * n)
+    ms, by = _ms(cost.ssd(b, s, h, p, n, nb))
+    assert (round(ms, 4), by) == (0.0504, "bytes")
+    split = cost.ssd(b, s, h, p, n, nb).flops / cost.BF16_FLOP_PER_S * 1e3
+    assert round(split, 3) == 0.044
+    ms, by = _ms(cost.ssd_f32_cores(b, s, h, p, n, nb))
+    assert (round(ms, 3), by) == (0.219, "operations")
+
+
+@pytest.mark.parametrize("name, want_ms, gflop", [
+    ("flash_attention_fwd_lse", 0.139, 137.5),
+    ("flash_attention_bwd_dkv", 0.278, 275.0),
+    ("flash_attention_bwd_dq", 0.209, 206.3)])
+def test_rows5_to_7_training_bounds(name, want_ms, gflop):
+    work = getattr(cost, name)(8, 16, 16, 2048, 2048, 128, True)
+    ms, by = _ms(work)
+    assert (round(ms, 3), by) == (want_ms, "operations")
+    assert round(work.flops / 1e9, 1) == gflop
+
+
+@pytest.mark.parametrize("entry, f32, want_ms", [
+    ("price", False, 0.0876), ("roofline", False, 0.0351),
+    ("price", True, 0.0751), ("roofline", True, 0.0275)])
+def test_rows8_9_pricing_bounds(entry, f32, want_ms):
+    _, names, outs, _ = FORMULAS[entry]
+    ms, by = _ms(cost.pricing(entry, len(names), len(outs), 1 << 20, f32))
+    assert (round(ms, 4), by) == (want_ms, "bytes")
+
+
+@pytest.mark.parametrize("sq, sk", [(1, 1), (7, 7), (300, 129), (129, 300), (5, 0)])
+def test_attention_pairs_closed_form(sq, sk):
+    assert cost.attention_pairs(sq, sk, True) == sum(min(i + 1, sk) for i in range(sq))
+    assert cost.attention_pairs(sq, sk, False) == sq * sk
+
+
+def test_launched_records_work_only_while_counting(monkeypatch):
+    """A wrapper's work reaches an active count (and only then is it
+    computed), once per launch, by the wrapper's name. (A CPU build of
+    torch has no stream to ask whether it captures: none does.)"""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    def fake_kernel():
+        pass
+    fake_kernel.launches = 0
+    calls = []
+
+    def work():
+        calls.append(1)
+        return cost.Work(bytes=10.0, flops=4.0, rate=1.0)
+
+    _build.launched(fake_kernel, work)
+    assert fake_kernel.launches == 1 and calls == []
+    with cost.counting() as tally:
+        _build.launched(fake_kernel, work)
+        _build.launched(fake_kernel, work)
+    assert tally == {"flops": 8.0, "bytes": 20.0, "launches": {"fake_kernel": 2}}
+    assert fake_kernel.launches == 3 and len(calls) == 2 and not cost._active

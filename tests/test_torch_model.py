@@ -211,7 +211,10 @@ def test_rmsnorm_matches_reference(dt):
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("jamba_v01_52b")
-    for change in (dict(moe_experts=4, moe_top_k=2), dict(cross_attn_every=2),
-                   dict(attn_every=2, ssm_state=16)):
+    for change in (dict(cross_attn_every=2), dict(attn_every=2, ssm_state=16)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(dataclasses.replace(SMOKE, **change), device="cpu")
+    # MoE layers are ported: the same change now initialises
+    moe = init_params(dataclasses.replace(SMOKE, moe_experts=4, moe_top_k=2),
+                      device="cpu")
+    assert set(moe["stack"][0]["l0"]["moe"]) == {"router", "wi", "wg", "wo"}

@@ -152,7 +152,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import chip_smoke
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, cost
     from repro_torch.kernels.decode_attention import ops
 
     names, extra, legacy, argv = [], {}, set(), sys.argv[1:]
@@ -179,7 +179,8 @@ def main() -> int:
     sdpa_ms = timer.ms(lambda: chip_smoke.sdpa(F, q[:, :, None], kc, vc, False), 200)
     sdpa_clean_ms = timer.ms(lambda: chip_smoke.sdpa(F, q[:, :, None], kc, vc, False), 200,
                              clean_l2=True)
-    bound_ms, _ = chip_smoke.decode_bound(*q.shape[:2], k.shape[1], q.shape[2], kv_len)
+    bound_ms, _ = cost.decode_attention(*q.shape[:2], k.shape[1], q.shape[2],
+                                        kv_len).bound_ms()
     summary = []
     for n, (lib, ptxas) in libs.items():
         if n in legacy:

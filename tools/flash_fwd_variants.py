@@ -107,6 +107,7 @@ def main() -> int:
 
     names = sys.argv[1:] or list(VARIANTS)
     fns = build(names)
+    from repro_torch.kernels.cost import attention_pairs
     timer = chip_smoke.Timer(torch)
     summary = []
     for b, h, hkv, s, hd, causal in SHAPES:
@@ -115,7 +116,7 @@ def main() -> int:
                    .transpose(1, 2) for n in (h, hkv, hkv))
         want = chip_smoke.sdpa(F, q, k, v, causal)
         lib_ms = timer.ms(lambda: chip_smoke.sdpa(F, q, k, v, causal), 20)
-        flop = 4.0 * b * h * hd * chip_smoke.attention_pairs(s, s, causal)
+        flop = 4.0 * b * h * hd * attention_pairs(s, s, causal)
         for n, f in fns.items():
             o = torch.empty(b, s, h, hd, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
             st = (ctypes.c_int64 * 12)(*[x for t in (q, k, v, o) for x in t.stride()[:3]])
