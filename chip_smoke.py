@@ -2,7 +2,10 @@
 """Drive the PyTorch port's paths on one NVIDIA card: serve
 Mistral-NeMo-12B, serve Mamba2-130M, run the DSE price phase, train
 OLMo-1B, serve Minitron-4B (GQA group 3) and OLMoE-1B-7B (MoE) at full
-width, and run the modeled-vs-measured validation loop.
+width, run the modeled-vs-measured validation loop, serve
+Llama-3.2-Vision-11B (cross-attention to image embeddings),
+SeamlessM4T-medium (an encoder-decoder) and Jamba-v0.1 (hybrid
+attention/SSM blocks with MoE) at full width, and decode speculatively.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -40,7 +43,13 @@ Phases, each fatal on failure:
      olmo_1b training shape (8, 16, 2048, 128) causal, a GQA ragged shape,
      hd 64 full attention and the same tile edges, each row of o, dq (per
      query) and dk, dv (per key) within 2e-2 of that row's largest plain
-     value, and the backward kernels bit-identical across two calls;
+     value, and the backward kernels bit-identical across two calls; the
+     shapes of cross-attention and the encoder (MEMORY_FLASH_CASES,
+     MEMORY_DECODE_CASES: the flash forward without the mask over 1601
+     image tokens and 1024 frames, the encoder's 1024², decode attention
+     over the whole memory), the SSD scan at Jamba's (4, 2048, 128, 64,
+     16) and the gated norm at d_inner 8192 (RMSNORM_JAMBA), each held and
+     timed beside its bound and, for attention, SDPA;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -129,7 +138,29 @@ Phases, each fatal on failure:
  13. a reading: the paper's serving model (``serving_sweep`` on a one-chip
      catalog H100) for mistral_nemo_12b and olmoe_1b_7b beside their
      measured warm TTFT and steady TPOT;
- 14. one JSON line of kernel numbers, the card's name and power limit, and
+ 14. the VLM: llama32_vision_11b at full width and depth (40 layers, 8 of
+     them cross-attending) through ``ServeEngine.generate(...,
+     memory=...)`` with seeded (4, 1601, 4096) image embeddings, counters
+     zeroed just before and read just after (1 + 2L + 8 norms a pass, 48
+     flash launches at prefill, 48 decode launches a step); graph tokens
+     against eager ones; a second memory changes the prefill and the
+     replayed decode logits and is served by the warm engine without a
+     new capture; steady decode; the decode path against a teacher-forced
+     forward; profiles; the SMOKE config card vs CPU;
+ 15. the same for seamless_m4t_medium, the memory the encoder's output
+     over seeded (4, 1024, 1024) audio frames (``encode``, timed on its
+     own beside TTFT): 12 + 24 flash launches, 24 decode launches a step;
+ 16. Jamba's hybrid blocks: jamba_v01_52b at full width, depth cut to
+     JAMBA_LAYERS (two blocks of 7 Mamba, 1 attention, 4 MoE layers) through
+     ``run_serve`` as phases 5 and 9; its decode against a teacher-forced
+     forward on the kernel and the plain scan (the kernel route within
+     SSM_REL of the plain one, each sequence before its first route
+     difference), the cache slots where ``cache_spec`` puts them, the
+     SMOKE config card vs CPU;
+ 17. speculative decoding (olmo_1b SMOKE): the target as its own draft
+     gives the engine's greedy tokens, another draft the CPU's tokens,
+     acceptance rate and target calls;
+ 18. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -139,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -555,6 +587,17 @@ def decode_cases() -> tuple:
 
 #: the cases also run through one captured launch replayed at other kv_len
 DECODE_REPLAYED = ("serve", "gqa3-minitron", "gqa16")
+
+#: Cross-attention's shapes, held and timed in phase 3: the flash forward
+#: without the mask (label, (B, H, Hkv, Sq, Sk, hd, causal)) over the VLM's
+#: 1601 image tokens and the encoder's 1024 frames, and the encoder's own
+#: self-attention; decode attention (label, (B, H, Hkv, S, hd, kv_len)) over
+#: the whole memory, its K/V a (B, M, Hkv, hd) projection read transposed.
+MEMORY_FLASH_CASES = (("vision cross", (REQUESTS, 32, 8, PROMPT_LEN, 1601, 128, False)),
+                      ("seamless cross", (REQUESTS, 16, 16, PROMPT_LEN, 1024, 64, False)),
+                      ("seamless encoder", (REQUESTS, 16, 16, 1024, 1024, 64, False)))
+MEMORY_DECODE_CASES = (("vision cross", (REQUESTS, 32, 8, 1601, 128, 1601)),
+                       ("seamless cross", (REQUESTS, 16, 16, 1024, 64, 1024)))
 # Each decode output within one bf16 ulp of its f64 value, plus this share
 # of the largest |o|: the kernel's f32 arithmetic is ~1e-7 of the largest
 # output, its rounding to bf16 half an ulp; a P rounded once to bf16 moves
@@ -732,6 +775,26 @@ def check_kernels(torch, timer) -> dict:
                   "library_ms": timer.ms(sdpa_decode, 200, True)},
         shape=[b, h, hkv, k.shape[2], hd, kv_len])
     say(f"  decode_attention serve {out['decode_attention']}")
+    del q, k, v, kc, vc, main
+    out["decode_attention"]["memory_shapes"] = shapes = {}
+    for label, shape in MEMORY_DECODE_CASES:
+        q, k, v = decode_inputs(torch, g, shape)
+        mb, mh, mhkv, m, mhd, kv_len = shape
+        kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+        o, lse = decode_attention(q, k, v, kl)
+        r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode {label}")
+        b_ms, b_by = cost.decode_attention(mb, mh, mhkv, mhd, kv_len).bound_ms()
+        shapes[label] = dict(
+            max_abs_err=r["o_err"], max_ulp_excess=r["ulp_excess"],
+            ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
+            plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
+                                                           return_lse=True), 20),
+            library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], k, v, causal=False), 200),
+            bound_ms=b_ms, bound_by=b_by, plan=decode_plan(mb, mh, mhkv, mhd),
+            shape=list(shape))
+        say(f"  decode_attention {label} q {tuple(q.shape)} memory {(mb, m, mhkv, mhd)}: "
+            f"{json.dumps(shapes[label])}")
+        del q, k, v, o, lse
 
     # ---- flash attention: the prefill's (B, S, H, hd) activations, read
     # transposed; ragged lengths and the 128-row / 128-key tile edges;
@@ -765,6 +828,29 @@ def check_kernels(torch, timer) -> dict:
         library_ms=timer.ms(lambda: sdpa(F, qf, kf, vf, causal=True), 20),
         bound_ms=b_ms, bound_by=b_by, shape=[B, H, Hkv, S, S, hd])
     say(f"  flash_attention serve {out['flash_attention']}")
+    del qf, kf, vf, main
+    out["flash_attention"]["memory_shapes"] = shapes = {}
+    for label, (mb, mh, mhkv, sq, sk, dh, causal) in MEMORY_FLASH_CASES:
+        qa, ka, va = randn(mb, sq, mh, dh), randn(mb, sk, mhkv, dh), randn(mb, sk, mhkv, dh)
+        args = (qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2))
+        o = flash_attention(*args, causal=causal)
+        want = flash_attention_ref(*args, causal=causal)
+        err = compare(torch, o, want, f"flash {label}")
+        row = row_scaled_errs(o, want)[1]
+        if not row <= TRAIN_ROW_REL:
+            raise AssertionError(
+                f"flash {label}: a row's max |kernel - plain| is {row:.3g} x "
+                f"its max |plain| (limit {TRAIN_ROW_REL:g})")
+        del o, want
+        b_ms, b_by = cost.flash_attention(mb, mh, mhkv, sq, sk, dh, causal).bound_ms()
+        shapes[label] = dict(
+            max_abs_err=err, max_row_scaled_err=row,
+            ms=timer.ms(lambda: flash_attention(*args, causal=causal), 20),
+            plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 5),
+            library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 20),
+            bound_ms=b_ms, bound_by=b_by, shape=[mb, mh, mhkv, sq, sk, dh, causal])
+        say(f"  flash_attention {label}: {json.dumps(shapes[label])}")
+        del qa, ka, va, args
     return out
 
 
@@ -779,6 +865,11 @@ RMSNORM_SHAPES = (("mistral decode", REQUESTS, 5120, "residual"),
                   ("mamba2 decode gated", SSM_REQUESTS, 1536, "gated"),
                   ("mamba2 prefill", SSM_REQUESTS * PROMPT_LEN, 768, "residual"),
                   ("mamba2 prefill gated", SSM_REQUESTS * PROMPT_LEN, 1536, "gated"))
+#: Jamba's gated norm at d_inner 8192, the widest row the gated kernel
+#: takes (``rmsnorm.ops.MAX_D_GATED``): a decode step's and a prefill's rows,
+#: checked and timed as RMSNORM_SHAPES are
+RMSNORM_JAMBA = (("jamba decode gated", REQUESTS, 8192, "gated"),
+                 ("jamba prefill gated", REQUESTS * PROMPT_LEN, 8192, "gated"))
 #: further cases, checked and not timed: the first norm of a pass, widths
 #: that take the scalar path, a gate whose rows do not start on 16 bytes
 RMSNORM_EXTRA = (("mistral first norm", REQUESTS, 5120, "plain"),
@@ -1053,9 +1144,10 @@ def rmsnorm_race_check(torch, probe, fn, check: bool = True, trials: int = 4) ->
 
 
 def check_rmsnorm(torch, timer, probe) -> dict:
-    """Row 1: every case of RMSNORM_SHAPES and RMSNORM_EXTRA held by
-    :func:`rmsnorm_check`, one launch counted per call; the race check; the
-    six shapes timed (:func:`rmsnorm_times`). The top-level times are at the
+    """Row 1: every case of RMSNORM_SHAPES, RMSNORM_JAMBA and RMSNORM_EXTRA
+    held by :func:`rmsnorm_check`, one launch counted per call; the race
+    check; the six serving shapes and Jamba's two timed
+    (:func:`rmsnorm_times`). The top-level times are at the
     mistral prefill shape with the L2 flushed by a write, as every earlier
     reading of row 1 was taken and as row 2's are, the read flush's beside
     them (``clean_l2``)."""
@@ -1064,7 +1156,7 @@ def check_rmsnorm(torch, timer, probe) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = {}
-    for label, rows, d, kind in RMSNORM_SHAPES + RMSNORM_EXTRA:
+    for label, rows, d, kind in RMSNORM_SHAPES + RMSNORM_JAMBA + RMSNORM_EXTRA:
         inp = rmsnorm_inputs(torch, g, rows, d, kind)
         n = fused_rmsnorm.launches
         y, rout = rmsnorm_call(fused_rmsnorm, inp)
@@ -1077,7 +1169,7 @@ def check_rmsnorm(torch, timer, probe) -> dict:
     race = rmsnorm_race_check(torch, probe, fused_rmsnorm)
     say(f"  rmsnorm race check (a predecessor that writes x last): {json.dumps(race)}")
     shapes = {}
-    for label, rows, d, kind in RMSNORM_SHAPES:
+    for label, rows, d, kind in RMSNORM_SHAPES + RMSNORM_JAMBA:
         shapes[label] = rmsnorm_times(torch, timer, probe, fused_rmsnorm, g, rows, d, kind)
         say(f"  rmsnorm {label} {json.dumps(shapes[label])}")
     main = rmsnorm_inputs(torch, g, *RMSNORM_SHAPES[1][1:])
@@ -1094,13 +1186,14 @@ def check_rmsnorm(torch, timer, probe) -> dict:
 
 
 # ------------------------------- phase 3: SSD ---------------------------------
-def ssd_cases(torch, B, S, H, P, N):
+def ssd_cases(torch, B, S, H, P, N, serve_only: bool = False):
     """(label, args, plain, (B, C) as stored) of every phase-3 SSD case: the
     serving shape of mamba2_130m in the model's layout, x, B and C slices of
     one convolution output and B/C shared by the heads (head stride 0), as
     ssm_layer passes them; B/C per head; the Pallas kernel's (BH, S, .)
     layout; ragged lengths (S = 100, S = 1, S = q + 1); P != N in f32; P = 40,
-    N = 72 in bf16 and f32 (warps and N not filled); a strong decay."""
+    N = 72 in bf16 and f32 (warps and N not filled); a strong decay. With
+    ``serve_only``, the serving shape's case alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
@@ -1140,6 +1233,8 @@ def ssd_cases(torch, B, S, H, P, N):
         return args, lambda: ssd_scan_ref(*args), args[2:4]
 
     bf = torch.bfloat16
+    if serve_only:
+        return (("serve", *model_case(B, S, H, P, N, bf)),)
     return (("serve", *model_case(B, S, H, P, N, bf)),
             ("per-head B/C", *model_case(2, 300, 4, P, N, bf, shared=False)),
             ("contract", *contract_case(48, 512, P, N)),
@@ -1195,6 +1290,28 @@ def check_ssd(torch, timer) -> dict:
                bound_ms=b_ms, bound_by=b_by, f32_core_ms=f32_ms,
                shape=[B, S, H, P, N])
     say(f"  ssd serve {out}")
+    del args, plain, bc, main
+    # Jamba's scan: N 16, the NP = 64 instantiation with 48 padded state
+    # columns, at its prefill shape (d_inner 8192: 128 heads of 64)
+    out["shapes"] = {}
+    jb = get_config("jamba_v01_52b")
+    jd = jb.ssm_expand * jb.d_model
+    shape = (REQUESTS, PROMPT_LEN, jd // jb.ssm_head_dim, jb.ssm_head_dim, jb.ssm_state)
+    (_, args, plain, bc), = ssd_cases(torch, *shape, serve_only=True)
+    y, st = ssd_chunk(*args)
+    yr, sr = plain()
+    errs = [compare(torch, y, yr, "ssd jamba y", SSD_TOL),
+            compare(torch, st, sr, "ssd jamba state", SSD_TOL)]
+    del y, st, yr, sr
+    x, dt = args[:2]
+    nb = cost.ssd_bytes(x.numel(), x.element_size(), dt.numel(), bc[0].numel(),
+                        bc[0].element_size(), math.prod(shape[0:1] + shape[2:]))
+    b_ms, b_by = cost.ssd(*shape, nb).bound_ms()
+    out["shapes"]["jamba"] = dict(
+        max_abs_err=max(errs), ms=timer.ms(lambda: ssd_chunk(*args), 20),
+        plain_ms=timer.ms(plain, 5), library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, shape=list(shape))
+    say(f"  ssd jamba {json.dumps(out['shapes']['jamba'])}")
     return out
 
 
@@ -2005,24 +2122,33 @@ def scaled_err(got, want) -> float:
 def check_small_model(torch, arch: str) -> dict:
     """The kernels' model on the card against the plain versions on the CPU:
     the SMOKE config of ``arch`` in bf16, same weights, prefill plus 4
-    teacher-forced decode steps; logits of every step and the final cache,
-    within 2e-2 of their largest value."""
+    teacher-forced decode steps (attending to seeded image embeddings, or
+    to the encoder's output over seeded audio frames, where the config
+    cross-attends); logits of every step and the final cache, within 2e-2
+    of their largest value."""
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill, to_device
+    from repro_torch.models import (decode_step, encode, init_params, prefill,
+                                    to_device)
 
     cfg = get_config(arch, smoke=True)
     cpu = init_params(cfg, seed=SEED, device="cpu")
     g = torch.Generator().manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (2, 20), generator=g)
     s, steps = 16, 4
+    m = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    src = torch.randn((2, m, cfg.d_model), generator=g).to(torch.bfloat16) if m else None
 
     def run(params, dev):
         with torch.no_grad():
-            lg, cache = prefill(cfg, params, toks[:, :s].to(dev), max_len=s + steps)
+            memory = None if src is None else src.to(dev)
+            if cfg.is_enc_dec:
+                memory = encode(cfg, params, memory)
+            lg, cache = prefill(cfg, params, toks[:, :s].to(dev), max_len=s + steps,
+                                memory=memory)
             outs = [lg]
             for i in range(steps):
                 lg, cache = decode_step(cfg, params, cache,
-                                        toks[:, s + i].to(dev), s + i)
+                                        toks[:, s + i].to(dev), s + i, memory=memory)
                 outs.append(lg)
         return [o.cpu() for o in outs], {k: v.cpu() for k, v in cache.items()}
 
@@ -2083,6 +2209,11 @@ def replayed_routes(torch, routes: list):
         layers._route = route
 
 
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``: the calls a pass makes to the router."""
+    return sum(cfg.layer_is_moe(i % cfg.block_size) for i in range(cfg.n_layers))
+
+
 def routes_by_layer(torch, routes: list, n_layers: int, batch: int) -> list:
     """Recorded routes, a sequence of passes of n_layers calls over
     consecutive positions of every sequence (a prefill, then a position a
@@ -2132,7 +2263,7 @@ def check_small_moe_model(torch, cfg, cpu, run, positions: int) -> dict:
         forced, forced_cache = run(card, "cuda")
     b = want[0].shape[0]
     clean = first_route_difference(torch, want_routes, got_routes,
-                                   cfg.n_layers, b)
+                                   moe_layers(cfg), b)
 
     def by_position(outs):
         return torch.cat([outs[0], *[o[:, None] for o in outs[1:]]], 1)
@@ -2186,19 +2317,18 @@ def moe_drops(torch, cfg, params, prompts) -> dict:
             "dropped_share": sum(dropped) / (pairs * len(dropped))}
 
 
-def check_moe_model(torch, cfg, params, prompts) -> dict:
+def moe_model_readings(torch, cfg, params, prompts) -> dict:
     """At full size, with nothing dropped (:func:`no_drop`: a prefill at the
     default capacity drops tokens, the dropless decode does not): greedy
     decode (``moe_dense``) from a prefill of the prompts, against one
     teacher-forced forward (``moe``, every token kept) over the prompts and
     the generated tokens. Both run on the card in bf16 along different
-    paths, so a near-tie may route a token otherwise in each. Decode logits
-    within SCALED_TOL_FULL of the teacher's largest and greedy agreement at
-    least 0.8, as phase 6 holds the dense path: against the teacher with
-    its own routes, each sequence's steps before its first route
-    difference (:func:`first_route_difference`; the steps held are printed,
-    and some must be); against the teacher routed as the decode path was
-    (:func:`replayed_routes`), every step."""
+    paths, so a near-tie may route a token otherwise in each. The largest
+    scaled error of the decode logits and the greedy agreement: against the
+    teacher with its own routes, each sequence's steps before its first
+    route difference (:func:`first_route_difference`; the steps held are
+    counted); against the teacher routed as the decode path was
+    (:func:`replayed_routes`), every step. Reads, checks nothing."""
     from repro_torch.models import decode_step, forward, prefill
 
     nd = no_drop(cfg)
@@ -2221,13 +2351,13 @@ def check_moe_model(torch, cfg, params, prompts) -> dict:
         teacher = full[:, s - 1:].float()                      # (B, n, V)
         del full
         replay = [r.reshape(-1, r.shape[-1]) for r in
-                  routes_by_layer(torch, dec_routes, cfg.n_layers, b)]
+                  routes_by_layer(torch, dec_routes, moe_layers(cfg), b)]
         with replayed_routes(torch, replay):
             full = forward(nd, params, torch.cat([prompts, gen[:, :-1]], 1))
         forced = full[:, s - 1:].float()
         del full
     clean = first_route_difference(torch, teacher_routes, dec_routes,
-                                   cfg.n_layers, b)
+                                   moe_layers(cfg), b)
     forced_errs = [((dec[i][j] - forced[j, i + 1]).abs().max()
                     / forced[j, i + 1].abs().max()).item()
                    for i in range(n - 1) for j in range(b)]
@@ -2252,9 +2382,19 @@ def check_moe_model(torch, cfg, params, prompts) -> dict:
            "all_steps_scaled_err": max(all_errs),
            "replayed_routes_decode_vs_prefill_scaled_err": max(forced_errs),
            "replayed_routes_greedy_agreement": forced_agree}
-    if not (held and out["decode_vs_prefill_scaled_err"] <= SCALED_TOL_FULL
+    return out
+
+
+def check_moe_model(torch, cfg, params, prompts) -> dict:
+    """:func:`moe_model_readings` held as phase 6 holds the dense path:
+    decode logits within SCALED_TOL_FULL of the teacher's largest and
+    greedy agreement at least 0.8, with its own routes (some step held) and
+    with the decode path's routes replayed."""
+    out = moe_model_readings(torch, cfg, params, prompts)
+    if not (out["steps_held"] and out["decode_vs_prefill_scaled_err"] <= SCALED_TOL_FULL
             and out["greedy_agreement"] >= 0.8
-            and max(forced_errs) <= SCALED_TOL_FULL and forced_agree >= 0.8):
+            and out["replayed_routes_decode_vs_prefill_scaled_err"] <= SCALED_TOL_FULL
+            and out["replayed_routes_greedy_agreement"] >= 0.8):
         raise AssertionError(f"full model ({cfg.name}): decode vs teacher-forced "
                              f"forward beyond {SCALED_TOL_FULL:g}, greedy "
                              f"agreement under 0.8, or no step held: {out}")
@@ -2267,13 +2407,15 @@ def seq_scaled_err(got, want) -> float:
     return ((g - w).abs().amax(1) / w.abs().amax(1)).max().item()
 
 
-def full_model_readings(torch, cfg, params, prompts, tokens) -> dict:
+def full_model_readings(torch, cfg, params, prompts, tokens,
+                        memory=None) -> dict:
     """At full size: the decode path's logits (cache and ``decode_step``:
     the decode kernel, or the SSM recurrence) for the generated tokens
     against one forward pass (the flash kernel, or the chunked scan) over
     the prompt and those tokens, the largest of each sequence's scaled
-    error; and the greedy tokens against that pass's argmax. For an SSM
-    config also the state handoff: the cache after the prompt's prefill and
+    error; and the greedy tokens against that pass's argmax; both paths
+    attend to ``memory`` where given. For an SSM config also the state
+    handoff: the cache after the prompt's prefill and
     the decode steps against the cache of one prefill over the same tokens,
     layer by layer, the largest of each sequence's scaled error, and each
     layer alone (:func:`ssm_layers_alone`). Reads, checks nothing."""
@@ -2283,16 +2425,17 @@ def full_model_readings(torch, cfg, params, prompts, tokens) -> dict:
     n, s = gen.shape[1], prompts.shape[1]
     seq = torch.cat([prompts, gen[:, :-1]], 1)
     with torch.no_grad():
-        full = forward(cfg, params, seq)
+        full = forward(cfg, params, seq, memory=memory)
         teacher = full[:, s - 1:]                           # (B, n, V)
         if not bool(torch.isfinite(teacher.float()).all()):
             raise AssertionError("full model: non-finite logits")
         agree = (teacher.argmax(-1) == gen).float().mean().item()
         del full
-        _, cache = prefill(cfg, params, prompts, max_len=s + n)
+        _, cache = prefill(cfg, params, prompts, max_len=s + n, memory=memory)
         worst = 0.0
         for i in range(n - 1):
-            lg, cache = decode_step(cfg, params, cache, gen[:, i], s + i)
+            lg, cache = decode_step(cfg, params, cache, gen[:, i], s + i,
+                                    memory=memory)
             worst = max(worst, seq_scaled_err(lg, teacher[:, i + 1]))
         del teacher
         out = {"decode_vs_prefill_scaled_err": worst, "greedy_agreement": agree}
@@ -2309,10 +2452,10 @@ def full_model_readings(torch, cfg, params, prompts, tokens) -> dict:
     return out
 
 
-def check_full_model(torch, cfg, params, prompts, tokens) -> dict:
+def check_full_model(torch, cfg, params, prompts, tokens, memory=None) -> dict:
     """A dense config's :func:`full_model_readings`: decode vs prefill
     within SCALED_TOL_FULL and greedy agreement at least 0.8."""
-    out = full_model_readings(torch, cfg, params, prompts, tokens)
+    out = full_model_readings(torch, cfg, params, prompts, tokens, memory)
     if not (out["decode_vs_prefill_scaled_err"] <= SCALED_TOL_FULL
             and out["greedy_agreement"] >= 0.8):
         raise AssertionError(f"full model: decode vs prefill beyond "
@@ -2468,32 +2611,42 @@ def ssm_layers_alone(torch, cfg, params, seq, s: int) -> list[float]:
     return errs
 
 
-def graph_vs_eager(torch, cfg, params, prompts, served=None) -> dict:
+def graph_vs_eager(torch, cfg, params, prompts, served=None, memory=None,
+                   engine=None) -> dict:
     """The engine's decode path (the first step eager, then the captured
     step replayed) against ``decode_step`` called eagerly, greedy, over all
-    NEW_TOKENS - 1 decode steps from the same prompts: the tokens must be
-    identical, to each other and to ``served`` (``run_serve``'s, where
-    given), and the largest logit difference is reported (expected 0: the
-    same kernels on the same inputs). Also the engine's capture count and
-    time."""
+    NEW_TOKENS - 1 decode steps from the same prompts, both attending to
+    ``memory`` where given: the tokens must be identical, to each other and
+    to ``served`` (``run_serve``'s, where given), and the largest logit
+    difference is reported (expected 0: the same kernels on the same
+    inputs). A new engine must capture the step once; a warm ``engine``
+    (given) must capture nothing and replay its graph. Also the engine's
+    capture count and time."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve import ServeEngine
 
     b, s = prompts.shape
-    engine = ServeEngine(cfg, params, max_batch=b, max_len=s + NEW_TOKENS + 1)
+    new = engine is None
+    if new:
+        engine = ServeEngine(cfg, params, max_batch=b, max_len=s + NEW_TOKENS + 1)
+    before = engine.captures
     with torch.no_grad():
-        logits, slot = engine._prefill(prompts)
+        logits, slot = engine._prefill(prompts, memory)
         graph_toks, graph_logits = [logits[:, -1].argmax(-1)], []
         for i in range(NEW_TOKENS - 1):
-            lg = engine._decode(slot, graph_toks[-1], s + i)
+            lg = engine._decode(slot, graph_toks[-1], s + i, memory)
             graph_logits.append(lg.clone())
             graph_toks.append(lg.argmax(-1))
-        captures, capture_s = engine.captures, engine.capture_s
-        del engine, slot
-        logits, cache = prefill(cfg, params, prompts, max_len=s + NEW_TOKENS + 1)
+        captures, capture_s = engine.captures - before, engine.capture_s
+        if new:
+            del engine
+        del slot
+        logits, cache = prefill(cfg, params, prompts, max_len=s + NEW_TOKENS + 1,
+                                memory=memory)
         eager_toks, diff = [logits[:, -1].argmax(-1)], 0.0
         for i in range(NEW_TOKENS - 1):
-            lg, cache = decode_step(cfg, params, cache, eager_toks[-1], s + i)
+            lg, cache = decode_step(cfg, params, cache, eager_toks[-1], s + i,
+                                    memory=memory)
             diff = max(diff, (lg.float() - graph_logits[i].float()).abs().max().item())
             eager_toks.append(lg.argmax(-1))
         del cache, graph_logits
@@ -2501,10 +2654,13 @@ def graph_vs_eager(torch, cfg, params, prompts, served=None) -> dict:
     eager_toks = [t.tolist() for t in eager_toks]
     out = {"steps": NEW_TOKENS - 1, "tokens_identical": graph_toks == eager_toks,
            "served_identical": served is None or graph_toks == served,
-           "max_logit_diff": diff, "captures": captures, "capture_s": capture_s}
-    if not (out["tokens_identical"] and out["served_identical"] and captures == 1):
+           "max_logit_diff": diff, "captures": captures, "capture_s": capture_s,
+           "tokens": graph_toks}
+    if not (out["tokens_identical"] and out["served_identical"]
+            and captures == int(new)):
         raise AssertionError(f"{cfg.name}: the captured decode step differs from "
-                             f"the eager one, or captured other than once: {out}")
+                             f"the eager one, or captured other than "
+                             f"{int(new)} time(s): {out}")
     return out
 
 
@@ -2521,10 +2677,10 @@ def capture_failure_raises() -> int:
     cfg = get_config("mistral_nemo_12b", smoke=True)
     step = engine_mod.decode_step
 
-    def host_reading_step(cfg, params, cache, token, pos):
+    def host_reading_step(cfg, params, cache, token, pos, *memory):
         if torch.cuda.is_current_stream_capturing():
             int(pos.sum())
-        return step(cfg, params, cache, token, pos)
+        return step(cfg, params, cache, token, pos, *memory)
 
     engine_mod.decode_step = host_reading_step
     engine = ServeEngine(cfg, init_params(cfg, seed=SEED), max_batch=2, max_len=16)
@@ -2577,7 +2733,9 @@ def check_serving(torch, kernels, arch: str, requests: int,
         raise AssertionError(f"{arch}: generated tokens malformed")
 
     params, prompts = serve_inputs(torch, cfg, requests, SEED)
-    say(f"    graph vs eager decode: {json.dumps(graph_vs_eager(torch, cfg, params, prompts, res.tokens))}")
+    gve = graph_vs_eager(torch, cfg, params, prompts, res.tokens)
+    gve.pop("tokens")
+    say(f"    graph vs eager decode: {json.dumps(gve)}")
     engine = ServeEngine(cfg, params, max_batch=requests,
                          max_len=PROMPT_LEN + NEW_TOKENS + 1)
     cold = engine.generate(prompts, n_tokens=NEW_TOKENS)
@@ -2605,6 +2763,13 @@ def check_serving(torch, kernels, arch: str, requests: int,
         say(f"    whole model, decode vs prefill, kernel and plain scan, seeds "
             f"{SSM_SEEDS}:")
         check_ssm_model(torch, cfg, requests, res.tokens)
+    elif cfg.attn_every > 0:
+        say(f"    prefill drops at the default capacity: "
+            f"{json.dumps(moe_drops(torch, cfg, params, prompts))}")
+        full = check_hybrid_model(torch, cfg, params, prompts)
+        say(f"    full-size consistency, nothing dropped, kernel and plain "
+            f"scan: {json.dumps(full)}")
+        say(f"    cache slots: {json.dumps(cache_slot_check(torch, cfg, params, prompts))}")
     elif cfg.moe_experts:
         say(f"    prefill drops at the default capacity: "
             f"{json.dumps(moe_drops(torch, cfg, params, prompts))}")
@@ -2633,6 +2798,345 @@ def check_serving(torch, kernels, arch: str, requests: int,
         small = check_small_model(torch, arch)
         say(f"    small config, card vs CPU plain: {small}")
     return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot}
+
+
+# ------------------------------- phases 14-17 ---------------------------------
+# jamba_v01_52b serves at full width with its depth cut to two blocks of
+# eight layers (each 7 Mamba, 1 attention, 4 MoE; 26.0 B parameters, 52 GB
+# in bf16): the whole 52 B model (about 104 GB) does not fit one 80 GB
+# card, and running it across cards is ROADMAP.md queue 1 item 9. One
+# block (8 layers) peaked at 28.4 GiB on an H100; two blocks also put the
+# cache's slots of a second block to the test.
+JAMBA_LAYERS = 16
+
+
+def memory_source(torch, cfg, seed: int):
+    """Seeded (REQUESTS, M, d) bf16 on the card: the VLM's image
+    embeddings, or the encoder-decoder's audio frames."""
+    m = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((REQUESTS, m, cfg.d_model), generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
+                         phase: int) -> tuple[dict, dict]:
+    """A cross-attention config served at full size through ``ServeEngine``
+    with a memory (the reference's ``run_serve`` passes none): the image
+    embeddings, or the encoder's output over the audio frames (``encode``,
+    timed on its own: TTFT leaves it out, as the reference's does). The
+    counters are zeroed just before the encoder and ``generate`` and read
+    just after (``want``). Then: graph tokens against eager ones; a second
+    memory changes the prefill logits and the replayed decode logits, and
+    the warm engine serves it without a new capture, its graph tokens
+    equal to eager decoding with that memory; a warm generate and steady
+    decode; the decode path's logits against a teacher-forced forward;
+    profiles; the SMOKE config on the card against the CPU. Returns the
+    launch counts and the warm TTFT, steady TPOT and encoder time."""
+    from repro_torch.models import encode, prefill
+    from repro_torch.serve import ServeEngine
+
+    params, prompts = serve_inputs(torch, cfg, REQUESTS, SEED)
+    sources = [memory_source(torch, cfg, SEED + 2), memory_source(torch, cfg, SEED + 3)]
+
+    def to_memory(src):
+        return encode(cfg, params, src) if cfg.is_enc_dec else src
+
+    engine = ServeEngine(cfg, params, max_batch=REQUESTS,
+                         max_len=PROMPT_LEN + NEW_TOKENS + 1)
+    say(f"[{phase}] {cfg.name}: {REQUESTS} requests x {PROMPT_LEN} prompt tokens "
+        f"x {NEW_TOKENS} new tokens, memory {tuple(sources[0].shape)} "
+        f"({'audio frames through the encoder' if cfg.is_enc_dec else 'image embeddings'}), "
+        f"seed {SEED}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        memory = to_memory(sources[0])
+        torch.cuda.synchronize()
+        encoder_s = time.perf_counter() - t0
+    res = engine.generate(prompts, n_tokens=NEW_TOKENS, memory=memory)
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in counts} | want
+    say(f"    encoder {encoder_s * 1e3:.3f} ms (cold), TTFT {res.ttft * 1e3:.3f} ms, "
+        f"TPOT {res.tpot * 1e3:.4f} ms, {res.tokens_per_s:.2f} tokens/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: launch counts {counts} != {want}")
+    if len(res.tokens) != NEW_TOKENS or any(
+            len(t) != REQUESTS or not all(0 <= x < cfg.vocab for x in t)
+            for t in res.tokens):
+        raise AssertionError(f"{cfg.name}: generated tokens malformed")
+    if engine.captures != 1:
+        raise AssertionError(f"{cfg.name}: {engine.captures} captures in a new "
+                             f"engine's generate")
+    gve = graph_vs_eager(torch, cfg, params, prompts, res.tokens, memory=memory)
+    gve.pop("tokens")
+    say(f"    graph vs eager decode (new engine): {json.dumps(gve)}")
+
+    with torch.no_grad():
+        other = to_memory(sources[1])
+        logits, slot = engine._prefill(prompts, memory)
+        first = logits[:, -1].clone()
+        tok = first.argmax(-1)
+        dec = engine._decode(slot, tok, PROMPT_LEN, memory).clone()
+        logits, slot = engine._prefill(prompts, memory)       # the same cache
+        dec_other = engine._decode(slot, tok, PROMPT_LEN, other).clone()
+        logits, _ = engine._prefill(prompts, other)
+        changed = {"prefill_logit_change": (logits[:, -1].float() - first.float()).abs().max().item(),
+                   "replayed_decode_logit_change": (dec_other.float() - dec.float()).abs().max().item()}
+        del logits, slot, first, dec, dec_other
+    warm_other = graph_vs_eager(torch, cfg, params, prompts, memory=other, engine=engine)
+    changed["tokens_changed"] = warm_other.pop("tokens") != res.tokens
+    changed["warm_engine"] = warm_other
+    say(f"    a second memory through the warm engine: {json.dumps(changed)}")
+    if not (changed["prefill_logit_change"] > 0 and changed["replayed_decode_logit_change"] > 0
+            and engine.captures == 1):
+        raise AssertionError(f"{cfg.name}: a changed memory did not reach the "
+                             f"prefill or the replayed decode, or was captured anew: "
+                             f"{changed}, captures {engine.captures}")
+    del other
+    warm = engine.generate(prompts, n_tokens=NEW_TOKENS, memory=memory)
+    if warm.tokens != res.tokens or engine.captures != 1:
+        raise AssertionError(f"{cfg.name}: a warm generate gave other tokens or "
+                             f"captured ({engine.captures})")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_memory(sources[0])
+        torch.cuda.synchronize()
+        warm_encoder_s = time.perf_counter() - t0
+    steady = engine.decode_steady(prompts, n_steps=16, warmup=2, memory=memory)
+    say(f"    warm generate (captures nothing): TTFT {warm.ttft * 1e3:.3f} ms, TPOT "
+        f"{warm.tpot * 1e3:.4f} ms, {warm.tokens_per_s:.2f} tokens/s; warm encoder "
+        f"{warm_encoder_s * 1e3:.3f} ms")
+    say(f"    decode_steady through the graph: TPOT mean {steady.tpot * 1e3:.4f} "
+        f"ms, min {min(steady.step_times) * 1e3:.4f}, max "
+        f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
+        f"steps; {steady.tokens_per_s:.2f} tokens/s")
+    full = check_full_model(torch, cfg, params, prompts, res.tokens, memory)
+    say(f"    full-size consistency: {full}")
+    with torch.no_grad():
+        logits, slot = engine._prefill(prompts, memory)
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        engine._decode(slot, tok, PROMPT_LEN, memory)           # a replay, warm
+        say(f"    profile of one replayed decode step (token, position and "
+            f"memory writes, the graph): "
+            f"{profile(torch, lambda: engine._decode(slot, tok, PROMPT_LEN + 1, memory))}")
+        del slot, engine
+        say(f"    profile of one prefill: "
+            f"{profile(torch, lambda: prefill(cfg, params, prompts, memory=memory))}")
+        if cfg.is_enc_dec:
+            say(f"    profile of the encoder: "
+                f"{profile(torch, lambda: to_memory(sources[0]))}")
+    del params, memory, sources
+    torch.cuda.empty_cache()
+    say(f"    small config, card vs CPU plain: {check_small_model(torch, cfg.name)}")
+    return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot,
+                    "encoder_s": warm_encoder_s, "peak_bytes": peak}
+
+
+def check_hybrid_model(torch, cfg, params, prompts) -> dict:
+    """Jamba's decode path against a teacher-forced forward
+    (:func:`moe_model_readings`, nothing dropped), once with the scan
+    through the kernel and once through its plain version
+    (:func:`plain_scan`), as phase 7 holds Mamba2 and phase 11 OLMoE: on
+    both routes greedy agreement at least 0.8 and some step held before the
+    first route difference; the kernel route's decode-vs-teacher errors,
+    with its own routes and with the decode path's replayed, at most
+    SSM_REL times the plain route's."""
+    out = {}
+    for route in ("kernel", "plain"):
+        with plain_scan() if route == "plain" else contextlib.nullcontext():
+            out[route] = moe_model_readings(torch, cfg, params, prompts)
+        torch.cuda.empty_cache()
+    broken = []
+    for route, r in out.items():
+        for key in ("greedy_agreement", "replayed_routes_greedy_agreement"):
+            if r[key] is None or r[key] < 0.8:
+                broken.append(f"{route} {key} {r[key]}")
+        if not r["steps_held"]:
+            broken.append(f"{route}: no step held")
+    for key in ("decode_vs_prefill_scaled_err",
+                "replayed_routes_decode_vs_prefill_scaled_err"):
+        got, base = out["kernel"][key], out["plain"][key]
+        if got is None or base is None or not got <= SSM_REL * base:
+            broken.append(f"{key}: kernel {got} > {SSM_REL:g} x plain {base}")
+    if broken:
+        raise AssertionError(f"full model ({cfg.name}): limits broken: {broken}")
+    return out
+
+
+def cache_slot_check(torch, cfg, params, prompts) -> dict:
+    """The cache that prefill fills, against each layer's own K/V, or state
+    and conv tail, computed again on the same inputs: every attention layer
+    in the ``k``/``v`` slot and every SSM layer in the ``ssm``/``conv`` slot
+    that ``cache_spec`` gives its index in the block, bit for bit (the same
+    kernels on the same inputs), and every slot filled once."""
+    from repro_torch.models import cache_spec, layers as L, prefill
+    from repro_torch.models.transformer import _rope, _run_stack, compute_dtype
+
+    spec = cache_spec(cfg)
+    order, equal = [], []
+    with torch.no_grad():
+        _, cache = prefill(cfg, params, prompts)
+        rope = _rope(cfg, prompts.shape[1], prompts.device)
+
+        def mix(blk, slot, lp, h):
+            if "ssm" in lp:
+                out, state, tail = L.ssm_layer(lp["ssm"], h, cfg)
+                order.append(("ssm", blk, slot))
+                equal.append(torch.equal(cache["ssm"][blk, slot], state)
+                             and torch.equal(cache["conv"][blk, slot], tail))
+                return out
+            out, k, v = L.self_attention(lp["attn"], h, cfg, rope)
+            order.append(("attn", blk, slot))
+            equal.append(torch.equal(cache["k"][blk, slot], k)
+                         and torch.equal(cache["v"][blk, slot], v))
+            return out
+
+        _run_stack(cfg, params, params["embed"][prompts].to(compute_dtype(cfg)), mix)
+        del cache
+    want = [("attn" if cfg.layer_kind(i) == "attn" else "ssm", b, spec.slot(i))
+            for b in range(cfg.n_blocks) for i in range(cfg.block_size)]
+    out = {"attn_slots": spec.attn_slots, "ssm_slots": spec.ssm_slots,
+           "layers": len(order), "order_as_spec": order == want,
+           "slots_filled_once": len(set(order)) == len(order) == cfg.n_layers,
+           "bit_identical": all(equal)}
+    if not (out["order_as_spec"] and out["slots_filled_once"] and out["bit_identical"]):
+        raise AssertionError(f"{cfg.name}: the cache's slots are not where "
+                             f"cache_spec puts them: {out} {order}")
+    return out
+
+
+def check_specdecode(torch, kernels) -> tuple[dict, dict]:
+    """Greedy sequence speculative decoding on the card (olmo_1b SMOKE, hd
+    32, random weights from the seed): with the target as its own draft,
+    the tokens bit-identical to the engine's greedy tokens, acceptance rate
+    1 and fewer target calls than tokens; with another draft (the target's
+    first layer alone, an early-exit draft), tokens, rate and target calls
+    equal to the same run on the CPU (the plain versions). The counters
+    are zeroed before the card's runs and read after. Returns (launch
+    counts, readings)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, to_device
+    from repro_torch.serve import ServeEngine, speculative_generate
+
+    cfg = get_config("olmo_1b", smoke=True)
+    target = init_params(cfg, seed=SEED)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    draft = dict(target, stack=target["stack"][:1])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    prompt = torch.randint(0, cfg.vocab, (1, 16), generator=g, device="cuda")
+    n, window = 16, 4
+    kernels.reset_launches()
+    plain = [t[0] for t in ServeEngine(cfg, target, max_batch=1, max_len=16 + n + 1)
+             .generate(prompt, n_tokens=n).tokens]
+    self_draft = speculative_generate(cfg, target, cfg, target, prompt, n, window)
+    other = speculative_generate(cfg, target, dcfg, draft, prompt, n, window)
+    counts = kernels.launches()
+    cpu = speculative_generate(cfg, to_device(target, "cpu"), dcfg,
+                               to_device(draft, "cpu"), prompt.cpu(), n, window)
+    out = {"tokens": n, "window": window,
+           "self_draft_identical_to_engine": self_draft[0] == plain,
+           "self_draft_rate": self_draft[1], "self_draft_target_calls": self_draft[2],
+           "other_draft_card_equals_cpu": other == cpu,
+           "other_draft_rate": other[1], "other_draft_target_calls": other[2],
+           "cpu_rate": cpu[1], "cpu_target_calls": cpu[2]}
+    if not (out["self_draft_identical_to_engine"] and self_draft[1] == 1.0
+            and self_draft[2] < n and out["other_draft_card_equals_cpu"]):
+        raise AssertionError(f"speculative decoding: {out} {self_draft[0]} {plain} "
+                             f"{other[0]} {cpu[0]}")
+    return counts, out
+
+
+def phase_vision(torch, kernels):
+    """Phase 14: the VLM, cross-attention to image embeddings, at full
+    width and depth. A pass runs 1 + 2L + n_cross norms, and flash (prefill)
+    or decode attention for each of the L self-attention and n_cross
+    cross-attention layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama32_vision_11b")
+    n_cross = sum(cfg.layer_is_cross(i % cfg.block_size) for i in range(cfg.n_layers))
+    return check_memory_serving(torch, kernels, cfg, {
+        "rmsnorm": (1 + 2 * cfg.n_layers + n_cross) * NEW_TOKENS,
+        "flash_attention": cfg.n_layers + n_cross,
+        "decode_attention": (cfg.n_layers + n_cross) * (NEW_TOKENS - 1)}, phase=14)
+
+
+def phase_seamless(torch, kernels):
+    """Phase 15: the encoder-decoder at full width and depth: the encoder's
+    non-causal self-attention, then every decoder layer cross-attends to
+    its output (LayerNorm: no rmsnorm)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("seamless_m4t_medium")
+    return check_memory_serving(torch, kernels, cfg, {
+        "flash_attention": cfg.encoder_layers + 2 * cfg.n_layers,
+        "decode_attention": 2 * cfg.n_layers * (NEW_TOKENS - 1)}, phase=15)
+
+
+def phase_jamba(torch, kernels):
+    """Phase 16: Jamba's hybrid blocks at full width, the depth cut to
+    JAMBA_LAYERS. A pass runs 1 + 2L residual norms and a gated norm in
+    each SSM layer; the prefill runs the scan in each SSM layer; attention
+    runs in the one attention layer of each block."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("jamba_v01_52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    n_ssm = sum(cfg.layer_kind(i % cfg.block_size) == "ssm" for i in range(cfg.n_layers))
+    n_attn = cfg.n_layers - n_ssm
+    say(f"[16] jamba_v01_52b serving: d_model {cfg.d_model}, d_inner "
+        f"{cfg.ssm_expand * cfg.d_model}, SSM state {cfg.ssm_state}, "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}; depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers ({n_ssm} Mamba, {n_attn} attention, "
+        f"{moe_layers(cfg)} MoE)")
+    out = check_serving(torch, kernels, "jamba_v01_52b", REQUESTS, {
+        "ssd": n_ssm, "flash_attention": n_attn,
+        "decode_attention": n_attn * (NEW_TOKENS - 1),
+        "rmsnorm": (1 + 2 * cfg.n_layers + n_ssm) * NEW_TOKENS}, phase=16,
+        cfg=cfg, short=True)
+    say(f"    small config (jamba_smoke), card vs CPU plain: "
+        f"{check_small_model(torch, 'jamba_v01_52b')}")
+    return out
+
+
+def phase_specdecode(torch, kernels):
+    """Phase 17: speculative decoding (:func:`check_specdecode`)."""
+    say("[17] speculative decoding (olmo_1b SMOKE): self-draft against the "
+        "engine's greedy tokens, another draft against the CPU")
+    counts, out = check_specdecode(torch, kernels)
+    say(f"    {json.dumps(out)}; launches {counts}")
+    return counts, out
+
+
+#: phases 14-17, (path, phase function)
+NEW_PATHS = (("llama32_vision_11b", phase_vision),
+             ("seamless_m4t_medium", phase_seamless),
+             ("jamba_v01_52b", phase_jamba),
+             ("olmo_1b_specdecode", phase_specdecode))
+
+
+def check_memory_hybrid_paths(torch, kernels) -> dict[str, dict]:
+    """Phases 14-17 (NEW_PATHS) in turn. Returns each path's launch counts
+    and prints the serving paths' timings."""
+    counts, timings = {}, {}
+    for path, phase in NEW_PATHS:
+        counts[path], timings[path] = phase(torch, kernels)
+        torch.cuda.empty_cache()
+    timings.pop("olmo_1b_specdecode")
+    say(f"    memory and hybrid paths' timings: {json.dumps(timings)}")
+    return counts
 
 
 # ------------------------------- phase 8: training ----------------------------
@@ -3092,15 +3596,20 @@ def main() -> int:
     say("[13] serving model (serving_sweep, one-chip catalog H100 + HBM) "
         "against the measured warm TTFT and steady TPOT")
     serving_model_reading({"mistral_nemo_12b": dense_t, "olmoe_1b_7b": moe_t})
+    torch.cuda.empty_cache()
+
+    # 14.-17. cross-attention memory, the encoder, hybrid blocks and
+    # speculative decoding
+    new_paths = check_memory_hybrid_paths(torch, kernels)
 
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
-               "olmoe_1b_7b": moe}
+               "olmoe_1b_7b": moe, **new_paths}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
-    # 14. result
+    # 18. result
     fa = "src/repro/kernels/flash_attention"
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",

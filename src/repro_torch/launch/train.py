@@ -45,7 +45,8 @@ def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
               seed: int = 0, device=None, ckpt_dir: str | None = None,
               ckpt_every: int = 0, repeat: bool = False) -> TrainResult:
     """Initialise params from ``seed`` (in ``cfg.param_dtype``), then take
-    ``steps`` AdamW steps on synthetic tokens (numpy, ``seed``); with
+    ``steps`` AdamW steps on synthetic tokens (numpy, ``seed``), with the
+    image embeddings or audio frames the config's memory takes; with
     ``repeat`` every step sees the first batch (the loss must fall). Saves
     a checkpoint every ``ckpt_every`` steps (asynchronously) to
     ``ckpt_dir``."""
@@ -56,8 +57,13 @@ def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
                          dtype=param_dtype(cfg))
     opt = adamw_init(params, master=cfg.param_dtype == "bfloat16")
     step_fn = make_train_step(cfg, AdamWConfig(lr=lr), accum=accum)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = (cfg.n_image_tokens, cfg.d_model)
+    if cfg.is_enc_dec:
+        extras["audio_frames"] = (cfg.n_audio_frames, cfg.d_model)
     data = iter(SyntheticTokens(cfg.vocab, batch, seq, seed=seed,
-                                device=device))
+                                device=device, extras=extras))
     first = next(data)
     mgr = None
     if ckpt_every:

@@ -3,7 +3,10 @@
 The tree is the reference's ``init_params`` output with every leaf turned
 into a numpy array by the caller (``jax.tree.map(np.asarray, params)``);
 this module itself needs only numpy. Stacked leaves under ``"stack"`` have
-the leading axis n_blocks and become the port's list of blocks.
+the leading axis n_blocks and become the port's list of blocks (a cross
+layer's ``lnx`` and ``xattn`` inside them); those under ``"enc_stack"``
+have the leading axis encoder_layers and become the port's list of encoder
+layers.
 """
 from __future__ import annotations
 
@@ -38,12 +41,18 @@ def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device=None,
     """The port's parameters, equal to ``tree``'s, on ``device``; matrices
     in ``dtype`` (default the compute dtype; training passes float32), 1-D
     leaves (norm weights and biases) in float32. Empty subtrees (a
-    non-parametric norm) stay ``{}``."""
+    non-parametric norm) stay ``{}``. ``stack`` becomes n_blocks block
+    dictionaries, ``enc_stack`` (an encoder-decoder's) encoder_layers
+    layer dictionaries; ``enc_final_norm`` carries over as ``final_norm``
+    does."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
+    stacked = {"stack": cfg.n_blocks, "enc_stack": cfg.encoder_layers}
     params = {k: _convert(v, dtype, device)
-              for k, v in tree.items() if k != "stack"}
-    params["stack"] = [_convert(tree["stack"], dtype, device, index=b)
-                       for b in range(cfg.n_blocks)]
+              for k, v in tree.items() if k not in stacked}
+    for k, n in stacked.items():
+        if k in tree:
+            params[k] = [_convert(tree[k], dtype, device, index=i)
+                         for i in range(n)]
     return params

@@ -1,5 +1,5 @@
-"""Model layers of the port: the dense, MoE and SSM subsets, as plain
-functions on tensors.
+"""Model layers of the port: attention (self and cross), MLP, MoE and SSM
+layers, as plain functions on tensors.
 
 Each function mirrors the reference layer of the same name in
 ``repro/models/layers.py`` and computes the same function, with the
@@ -11,6 +11,10 @@ computes:
   with LSE, then the dK/dV and dQ kernels in backward);
 * decode attention goes through ``decode_attention``, which reads the KV
   cache in place;
+* cross-attention to a memory (image embeddings, or the encoder's output)
+  goes through ``flash_attention`` without the causal mask for a whole
+  sequence of queries, and through ``decode_attention`` over all M memory
+  keys for the one query of a decode step;
 * the block's residual adds and RMSNorms go through ``fused_rmsnorm``
   (``models/transformer.py``), and so does the SSM layer's gated norm;
   LayerNorm and the GELU MLP stay plain tensor ops, as the reference has
@@ -112,6 +116,15 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ============================ GQA attention layer ============================
+def _attend(q, k, v, causal: bool) -> torch.Tensor:
+    """``flash_attention``, or ``flash_attention_train`` where autograd
+    records a gradient of q, k or v."""
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    attend = flash_attention_train if wants_grad else flash_attention
+    return attend(q, k, v, causal=causal)
+
+
 def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
                    causal: bool = True):
     """x: (B, S, d); rope: ``rope_tables`` of the positions. Returns
@@ -124,11 +137,8 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
     v = _mm(x, p["wv"]).view(b, s, cfg.n_kv_heads, hd)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
-    wants_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    attend = flash_attention_train if wants_grad else flash_attention
-    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-               causal=causal)                               # (B, H, S, hd)
+    o = _attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal)                                     # (B, H, S, hd)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     return _mm(o, p["wo"]), k, v
 
@@ -157,6 +167,42 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                          return_lse=False)                 # (B, H, hd)
     o = o.reshape(b, 1, cfg.n_heads * hd)
     return _mm(o, p["wo"]), cache_k, cache_v
+
+
+def _memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig):
+    """The memory's keys and values, each (B, Hkv, M, hd): views of the
+    (B, M, Hkv, hd) projections, as the cache is read."""
+    b, m, _ = memory.shape
+    k = _mm(memory, p["wk"]).view(b, m, cfg.n_kv_heads, cfg.hd)
+    v = _mm(memory, p["wv"]).view(b, m, cfg.n_kv_heads, cfg.hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) queries; memory: (B, M, d) (image embeddings or the
+    encoder's output), in x's dtype. Queries from x, keys and values from
+    the memory, no RoPE, no mask. Returns (B, S, d)."""
+    b, s, _ = x.shape
+    q = _mm(x, p["wq"]).view(b, s, cfg.n_heads, cfg.hd)
+    k, v = _memory_kv(p, memory, cfg)
+    o = _attend(q.transpose(1, 2), k, v, False)             # (B, H, S, hd)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return _mm(o, p["wo"])
+
+
+def decode_cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                           cfg: ModelConfig,
+                           mem_len: torch.Tensor) -> torch.Tensor:
+    """:func:`cross_attention` of one query. x: (B, 1, d); mem_len: M, the
+    memory's length, as a (1,) int32 tensor on x's device (the decode
+    kernel's ``kv_len``: every key). The memory's K/V are projected in
+    every step, as the reference does. Returns (B, 1, d)."""
+    b = x.shape[0]
+    q = _mm(x, p["wq"]).view(b, cfg.n_heads, cfg.hd)
+    k, v = _memory_kv(p, memory, cfg)
+    o = decode_attention(q, k, v, mem_len, return_lse=False)  # (B, H, hd)
+    return _mm(o.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
 
 
 # ================================= MLP =======================================
@@ -378,6 +424,7 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype,
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """Self- or cross-attention: the same four projections."""
     d, hd = cfg.d_model, cfg.hd
     return {
         "wq": dense_init(gen, d, (d, cfg.n_heads * hd), dtype, device),

@@ -1,20 +1,31 @@
 """Model assembly of the port: embedding → blocks → final norm → head.
 
 Public entry points, mirroring ``repro/models/transformer.py``:
-  init_params(cfg, seed, device, dtype)              -> params
-  forward(cfg, params, tokens)                       -> logits
-  loss_fn(cfg, params, batch)                        -> scalar loss
-  init_cache(cfg, batch, max_len, device)            -> cache
-  prefill(cfg, params, tokens, max_len, cache)       -> logits, cache
-  decode_step(cfg, params, cache, token, pos)        -> logits, cache
+  init_params(cfg, seed, device, dtype)                   -> params
+  encode(cfg, params, frames)                             -> memory
+  forward(cfg, params, tokens, memory)                    -> logits
+  loss_fn(cfg, params, batch)                             -> scalar loss
+  init_cache(cfg, batch, max_len, device)                 -> cache
+  prefill(cfg, params, tokens, max_len, cache, memory)    -> logits, cache
+  decode_step(cfg, params, cache, token, pos, memory)     -> logits, cache
 
 Two layer kinds run: attention layers with an MLP (dense decoders, SwiGLU
 or GELU) or a mixture of experts (MoE configs: ``moe`` with capacity
 dispatch in ``forward``, ``loss_fn`` and ``prefill``, the dropless
-``moe_dense`` in ``decode_step``, as the reference), and Mamba2 SSM layers
-without an MLP (attention-free configs, ``d_ff == 0``). Parameters are nested dictionaries with the reference's
+``moe_dense`` in ``decode_step``, as the reference), and Mamba2 SSM layers,
+without an MLP in attention-free configs (``d_ff == 0``) and with one in
+Jamba's hybrid blocks, where a block of ``block_size`` layers mixes both
+kinds (:func:`cache_spec` maps each layer to its cache slot). Attention
+layers that ``cfg.layer_is_cross`` marks also cross-attend to a memory
+(B, M, d) after their self-attention: the VLM's image embeddings, or the
+encoder-decoder's encoder output (:func:`encode`, a stack of non-causal
+attention layers). As in the reference, cross-attention runs only where a
+memory is given; ``loss_fn`` takes it from the batch
+(:func:`_memory_from_batch`). Parameters are nested dictionaries with the reference's
 names and shapes; the reference's stacked ``params["stack"]`` (leading axis
-n_blocks) is a list of n_blocks block dictionaries here. Projection
+n_blocks) is a list of n_blocks block dictionaries here, and its stacked
+``params["enc_stack"]`` (leading axis encoder_layers) a list of encoder
+layer dictionaries. Projection
 matrices, the SSM convolution and the embedding are held in the compute
 dtype for serving, or in ``cfg.param_dtype`` (float32) for training, and
 ``_mm`` casts them per call, as the reference does; norm weights and the
@@ -33,7 +44,9 @@ each branch output is added to the residual and normed by the next norm in
 one launch, ``(h, x) = fused_rmsnorm(branch_out, w_next, residual=x)``, so a
 pass over L dense layers launches it 1 + 2L times, and over L SSM layers
 1 + 2L times: 1 + L residual norms and L gated norms inside the layers,
-each one launch with the SiLU gate and its product fused in. The kernel
+each one launch with the SiLU gate and its product fused in. A cross layer
+with a memory adds one launch, the norm before its cross-attention
+(``lnx``): 1 + 2L + n_cross a pass. The kernel
 normalises the f32 sum before rounding it, where the reference normalises
 the residual after rounding; the two agree exactly in float32 and to the
 last bf16 bit in bfloat16.
@@ -44,15 +57,20 @@ layers ``ssm`` (n_blocks, n_ssm, B, H, P, N) in float32 and ``conv``
 (n_blocks, n_ssm, B, K-1, d_inner + 2N) in bfloat16, whatever the compute
 dtype. The SSM entries do not depend on ``max_len``. Unlike the reference,
 prefill fills the cache in the same pass that computes the logits (into a
-given cache, if one is passed), and ``decode_step`` writes it in place.
+given cache, if one is passed), and ``decode_step`` writes it in place. The
+memory is not cached: ``decode_step`` projects its keys and values in every
+step, as the reference does.
 
 ``decode_step`` takes the position as the reference's traced ``pos``: a
 one-element integer tensor on the model's device (a Python int is turned
 into one). The cache write, the RoPE angles and the attention's ``kv_len``
 are computed from it on the device, so one step captured in a CUDA graph
-(``serve/engine.py``) is replayed at every later position.
+(``serve/engine.py``) is replayed at every later position; the memory is
+read by address, so a replay sees what was copied into it.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -68,17 +86,13 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense and MoE decoders (RMSNorm or LayerNorm, SwiGLU or
-    GELU) and attention-free Mamba2 stacks; everything else raises."""
-    missing = []
-    if cfg.attn_every > 0:
-        missing.append("hybrid attention/SSM blocks")
-    if cfg.cross_attn_every or cfg.is_enc_dec:
-        missing.append("cross-attention memory")
-    if missing:
+    """The port runs every layer pattern of the reference (dense, MoE,
+    SSM, hybrid attention/SSM blocks, cross-attention, encoder-decoder)
+    on one device; what needs a device mesh raises."""
+    if cfg.moe_experts and cfg.moe_dispatch == "shard_map":
         raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}, not ported yet "
-            "(ROADMAP.md queue 1)")
+            f"{cfg.name}: moe_dispatch='shard_map' needs a device mesh "
+            "(ROADMAP.md queue 1 item 9); the port dispatches by scatter")
 
 
 # ================================ init =======================================
@@ -87,6 +101,9 @@ def _init_layer(gen, cfg: ModelConfig, idx: int, dtype, device) -> dict:
     p: dict = {"ln1": norm_init(cfg.d_model, device)}
     if cfg.layer_kind(idx) == "attn":
         p["attn"] = L.init_attention(gen, cfg, dtype, device)
+        if cfg.layer_is_cross(idx):
+            p["lnx"] = norm_init(cfg.d_model, device)
+            p["xattn"] = L.init_attention(gen, cfg, dtype, device)
     else:
         p["ssm"] = L.init_ssm(gen, cfg, dtype, device)
     if cfg.d_ff:
@@ -98,6 +115,14 @@ def _init_layer(gen, cfg: ModelConfig, idx: int, dtype, device) -> dict:
     return p
 
 
+def _init_encoder_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
+    norm_init, _ = L.make_norm(cfg)
+    return {"ln1": norm_init(cfg.d_model, device),
+            "attn": L.init_attention(gen, cfg, dtype, device),
+            "ln2": norm_init(cfg.d_model, device),
+            "mlp": L.init_mlp(gen, cfg, dtype, device)}
+
+
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     """The dtype training holds matrices in (``cfg.param_dtype``)."""
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
@@ -106,8 +131,10 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: torch.dtype | None = None) -> dict:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``:
-    the reference's shapes, Normal(0, 1/sqrt(fan_in)) matrices, norms at 1
-    (LayerNorm biases at 0). Matrices and the embedding are drawn in f32
+    the reference's leaves and shapes (``lnx``/``xattn`` on cross layers,
+    ``enc_stack`` and ``enc_final_norm`` for an encoder-decoder),
+    Normal(0, 1/sqrt(fan_in)) matrices, norms at 1 (LayerNorm biases at
+    0). Matrices and the embedding are drawn in f32
     and held in ``dtype``, by default the compute dtype (serving);
     training passes ``param_dtype(cfg)``. Under ``param_dtype="bfloat16"``
     with bf16 ``dtype`` the LayerNorm ``w``/``b`` leaves are bf16 too, as
@@ -130,11 +157,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["lm_head"] = L.dense_init(gen, cfg.d_model,
                                          (cfg.d_model, cfg.vocab), dtype,
                                          device)
+    if cfg.is_enc_dec:
+        params["enc_stack"] = [_init_encoder_layer(gen, cfg, dtype, device)
+                               for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = norm_init(cfg.d_model, device)
     if (cfg.norm == "layernorm" and cfg.param_dtype == "bfloat16"
             and dtype == torch.bfloat16):
-        norms = [params] + [lp for blk in params["stack"] for lp in blk.values()]
+        norms = [params, *params.get("enc_stack", []),
+                 *[lp for blk in params["stack"] for lp in blk.values()]]
         for node in norms:
-            for k in ("ln1", "ln2", "final_norm"):
+            for k in ("ln1", "ln2", "lnx", "final_norm", "enc_final_norm"):
                 if k in node:
                     node[k] = {n: t.to(dtype) for n, t in node[k].items()}
     return params
@@ -159,11 +191,12 @@ def to_device(params, device):
 
 # ================================ stack ======================================
 def _layers(cfg: ModelConfig, params: dict):
-    """(block, slot, layer params) in order; slot indexes the cache (every
-    layer of a block is of one kind, so its index is its slot)."""
+    """(block, slot, layer params) in order; slot is the layer's place in
+    the cache entries of its kind (:func:`cache_spec`)."""
+    spec = cache_spec(cfg)
     for b, bp in enumerate(params["stack"]):
         for i in range(cfg.block_size):
-            yield b, i, bp[f"l{i}"]
+            yield b, spec.slot(i), bp[f"l{i}"]
 
 
 def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor,
@@ -176,29 +209,43 @@ def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor,
 
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
-               mix, dense_moe: bool = False) -> torch.Tensor:
-    """x: (B, S, d) embeddings. ``mix(block, slot, layer, h)`` returns the
-    layer's attention or SSM branch output; ``dense_moe`` runs MoE layers
-    dropless (:func:`_ffn`). Returns the final-normed (B, S, d)."""
+               mix, dense_moe: bool = False, cross=None) -> torch.Tensor:
+    """The decoder stack over x: (B, S, d) embeddings (:func:`_stack`)."""
+    return _stack(cfg, list(_layers(cfg, params)), params["final_norm"], x,
+                  mix, dense_moe, cross)
+
+
+def _stack(cfg: ModelConfig, layers: list, final_norm: dict, x: torch.Tensor,
+           mix, dense_moe: bool = False, cross=None) -> torch.Tensor:
+    """x: (B, S, d) through ``layers`` ((block, slot, layer params) each),
+    then ``final_norm``. ``mix(block, slot, layer, h)`` returns the layer's
+    attention or SSM branch output; ``cross(layer, h)``, where given,
+    returns the cross-attention of a layer that has one (``xattn``), after
+    its self-attention; ``dense_moe`` runs MoE layers dropless
+    (:func:`_ffn`). Returns the final-normed (B, S, d)."""
     shape = x.shape
-    layers = list(_layers(cfg, params))
     if cfg.norm != "rmsnorm":
-        return _run_stack_layernorm(cfg, params, x, mix, layers, dense_moe)
+        return _run_stack_layernorm(cfg, final_norm, x, mix, layers,
+                                    dense_moe, cross)
     h, x = fused_rmsnorm(x.reshape(-1, shape[-1]), layers[0][2]["ln1"]["w"])
     for n, (b, i, lp) in enumerate(layers):
         a = mix(b, i, lp, h.view(shape))
+        if cross is not None and "xattn" in lp:
+            h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["lnx"]["w"],
+                                 residual=x)
+            a = cross(lp, h.view(shape))
         if "ln2" in lp:
             h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["ln2"]["w"],
                                  residual=x)
             a = _ffn(cfg, lp, h.view(shape), dense_moe)
         w_next = (layers[n + 1][2]["ln1"]["w"] if n + 1 < len(layers)
-                  else params["final_norm"]["w"])
+                  else final_norm["w"])
         h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), w_next, residual=x)
     return h.view(shape)
 
 
-def _run_stack_layernorm(cfg, params, x, mix, layers,
-                         dense_moe: bool) -> torch.Tensor:
+def _run_stack_layernorm(cfg, final_norm, x, mix, layers, dense_moe: bool,
+                         cross) -> torch.Tensor:
     """The LayerNorm block: plain residual adds in the compute dtype and
     the plain ``layernorm``, each layer checkpointed per ``cfg.remat``
     while autograd records."""
@@ -206,6 +253,8 @@ def _run_stack_layernorm(cfg, params, x, mix, layers,
 
     def layer(x, b, i, lp):
         x = x + mix(b, i, lp, norm(lp["ln1"], x))
+        if cross is not None and "xattn" in lp:
+            x = x + cross(lp, norm(lp["lnx"], x))
         if "ln2" in lp:
             x = x + _ffn(cfg, lp, norm(lp["ln2"], x), dense_moe)
         return x
@@ -218,7 +267,7 @@ def _run_stack_layernorm(cfg, params, x, mix, layers,
     for b, i, lp in layers:
         x = (checkpoint(layer, x, b, i, lp, use_reentrant=False) if remat
              else layer(x, b, i, lp))
-    return norm(params["final_norm"], x)
+    return norm(final_norm, x)
 
 
 def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -234,9 +283,35 @@ def _rope(cfg: ModelConfig, n: int, device):
 
 
 # ================================ forward ====================================
-def forward(cfg: ModelConfig, params: dict,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) int. Returns logits (B, S, V) in the compute dtype."""
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over (precomputed) frontend embeddings (B, T, d): its
+    layers are self-attention without the causal mask (RoPE on positions
+    0..T-1) and an MLP, then ``enc_final_norm``. Runs in the frames' dtype,
+    as the reference does; the decoder casts the result to its compute
+    dtype."""
+    rope = _rope(cfg, frames.shape[1], frames.device)
+
+    def mix(b, i, lp, h):
+        return L.self_attention(lp["attn"], h, cfg, rope, causal=False)[0]
+
+    layers = [(0, i, lp) for i, lp in enumerate(params["enc_stack"])]
+    return _stack(cfg, layers, params["enc_final_norm"], frames, mix)
+
+
+def _cross(cfg: ModelConfig, memory: torch.Tensor | None):
+    """The ``cross`` of :func:`_stack` for a whole sequence of queries over
+    ``memory``, cast once to the compute dtype; None without a memory."""
+    if memory is None:
+        return None
+    memory = memory.to(compute_dtype(cfg))
+    return lambda lp, h: L.cross_attention(lp["xattn"], h, memory, cfg)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            memory: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens: (B, S) int; memory: (B, M, d), the VLM's image embeddings or
+    the encoder's output, for the cross-attention layers (skipped without
+    it). Returns logits (B, S, V) in the compute dtype."""
     dtype = compute_dtype(cfg)
     x = params["embed"][tokens].to(dtype)
     rope = _rope(cfg, tokens.shape[1], x.device)
@@ -246,14 +321,27 @@ def forward(cfg: ModelConfig, params: dict,
             return L.ssm_layer(lp["ssm"], h, cfg)[0]
         return L.self_attention(lp["attn"], h, cfg, rope)[0]
 
-    h = _run_stack(cfg, params, x, mix)
+    h = _run_stack(cfg, params, x, mix, cross=_cross(cfg, memory))
     return L._mm(h, _head(cfg, params))
+
+
+def _memory_from_batch(cfg: ModelConfig, params: dict, batch: dict):
+    """The memory ``loss_fn`` attends to: the batch's ``image_embeds`` for
+    the VLM, the encoder's output over its ``audio_frames`` for the
+    encoder-decoder, else None."""
+    if cfg.family == "vlm":
+        return batch["image_embeds"]
+    if cfg.is_enc_dec:
+        return encode(cfg, params, batch["audio_frames"])
+    return None
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy over f32 logits (``logsumexp``),
-    weighted by ``batch["mask"]`` where given."""
-    logits = forward(cfg, params, batch["tokens"]).float()
+    weighted by ``batch["mask"]`` where given; the memory from
+    :func:`_memory_from_batch`."""
+    memory = _memory_from_batch(cfg, params, batch)
+    logits = forward(cfg, params, batch["tokens"], memory=memory).float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -265,37 +353,72 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 # ============================= KV / state cache ==============================
+@dataclasses.dataclass
+class CacheSpec:
+    """Where a block's layers keep their cache: ``attn_slots[i]`` is layer
+    i's slot in ``k``/``v`` and ``ssm_slots[i]`` its slot in ``ssm``/
+    ``conv`` (-1 where the layer is of the other kind)."""
+
+    n_attn: int          # attention layers per block
+    n_ssm: int           # SSM layers per block
+    attn_slots: list
+    ssm_slots: list
+
+    def slot(self, i: int) -> int:
+        """Layer i's slot in the cache entries of its kind."""
+        return max(self.attn_slots[i], self.ssm_slots[i])
+
+
+def cache_spec(cfg: ModelConfig) -> CacheSpec:
+    """The reference's ``cache_spec``: each kind's layers take its slots in
+    block order (Jamba's block of 8 keeps its attention layer, index 4, in
+    slot 0 of ``k``/``v`` and its seven SSM layers in slots 0-6 of
+    ``ssm``/``conv``)."""
+    a, s, aslot, sslot = 0, 0, [], []
+    for i in range(cfg.block_size):
+        if cfg.layer_kind(i) == "attn":
+            aslot.append(a)
+            sslot.append(-1)
+            a += 1
+        else:
+            aslot.append(-1)
+            sslot.append(s)
+            s += 1
+    return CacheSpec(a, s, aslot, sslot)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     check_supported(cfg)
     device = resolve_device(device)
     nb = cfg.n_blocks
-    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.block_size))
-    n_ssm = cfg.block_size - n_attn
+    spec = cache_spec(cfg)
     cache: dict = {}
-    if n_attn:
-        shape = (nb, n_attn, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if spec.n_attn:
+        shape = (nb, spec.n_attn, batch, max_len, cfg.n_kv_heads, cfg.hd)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    if n_ssm:
+    if spec.n_ssm:
         d_in, n, h, hp = L.ssm_dims(cfg)
-        cache["ssm"] = torch.zeros((nb, n_ssm, batch, h, hp, n),
+        cache["ssm"] = torch.zeros((nb, spec.n_ssm, batch, h, hp, n),
                                    dtype=torch.float32, device=device)
         cache["conv"] = torch.zeros(
-            (nb, n_ssm, batch, cfg.ssm_conv - 1, d_in + 2 * n), dtype=dtype,
+            (nb, spec.n_ssm, batch, cfg.ssm_conv - 1, d_in + 2 * n), dtype=dtype,
             device=device)
     return cache
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            max_len: int | None = None, cache: dict | None = None):
+            max_len: int | None = None, cache: dict | None = None,
+            memory: torch.Tensor | None = None):
     """Logits for the prompt and a cache of ``max_len`` positions (default
     the prompt length) whose first S positions hold the prompt's K/V, and
     the SSM layers' state and convolution tail after the prompt. With
     ``cache`` (of ``init_cache``'s layout, for this batch and at least S
     positions), prefill writes into it in place and returns it; positions
     from S on keep what they held, which decode overwrites before it reads
-    them."""
+    them. ``memory`` as for :func:`forward` (it is not cached: decode
+    takes it again)."""
     b, s = tokens.shape
     if cache is None:
         max_len = s if max_len is None else max_len
@@ -319,7 +442,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         cache["v"][blk, slot, :, :s] = v
         return out
 
-    h = _run_stack(cfg, params, x, mix)
+    h = _run_stack(cfg, params, x, mix, cross=_cross(cfg, memory))
     return L._mm(h, _head(cfg, params)), cache
 
 
@@ -349,10 +472,11 @@ def position(pos, device) -> torch.Tensor:
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, pos):
+                token: torch.Tensor, pos, memory: torch.Tensor | None = None):
     """One autoregressive step. token: (B,) int; pos: the position being
     written, a one-element integer tensor on the model's device, or a Python
-    int. Updates ``cache`` in place and returns (logits (B, V), cache).
+    int; memory: (B, M, d) as for :func:`forward`, read by address.
+    Updates ``cache`` in place and returns (logits (B, V), cache).
     Reads nothing on the host: CUDA-graph capturable."""
     dtype = compute_dtype(cfg)
     x = params["embed"][token][:, None, :].to(dtype)       # (B, 1, d)
@@ -369,5 +493,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                        cache["v"][blk, slot], pos, cfg,
                                        rope, kv_len)[0]
 
-    h = _run_stack(cfg, params, x, mix, dense_moe=True)
+    cross = None
+    if memory is not None:          # every memory key, cast once
+        memory = memory.to(dtype)
+        mem_len = torch.full((1,), memory.shape[1], dtype=torch.int32,
+                             device=x.device)
+
+        def cross(lp, h):
+            return L.decode_cross_attention(lp["xattn"], h, memory, cfg,
+                                            mem_len)
+
+    h = _run_stack(cfg, params, x, mix, dense_moe=True, cross=cross)
     return L._mm(h[:, 0], _head(cfg, params)), cache

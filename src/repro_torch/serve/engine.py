@@ -33,6 +33,17 @@ contents as the reference's copy of the prefill cache into a serving-length
 one, without the copy; positions from S on keep what they held, and decode
 writes each before it reads it. The SSM state and conv tail do not depend
 on ``max_len`` and are overwritten by prefill.
+
+A request may bring a memory (B, M, d) for the cross-attention layers: a
+VLM's image embeddings, or an encoder-decoder's encoder output
+(``models.encode``), as the reference's engine takes it. Prefill attends to
+it directly. The decode step reads it from the slot's static memory buffer,
+in the compute dtype, into which :meth:`ServeEngine._decode` copies the
+request's memory before each step: a replay of the captured step then sees
+the new memory, and a warm call with another memory captures nothing. A
+slot with memory is keyed by (batch size, memory shape), one without by
+the batch size, so a step captured without memory never serves a request
+that has one.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from ..device import resolve_device, synchronize
 from ..kernels._build import CountedGraph
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
+from ..models.transformer import compute_dtype
 
 
 @dataclasses.dataclass
@@ -77,14 +89,17 @@ class SteadyTiming:
 
 
 class _Slot:
-    """One batch size's decode state: the cache at ``max_len`` positions,
-    the token and position the step reads, and on the card the captured
-    step with its logits buffer."""
+    """One batch size's (and memory shape's) decode state: the cache at
+    ``max_len`` positions, the token, position and memory the step reads,
+    and on the card the captured step with its logits buffer."""
 
-    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device):
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device,
+                 memory_shape: tuple | None = None):
         self.cache = init_cache(cfg, batch, max_len, device)
         self.token = torch.zeros(batch, dtype=torch.int64, device=device)
         self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+        self.memory = (None if memory_shape is None else torch.zeros(
+            memory_shape, dtype=compute_dtype(cfg), device=device))
         self.graph: CountedGraph | None = None
         self.logits: torch.Tensor | None = None
 
@@ -123,24 +138,37 @@ class ServeEngine:
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=rng)[:, 0]
 
-    def _prefill(self, prompts: torch.Tensor):
-        """Prefill into the batch size's cache; returns (logits, slot)."""
+    def _prefill(self, prompts: torch.Tensor,
+                 memory: torch.Tensor | None = None):
+        """Prefill into the cache of the batch size (and memory shape, the
+        memory on the engine's device); returns (logits, slot)."""
         b = prompts.shape[0]
-        slot = self._slots.get(b)
+        shape = None if memory is None else tuple(memory.shape)
+        key = b if shape is None else (b, shape)
+        slot = self._slots.get(key)
         if slot is None:
-            slot = self._slots[b] = _Slot(self.cfg, b, self.max_len, self.device)
+            slot = self._slots[key] = _Slot(self.cfg, b, self.max_len,
+                                            self.device, shape)
         logits, _ = prefill(self.cfg, self.params, prompts.to(self.device),
-                            cache=slot.cache)
+                            cache=slot.cache, memory=memory)
         return logits, slot
 
-    def _decode(self, slot: _Slot, token: torch.Tensor, pos: int) -> torch.Tensor:
-        """One decode step at position ``pos`` after ``token``: the logits
-        (B, V), on the card the graph's buffer, valid until the next step."""
+    def _decode(self, slot: _Slot, token: torch.Tensor, pos: int,
+                memory: torch.Tensor | None = None) -> torch.Tensor:
+        """One decode step at position ``pos`` after ``token``, attending to
+        ``memory`` (copied into the slot's buffer; a slot made for a memory
+        needs one, and one made without takes none): the logits (B, V), on
+        the card the graph's buffer, valid until the next step."""
+        if (memory is None) != (slot.memory is None):
+            raise ValueError("ServeEngine: a decode step's memory must match "
+                             "its slot's (prefill with the same memory)")
         slot.token.copy_(token)
         slot.pos.fill_(pos)
+        if memory is not None:
+            slot.memory.copy_(memory)
         if self.device.type != "cuda":
             return decode_step(self.cfg, self.params, slot.cache, slot.token,
-                               slot.pos)[0]
+                               slot.pos, slot.memory)[0]
         if slot.graph is None:
             return self._warm_up_and_capture(slot)
         slot.graph.replay()
@@ -152,7 +180,7 @@ class ServeEngine:
         the eager step's logits. A failed capture raises."""
         def step():
             return decode_step(self.cfg, self.params, slot.cache, slot.token,
-                               slot.pos)[0]
+                               slot.pos, slot.memory)[0]
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -176,15 +204,18 @@ class ServeEngine:
 
     # --- serving path -------------------------------------------------------
     def generate(self, prompts: torch.Tensor, n_tokens: int,
-                 temperature: float = 0.0,
+                 memory: torch.Tensor | None = None, temperature: float = 0.0,
                  rng: torch.Generator | None = None) -> GenerationResult:
-        """prompts: (B, S) int (same length; pad upstream). ``rng`` must
-        live on the engine's device."""
+        """prompts: (B, S) int (same length; pad upstream); memory: (B, M,
+        d) for the cross-attention layers, or None. ``rng`` must live on
+        the engine's device."""
         b, s = prompts.shape
         self._check_window(b, s, n_tokens)
+        if memory is not None:
+            memory = memory.to(self.device)
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, slot = self._prefill(prompts)
+            logits, slot = self._prefill(prompts, memory)
             next_tok = self._sample(logits[:, -1], temperature, rng)
             synchronize(self.device)
             ttft = time.perf_counter() - t0
@@ -192,7 +223,7 @@ class ServeEngine:
             toks = [next_tok]
             t1 = time.perf_counter()
             for i in range(n_tokens - 1):
-                logits_i = self._decode(slot, toks[-1], s + i)
+                logits_i = self._decode(slot, toks[-1], s + i, memory)
                 toks.append(self._sample(logits_i, temperature, rng))
             synchronize(self.device)
             dt = time.perf_counter() - t1
@@ -203,30 +234,35 @@ class ServeEngine:
 
     # --- measurement path ---------------------------------------------------
     def decode_steady(self, prompts: torch.Tensor, n_steps: int = 16,
-                      warmup: int = 2) -> SteadyTiming:
+                      warmup: int = 2,
+                      memory: torch.Tensor | None = None) -> SteadyTiming:
         """Steady-state greedy decode with per-step timing: prefill,
         ``warmup`` untimed decode steps (on a new batch size the first one
         also captures the step), then ``n_steps`` steps each synchronised
-        and timed on its own."""
+        and timed on its own. ``memory`` as for :meth:`generate`."""
         b, s = prompts.shape
         self._check_window(b, s, warmup + n_steps + 1)
+        if memory is not None:
+            memory = memory.to(self.device)
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, slot = self._prefill(prompts)
+            logits, slot = self._prefill(prompts, memory)
             tok = self._sample(logits[:, -1], 0.0, None)
             synchronize(self.device)
             ttft = time.perf_counter() - t0
 
             pos = s
             for _ in range(warmup):
-                tok = self._sample(self._decode(slot, tok, pos), 0.0, None)
+                tok = self._sample(self._decode(slot, tok, pos, memory), 0.0,
+                                   None)
                 pos += 1
             synchronize(self.device)
 
             times: list[float] = []
             for _ in range(n_steps):
                 t1 = time.perf_counter()
-                tok = self._sample(self._decode(slot, tok, pos), 0.0, None)
+                tok = self._sample(self._decode(slot, tok, pos, memory), 0.0,
+                                   None)
                 synchronize(self.device)
                 times.append(time.perf_counter() - t1)
                 pos += 1

@@ -21,21 +21,28 @@ def _on(a: np.ndarray, device) -> torch.Tensor:
 @dataclasses.dataclass
 class SyntheticTokens:
     """Deterministic synthetic token batches (model-free throughput tests).
-    The port has no VLM or encoder-decoder config, so no extra inputs."""
+    ``extras`` maps a further input's name to its shape after the batch
+    axis (a VLM's ``image_embeds``, an encoder-decoder's ``audio_frames``):
+    standard normal from the same numpy stream, in bfloat16."""
 
     vocab: int
     batch: int
     seq: int
     seed: int = 0
     device: str | torch.device = "cpu"
+    extras: dict | None = None
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed)
         while True:
             toks = rng.integers(0, self.vocab,
                                 (self.batch, self.seq + 1), dtype=np.int32)
-            yield {"tokens": _on(toks[:, :-1], self.device),
+            out = {"tokens": _on(toks[:, :-1], self.device),
                    "labels": _on(toks[:, 1:], self.device)}
+            for k, shape in (self.extras or {}).items():
+                a = rng.standard_normal((self.batch, *shape), dtype=np.float32)
+                out[k] = torch.from_numpy(a).to(self.device, torch.bfloat16)
+            yield out
 
 
 class MemmapTokens:

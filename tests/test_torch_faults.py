@@ -1,7 +1,6 @@
 """Guards for faults the port once had, on the CPU.
 
-* Every config the port runs, or holds as data for a later slice, has a
-  head dim and a GQA group (H / Hkv) that the card's attention kernels take:
+* Every config the port runs (all of the reference's) has a head dim and a GQA group (H / Hkv) that the card's attention kernels take:
   ``minitron_4b`` (group 3) could once not decode on the card, and
   ``qwen3_moe_235b`` decodes with group 16. The wrappers' ``supports``
   tables are what their checks on the card consult, so no card is needed.
@@ -21,8 +20,6 @@ from __future__ import annotations
 
 import ast
 import dataclasses
-import importlib
-import pkgutil
 from pathlib import Path
 
 import jax
@@ -36,8 +33,7 @@ from repro.models import transformer as jt
 from repro.train.optimizer import AdamWConfig as JaxAdamWConfig
 from repro.train.optimizer import adamw_init as jax_adamw_init
 from repro.train.optimizer import adamw_update as jax_adamw_update
-import repro_torch.configs as configs_pkg
-from repro_torch.configs import ARCH_IDS, PENDING, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import init_params
@@ -48,23 +44,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 # ------------------------------ F1: GQA groups -------------------------------
-def _config(arch: str):
-    """The published config of ``arch``, also for a pending one that the
-    port already holds as data."""
-    if arch in PENDING:
-        return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
-    return get_config(arch)
-
-
 def _attention_archs() -> list[str]:
-    held = {m.name for m in pkgutil.iter_modules(configs_pkg.__path__)}
-    return [a for a in [*ARCH_IDS, *PENDING]
-            if a in held and not _config(a).attention_free]
+    return [a for a in ARCH_IDS if not get_config(a).attention_free]
 
 
 @pytest.mark.parametrize("arch", _attention_archs())
 def test_attention_kernels_take_every_config(arch):
-    cfg = _config(arch)
+    cfg = get_config(arch)
     assert cfg.n_heads % cfg.n_kv_heads == 0
     n_rep = cfg.n_heads // cfg.n_kv_heads
     assert decode_ops.supports(cfg.hd, n_rep), (arch, cfg.hd, n_rep)

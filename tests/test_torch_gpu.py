@@ -17,7 +17,11 @@ bit-identical to its plain version and to the numpy formula, and the f32
 one within the drift band 1e-5 of the f64 reference. The training kernels
 (the forward with LSE, dK/dV, dQ) and the gradients through
 ``flash_attention_train`` are held within 2e-2 of the largest plain value,
-and a training step on the card against the same step on the CPU. Without a card every
+and a training step on the card against the same step on the CPU.
+Cross-attention runs through the flash forward without the mask and
+through decode attention over the whole memory, held to the plain
+versions within 2e-2 of the largest value; the engine serves a memory
+through its captured graph. Without a card every
 test here skips. Run them on a card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -256,13 +260,14 @@ def test_decode_kernel_replayed_with_kv_len_changed_on_the_card(cuda, b, h, hkv,
         _close(lse, lser, 1e-3)
 
 
-@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "mamba2_130m",
+                                  "jamba_v01_52b"])
 def test_engine_graph_tokens_match_eager_decode(cuda, arch):
     """The engine on the card captures the decode step once and replays it:
     its greedy tokens and logits equal decode_step called eagerly, a warm
     generate captures nothing, and the launch counters count the replays
-    (decode attention: one per layer and decode step)."""
-    cfg = SMOKE if arch == "mistral_nemo_12b" else SSM_SMOKE
+    (decode attention: one per attention layer and decode step)."""
+    cfg = get_config(arch, smoke=True)
     from repro_torch.serve import ServeEngine
     params = init_params(cfg, seed=0, device=cuda)
     prompts = torch.randint(0, cfg.vocab, (2, 8), device=cuda,
@@ -271,8 +276,9 @@ def test_engine_graph_tokens_match_eager_decode(cuda, arch):
     reset_launches()
     first = engine.generate(prompts, n_tokens=6)
     assert engine.captures == 1
-    if not cfg.attention_free:
-        assert launches()["decode_attention"] == cfg.n_layers * 5
+    n_attn = sum(cfg.layer_kind(i % cfg.block_size) == "attn"
+                 for i in range(cfg.n_layers))
+    assert launches()["decode_attention"] == n_attn * 5
     again = engine.generate(prompts, n_tokens=6)
     assert engine.captures == 1 and again.tokens == first.tokens
     with torch.no_grad():
@@ -286,6 +292,60 @@ def test_engine_graph_tokens_match_eager_decode(cuda, arch):
     assert first.tokens == eager
 
 
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "seamless_m4t_medium"])
+def test_cross_attention_kernels_match_plain(cuda, arch):
+    """Cross-attention at SMOKE size through the flash forward without the
+    mask (a sequence of queries) and through decode attention over every
+    memory key (one query), each one launch, against the plain versions
+    on the CPU on the same bf16 inputs."""
+    from repro_torch.models import layers as L
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = L.init_attention(gen, cfg, torch.bfloat16, cuda)
+    m = cfg.n_image_tokens or cfg.n_audio_frames
+    x = torch.randn(2, 12, cfg.d_model, generator=gen, device=cuda).bfloat16()
+    mem = torch.randn(2, m, cfg.d_model, generator=gen, device=cuda).bfloat16()
+    cpu = {k: v.cpu() for k, v in p.items()}
+    mem_len = torch.tensor([m], dtype=torch.int32)
+    reset_launches()
+    with torch.no_grad():
+        got = L.cross_attention(p, x, mem, cfg)
+        one = L.decode_cross_attention(p, x[:, -1:], mem, cfg, mem_len.to(cuda))
+    assert launches()["flash_attention"] == 1 and launches()["decode_attention"] == 1
+    want = L.cross_attention(cpu, x.cpu(), mem.cpu(), cfg)
+    assert _scaled_err(got, want) <= 2e-2
+    assert _scaled_err(one, L.decode_cross_attention(
+        cpu, x[:, -1:].cpu(), mem.cpu(), cfg, mem_len)) <= 2e-2
+    assert _scaled_err(one, want[:, -1:]) <= 2e-2
+
+
+def test_engine_with_memory_replays_its_graph(cuda):
+    """The VLM SMOKE engine with a memory: graph tokens equal eager
+    decode_step calls with that memory, and a second memory of the same
+    shape is served by the same captured graph (no new capture) with that
+    memory's tokens."""
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("llama32_vision_11b", smoke=True)
+    params = init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), device=cuda, generator=gen)
+    engine = ServeEngine(cfg, params, max_batch=2, max_len=16)
+    for i in range(2):
+        mem = torch.randn(2, cfg.n_image_tokens, cfg.d_model, generator=gen,
+                          device=cuda).bfloat16()
+        got = engine.generate(prompts, n_tokens=6, memory=mem).tokens
+        assert engine.captures == 1
+        with torch.no_grad():
+            logits, cache = prefill(cfg, params, prompts, max_len=16, memory=mem)
+            tok = logits[:, -1].argmax(-1)
+            eager = [tok.tolist()]
+            for j in range(5):
+                lg, cache = decode_step(cfg, params, cache, tok, 8 + j, memory=mem)
+                tok = lg.argmax(-1)
+                eager.append(tok.tolist())
+        assert got == eager, i
+
+
 def test_engine_raises_when_the_step_cannot_be_captured(cuda, monkeypatch):
     """A step that reads a value on the host cannot be captured: the engine
     raises instead of decoding eagerly."""
@@ -293,10 +353,10 @@ def test_engine_raises_when_the_step_cannot_be_captured(cuda, monkeypatch):
     from repro_torch.serve import engine as engine_mod
     step = engine_mod.decode_step
 
-    def host_reading_step(cfg, params, cache, token, pos):
+    def host_reading_step(cfg, params, cache, token, pos, *memory):
         if torch.cuda.is_current_stream_capturing():
             int(pos.sum())
-        return step(cfg, params, cache, token, pos)
+        return step(cfg, params, cache, token, pos, *memory)
     monkeypatch.setattr(engine_mod, "decode_step", host_reading_step)
     engine = ServeEngine(SMOKE, init_params(SMOKE, seed=0, device=cuda),
                          max_batch=1, max_len=16)
@@ -694,11 +754,14 @@ def test_forward_only_kernels_refuse_autograd(cuda):
         ssd_chunk(y, dt, y, y, dt)
 
 
-def test_smoke_train_step_on_card_matches_cpu(cuda):
-    """One AdamW step of olmo SMOKE (f32 params, bf16 compute) on the card
-    against the same step on the CPU; remat "full" launches the forward
-    with LSE twice per layer, each backward kernel once."""
-    cfg = get_config("olmo_1b", smoke=True)
+@pytest.mark.parametrize("arch", ["olmo_1b", "seamless_m4t_medium"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One AdamW step of a SMOKE config (f32 params, bf16 compute) on the
+    card against the same step on the CPU; remat "full" launches the
+    forward with LSE twice per attention (the encoder-decoder's: each
+    encoder layer's, each decoder layer's self- and cross-attention, the
+    latter at Sq != Sk without the mask), each backward kernel once."""
+    cfg = get_config(arch, smoke=True)
     cpu = init_params(cfg, seed=0, device="cpu", dtype=param_dtype(cfg))
     gpu = to_device(cpu, cuda)
     batch = synth_batch(cfg, 2, 64, torch.Generator().manual_seed(1))
@@ -707,7 +770,8 @@ def test_smoke_train_step_on_card_matches_cpu(cuda):
     reset_launches()
     _, opt, got = step(gpu, adamw_init(gpu), {k: v.to(cuda) for k, v in batch.items()})
     torch.cuda.synchronize()
-    n = cfg.n_layers
+    n = cfg.n_layers + cfg.encoder_layers + sum(
+        cfg.layer_is_cross(i % cfg.block_size) for i in range(cfg.n_layers))
     assert launches() == {**dict.fromkeys(launches(), 0),
                           "flash_attention_fwd_lse": 2 * n,
                           "flash_attention_bwd_dkv": n,

@@ -26,7 +26,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import layers as JL
 from repro.models import transformer as jt
 from repro.serve.engine import ServeEngine as JaxServeEngine
-from repro_torch.configs import ARCH_IDS, PENDING, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (decode_step, forward, init_params,
                                 params_from_jax_numpy, prefill)
 from repro_torch.models import layers as L
@@ -140,7 +140,7 @@ def test_olmoe_config_matches_reference_and_is_ported():
         got, want = get_config("olmoe_1b_7b", smoke), jax_get_config("olmoe_1b_7b", smoke)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert {"olmoe_1b_7b", "qwen3_moe_235b"} <= set(ARCH_IDS)
-    assert "jamba_v01_52b" in PENDING and "olmoe_1b_7b" not in PENDING
+    assert "jamba_v01_52b" in ARCH_IDS
     full = get_config("olmoe_1b_7b")
     assert (full.n_layers, full.d_model, full.hd, full.moe_experts,
             full.moe_top_k, full.d_ff, full.vocab) == (16, 2048, 128, 64, 8, 1024, 50_304)

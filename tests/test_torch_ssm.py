@@ -429,5 +429,7 @@ def test_config_matches_reference_and_is_served(smoke):
     got = get_config("mamba2_130m", smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.attention_free and got.d_ff == 0
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("jamba_v01_52b")
+    # Jamba's hybrid blocks are served too: their SSM layers are these
+    jamba = get_config("jamba_v01_52b", smoke=smoke)
+    assert {jamba.layer_kind(i) for i in range(jamba.block_size)} == {"ssm", "attn"}
+    assert (jamba.ssm_head_dim, jamba.ssm_expand) == (got.ssm_head_dim, got.ssm_expand)
