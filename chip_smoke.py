@@ -5,7 +5,9 @@ OLMo-1B, serve Minitron-4B (GQA group 3) and OLMoE-1B-7B (MoE) at full
 width, run the modeled-vs-measured validation loop, serve
 Llama-3.2-Vision-11B (cross-attention to image embeddings),
 SeamlessM4T-medium (an encoder-decoder) and Jamba-v0.1 (hybrid
-attention/SSM blocks with MoE) at full width, and decode speculatively.
+attention/SSM blocks with MoE) at full width, decode speculatively, and
+train through the fused RMSNorm and the SSD scan: Mamba2-130M at full
+width and depth, Mistral-NeMo-12B at full width with two layers.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -49,7 +51,17 @@ Phases, each fatal on failure:
      image tokens and 1024 frames, the encoder's 1024², decode attention
      over the whole memory), the SSD scan at Jamba's (4, 2048, 128, 64,
      16) and the gated norm at d_inner 8192 (RMSNORM_JAMBA), each held and
-     timed beside its bound and, for attention, SDPA;
+     timed beside its bound and, for attention, SDPA; the RMSNorm's
+     backward kernel at the training shapes (RMSNORM_BWD_SHAPES: mamba2 8
+     x 2048 residual and gated, mistral 2 x 2048 and its first norm) and
+     ragged, unaligned and dr-less ones, against the plain backward and
+     its f64 value (dx within one bf16 ulp; the gated chain's dy and dz
+     within one of the f64 chain rounded where the chain rounds, but for
+     at most RMSNORM_GATED_BEYOND_ONE_ULP of them, within
+     RMSNORM_GATED_ULPS, where an intermediate rounding falls the other
+     way; dw within RMSNORM_DW_REL of its row sum's condition), two calls
+     bit-identical, timed beside its bound, the plain backward and
+     F.rms_norm's backward under autograd;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -160,7 +172,20 @@ Phases, each fatal on failure:
  17. speculative decoding (olmo_1b SMOKE): the target as its own draft
      gives the engine's greedy tokens, another draft the CPU's tokens,
      acceptance rate and target calls;
- 18. one JSON line of kernel numbers, the card's name and power limit, and
+ 18. training through the fused RMSNorm and the SSD scan: (a) the
+     gradients of 2-layer mamba2_130m and mistral_nemo_12b at full width,
+     2 x 2048, through the kernels against the same model with the plain
+     routes swapped in (loss and every leaf within SCALED_TOL_SMALL,
+     launches exact), one SMOKE step of each RMSNorm config card vs CPU;
+     (b) ``run_train`` on the full mamba2_130m, 8 x 2048, TRAIN_STEPS steps
+     (launches per step: 1 + 4L forward norms under remat "full", 1 + 2L
+     backward, 2L scans, L plain scan backwards), a falling loss, step
+     time, tokens/s, MFU, peak memory and one profiled step split into
+     matmul, the scan forward, its plain backward, the norm forward and
+     backward, other; (c) mistral_nemo_12b at full width with
+     MISTRAL_TRAIN_LAYERS layers, 2 x 2048, under remat "full" and "dots",
+     the losses within REMAT_LOSS_REL;
+ 19. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -322,18 +347,20 @@ class Timer:
 MOE_KERNEL_WORDS = ("sort", "scan", "scatter", "gather", "index", "topk")
 
 
-def profile(torch, fn, moe: bool = False) -> dict:
+def profile(torch, fn, moe: bool = False, host: bool = True) -> dict:
     """One call under torch.profiler: host wall time, device busy time by
     kernel group and the device's idle share (1 - busy / wall). Profiling
     slows the host, so the idle share is an upper bound. ``moe`` adds the
-    group ``moe_dispatch_combine`` (MOE_KERNEL_WORDS)."""
+    group ``moe_dispatch_combine`` (MOE_KERNEL_WORDS). ``host=False``
+    traces the device alone (a call of ~10^5 launches, whose host events
+    take the profiler minutes to read back)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with torch_profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -346,7 +373,8 @@ def profile(torch, fn, moe: bool = False) -> dict:
         t = (getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0)) / 1e3
         name = e.key
-        group = ("rmsnorm" if "rmsnorm_kernel" in name else
+        group = ("rmsnorm_bwd" if "rmsnorm_bwd_kernel" in name or "rmsnorm_dw_kernel" in name else
+                 "rmsnorm" if "rmsnorm_kernel" in name else
                  "decode_attention" if "decode_" in name and "_kernel" in name else
                  "flash_attention" if "flash_fwd_kernel" in name else
                  "flash_attention_bwd" if "flash_bwd_" in name else
@@ -496,6 +524,20 @@ RMSNORM_BUILDS = 7
 
 def rmsnorm_label(m) -> str:
     return f"rmsnorm<vw {m.group(1)}, per {m.group(2)}{', gated' if m.group(3) == '1' else ''}>"
+
+
+#: Mangled entry names of the RMSNorm backward: rmsnorm_bwd_kernel<VW, PER,
+#: GATE> ((8, 1), (8, 2) and (1, 4), each with and without the gate) and
+#: rmsnorm_dw_kernel, which sums dw's per-block shares.
+RMSNORM_BWD_ENTRY = r"rmsnorm_(bwd_kernelILi(\d+)ELi(\d+)ELb([01])E|dw_kernel)"
+RMSNORM_BWD_BUILDS = 7
+
+
+def rmsnorm_bwd_label(m) -> str:
+    if m.group(2) is None:
+        return "rmsnorm_dw"
+    return (f"rmsnorm_bwd<vw {m.group(2)}, per {m.group(3)}"
+            f"{', gated' if m.group(4) == '1' else ''}>")
 
 
 #: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
@@ -1183,6 +1225,219 @@ def check_rmsnorm(torch, timer, probe) -> dict:
                 bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], shape=top["shape"], shapes=shapes, race=race,
                 checks=checks)
+
+
+# ------------------------------- phase 3: RMSNorm backward --------------------
+#: The backward at the training shapes, (label, rows, d, kind): mamba2_130m
+#: at 8 x 2048 (the residual norm and the gated one), mistral_nemo_12b at 2
+#: x 2048 and its first norm (no residual: its new residual is x). Timed.
+RMSNORM_BWD_SHAPES = (("mamba2 train", TRAIN_BATCH * TRAIN_SEQ, 768, "residual"),
+                      ("mamba2 train gated", TRAIN_BATCH * TRAIN_SEQ, 1536, "gated"),
+                      ("mistral train", GRAD_BATCH * TRAIN_SEQ, 5120, "residual"),
+                      ("mistral train first norm", GRAD_BATCH * TRAIN_SEQ, 5120, "plain"))
+#: checked, not timed: the scalar path's widths, a gate whose rows do not
+#: start on 16 bytes, the final norm (its new residual unused: no dr)
+RMSNORM_BWD_EXTRA = (("ragged", 7, 100, "residual"), ("ragged gated", 7, 100, "gated"),
+                     ("ragged first norm", 3, 770, "plain"), ("ragged", 3, 770, "residual"),
+                     ("gated unaligned", 64, 1536, "gated-unaligned"),
+                     ("final norm, no dr", 64, 5120, "residual-no-dr"))
+#: dw against its f64 value, relative to the sum over rows of |dh s^| (the
+#: sum's condition): the kernel adds the rows in f32 in its own order, ~100
+#: additions deep (a block's rows, then the blocks' shares), each rounding
+#: by at most 2^-24 of the running sum
+RMSNORM_DW_REL = 1e-5
+#: the f32 arithmetic's share of the terms an element of ds sums (rstd w dh,
+#: rstd s^ mean, dr): where they cancel, one bf16 ulp of the result is
+#: smaller than the f32 rounding of the terms
+RMSNORM_BWD_FLOOR = 2.0 ** -16
+#: dy and dz round to bf16 on the way (dg, then dy; dg, the SiLU's
+#: gradient, then dz), as torch's autograd of the unfused chain does; the
+#: f64 values round dg and the SiLU's gradient at the same points. Where
+#: the kernel's f32 value and the f64 one of dg (or of the SiLU's gradient)
+#: round to different bf16 neighbours, the output may part from the f64
+#: chain by more than one ulp: at most this share of the outputs, each
+#: within RMSNORM_GATED_ULPS
+RMSNORM_GATED_BEYOND_ONE_ULP = 2.0 ** -8
+RMSNORM_GATED_ULPS = 3
+
+
+def rmsnorm_bwd_inputs(torch, g, rows: int, d: int, kind: str) -> dict:
+    """:func:`rmsnorm_inputs` and the gradients of the outputs: dh (bf16),
+    and dr (bf16) for the residual and the first norm (none gated, none for
+    "residual-no-dr")."""
+    base = kind.replace("-no-dr", "")
+    inp = rmsnorm_inputs(torch, g, rows, d, base)
+    inp["dh"] = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+    inp["dr"] = (None if base.startswith("gated") or kind.endswith("no-dr") else
+                 torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16))
+    return inp
+
+
+def rmsnorm_bwd_call(fn, inp):
+    """``fn`` (fused_rmsnorm_bwd or its plain version) on one case."""
+    return fn(inp["dh"], inp["dr"], inp["x"], inp["w"], inp["r"], RMSNORM_EPS,
+              inp["z"])
+
+
+def rmsnorm_bwd_f64(torch, inp) -> dict:
+    """The backward's f64 values from the same inputs: g from the chain's
+    own bf16 product on the card (gated), then every step in f64, rounded
+    only where the gated chain rounds on its way (dg and the SiLU's
+    gradient, to bf16). Returns dx (dy gated), dz, dw, the magnitude of the
+    terms each ds sums (``terms``, ``terms_dz``) and the sum over rows of
+    |dh s^| (``dw_scale``)."""
+    import torch.nn.functional as F
+
+    z = inp["z"]
+    if z is not None:
+        xb, sz = inp["x"].to(torch.bfloat16), F.silu(z)
+        s = (xb * sz).double()
+    else:
+        s = inp["x"].double() + (inp["r"].double() if inp["r"] is not None else 0.0)
+    rstd = torch.rsqrt((s * s).mean(-1, keepdim=True) + RMSNORM_EPS)
+    sh, dh = s * rstd, inp["dh"].double()
+    gw = dh * inp["w"].double()
+    mean = (gw * sh).mean(-1, keepdim=True)
+    ds = rstd * (gw - sh * mean)
+    terms = (rstd * gw).abs() + (rstd * sh * mean).abs()
+    out = {"dw": (dh * sh).sum(0), "dw_scale": (dh * sh).abs().sum(0)}
+    del gw, mean
+    if z is None:
+        if inp["dr"] is not None:
+            ds = ds + inp["dr"].double()
+            terms = terms + inp["dr"].double().abs()
+        return out | {"dx": ds, "terms": terms, "dz": None}
+    zf = z.double()
+    sig = torch.sigmoid(zf)
+    dg = ds.to(torch.bfloat16).double()
+    dsz = (dg * xb.double()).to(torch.bfloat16).double()
+    return out | {"dx": dg * sz.double(), "terms": terms * sz.double().abs(),
+                  "dz": dsz * sig * (1 + zf * (1 - sig)),
+                  "terms_dz": terms * (xb.double() * sig * (1 + zf * (1 - sig))).abs()}
+
+
+def rmsnorm_bwd_check(torch, inp, got, label: str) -> dict:
+    """One backward call held: dx (the residual form) within one bf16 ulp of
+    its f64 value plus RMSNORM_BWD_FLOOR of its terms; gated, dy and dz
+    within RMSNORM_GATED_ULPS (plus the floor) and at most
+    RMSNORM_GATED_BEYOND_ONE_ULP of them beyond one; dw within RMSNORM_DW_REL
+    of the sum over rows of |dh s^|; every output within TOL of the plain
+    version on the same inputs. Raises on a failure."""
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_bwd_ref
+
+    torch.cuda.synchronize()
+    gated = inp["z"] is not None
+    want = rmsnorm_bwd_call(fused_rmsnorm_bwd_ref, inp)
+    exact = rmsnorm_bwd_f64(torch, inp)
+    dx, d2, dw = got
+    outs = [("dx", dx, want[0]), ("dw", dw, want[2])] + ([("dz", d2, want[1])] if gated else [])
+    finite = all(bool(torch.isfinite(o.float()).all()) for _, o, _ in outs)
+    out = {"max_abs_err": max((o.float() - w.float()).abs().max().item()
+                              for _, o, w in outs) if finite else float("inf"),
+           "tol_outside": sum(int(((o.float() - w.float()).abs() > TOL["atol"] + TOL["rtol"]
+                                   * w.float().abs()).sum()) for _, o, w in outs)}
+    bad = []
+    for name, o, w64 in ([("dx", dx, exact["dx"])]
+                         + ([("dz", d2, exact["dz"])] if gated else [])):
+        terms = exact["terms"] if name == "dx" else exact["terms_dz"]
+        off = ((o.double() - w64).abs() - RMSNORM_BWD_FLOOR * terms).clamp_min(0) \
+            / bf16_ulp(torch, w64)
+        out[f"{name}_ulp_excess"] = off.max().item() if finite else float("inf")
+        out[f"{name}_beyond_one_ulp"] = int((off > 1).sum())
+        if not gated and out[f"{name}_beyond_one_ulp"]:
+            bad.append(f"{name}: {out[f'{name}_beyond_one_ulp']} outputs beyond one bf16 "
+                       f"ulp of f64 (worst {out[f'{name}_ulp_excess']:.3g})")
+        if gated and not (out[f"{name}_ulp_excess"] <= RMSNORM_GATED_ULPS
+                          and out[f"{name}_beyond_one_ulp"]
+                          <= RMSNORM_GATED_BEYOND_ONE_ULP * o.numel()):
+            bad.append(f"{name}: worst {out[f'{name}_ulp_excess']:.3g} ulps of f64, "
+                       f"{out[f'{name}_beyond_one_ulp']} beyond one")
+    dw_err = ((dw.double() - exact["dw"]).abs() / exact["dw_scale"].clamp_min(1e-30)).max().item()
+    out["dw_rel_err"] = dw_err
+    if not dw_err <= RMSNORM_DW_REL:
+        bad.append(f"dw {dw_err:.3g} of the sum of |dh s^| (limit {RMSNORM_DW_REL:g})")
+    if not finite or out["tol_outside"]:
+        bad.append(f"{out['tol_outside']} outputs outside rtol={TOL['rtol']:g}, "
+                   f"atol={TOL['atol']:g} of the plain version, or not finite")
+    if gated and d2.stride() != (d2.shape[1], 1):
+        bad.append("dz is not contiguous")
+    if bad:
+        raise AssertionError(f"rmsnorm backward {label}: " + "; ".join(bad))
+    return out
+
+
+def rmsnorm_bwd_times(torch, timer, inp, rows: int, d: int, kind: str) -> dict:
+    """Device time of one backward call (a graph replay, the L2 flushed by a
+    write; ``clean_l2_ms`` by a read), its bound, the plain version's time,
+    and the library yardstick's: the backward of F.rms_norm under autograd
+    (eagerly, the L2 flushed by a write), of F.rms_norm(x + r) for the
+    residual forms, of the unfused chain (cast, SiLU, product, F.rms_norm)
+    when gated."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm_bwd, plan_bwd
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_bwd_ref
+
+    gated = inp["z"] is not None
+    b_ms, b_by = cost.rmsnorm_bwd(rows, d, kind.replace("-no-dr", ""),
+                                  inp["dr"] is not None).bound_ms()
+    w = inp["w"].to(torch.bfloat16).requires_grad_(True)
+    if gated:
+        xs = inp["x"].clone().requires_grad_(True)
+        zs = inp["z"].detach().clone().requires_grad_(True)
+        lib_out = F.rms_norm(xs.to(torch.bfloat16) * F.silu(zs), (d,), w, RMSNORM_EPS)
+        leaves = [xs, zs, w]
+    else:
+        xs = inp["x"].clone().requires_grad_(True)
+        s = xs + inp["r"] if inp["r"] is not None else xs
+        lib_out = F.rms_norm(s, (d,), w, RMSNORM_EPS)
+        leaves = [xs, w]
+    out = {"shape": [rows, d], "kind": kind, "plan": plan_bwd(rows, d, gated),
+           "ms": timer.ms(lambda: rmsnorm_bwd_call(fused_rmsnorm_bwd, inp), 30),
+           "clean_l2_ms": timer.ms(lambda: rmsnorm_bwd_call(fused_rmsnorm_bwd, inp), 30,
+                                   clean_l2=True),
+           "plain_ms": timer.ms(lambda: rmsnorm_bwd_call(fused_rmsnorm_bwd_ref, inp), 10),
+           "library_ms": timer.eager_ms(lambda: torch.autograd.grad(
+               lib_out, leaves, inp["dh"], retain_graph=True), 20),
+           "bound_ms": b_ms, "bound_by": b_by}
+    out["bound_share"] = b_ms / out["ms"]
+    return out
+
+
+def check_rmsnorm_bwd(torch, timer) -> dict:
+    """The RMSNorm backward kernel: every case of RMSNORM_BWD_SHAPES and
+    RMSNORM_BWD_EXTRA held by :func:`rmsnorm_bwd_check`, one count per call,
+    two calls bit-identical; the training shapes timed. The top-level
+    numbers are at the mamba2 8 x 2048 residual shape, the main path's."""
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm_bwd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    checks, shapes = {}, {}
+    for label, rows, d, kind in RMSNORM_BWD_SHAPES + RMSNORM_BWD_EXTRA:
+        inp = rmsnorm_bwd_inputs(torch, g, rows, d, kind)
+        n = fused_rmsnorm_bwd.launches
+        got = rmsnorm_bwd_call(fused_rmsnorm_bwd, inp)
+        again = rmsnorm_bwd_call(fused_rmsnorm_bwd, inp)
+        if fused_rmsnorm_bwd.launches != n + 2:
+            raise AssertionError(f"rmsnorm backward {label}: "
+                                 f"{fused_rmsnorm_bwd.launches - n} counted for two calls")
+        key = f"{label} ({rows}, {d})"
+        checks[key] = rmsnorm_bwd_check(torch, inp, got, key)
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        checks[key]["bit_identical_twice"] = same
+        if not same:
+            raise AssertionError(f"rmsnorm backward {key}: two calls differ")
+        say(f"  rmsnorm backward {key} {kind}: {json.dumps(checks[key])}")
+        if (label, rows, d, kind) in RMSNORM_BWD_SHAPES:
+            shapes[label] = rmsnorm_bwd_times(torch, timer, inp, rows, d, kind)
+            say(f"  rmsnorm backward {label} {json.dumps(shapes[label])}")
+        del inp, got, again
+    top = shapes[RMSNORM_BWD_SHAPES[0][0]]
+    return dict(max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+                ms=top["ms"], plain_ms=top["plain_ms"], library_ms=top["library_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"], shape=top["shape"],
+                clean_l2={"ms": top["clean_l2_ms"]}, shapes=shapes, checks=checks)
 
 
 # ------------------------------- phase 3: SSD ---------------------------------
@@ -3210,24 +3465,37 @@ def check_train_grads(torch, kernels) -> dict:
     return out
 
 
-def check_smoke_training(torch) -> dict:
-    """The SMOKE config's 3 train steps on the card against the same steps
-    on the CPU (plain versions): losses within 2e-2, parameters at the
+def check_smoke_training(torch, arch: str = "olmo_1b", steps: int = 3) -> dict:
+    """The SMOKE config's ``steps`` train steps on the card against the same
+    steps on the CPU (plain versions): losses within 2e-2, parameters at the
     reference's rtol 2e-2, atol 2e-3 (lr 1e-4, so that Adam's sign on a
-    near-zero gradient moves a weight by at most 3 x 2e-4)."""
+    near-zero gradient moves a weight by at most 3 x 2e-4). The batch
+    carries the image embeddings or audio frames the config's memory
+    takes. A SMOKE head width the training attention kernels do not take
+    (qwen3_moe_235b's 16) is raised to the narrowest they do."""
+    import dataclasses
+
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import _HEAD_DIMS
     from repro_torch.models import init_params, param_dtype, to_device
     from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
     from repro_torch.train.optimizer import tree_leaves
 
-    cfg = get_config("olmo_1b", smoke=True)
+    cfg = get_config(arch, smoke=True)
+    if cfg.hd not in _HEAD_DIMS:
+        cfg = dataclasses.replace(cfg, head_dim=min(_HEAD_DIMS))
     cpu = init_params(cfg, seed=SEED, device="cpu", dtype=param_dtype(cfg))
     gpu = to_device(cpu, "cuda")
     step = make_train_step(cfg, AdamWConfig(lr=1e-4))
-    data = iter(SyntheticTokens(cfg.vocab, 4, 64, seed=SEED))
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = (cfg.n_image_tokens, cfg.d_model)
+    if cfg.is_enc_dec:
+        extras["audio_frames"] = (cfg.n_audio_frames, cfg.d_model)
+    data = iter(SyntheticTokens(cfg.vocab, 4, 64, seed=SEED, extras=extras))
     out = {"loss_cpu": [], "loss_card": []}
     opt_cpu, opt_gpu = adamw_init(cpu), adamw_init(gpu)
-    for _ in range(3):
+    for _ in range(steps):
         b = next(data)
         _, _, m = step(cpu, opt_cpu, b)
         out["loss_cpu"].append(float(m["loss"]))
@@ -3238,25 +3506,52 @@ def check_smoke_training(torch) -> dict:
                 for a, b in zip(tree_leaves(gpu), tree_leaves(cpu)))
     out.update(loss_rel_diff=rel, param_excess_over_rtol=worst)
     if not (rel <= 2e-2 and worst <= 2e-3):
-        raise AssertionError(f"SMOKE training card vs CPU: {out}")
+        raise AssertionError(f"SMOKE training {arch} card vs CPU: {out}")
     return out
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> dict:
-    """FLOPs of one step. Model FLOPs (the MFU numerator): 6 N T for the
-    matmul weights (tied head included) plus 3x the causal attention
-    forward (4 B H hd pairs per layer), no recomputation. Executed: adds
-    remat's second forward (2 N T + the attention forward) and counts the
-    backward kernels' seven (S, S) x hd products per layer."""
-    n_mm = n_params                     # every leaf is a matmul weight here
-    t = batch * seq
-    from repro_torch.kernels.cost import attention_pairs
+def mm_params(cfg, params) -> int:
+    """Parameters of the 2-D matmul weights: every 2-D leaf but the SSM's
+    depthwise convolution (``conv_w``) and, untied, the embedding (a row
+    lookup; tied, it is the head). 1-D leaves (norms, the SSM's A_log, D,
+    dt_bias) and the MoE's 3-D expert stacks are not counted."""
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return sum(walk(v, k) for k, v in node.items())
+        if isinstance(node, list):
+            return sum(walk(v, name) for v in node)
+        skip = name == "conv_w" or (name == "embed" and not cfg.tie_embeddings)
+        return 0 if skip or node.dim() != 2 else node.numel()
+    return walk(params)
 
-    attn_fwd = cfg.n_layers * 4.0 * batch * cfg.n_heads * cfg.hd * \
+
+def train_flops(cfg, params, batch: int, seq: int) -> dict:
+    """FLOPs of one step of T = batch x seq tokens. Model FLOPs (the MFU
+    numerator): 6 N T for the N 2-D matmul weights (:func:`mm_params`),
+    plus 3x the causal attention forward of each attention layer (4 B H hd
+    a pair) and 3x the SSD scan's forward of each SSM layer (2 x
+    ``cost.ssd_multiply_adds``), no recomputation. Executed: adds remat's
+    second forward (2 N T, the attention forward, the scan's forward), the
+    attention backward kernels' seven (S, S) x hd products a layer (3.5x
+    the forward) and the plain SSD backward's own forward. Returns both
+    and the model formula's terms."""
+    from repro_torch.kernels.cost import attention_pairs, ssd_multiply_adds
+    from repro_torch.models.layers import ssm_dims
+
+    t = batch * seq
+    kinds = [cfg.layer_kind(i % cfg.block_size) for i in range(cfg.n_layers)]
+    n_mm = mm_params(cfg, params)
+    attn_fwd = kinds.count("attn") * 4.0 * batch * cfg.n_heads * cfg.hd * \
         attention_pairs(seq, seq, True)
-    model = 6.0 * n_mm * t + 3 * attn_fwd
-    executed = 8.0 * n_mm * t + attn_fwd * (2 + 3.5)
-    return {"model_flops": model, "executed_flops": executed}
+    ssd_fwd = 0.0
+    if "ssm" in kinds:
+        _, n, h, p = ssm_dims(cfg)
+        ssd_fwd = kinds.count("ssm") * 2.0 * ssd_multiply_adds(batch, seq, h, p, n)
+    model = 6.0 * n_mm * t + 3 * attn_fwd + 3 * ssd_fwd
+    executed = 8.0 * n_mm * t + attn_fwd * (2 + 3.5) + 5 * ssd_fwd
+    return {"model_flops": model, "executed_flops": executed,
+            "formula": f"6 x {n_mm:,} matmul weights x {t} tokens + 3 x {attn_fwd:.4g} "
+                       f"attention forward + 3 x {ssd_fwd:.4g} SSD forward"}
 
 
 def check_training(torch, kernels) -> dict[str, int]:
@@ -3282,14 +3577,16 @@ def check_training(torch, kernels) -> dict[str, int]:
     want = {**dict.fromkeys(counts, 0), "flash_attention_fwd_lse": 2 * n,
             "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
     steady = res.step_times[1:]
-    fl = train_flops(cfg, res.n_params, TRAIN_BATCH, TRAIN_SEQ)
+    shapes = init_params(cfg, seed=SEED, dtype=torch.bfloat16)
+    fl = train_flops(cfg, shapes, TRAIN_BATCH, TRAIN_SEQ)
+    del shapes
     mean = sum(steady) / len(steady)
     say(f"    {res.n_params:,} params; losses {[round(x, 4) for x in res.losses]}")
     say(f"    step times (s) {[round(x, 4) for x in res.step_times]}; steady "
         f"mean {mean:.4f} s, min {min(steady):.4f} s; {res.tokens_per_s:.1f} "
         f"tokens/s; peak memory {res.peak_memory_bytes / 2**30:.3f} GiB")
-    say(f"    FLOPs per step: model {fl['model_flops']:.4g} (6 N T + 3 x "
-        f"attention forward), executed {fl['executed_flops']:.4g} (remat "
+    say(f"    FLOPs per step: model {fl['model_flops']:.4g} ({fl['formula']}), "
+        f"executed {fl['executed_flops']:.4g} (remat "
         f"and the 7-product backward); share of {BF16_FLOP_PER_S:.3g} "
         f"FLOP/s at the steady mean: MFU "
         f"{fl['model_flops'] / mean / BF16_FLOP_PER_S:.4f}, executed "
@@ -3315,6 +3612,322 @@ def check_training(torch, kernels) -> dict[str, int]:
         f"{profile(torch, lambda: float(step(params, opt, batch)[2]['loss']))}")
     del params, opt
     torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------- phase 18: RMSNorm and SSM training ----------
+#: mistral_nemo_12b trains at full width with its depth cut to this many
+#: layers: at full depth (40) its f32 weights, gradients and AdamW moments
+#: alone are ~190 GB; two layers are 1.9 B parameters, ~30 GB of them
+MISTRAL_TRAIN_LAYERS = 2
+#: steps of mistral_nemo_12b under each remat policy, on one repeated batch
+MISTRAL_TRAIN_STEPS = 3
+#: "full" and "dots" recompute the same functions (the matmuls' outputs
+#: saved by "dots" are the ones "full" recomputes), so their losses may part
+#: only by the f32 rounding of a sum taken in another order
+REMAT_LOSS_REL = 1e-3
+#: the RMSNorm and SSM configs whose SMOKE step is held card vs CPU
+RMSNORM_ARCHS = ("mistral_nemo_12b", "mamba2_130m", "olmoe_1b_7b", "qwen3_moe_235b",
+                 "llama32_vision_11b", "jamba_v01_52b")
+
+
+@contextlib.contextmanager
+def plain_training_routes():
+    """The model's fused RMSNorm, SSD scan and training attention swapped for
+    their plain versions under autograd, for phase 18's comparison route
+    only; restored on exit."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+    from repro_torch.models import layers, transformer
+
+    saved = (transformer.fused_rmsnorm, layers.fused_rmsnorm, layers.flash_attention_train)
+    transformer.fused_rmsnorm = layers.fused_rmsnorm = fused_rmsnorm_ref
+    layers.flash_attention_train = flash_attention_ref
+    try:
+        with plain_scan():
+            yield
+    finally:
+        (transformer.fused_rmsnorm, layers.fused_rmsnorm,
+         layers.flash_attention_train) = saved
+
+
+def rmsnorm_train_launches(cfg, steps: int = 1) -> dict[str, int]:
+    """Launches of ``steps`` train steps under remat "full" or "dots" (a
+    checkpointed layer runs its forward twice): the first norm once and
+    each layer's norms (its gated norm, lnx, ln2 and the residual norm into
+    the next layer) twice forward, every norm once backward; the scan twice
+    in each SSM layer; the training attention's forward with LSE twice and
+    each backward kernel once in each attention layer (self-attention; the
+    cross layers of a config with a memory add their cross-attention and
+    its norm, lnx)."""
+    kinds = [cfg.layer_kind(i % cfg.block_size) for i in range(cfg.n_layers)]
+    n_ssm = kinds.count("ssm")
+    n_cross = sum(cfg.layer_is_cross(i % cfg.block_size) for i in range(cfg.n_layers)) \
+        if cfg.family == "vlm" else 0
+    n_attn = kinds.count("attn") + n_cross
+    norms = 1 + cfg.n_layers + n_ssm + n_cross + (cfg.n_layers if cfg.d_ff else 0)
+    out = {"rmsnorm": (2 * norms - 1) * steps, "rmsnorm_bwd": norms * steps}
+    if n_ssm:
+        out["ssd"] = 2 * n_ssm * steps
+    if n_attn:
+        out |= {"flash_attention_fwd_lse": 2 * n_attn * steps,
+                "flash_attention_bwd_dkv": n_attn * steps,
+                "flash_attention_bwd_dq": n_attn * steps}
+    return out
+
+
+def check_rmsnorm_grads(torch, kernels, arch: str) -> dict:
+    """Phase 18 (a): ``arch`` at full width with GRAD_LAYERS layers, batch
+    GRAD_BATCH x TRAIN_SEQ: loss and every leaf's gradient through the
+    kernels (the norm's backward kernel, the scan's kernel and plain
+    backward, the training attention) against the same model with the
+    plain routes swapped in (:func:`plain_training_routes`), each within
+    SCALED_TOL_SMALL of its largest value; launch counts exact."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd_plain
+    from repro_torch.models import init_params, param_dtype, synth_batch
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=GRAD_LAYERS)
+    params = init_params(cfg, seed=SEED, dtype=param_dtype(cfg))
+    batch = synth_batch(cfg, GRAD_BATCH, TRAIN_SEQ,
+                        torch.Generator(device="cuda").manual_seed(SEED + 4))
+    kernels.reset_launches()
+    ssd_chunk_bwd_plain.calls = 0
+    loss, grads = leaf_grads(torch, cfg, params, batch)
+    counts, plain_bwd = kernels.launches(), ssd_chunk_bwd_plain.calls
+    with plain_training_routes():
+        kernels.reset_launches()
+        want_loss, want = leaf_grads(torch, cfg, params, batch)
+        if any(kernels.launches().values()):
+            raise AssertionError(f"the plain model launched kernels: {kernels.launches()}")
+    errs = [scaled_err(g, w) for g, w in zip(grads, want)]
+    expect = rmsnorm_train_launches(cfg)
+    n_ssm = expect.get("ssd", 0) // 2
+    names = leaf_names(params)
+    out = {"loss": loss.item(), "plain_loss": want_loss.item(), "n_leaves": len(grads),
+           "max_scaled_err": max(errs),
+           "scaled_err_by_leaf": {k: float(f"{e:.3g}") for k, e in zip(names, errs)},
+           "launches": counts,
+           "ssd_plain_backward_calls": plain_bwd,
+           "zero_grad_leaves": sum(int(not bool(g.any())) for g in grads)}
+    if counts != {**dict.fromkeys(counts, 0), **expect} or plain_bwd != n_ssm:
+        raise AssertionError(f"gradient check {arch}: launches {counts} (want {expect}), "
+                             f"plain SSD backward calls {plain_bwd} (want {n_ssm})")
+    if not (abs(out["loss"] - out["plain_loss"]) <= SCALED_TOL_SMALL * out["plain_loss"]
+            and max(errs) <= SCALED_TOL_SMALL and not out["zero_grad_leaves"]
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise AssertionError(f"gradient check {arch} beyond {SCALED_TOL_SMALL:g}, or a "
+                             f"zero or non-finite gradient: {out}")
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Dotted names of a parameter tree's leaves, in ``tree_leaves`` order
+    (dict keys sorted; a block list's entries numbered)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def check_mamba2_training(torch, kernels) -> dict[str, int]:
+    """Phase 18 (b): ``run_train`` on the full mamba2_130m (24 layers), 8 x
+    2048, TRAIN_STEPS steps on one repeated batch, remat "full", counters
+    zeroed just before and read just after; a finite loss that falls; step
+    time, tokens/s, MFU, peak memory; then one step profiled on the device
+    and split: matmul, ssd forward (the kernel), ssd backward (plain tensor
+    code: one layer's, profiled alone at the same shapes, times the layers,
+    taken out of the groups its kernels fall in), rmsnorm forward, rmsnorm
+    backward, other. Returns the run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd_plain
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import init_params, param_dtype
+    from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
+
+    cfg = get_config("mamba2_130m")
+    say(f"[18b] run_train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{TRAIN_STEPS} steps x {TRAIN_BATCH} x {TRAIN_SEQ} tokens on one repeated "
+        f"batch, seed {SEED}, remat {cfg.remat}")
+    kernels.reset_launches()
+    ssd_chunk_bwd_plain.calls = 0
+    res = run_train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    seed=SEED, repeat=True)
+    counts = kernels.launches()
+    want = {**dict.fromkeys(counts, 0), **rmsnorm_train_launches(cfg, TRAIN_STEPS)}
+    report_training(torch, cfg, res, "mamba2_130m", counts, TRAIN_BATCH)
+    say(f"    plain SSD backward calls {ssd_chunk_bwd_plain.calls}")
+    if counts != want or ssd_chunk_bwd_plain.calls != cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"mamba2 training: launch counts {counts} != {want}, or "
+                             f"{ssd_chunk_bwd_plain.calls} plain SSD backward calls")
+    falling_loss(res.losses, "mamba2 training")
+
+    params = init_params(cfg, seed=SEED, dtype=param_dtype(cfg))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig())
+    batch = next(iter(SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=SEED, device="cuda")))
+    step(params, opt, batch)                         # warm
+    t0 = time.perf_counter()
+    prof = profile(torch, lambda: float(step(params, opt, batch)[2]["loss"]), host=False)
+    say(f"    profile of one train step (device only; read back in "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(prof)}")
+    del params, opt
+    torch.cuda.empty_cache()
+    alone = ssd_backward_alone(torch, cfg)
+    split = dict(prof["by_group_ms"])
+    for g, ms in alone["profile"]["by_group_ms"].items():
+        split[g] = split.get(g, 0.0) - cfg.n_layers * ms
+    split["ssd_bwd_plain"] = cfg.n_layers * alone["profile"]["device_busy_ms"]
+    wall_ms = cfg.n_layers * alone["wall_ms"]
+    steady_ms = res_mean_ms(res)
+    say(f"    one layer's plain SSD backward alone (device only): {json.dumps(alone)}")
+    say(f"    the step's device time split ({cfg.n_layers} x one layer's plain SSD "
+        f"backward taken out of its groups), ms: "
+        f"{json.dumps({k: round(v, 3) for k, v in sorted(split.items(), key=lambda kv: -kv[1])})}")
+    say(f"    plain SSD backward a step: {split['ssd_bwd_plain']:.3f} ms device "
+        f"({split['ssd_bwd_plain'] / prof['device_busy_ms']:.4f} of the step's "
+        f"{prof['device_busy_ms']:.3f} ms busy), {wall_ms:.1f} ms host wall "
+        f"({wall_ms / steady_ms:.4f} of the steady step's {steady_ms:.1f} ms)")
+    return counts
+
+
+def res_mean_ms(res) -> float:
+    """The steady mean step of a ``run_train`` result (after the first), ms."""
+    steady = res.step_times[1:] or res.step_times
+    return 1e3 * sum(steady) / len(steady)
+
+
+def ssd_backward_alone(torch, cfg) -> dict:
+    """One SSM layer's plain SSD backward (``ssd_chunk_bwd_plain``) at the
+    training shape (TRAIN_BATCH x TRAIN_SEQ, the model's bf16 x and head-
+    stride-0 B/C, f32 dt and dA, the gradient of y alone), on seeded inputs:
+    its host wall time (synced, the mean of three calls after a warm one)
+    and one call profiled on the device."""
+    from repro_torch.kernels.ssd.ops import ssd_chunk_bwd_plain
+    from repro_torch.models.layers import ssm_dims
+
+    _, n, h, p = ssm_dims(cfg)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(torch.bfloat16)
+    dt = torch.rand(b, s, h, generator=g, device="cuda") * 0.1
+    bc = [torch.randn(b, s, n, generator=g, device="cuda").to(torch.bfloat16)[:, :, None]
+          .expand(b, s, h, n) for _ in range(2)]
+    inputs = (x, dt, *bc, -dt)
+    gy = torch.randn(b, s, h, p, generator=g, device="cuda")
+    calls = ssd_chunk_bwd_plain.calls
+
+    def run():
+        ssd_chunk_bwd_plain(inputs, (True,) * 5, gy, None)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3
+    out = {"wall_ms": wall, "profile": profile(torch, run, host=False)}
+    ssd_chunk_bwd_plain.calls = calls
+    return out
+
+
+def falling_loss(losses, what: str) -> None:
+    """Raise unless every loss is finite and the last is below the first."""
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses {losses} (finite, the last below the first)")
+
+
+def report_training(torch, cfg, res, label: str, counts, batch: int) -> dict:
+    """Print a ``run_train`` result of ``batch`` x TRAIN_SEQ tokens a step:
+    losses, step times, tokens/s, peak memory, the FLOP shares of the peak
+    (:func:`train_flops`, from a bf16 copy of the config's parameters made
+    for their shapes), launches per step. Returns the numbers."""
+    from repro_torch.models import init_params
+
+    mean = res_mean_ms(res) / 1e3
+    shapes = init_params(cfg, seed=SEED, dtype=torch.bfloat16)
+    fl = train_flops(cfg, shapes, batch, TRAIN_SEQ)
+    del shapes
+    torch.cuda.empty_cache()
+    out = {"losses": res.losses, "step_times_s": res.step_times, "steady_mean_s": mean,
+           "tokens_per_s": res.tokens_per_s, "peak_memory_gib": res.peak_memory_bytes / 2**30,
+           "mfu": fl["model_flops"] / mean / BF16_FLOP_PER_S,
+           "executed_share": fl["executed_flops"] / mean / BF16_FLOP_PER_S,
+           "launches_per_step": {k: v // len(res.losses) for k, v in counts.items() if v}}
+    say(f"    {label}: {res.n_params:,} params; {json.dumps(out)}")
+    say(f"    FLOPs per step: model {fl['model_flops']:.4g} = {fl['formula']}; "
+        f"executed {fl['executed_flops']:.4g}; MFU {out['mfu']:.4f} of "
+        f"{BF16_FLOP_PER_S:.3g} FLOP/s at the steady mean")
+    return out
+
+
+def check_mistral_training(torch, kernels) -> dict[str, int]:
+    """Phase 18 (c): mistral_nemo_12b at full width with MISTRAL_TRAIN_LAYERS
+    layers, GRAD_BATCH x TRAIN_SEQ, MISTRAL_TRAIN_STEPS steps on one
+    repeated batch under remat "full" and under "dots", counters zeroed
+    just before each and read just after; the two runs' losses within
+    REMAT_LOSS_REL, each falling; step time and peak memory of each.
+    Returns the launch counts of both runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_train
+
+    full = get_config("mistral_nemo_12b")
+    total = {}
+    runs = {}
+    for remat in ("full", "dots"):
+        cfg = dataclasses.replace(full, n_layers=MISTRAL_TRAIN_LAYERS, remat=remat)
+        say(f"[18c] run_train mistral_nemo_12b, depth cut from {full.n_layers} to "
+            f"{cfg.n_layers} layers, {MISTRAL_TRAIN_STEPS} steps x {GRAD_BATCH} x "
+            f"{TRAIN_SEQ}, remat {remat}")
+        kernels.reset_launches()
+        res = run_train(cfg, steps=MISTRAL_TRAIN_STEPS, batch=GRAD_BATCH, seq=TRAIN_SEQ,
+                        seed=SEED, repeat=True)
+        counts = kernels.launches()
+        runs[remat] = report_training(torch, cfg, res, f"mistral remat {remat}", counts,
+                                      GRAD_BATCH)
+        want = {**dict.fromkeys(counts, 0),
+                **rmsnorm_train_launches(cfg, MISTRAL_TRAIN_STEPS)}
+        if counts != want:
+            raise AssertionError(f"mistral training ({remat}): launches {counts} != {want}")
+        falling_loss(res.losses, f"mistral training ({remat})")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["dots"]["losses"],
+                                                   runs["full"]["losses"]))
+    say(f"    losses full vs dots: largest relative difference {rel:.3g} (limit "
+        f"{REMAT_LOSS_REL:g}); peak memory full {runs['full']['peak_memory_gib']:.3f} "
+        f"GiB, dots {runs['dots']['peak_memory_gib']:.3f} GiB")
+    if not rel <= REMAT_LOSS_REL:
+        raise AssertionError(f"mistral training: full and dots losses part by {rel:.3g}")
+    return total
+
+
+def check_rmsnorm_training(torch, kernels) -> dict[str, dict]:
+    """Phase 18: training through the fused RMSNorm and the SSD scan: (a)
+    the full-width gradient checks of mamba2_130m and mistral_nemo_12b and
+    one SMOKE step of every RMSNorm config card vs CPU, (b) ``run_train`` on
+    mamba2_130m, (c) mistral_nemo_12b under "full" and "dots". Returns the
+    launch counts of each path."""
+    t0 = time.perf_counter()
+    say("[18] training through the fused RMSNorm and the SSD scan")
+    counts = {}
+    for arch in ("mamba2_130m", "mistral_nemo_12b"):
+        say(f"    [18a] {GRAD_LAYERS}-layer {arch} at full width, {GRAD_BATCH} x "
+            f"{TRAIN_SEQ}, kernels vs plain routes: {check_rmsnorm_grads(torch, kernels, arch)}")
+    for arch in RMSNORM_ARCHS:
+        say(f"    [18a] SMOKE {arch}, one step card vs CPU: "
+            f"{check_smoke_training(torch, arch, steps=1)}")
+    counts["mamba2_130m_train"] = check_mamba2_training(torch, kernels)
+    counts["mistral_nemo_12b_train"] = check_mistral_training(torch, kernels)
+    say(f"    phase 18 in {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -3463,6 +4076,13 @@ def main() -> int:
     spilled = [k for k, v in rmsnorm_build.items() if v.get("spill_bytes", 1)]
     if len(rmsnorm_build) != RMSNORM_BUILDS or spilled:
         return fail(f"rmsnorm build: {len(rmsnorm_build)} kernels, spills in {spilled}")
+    rmsnorm_bwd_build = ptxas_report(logs["rmsnorm"], RMSNORM_BWD_ENTRY, rmsnorm_bwd_label)
+    say(f"    rmsnorm backward kernels (registers, spilled bytes, static shared "
+        f"memory): {json.dumps(rmsnorm_bwd_build)}")
+    spilled = [k for k, v in rmsnorm_bwd_build.items() if v.get("spill_bytes", 1)]
+    if len(rmsnorm_bwd_build) != RMSNORM_BWD_BUILDS or spilled:
+        return fail(f"rmsnorm backward build: {len(rmsnorm_bwd_build)} kernels, "
+                    f"spills in {spilled}")
     flash_build = flash_build_report(logs["flash_attention"])
     say(f"    flash-attention kernels (registers at entry, spilled bytes, "
         f"dynamic shared memory): {json.dumps(flash_build)}")
@@ -3492,6 +4112,8 @@ def main() -> int:
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
     numbers = {"rmsnorm": check_rmsnorm(torch, timer, probe) | {"build": rmsnorm_build}}
+    numbers["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, timer) | {
+        "build": rmsnorm_bwd_build}
     numbers.update(check_kernels(torch, timer))
     numbers["decode_attention"]["build"] = decode_build
     numbers["ssd"] = check_ssd(torch, timer) | {"build": ssd_build}
@@ -3602,16 +4224,22 @@ def main() -> int:
     # speculative decoding
     new_paths = check_memory_hybrid_paths(torch, kernels)
 
+    # 18. training through the fused RMSNorm and the SSD scan
+    rmsnorm_train = check_rmsnorm_training(torch, kernels)
+
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
-               "olmoe_1b_7b": moe, **new_paths}
+               "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
-    # 18. result
+    # 19. result
     fa = "src/repro/kernels/flash_attention"
+    # the backward has no Pallas counterpart: it computes the gradient the
+    # reference takes of its plain rmsnorm under jax.value_and_grad
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
+                "rmsnorm_bwd": "src/repro/models/layers.py:47",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
                 "flash_attention": f"{fa}/kernel.py:112",
                 "flash_attention_fwd_lse": f"{fa}/backward.py:109",
@@ -3620,14 +4248,15 @@ def main() -> int:
                 "pricing": "src/repro/kernels/pricing/kernel.py:165",
                 "pricing_f32": "src/repro/kernels/pricing/kernel.py:235",
                 "ssd": "src/repro/kernels/ssd/kernel.py:86"}
-    sources = {"flash_attention_fwd_lse": "flash_attention",
+    shown = {"rmsnorm_bwd": "fused_rmsnorm_bwd"}
+    sources = {"rmsnorm_bwd": "rmsnorm", "flash_attention_fwd_lse": "flash_attention",
                "flash_attention_bwd_dkv": "flash_attention",
                "flash_attention_bwd_dq": "flash_attention",
                "pricing_f32": "pricing"}
     line = []
     for name, n in numbers.items():
         src = sources.get(name, name)
-        line.append({"name": name, "route": "cuda",
+        line.append({"name": shown.get(name, name), "route": "cuda",
                      "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
                      "replaces": replaces[name], "launches": counts[name],
                      "launches_by_path": {p: c[name] for p, c in by_path.items()

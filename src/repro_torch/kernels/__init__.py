@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, one directory each.
 
   rmsnorm          — fused residual add + RMSNorm (replaces the Pallas
-                     ``fused_rmsnorm_fwd``).
+                     ``fused_rmsnorm_fwd``), and its backward
+                     (``fused_rmsnorm_bwd``, no Pallas counterpart).
   decode_attention — split-KV decode attention with exported LSE, reading
                      the cache in its model layout (``decode_attention_fwd``).
   flash_attention  — FlashAttention-2 on bf16 tensor cores, GQA, causal
@@ -14,7 +15,8 @@
                      bit-identical and f32 drift-banded (``run_columns``,
                      ``run_columns_f32``).
   ssd              — the Mamba2 SSD chunk scan, state carried across the
-                     chunks in one launch (``ssd_chunk_fwd``).
+                     chunks in one launch (``ssd_chunk_fwd``); its
+                     gradient is plain tensor code (``ssd_chunk_bwd_plain``).
 
 Each directory holds ``csrc/<name>.cu`` (the kernel, built by
 :mod:`._build` at first use), ``ops.py`` (the wrapper: kernel for CUDA
@@ -27,11 +29,12 @@ from .flash_attention.ops import (flash_attention, flash_attention_bwd_dkv,
                                   flash_attention_fwd_lse,
                                   flash_attention_train)
 from .pricing.ops import pricing_f32, pricing_f64
-from .rmsnorm.ops import fused_rmsnorm
+from .rmsnorm.ops import fused_rmsnorm, fused_rmsnorm_bwd
 from .ssd.ops import ssd_chunk
 
 #: Every wrapper whose ``launches`` counter a run can read or reset.
-WRAPPERS = {"rmsnorm": fused_rmsnorm, "decode_attention": decode_attention,
+WRAPPERS = {"rmsnorm": fused_rmsnorm, "rmsnorm_bwd": fused_rmsnorm_bwd,
+            "decode_attention": decode_attention,
             "flash_attention": flash_attention,
             "flash_attention_fwd_lse": flash_attention_fwd_lse,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
@@ -51,6 +54,6 @@ def launches() -> dict[str, int]:
 
 __all__ = ["decode_attention", "flash_attention", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd_lse",
-           "flash_attention_train", "fused_rmsnorm",
+           "flash_attention_train", "fused_rmsnorm", "fused_rmsnorm_bwd",
            "pricing_f32", "pricing_f64", "ssd_chunk", "WRAPPERS", "launches",
            "reset_launches"]

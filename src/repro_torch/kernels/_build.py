@@ -154,16 +154,18 @@ def rows_aligned(t) -> bool:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise if autograd wants a gradient through a forward-only kernel:
-    its output, written by the kernel, has no ``grad_fn``, so the graph
-    would be cut silently. The plain versions (CPU) differentiate."""
+    """Raise if autograd wants a gradient through a forward-only kernel
+    (the serving ``flash_attention`` and ``decode_attention``): its output,
+    written by the kernel, has no ``grad_fn``, so the graph would be cut
+    silently. The plain versions (CPU) differentiate."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: this kernel has no backward; call it under "
-            "torch.no_grad() on the card (ROADMAP.md queue 1 item 11: "
-            "gradients through the forward-only kernels)")
+            "torch.no_grad() on the card, or train through "
+            "flash_attention_train (the model picks it where autograd "
+            "records)")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -67,6 +67,19 @@ def rmsnorm(rows: int, d: int, kind: str) -> Work:
     return Work(rows * d * per + d * 4, ops * rows * d, F32_FLOP_PER_S)
 
 
+def rmsnorm_bwd(rows: int, d: int, kind: str, with_dr: bool = True) -> Work:
+    """The fused RMSNorm's backward over (rows, d). kind "residual": x, r,
+    dh (and dr, ``with_dr``) read and one dx written in bf16; "plain": x,
+    dh (and dr) read, dx written; "gated": the f32 y, the bf16 z and dh
+    read, the f32 dy and the bf16 dz written; w read and dw written once
+    in f32. Operations: ~12 an element (the row sums, ds, the dw share),
+    ~30 gated (the SiLU's exp and divides, the chain's products)."""
+    per = {"residual": 8, "plain": 6}.get(kind, 14) + (2 if with_dr and
+                                                         kind != "gated" else 0)
+    ops = 30.0 if kind.startswith("gated") else 12.0
+    return Work(rows * d * per + d * 8, ops * rows * d, F32_FLOP_PER_S)
+
+
 # ------------------------------ row 2 ----------------------------------------
 def decode_attention(b: int, h: int, hkv: int, hd: int, kv_len: int) -> Work:
     """One query token per sequence over the kv_len valid cache rows: q and

@@ -1,4 +1,5 @@
-// Fused residual add + RMSNorm for Hopper (sm_90a), with the Mamba2 gate.
+// Fused residual add + RMSNorm for Hopper (sm_90a), with the Mamba2 gate;
+// its backward follows the forward (rmsnorm_bwd_kernel, below).
 //
 // Replaces: src/repro/kernels/rmsnorm/kernel.py, fused_rmsnorm_fwd
 // (Pallas body _rms_kernel): s = x (+ residual) in f32, y = s * rsqrt(mean(s^2)
@@ -338,6 +339,259 @@ cudaError_t launch(const Params& p, bool vec, cudaStream_t stream, Plan* plan_on
                : dispatch<false>(pl, &p, stream, plan_only);
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: rmsnorm_bwd_kernel<VW, PER, GATE> and rmsnorm_dw_kernel.
+//
+// Replaces no Pallas kernel: the reference's Pallas norm has no backward
+// (its model trains through plain jnp norms under jax.value_and_grad,
+// src/repro/models/layers.py:47). The port's model runs every RMSNorm
+// through the fused forward above, so its gradient is a kernel too.
+//
+// Residual form, (h, r) = norm(a, w, residual=x): s = f32(a) + f32(x)
+// recomputed from the bf16 inputs as the forward sums it, rstd =
+// rsqrtf(sum(s^2) / d + eps) as the forward computes it, s^ = s * rstd;
+//   ds = dr + rstd * (w dh - s^ * mean(w dh s^)),  da = dx = bf16(ds),
+//   dw = sum over rows of dh s^ (f32).
+// Without a residual (the first norm of a pass, whose r is a) the same.
+// Gated form: the norm's ds of g = bf16(bf16(y) * bf16(silu(z))), then the
+// chain's own backward, each rounding where torch's autograd of the
+// unfused chain rounds: dg = bf16(ds); dy = bf16(dg * bf16(silu(z))) (the
+// cast of y passes it through, in f32); dsilu = bf16(dg * bf16(y)); dz =
+// bf16(dsilu * sig * (1 + z (1 - sig))), sig = 1 / (1 + expf(-z)). dz is
+// written contiguous, whatever z's row stride.
+//
+// Bound on this card: bytes, as the forward. Read a, x, dh, dr (bf16) and
+// write da, 10 B an element; gated read y (f32), z, dh and write dy (f32),
+// dz, 14 B; w and dw once. ~12 flops an element (gated ~30, an expf and
+// two divides) are nothing beside 295 flops a byte.
+//
+// Design, a simple one: a one-wave grid (from occupancy, at most
+// BWD_MAX_BLOCKS blocks), each block walking rows grid-stride with its
+// columns of the row in registers; the two row sums (sum s^2 and sum w dh
+// s) take one warp-shuffle and one shared-memory step together, double-
+// buffered across rows, as the forward's one sum does. dw is the one sum
+// across rows: each thread keeps its columns' share in registers over the
+// block's rows, each block writes its share to a scratch row (no atomics),
+// and rmsnorm_dw_kernel adds the scratch rows in a fixed order, so two
+// calls give the same bits. Both are launched with cudaLaunchKernel (the
+// forward's one chevron launch is the line tools/rmsnorm_variants.py edits).
+// Rows up to 8192 wide with 16-byte vectors (every RMSNorm config of the
+// repo is at most 5120 wide, 8192 gated), 4096 on the scalar path.
+constexpr int BWD_MAX_BLOCKS = 1024;  // scratch rows of dw shares at most
+constexpr int DW_COLS = 32, DW_GROUPS = 16;  // rmsnorm_dw_kernel's block
+
+__host__ __device__ constexpr int bwd_max_threads(int vw) { return vw == 1 ? 1024 : 512; }
+
+__device__ __forceinline__ float silu_bf16(float z, float e) {  // e = expf(-z)
+  return round_bf16(z / (1.f + e));
+}
+
+template <int VW>
+__device__ __forceinline__ void store_f32(float* dst, const float (&v)[VW]) {
+  if constexpr (VW == 8) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) dst[j] = v[j];
+  }
+}
+
+struct BwdParams {
+  const bf16* dh;   // (rows, d) gradient of the normed output
+  const bf16* dr;   // (rows, d) gradient of the new residual, or null
+  const void* x;    // (rows, d): bf16 a; gated: the f32 y
+  const bf16* r;    // residual (rows, d) or null
+  const bf16* z;    // gate (rows, d) at row stride zs, or null
+  const float* w;   // (d,)
+  void* dx;         // (rows, d): bf16 da (= dresidual); gated: the f32 dy
+  bf16* dz;         // gated: (rows, d), contiguous; else null
+  float* part;      // (grid, d): each block's share of dw
+  int rows, d;
+  int64_t zs;
+  float eps;
+};
+
+template <int VW, int PER, bool GATE>
+__global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const BwdParams p) {
+  __shared__ float sums[2][2][32];  // each warp's two row sums, two rows' worth
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int nvec = p.d / VW, warp = tid >> 5, lane = tid & 31, nw = (T + 31) >> 5;
+  float acc[PER][VW];  // this thread's columns of the block's dw share
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc[k][j] = 0.f;
+  int half = 0;
+  for (int row = blockIdx.x; row < p.rows; row += gridDim.x, half ^= 1) {
+    // residual form: u = s; gated: u = bf16(y), zz = z (g recomputed from them)
+    float u[PER][VW], zz[PER][VW], dh[PER][VW];
+    float sq = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int v = tid + k * T;
+      if (v < nvec) {
+        const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
+        alignas(VW == 8 ? 16 : 2) bf16 hb[VW];
+        alignas(VW == 8 ? 16 : 2) bf16 ab[VW];
+        float wv[VW];
+        load_bf16<VW>(p.dh + off, hb);
+        load_f32<VW, true>(p.w + (int64_t)v * VW, wv);
+        if constexpr (GATE) {
+          float yv[VW];
+          load_f32<VW>(static_cast<const float*>(p.x) + off, yv);
+          load_bf16<VW>(p.z + (int64_t)row * p.zs + (int64_t)v * VW, ab);
+#pragma unroll
+          for (int j = 0; j < VW; ++j) {
+            u[k][j] = round_bf16(yv[j]);
+            zz[k][j] = to_f32(ab[j]);
+          }
+        } else {
+          alignas(VW == 8 ? 16 : 2) bf16 rb[VW];
+          load_bf16<VW>(static_cast<const bf16*>(p.x) + off, ab);
+          if (p.r) load_bf16<VW>(p.r + off, rb);
+#pragma unroll
+          for (int j = 0; j < VW; ++j) u[k][j] = to_f32(ab[j]) + (p.r ? to_f32(rb[j]) : 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < VW; ++j) {
+          dh[k][j] = to_f32(hb[j]);
+          float g = u[k][j];
+          if constexpr (GATE) g = round_bf16(g * silu_bf16(zz[k][j], expf(-zz[k][j])));
+          sq += g * g;
+          dot += wv[j] * dh[k][j] * g;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (lane == 0) sums[half][0][warp] = sq, sums[half][1][warp] = dot;
+    __syncthreads();  // every warp's two sums of this row are in
+    float ssq = 0.f, sdot = 0.f;
+    for (int i = 0; i < nw; ++i) ssq += sums[half][0][i], sdot += sums[half][1][i];
+    const float rstd = rsqrtf(ssq / (float)p.d + p.eps);
+    const float mean = sdot * rstd / (float)p.d;  // mean(w dh s^)
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int v = tid + k * T;
+      if (v < nvec) {
+        const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
+        float wv[VW], o[VW];
+        load_f32<VW, true>(p.w + (int64_t)v * VW, wv);
+        alignas(VW == 8 ? 16 : 2) bf16 drb[VW];
+        if (!GATE && p.dr) load_bf16<VW>(p.dr + off, drb);
+        if constexpr (GATE) {
+          float oz[VW];
+#pragma unroll
+          for (int j = 0; j < VW; ++j) {
+            const float e = expf(-zz[k][j]);
+            const float sz = silu_bf16(zz[k][j], e), sig = 1.f / (1.f + e);
+            const float sh = round_bf16(u[k][j] * sz) * rstd;
+            acc[k][j] += dh[k][j] * sh;
+            const float dg = round_bf16(rstd * (wv[j] * dh[k][j] - sh * mean));
+            o[j] = round_bf16(dg * sz);
+            oz[j] = round_bf16(dg * u[k][j]) * sig * (1.f + zz[k][j] * (1.f - sig));
+          }
+          store_f32<VW>(static_cast<float*>(p.dx) + off, o);
+          store_bf16<VW>(p.dz + off, oz);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VW; ++j) {
+            const float sh = u[k][j] * rstd;
+            acc[k][j] += dh[k][j] * sh;
+            o[j] = rstd * (wv[j] * dh[k][j] - sh * mean) + (p.dr ? to_f32(drb[j]) : 0.f);
+          }
+          store_bf16<VW>(static_cast<bf16*>(p.dx) + off, o);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int v = tid + k * T;
+    if (v < nvec) store_f32<VW>(p.part + (int64_t)blockIdx.x * p.d + (int64_t)v * VW, acc[k]);
+  }
+}
+
+// dw[c] = the blocks' shares of column c added in a fixed order: group gy of
+// a (DW_COLS, DW_GROUPS) block adds shares gy, gy + DW_GROUPS, ..., then
+// group 0 adds the groups' sums in order.
+__global__ void __launch_bounds__(DW_COLS * DW_GROUPS) rmsnorm_dw_kernel(
+    const float* part, float* dw, int blocks, int d) {
+  __shared__ float grp[DW_GROUPS][DW_COLS + 1];
+  const int cx = threadIdx.x, gy = threadIdx.y;
+  const int c = blockIdx.x * DW_COLS + cx;
+  float s = 0.f;
+  if (c < d)
+    for (int b = gy; b < blocks; b += DW_GROUPS) s += part[(int64_t)b * d + c];
+  grp[gy][cx] = s;
+  __syncthreads();  // the groups' sums are in
+  if (gy == 0 && c < d) {
+    float t = 0.f;
+    for (int i = 0; i < DW_GROUPS; ++i) t += grp[i][cx];
+    dw[c] = t;
+  }
+}
+
+// The backward's launch: PER from {1, 2} (16-byte vectors) or 4 (scalar),
+// the first whose threads fit the launch bound; the grid one wave.
+cudaError_t bwd_plan(Plan* pl, int rows, int d, bool vec, const void** kernel, bool gated) {
+  if (rows <= 0 || d <= 0 || (vec && d % 8)) return cudaErrorInvalidValue;
+  pl->vw = vec ? 8 : 1;
+  const int nvec = d / pl->vw, bound = bwd_max_threads(pl->vw);
+  static const int pers[] = {1, 2, 4};
+  pl->per = 0;
+  for (int per : pers) {
+    if ((pl->vw == 1) != (per == 4)) continue;
+    const int t = round_warp(ceil_div(nvec, per));
+    if (t <= bound) {
+      pl->per = per, pl->threads = t;
+      break;
+    }
+  }
+  if (!pl->per) return cudaErrorInvalidValue;  // wider than the kernel takes
+  const void* table[2][3] = {
+      {(const void*)rmsnorm_bwd_kernel<8, 1, false>, (const void*)rmsnorm_bwd_kernel<8, 2, false>,
+       (const void*)rmsnorm_bwd_kernel<1, 4, false>},
+      {(const void*)rmsnorm_bwd_kernel<8, 1, true>, (const void*)rmsnorm_bwd_kernel<8, 2, true>,
+       (const void*)rmsnorm_bwd_kernel<1, 4, true>}};
+  *kernel = table[gated][pl->per == 4 ? 2 : pl->per - 1];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *kernel, pl->threads, 0);
+  if (e != cudaSuccess) return e;
+  int g = sms * (per_sm > 0 ? per_sm : 1);
+  if (g > BWD_MAX_BLOCKS) g = BWD_MAX_BLOCKS;
+  pl->grid = rows < g ? rows : g;
+  return cudaSuccess;
+}
+
+cudaError_t launch_bwd(BwdParams p, float* dw, bool vec, cudaStream_t stream, Plan* plan_only) {
+  Plan pl{};
+  const void* kernel = nullptr;
+  cudaError_t e = bwd_plan(&pl, p.rows, p.d, vec, &kernel, p.z != nullptr);
+  if (e != cudaSuccess || plan_only) {
+    if (plan_only) *plan_only = pl;
+    return e;
+  }
+  void* args[] = {&p};
+  e = cudaLaunchKernel(kernel, dim3(pl.grid), dim3(pl.threads), args, 0, stream);
+  if (e != cudaSuccess) return e;
+  int blocks = pl.grid, d = p.d;
+  const float* part = p.part;
+  void* dw_args[] = {&part, &dw, &blocks, &d};
+  e = cudaLaunchKernel((const void*)rmsnorm_dw_kernel, dim3(ceil_div(d, DW_COLS)),
+                       dim3(DW_COLS, DW_GROUPS), dw_args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -365,6 +619,36 @@ int rmsnorm_plan(int rows, int d, int gated, int vec, int* out) {
   p.z = gated ? reinterpret_cast<const bf16*>(16) : nullptr;
   Plan pl{};
   const cudaError_t err = launch(p, vec != 0, nullptr, &pl);
+  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
+  return (int)err;
+}
+
+// The backward of rmsnorm_fwd. dh, dr, x (or the f32 y), r, z and w as the
+// forward took them (dr and r may be null; gated: z not null, dr and r
+// null). Writes dx (bf16 da = dresidual; gated: the f32 dy), dz (gated,
+// contiguous) and dw (f32, d); part is scratch of min(rows,
+// BWD_MAX_BLOCKS) x d floats. vec: 1 when d % 8 == 0 and every row and w
+// start on 16 bytes. Two launches (the rows, then dw); returns
+// cudaGetLastError() after them.
+int rmsnorm_bwd(const void* dh, const void* dr, const void* x, const void* r, const void* z,
+                const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
+                long long zs, float eps, int vec, void* stream) {
+  const BwdParams p{static_cast<const bf16*>(dh), static_cast<const bf16*>(dr), x,
+                    static_cast<const bf16*>(r), static_cast<const bf16*>(z),
+                    static_cast<const float*>(w), dx, static_cast<bf16*>(dz),
+                    static_cast<float*>(part), rows, d, (int64_t)zs, eps};
+  return (int)launch_bwd(p, static_cast<float*>(dw), vec != 0,
+                         static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The backward's launch for these shapes, launching nothing: out[0..3] as
+// rmsnorm_plan's.
+int rmsnorm_bwd_plan(int rows, int d, int gated, int vec, int* out) {
+  BwdParams p{};
+  p.rows = rows, p.d = d;
+  p.z = gated ? reinterpret_cast<const bf16*>(16) : nullptr;
+  Plan pl{};
+  const cudaError_t err = launch_bwd(p, nullptr, vec != 0, nullptr, &pl);
   out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
   return (int)err;
 }

@@ -1,5 +1,5 @@
 """Plain PyTorch version of fused residual add + RMSNorm, and of the gated
-norm of the Mamba2 layer."""
+norm of the Mamba2 layer, with the backward of both forms."""
 from __future__ import annotations
 
 import torch
@@ -23,3 +23,48 @@ def fused_rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * w.float()
     return y.to(x.dtype), xf.to(x.dtype)
+
+
+def fused_rmsnorm_bwd_ref(dh: torch.Tensor, dr: torch.Tensor | None,
+                          x: torch.Tensor, w: torch.Tensor,
+                          residual: torch.Tensor | None = None,
+                          eps: float = 1e-6, gate: torch.Tensor | None = None):
+    """The backward of :func:`fused_rmsnorm_ref` at (x, w, residual, gate),
+    given dh, the gradient of the normed output, and dr, that of the new
+    residual (None where it is unused; a gated call has none).
+
+    With s the f32 sum x (+ residual), rstd = rsqrt(mean(s²) + eps) and
+    ŝ = s·rstd, the norm's backward is ds = rstd·(w·dh − ŝ·mean(w·dh·ŝ))
+    and dw = Σ_rows dh·ŝ, in f32.
+      residual form: returns (dx, dresidual, dw), dx = dresidual =
+        ds + dr rounded once to x's dtype (dresidual None without a
+        residual: the first norm of a pass, whose new residual is x);
+      gated form: the norm of g = (x·silu(gate)) in the gate's dtype, then
+        the chain's own backward: each cast passes the gradient through,
+        cast back, and each product and SiLU rounds its gradient to the
+        gate's dtype as torch's autograd does. Returns (dx in x's dtype,
+        dgate in the gate's dtype, dw).
+    dw is float32, (d,)."""
+    if gate is not None:
+        xb = x.to(gate.dtype)
+        sz = F.silu(gate)
+        s = (xb * sz).float()
+    else:
+        s = x.float() if residual is None else x.float() + residual.float()
+    rstd = torch.rsqrt(torch.mean(s * s, dim=-1, keepdim=True) + eps)
+    sh = s * rstd
+    dhf = dh.float()
+    dw = (dhf * sh).sum(0)
+    g = dhf * w.float()
+    ds = rstd * (g - sh * torch.mean(g * sh, dim=-1, keepdim=True))
+    if gate is None:
+        if dr is not None:
+            ds = ds + dr.float()
+        dx = ds.to(x.dtype)
+        return dx, (dx if residual is not None else None), dw
+    dg = ds.to(gate.dtype)
+    dx = (dg * sz).to(x.dtype)
+    zf = gate.float()
+    sig = torch.sigmoid(zf)
+    dz = ((dg * xb).float() * (sig * (1 + zf * (1 - sig)))).to(gate.dtype)
+    return dx, dz, dw

@@ -1,8 +1,16 @@
-"""Wrapper of the SSD chunk-scan kernel.
+"""Wrapper of the SSD chunk-scan kernel, and the scan's gradient.
 
 A CUDA tensor goes to the kernel in ``csrc/ssd.cu``; a CPU tensor goes to
 the plain version in :mod:`.ref`. ``ssd_chunk.launches`` counts the
 kernel's launches.
+
+Where autograd records, the call goes through a ``torch.autograd.Function``
+on either device: the same forward (the kernel on the card), and a backward
+in plain tensor code by design (:func:`ssd_chunk_bwd_plain`): it recomputes
+the scan through :func:`.ref.ssd_scan_ref` under autograd and takes the
+gradients of x, dt, B, C and dA from it. No backward kernel exists yet
+(ROADMAP.md queue 2); ``ssd_chunk_bwd_plain.calls`` counts the backward's
+calls, on either device.
 """
 from __future__ import annotations
 
@@ -49,16 +57,69 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     Returns y, float32 and contiguous in x's shape (without the D skip),
     and the final state, float32, (B, H, P, N) or (BH, P, N): the model's
     orientation, the transpose of the Pallas kernel's (BH, N, P).
+    Differentiable: where autograd records, through :class:`_SSDChunk`.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, B, C, dA)):
+        return _SSDChunk.apply(x, dt, B, C, dA)
+    return _forward(x, dt, B, C, dA)
+
+
+class _SSDChunk(torch.autograd.Function):
+    """:func:`ssd_chunk` with :func:`ssd_chunk_bwd_plain` as its backward.
+    Saves the inputs as given (B/C at head stride 0 stay views)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, dA):
+        ctx.save_for_backward(x, dt, B, C, dA)
+        ctx.set_materialize_grads(False)
+        return _forward(x, dt, B, C, dA)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return ssd_chunk_bwd_plain(ctx.saved_tensors, ctx.needs_input_grad, gy, gh)
+
+
+def _plain(x, dt, B, C, dA):
+    """:func:`.ref.ssd_scan_ref` in either layout: y (in x's shape, f32)
+    and the final state (B, H, P, N) or (BH, P, N)."""
+    if x.dim() != 4:
+        return ssd_scan_ref(x, dt, B, C, dA)
+    y, h = ssd_scan_ref(*(t.transpose(1, 2) for t in (x, dt, B, C, dA)))
+    return y.transpose(1, 2), h
+
+
+def ssd_chunk_bwd_plain(inputs, needs, gy, gh):
+    """The scan's gradient in plain tensor code: (x, dt, B, C, dA) detached,
+    the scan recomputed through :func:`.ref.ssd_scan_ref` under autograd,
+    and ``torch.autograd.grad`` of y (gradient ``gy``) and of the final
+    state (``gh``; None where unused) for the inputs in ``needs``. Each
+    gradient comes back in its input's shape and dtype: B/C passed as
+    head-stride-0 expands get one per head, summed by the expand's own
+    backward outside."""
+    ssd_chunk_bwd_plain.calls += 1
+    outs = [(i, g) for i, g in enumerate((gy, gh)) if g is not None]
+    if not outs or not any(needs):
+        return (None,) * len(inputs)
+    ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+    with torch.enable_grad():
+        res = _plain(*ins)
+    wanted = [t for t in ins if t.requires_grad]
+    got = iter(torch.autograd.grad([res[i] for i, _ in outs], wanted,
+                                   [g for _, g in outs], allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
+def _forward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, dA: torch.Tensor):
+    """:func:`ssd_chunk` without autograd: the kernel on the card, the
+    plain version on the CPU."""
     four_d = x.dim() == 4
     if x.device.type == "cpu":
-        if not four_d:
-            return ssd_scan_ref(x, dt, B, C, dA)
-        y, h = ssd_scan_ref(*(t.transpose(1, 2) for t in (x, dt, B, C, dA)))
-        return y.transpose(1, 2).contiguous(), h
+        y, h = _plain(x, dt, B, C, dA)
+        return y.contiguous(), h
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
-    _build.refuse_grad("ssd_chunk", x, dt, B, C, dA)
     if x.dim() not in (3, 4):
         raise ValueError("ssd_chunk: x must be (B, S, H, P) or (BH, S, P)")
     lead = x.shape[:-1]
@@ -109,3 +170,4 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
 
 ssd_chunk.launches = 0
+ssd_chunk_bwd_plain.calls = 0

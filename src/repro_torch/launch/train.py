@@ -2,12 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b \\
       --steps 8 --batch 8 --seq 2048 --repeat
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_130m \\
+      --steps 8 --batch 8 --seq 2048 --repeat
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
 :func:`run_train` is the importable body; ``main`` is the argparse shell,
 with the reference's flags (``--mesh`` and ``--fsdp`` wait for the
-multi-device layer). It runs on the CUDA card unless ``device``
-(``--device``) says otherwise.
+multi-device layer). Every architecture trains (``--arch``), on the
+CUDA card unless ``device`` (``--device``) says otherwise: ``--device
+cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 

@@ -27,7 +27,12 @@ computes:
   plain tensor ops, as the reference computes them outside any kernel.
 
 A CUDA tensor always reaches the kernel and a CPU tensor its plain version;
-there is no switch. Parameters are dictionaries of tensors with the
+there is no switch. Training differentiates through the same calls: the
+attention through ``flash_attention_train``, the fused RMSNorm (the gated
+norm included) through its backward kernel, the scan through its plain
+backward. The SSM layer's final state and conv tail, which prefill
+caches, take no part in the loss: ``forward`` keeps the branch output
+alone. Parameters are dictionaries of tensors with the
 reference's names and shapes; projection matrices may be held in the
 compute dtype (``_mm`` casts a weight to the activation's dtype first, as
 the reference does per call).

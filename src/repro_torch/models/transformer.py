@@ -35,9 +35,12 @@ non-parametric LayerNorm's leaf is ``{}``.
 
 LayerNorm configs add the residual in the compute dtype and norm with the
 plain ``layernorm``, as the reference does (it has no LayerNorm kernel).
-When autograd records, each such layer is checkpointed as ``cfg.remat``
-says: ``"full"`` recomputes the layer in backward, ``"none"`` saves its
-activations.
+When autograd records, each layer of either stack is checkpointed as
+``cfg.remat`` says (:func:`_remat`): ``"full"`` recomputes the layer in
+backward, ``"dots"`` saves the outputs of its 2-D projections (``aten.mm``)
+and recomputes everything else, batched products included, as the
+reference's ``dots_with_no_batch_dims_saveable``, and ``"none"`` saves its
+activations. A recomputed layer launches its kernels' forwards again.
 
 An RMSNorm block applies its residual adds through the fused RMSNorm kernel:
 each branch output is added to the residual and normed by the next norm in
@@ -46,7 +49,11 @@ pass over L dense layers launches it 1 + 2L times, and over L SSM layers
 1 + 2L times: 1 + L residual norms and L gated norms inside the layers,
 each one launch with the SiLU gate and its product fused in. A cross layer
 with a memory adds one launch, the norm before its cross-attention
-(``lnx``): 1 + 2L + n_cross a pass. The kernel
+(``lnx``): 1 + 2L + n_cross a pass. Training differentiates through the
+norm (``fused_rmsnorm_bwd``, one launch a norm) and the scan (its plain
+backward); a layer is one function (h, x) -> (h', x') ending in the fused
+norm into the next layer's ``ln1`` weight (or the final norm's), which is
+passed in, so its gradient accumulates once. The kernel
 normalises the f32 sum before rounding it, where the reference normalises
 the residual after rounding; the two agree exactly in float32 and to the
 last bf16 bit in bfloat16.
@@ -71,9 +78,11 @@ read by address, so a replay sees what was copied into it.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..kernels.rmsnorm.ops import fused_rmsnorm
@@ -139,7 +148,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     training passes ``param_dtype(cfg)``. Under ``param_dtype="bfloat16"``
     with bf16 ``dtype`` the LayerNorm ``w``/``b`` leaves are bf16 too, as
     the reference casts every f32 leaf (RMSNorm weights stay f32: the fused
-    norm kernel takes f32 weights, and RMSNorm configs do not train)."""
+    norm kernel and its backward take f32 weights)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
@@ -227,28 +236,52 @@ def _stack(cfg: ModelConfig, layers: list, final_norm: dict, x: torch.Tensor,
     if cfg.norm != "rmsnorm":
         return _run_stack_layernorm(cfg, final_norm, x, mix, layers,
                                     dense_moe, cross)
-    h, x = fused_rmsnorm(x.reshape(-1, shape[-1]), layers[0][2]["ln1"]["w"])
-    for n, (b, i, lp) in enumerate(layers):
+    d = shape[-1]
+
+    def layer(h, x, b, i, lp, w_next):
         a = mix(b, i, lp, h.view(shape))
         if cross is not None and "xattn" in lp:
-            h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["lnx"]["w"],
-                                 residual=x)
+            h, x = fused_rmsnorm(a.reshape(-1, d), lp["lnx"]["w"], residual=x)
             a = cross(lp, h.view(shape))
         if "ln2" in lp:
-            h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), lp["ln2"]["w"],
-                                 residual=x)
+            h, x = fused_rmsnorm(a.reshape(-1, d), lp["ln2"]["w"], residual=x)
             a = _ffn(cfg, lp, h.view(shape), dense_moe)
+        return fused_rmsnorm(a.reshape(-1, d), w_next, residual=x)
+
+    h, x = fused_rmsnorm(x.reshape(-1, d), layers[0][2]["ln1"]["w"])
+    for n, (b, i, lp) in enumerate(layers):
         w_next = (layers[n + 1][2]["ln1"]["w"] if n + 1 < len(layers)
                   else final_norm["w"])
-        h, x = fused_rmsnorm(a.reshape(-1, shape[-1]), w_next, residual=x)
+        h, x = _remat(cfg, layer, h, x, b, i, lp, w_next)
     return h.view(shape)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the 2-D projections' outputs, recompute the
+    rest (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed as ``cfg.remat`` says while autograd
+    records: "full" (recompute all of it in backward), "dots" (recompute
+    all but the ``aten.mm`` outputs) or "none" (save everything)."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {cfg.remat!r}: 'full', 'dots' or 'none'")
 
 
 def _run_stack_layernorm(cfg, final_norm, x, mix, layers, dense_moe: bool,
                          cross) -> torch.Tensor:
     """The LayerNorm block: plain residual adds in the compute dtype and
     the plain ``layernorm``, each layer checkpointed per ``cfg.remat``
-    while autograd records."""
+    (:func:`_remat`)."""
     _, norm = L.make_norm(cfg)
 
     def layer(x, b, i, lp):
@@ -259,14 +292,8 @@ def _run_stack_layernorm(cfg, final_norm, x, mix, layers, dense_moe: bool,
             x = x + _ffn(cfg, lp, norm(lp["ln2"], x), dense_moe)
         return x
 
-    remat = torch.is_grad_enabled() and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r} is not ported (ROADMAP.md queue 1 item "
-            "12: selective rematerialisation); use 'full' or 'none'")
     for b, i, lp in layers:
-        x = (checkpoint(layer, x, b, i, lp, use_reentrant=False) if remat
-             else layer(x, b, i, lp))
+        x = _remat(cfg, layer, x, b, i, lp)
     return norm(final_norm, x)
 
 

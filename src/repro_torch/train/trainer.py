@@ -2,11 +2,14 @@
 accumulation, checkpointing, straggler accounting.
 
 The step runs eagerly: ``loss_fn`` forward, ``torch.autograd.grad`` for the
-gradients (the attention's through ``flash_attention_train``: the forward
-with LSE, then the dK/dV and dQ kernels), then :func:`adamw_update` in
-place. Only configs whose every kernel has a backward train: a config
-whose forward runs a forward-only kernel (the fused RMSNorm, the SSD scan)
-is refused on every device.
+gradients, then :func:`adamw_update` in place. Every architecture of the
+reference trains: the attention differentiates through
+``flash_attention_train`` (the forward with LSE, then the dK/dV and dQ
+kernels), the fused RMSNorm through its backward kernel
+(``fused_rmsnorm_bwd``) and the SSD scan through its plain backward
+(``ssd_chunk_bwd_plain``); each layer is rematerialised as ``cfg.remat``
+says. What needs a device mesh (``compress_dp_grads``, the expert-parallel
+``moe_dispatch="shard_map"``) raises.
 """
 from __future__ import annotations
 
@@ -16,23 +19,9 @@ from typing import Callable
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import loss_fn
+from ..models.transformer import check_supported, loss_fn
 from .optimizer import (AdamWConfig, adamw_init, adamw_update, global_norm,
                         tree_leaves, tree_unflatten)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless every kernel on ``cfg``'s forward has a backward."""
-    why = []
-    if cfg.norm == "rmsnorm":
-        why.append("the fused RMSNorm kernel")
-    if any(cfg.layer_kind(i) == "ssm" for i in range(cfg.block_size)):
-        why.append("the SSD scan kernel")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: training needs gradients through "
-            f"{' and '.join(why)}, which run forward only (ROADMAP.md "
-            "queue 1 item 11)")
 
 
 def _grads(cfg: ModelConfig, params: dict, leaves: list, batch: dict):
@@ -50,7 +39,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     their gradients in f32, then divides by ``accum``. ``schedule(step)``
     scales the lr and reads the step before its increment. metrics:
     ``loss`` and ``grad_norm`` (before clipping), 0-d f32 tensors."""
-    check_trainable(cfg)
+    check_supported(cfg)
     if compress_dp_grads:
         raise NotImplementedError(
             "compressed data-parallel gradients wait for the multi-device "

@@ -17,7 +17,10 @@ bit-identical to its plain version and to the numpy formula, and the f32
 one within the drift band 1e-5 of the f64 reference. The training kernels
 (the forward with LSE, dK/dV, dQ) and the gradients through
 ``flash_attention_train`` are held within 2e-2 of the largest plain value,
-and a training step on the card against the same step on the CPU.
+and a training step on the card against the same step on the CPU. The
+RMSNorm's backward kernel is held against its plain version within the
+bf16 tolerance, dw within 1e-4 of its largest value (f32 sums over rows in
+another order), and two calls bit-identical.
 Cross-attention runs through the flash forward without the mask and
 through decode attention over the whole memory, held to the plain
 versions within 2e-2 of the largest value; the engine serves a memory
@@ -43,7 +46,8 @@ from repro_torch.kernels import (decode_attention, flash_attention,
                                  flash_attention_bwd_dq,
                                  flash_attention_fwd_lse,
                                  flash_attention_train, fused_rmsnorm,
-                                 launches, reset_launches, ssd_chunk)
+                                 fused_rmsnorm_bwd, launches, reset_launches,
+                                 ssd_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import (
     attention_delta, flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
@@ -55,7 +59,8 @@ from repro_torch.kernels.pricing.ref import (FORMULAS, edge_plan_vectors,
                                              pricing_ref,
                                              random_plan_vectors,
                                              random_roofline_columns)
-from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (fused_rmsnorm_bwd_ref,
+                                             fused_rmsnorm_ref)
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 from repro_torch.launch.serve import run_serve
 from repro_torch.models import (decode_step, init_params, param_dtype,
@@ -737,9 +742,9 @@ def test_training_kernels_refuse_float32(cuda):
 
 
 def test_forward_only_kernels_refuse_autograd(cuda):
-    x = torch.randn(4, 64, device=cuda).bfloat16().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_rmsnorm(x, torch.ones(64, device=cuda))
+    """The serving flash forward and decode attention refuse autograd; the
+    fused RMSNorm and the SSD scan return gradients (the norm's through its
+    backward kernel, the scan's through its plain backward)."""
     q = torch.randn(1, 2, 64, 64, device=cuda).bfloat16().requires_grad_(True)
     kv = torch.randn(1, 2, 64, 64, device=cuda).bfloat16()
     with pytest.raises(RuntimeError, match="no backward"):
@@ -748,19 +753,59 @@ def test_forward_only_kernels_refuse_autograd(cuda):
         decode_attention(q[:, :, 0], kv, kv, 10)
     with torch.no_grad():
         flash_attention(q, kv, kv)
-    y = torch.zeros(2, 64, 4, device=cuda, requires_grad=True)
-    dt = torch.zeros(2, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_chunk(y, dt, y, y, dt)
+    x = torch.randn(4, 64, device=cuda).bfloat16().requires_grad_(True)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    n = fused_rmsnorm_bwd.launches
+    fused_rmsnorm(x, w)[0].float().sum().backward()
+    assert fused_rmsnorm_bwd.launches == n + 1
+    assert bool(torch.isfinite(x.grad.float()).all()) and w.grad.shape == (64,)
+    y = torch.randn(2, 64, 4, device=cuda, requires_grad=True)
+    dt = torch.rand(2, 64, device=cuda, requires_grad=True)
+    out, _ = ssd_chunk(y, dt, y, y, -dt)
+    out.sum().backward()
+    assert bool(torch.isfinite(y.grad).all()) and bool(dt.grad.abs().sum() > 0)
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "seamless_m4t_medium"])
+@pytest.mark.parametrize("rows,d,kind", [(16384, 768, "residual"), (16384, 1536, "gated"),
+                                         (4096, 5120, "residual"), (4096, 5120, "plain"),
+                                         (7, 100, "residual"), (7, 100, "gated"),
+                                         (3, 770, "plain")])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, kind):
+    """The backward kernel at the training shapes (mamba2 8 x 2048, mistral
+    2 x 2048) and on the scalar path, against its plain version on the same
+    inputs, two calls bit-identical, one count a call."""
+    x, w, kw = _rmsnorm_case(cuda, rows, d, kind, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dh = torch.randn(rows, d, generator=g, device=cuda).bfloat16()
+    dr = None if kind == "gated" else torch.randn(rows, d, generator=g, device=cuda).bfloat16()
+    args = (dh, dr, x, w, kw.get("residual"), 1e-6, kw.get("gate"))
+    n = fused_rmsnorm_bwd.launches
+    got = fused_rmsnorm_bwd(*args)
+    again = fused_rmsnorm_bwd(*args)
+    assert fused_rmsnorm_bwd.launches == n + 2
+    want = fused_rmsnorm_bwd_ref(*args)
+    for a, b, c in zip(got, again, want):
+        assert (a is None) == (b is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, b) and a.dtype == c.dtype and a.shape == c.shape
+    _close(got[0], want[0])
+    if kind == "gated":
+        _close(got[1], want[1])
+        assert got[1].is_contiguous()
+    assert _scaled_err(got[2], want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "seamless_m4t_medium", "mistral_nemo_12b",
+                                  "mamba2_130m", "olmoe_1b_7b", "jamba_v01_52b"])
 def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     """One AdamW step of a SMOKE config (f32 params, bf16 compute) on the
     card against the same step on the CPU; remat "full" launches the
     forward with LSE twice per attention (the encoder-decoder's: each
     encoder layer's, each decoder layer's self- and cross-attention, the
-    latter at Sq != Sk without the mask), each backward kernel once."""
+    latter at Sq != Sk without the mask), each backward kernel once; on an
+    RMSNorm config the norm's forward twice per norm in a layer (once for
+    the first norm) and its backward once per norm, and the scan's forward
+    twice per SSM layer."""
     cfg = get_config(arch, smoke=True)
     cpu = init_params(cfg, seed=0, device="cpu", dtype=param_dtype(cfg))
     gpu = to_device(cpu, cuda)
@@ -770,12 +815,15 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     reset_launches()
     _, opt, got = step(gpu, adamw_init(gpu), {k: v.to(cuda) for k, v in batch.items()})
     torch.cuda.synchronize()
-    n = cfg.n_layers + cfg.encoder_layers + sum(
+    kinds = [cfg.layer_kind(i % cfg.block_size) for i in range(cfg.n_layers)]
+    n = kinds.count("attn") + cfg.encoder_layers + sum(
         cfg.layer_is_cross(i % cfg.block_size) for i in range(cfg.n_layers))
-    assert launches() == {**dict.fromkeys(launches(), 0),
-                          "flash_attention_fwd_lse": 2 * n,
-                          "flash_attention_bwd_dkv": n,
-                          "flash_attention_bwd_dq": n}
+    want_launches = {"flash_attention_fwd_lse": 2 * n, "flash_attention_bwd_dkv": n,
+                     "flash_attention_bwd_dq": n, "ssd": 2 * kinds.count("ssm")}
+    if cfg.norm == "rmsnorm":
+        norms = 1 + cfg.n_layers + kinds.count("ssm") + (cfg.n_layers if cfg.d_ff else 0)
+        want_launches |= {"rmsnorm": 2 * norms - 1, "rmsnorm_bwd": norms}
+    assert launches() == {**dict.fromkeys(launches(), 0), **want_launches}
     assert abs(float(got["loss"]) - float(want["loss"])) <= 2e-2 * float(want["loss"])
     assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= \
         5e-2 * float(want["grad_norm"])

@@ -25,6 +25,18 @@ def test_row1_rmsnorm_bounds(rows, d, kind, want_us):
     assert round(ms * 1e3, 3 if want_us < 1 else 1) == want_us
 
 
+@pytest.mark.parametrize("rows, d, kind, with_dr, want_us", [
+    (16384, 768, "residual", True, 37.6), (16384, 1536, "gated", False, 105.2),
+    (4096, 5120, "residual", True, 62.6), (4096, 5120, "plain", True, 50.1)])
+def test_rmsnorm_backward_bounds(rows, d, kind, with_dr, want_us):
+    """The RMSNorm backward at the training shapes of PERF.md's second
+    kernel table: bytes-bound, 10 bytes an element with the residual and
+    dr, 14 gated (the f32 y and dy)."""
+    ms, by = _ms(cost.rmsnorm_bwd(rows, d, kind, with_dr))
+    assert by == "bytes"
+    assert round(ms * 1e3, 1) == want_us
+
+
 def test_row2_decode_bound():
     # (4, 32/8, cache 2081, 128, kv_len 2079)
     ms, by = _ms(cost.decode_attention(4, 32, 8, 128, 2079))

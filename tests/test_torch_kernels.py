@@ -213,7 +213,9 @@ def test_cpu_tensors_do_not_count_as_launches():
     q = torch.ones(1, 2, 4, 32, requires_grad=True)
     flash_attention_train(q, torch.ones(1, 1, 4, 32),
                           torch.ones(1, 1, 4, 32)).sum().backward()
-    assert launches() == {"rmsnorm": 0, "decode_attention": 0,
+    xg = torch.ones(4, 32, requires_grad=True)
+    fused_rmsnorm(xg, torch.ones(32), xg)[0].sum().backward()
+    assert launches() == {"rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
                           "flash_attention": 0, "flash_attention_fwd_lse": 0,
                           "flash_attention_bwd_dkv": 0,
                           "flash_attention_bwd_dq": 0, "pricing": 0,

@@ -212,8 +212,8 @@ def test_unported_configs_raise():
     """Every architecture of the reference initialises in the port: the
     three that waited for cross-attention memory, the encoder and hybrid
     blocks pass ``check_supported`` and carry their leaves. What still
-    needs a device mesh (the expert-parallel MoE dispatch) raises, and
-    training still refuses RMSNorm and SSM configs (forward-only kernels)."""
+    needs a device mesh (the expert-parallel MoE dispatch) raises; all
+    three train (the fused RMSNorm and the SSD scan have a backward)."""
     from repro_torch.models.transformer import check_supported
     from repro_torch.train import make_train_step
     for arch, leaf in (("llama32_vision_11b", "xattn"),
@@ -227,10 +227,8 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(dataclasses.replace(get_config("jamba_v01_52b", smoke=True),
                                         moe_dispatch="shard_map"), device="cpu")
-    for arch in ("llama32_vision_11b", "jamba_v01_52b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(get_config(arch, smoke=True))
-    make_train_step(get_config("seamless_m4t_medium", smoke=True))
+    for arch in ("llama32_vision_11b", "jamba_v01_52b", "seamless_m4t_medium"):
+        make_train_step(get_config(arch, smoke=True))
     # MoE layers are ported: the same change initialises
     moe = init_params(dataclasses.replace(SMOKE, moe_experts=4, moe_top_k=2),
                       device="cpu")

@@ -222,18 +222,17 @@ def test_three_train_steps_match_reference(olmo):
 
 
 def test_train_step_refuses_forward_only_kernels():
+    """Only what needs a device mesh is refused: the RMSNorm and SSM
+    configs train (their kernels have a backward) and remat "dots" runs."""
     for arch in ("mistral_nemo_12b", "mamba2_130m"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            make_train_step(get_config(arch, smoke=True))
+        make_train_step(get_config(arch, smoke=True))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         make_train_step(get_config("olmo_1b", smoke=True),
                         compress_dp_grads=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        loss_fn(dataclasses.replace(get_config("olmo_1b", smoke=True),
-                                    remat="dots"),
-                init_params(get_config("olmo_1b", smoke=True), device="cpu",
-                            dtype=torch.float32),
-                _batch(get_config("olmo_1b", smoke=True), seed=0)[1])
+    cfg = dataclasses.replace(get_config("olmo_1b", smoke=True), remat="dots")
+    loss = loss_fn(cfg, init_params(cfg, device="cpu", dtype=torch.float32),
+                   _batch(cfg, seed=0)[1])
+    assert math.isfinite(float(loss))
 
 
 def test_remat_full_and_none_give_the_same_gradients():
