@@ -5,9 +5,12 @@ OLMo-1B, serve Minitron-4B (GQA group 3) and OLMoE-1B-7B (MoE) at full
 width, run the modeled-vs-measured validation loop, serve
 Llama-3.2-Vision-11B (cross-attention to image embeddings),
 SeamlessM4T-medium (an encoder-decoder) and Jamba-v0.1 (hybrid
-attention/SSM blocks with MoE) at full width, decode speculatively, and
+attention/SSM blocks with MoE) at full width, decode speculatively,
 train through the fused RMSNorm and the SSD scan: Mamba2-130M at full
-width and depth, Mistral-NeMo-12B at full width with two layers.
+width and depth, Mistral-NeMo-12B at full width with two layers, and run
+the multi-device layer: OLMo-1B on one NCCL rank's mesh with FSDP,
+OLMoE-1B-7B served expert- and context-parallel on two gloo ranks that
+share the card, and a data-parallel OLMo-1B step on two.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -61,7 +64,10 @@ Phases, each fatal on failure:
      RMSNORM_GATED_ULPS, where an intermediate rounding falls the other
      way; dw within RMSNORM_DW_REL of its row sum's condition), two calls
      bit-identical, timed beside its bound, the plain backward and
-     F.rms_norm's backward under autograd;
+     F.rms_norm's backward under autograd; decode attention on one rank's
+     block of a context-parallel cache (CP_DECODE_CASES: mistral's serving
+     cache halved, the block full, empty and ragged), its LSE also held
+     against the plain version's;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -185,6 +191,28 @@ Phases, each fatal on failure:
      backward, other; (c) mistral_nemo_12b at full width with
      MISTRAL_TRAIN_LAYERS layers, 2 x 2048, under remat "full" and "dots",
      the losses within REMAT_LOSS_REL;
+ 20. the multi-device layer (``parallel/``, ``launch/mesh.py``,
+     ``launch/shardings.py``), in child processes (``--phase20``) each
+     killed past PHASE20_TIMEOUT_S: (a) ``run_train`` on the full olmo_1b,
+     8 x 2048, MESH_TRAIN_STEPS steps, without a mesh and then on one NCCL
+     rank with the (1, 1) mesh and FSDP, the losses alike and within phase
+     8's bound, launches as phase 8's, step time and peak memory side by
+     side; (b) olmoe_1b_7b at full width and depth on two gloo ranks
+     sharing the card, mesh (1, 2), ``moe_dispatch="shard_map"`` and
+     ``decode_attn="context_parallel"`` (32 experts, 8 heads, half the
+     vocabulary and half the cache's sequence a rank), 4 x 2048 + 16
+     tokens and 1 x 64 + 16 (rank 1's block empty in every step), every
+     run routed as one device routed it (replayed): the engine (eager over
+     gloo) timed for TTFT and TPOT beside one device's and held against
+     it, the logits of every step up to a sequence's first token
+     difference within SCALED_TOL_FULL, every decode step launching row 2
+     L times on both ranks; eager steps fed one device's tokens, logits
+     within SCALED_TOL_FULL; (c) one step of olmo_1b at full width with 2
+     layers on two gloo ranks, mesh (2, 1), 2 x 2048 a rank, plain, with
+     compressed gradients and with FSDP: loss and every gradient leaf (a
+     rank's block under FSDP) against one process's 4 x 2048 step within
+     SCALED_TOL_SMALL (INT8_SCALED more compressed), launches 2L / L / L
+     a rank a step;
  19. one JSON line of kernel numbers, the card's name and power limit, and
      a last JSON line ``{"ok": true, "device": {...}}``.
 
@@ -263,11 +291,12 @@ PARALLEL_TIMEOUT_S = 600
 # SEARCH_LIMIT_S; the phase's watchdog is PHASE4B_TIMEOUT_S. The 100,000
 # rung (100,224 cells, 103 s on the card once, predicted over the limit
 # and skipped in two other runs) is cut to leave time for the MoE serving
-# and validation phases.
-SEARCH_LADDER = (None, 20_000, 50_000)
+# and validation phases, the 50,000 rung (50,112 cells, 67-68 s on the
+# H100) to leave time for phase 20.
+SEARCH_LADDER = (None, 20_000)
 SEARCH_LIMIT_S = 120
 PHASE4B_TIMEOUT_S = 720
-REPRICE_TURNS = 3
+REPRICE_TURNS = 2                  # 3 before phase 20; cut to leave time for it
 
 
 def fail(msg: str) -> int:
@@ -630,6 +659,17 @@ def decode_cases() -> tuple:
 #: the cases also run through one captured launch replayed at other kv_len
 DECODE_REPLAYED = ("serve", "gqa3-minitron", "gqa16")
 
+#: Row 2 on one rank's block of a context-parallel cache (phase 20b): the
+#: mistral serving cache's sequence halved over a model axis of 2, (B, H,
+#: Hkv, S_local, hd, local kv_len), the block full, empty (a rank whose block
+#: lies past the prefix: the kernel gives o 0 and lse -1e30, its plain
+#: version NaN, and the merge masks both) and ragged; the LSE is what the
+#: merge reads, so it is held against the plain version's too.
+CP_DECODE_S = -(-(PROMPT_LEN + NEW_TOKENS + 1) // 2)
+CP_DECODE_CASES = (("cp block full", (REQUESTS, 32, 8, CP_DECODE_S, 128, CP_DECODE_S)),
+                   ("cp block empty", (REQUESTS, 32, 8, CP_DECODE_S, 128, 0)),
+                   ("cp block ragged", (REQUESTS, 32, 8, CP_DECODE_S, 128, 517)))
+
 #: Cross-attention's shapes, held and timed in phase 3: the flash forward
 #: without the mask (label, (B, H, Hkv, Sq, Sk, hd, causal)) over the VLM's
 #: 1601 image tokens and the encoder's 1024 frames, and the encoder's own
@@ -837,6 +877,34 @@ def check_kernels(torch, timer) -> dict:
         say(f"  decode_attention {label} q {tuple(q.shape)} memory {(mb, m, mhkv, mhd)}: "
             f"{json.dumps(shapes[label])}")
         del q, k, v, o, lse
+    out["decode_attention"]["context_parallel_shapes"] = shapes = {}
+    for label, shape in CP_DECODE_CASES:
+        q, k, v = decode_inputs(torch, g, shape)
+        mb, mh, mhkv, m, mhd, kv_len = shape
+        kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+        o, lse = decode_attention(q, k, v, kl)
+        r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode {label}")
+        _, lse_plain = decode_attention_ref(q, k, v, kl, return_lse=True)
+        if kv_len:
+            lse_err = (lse - lse_plain).abs().max().item()
+            if not lse_err <= 1e-3 * max(1.0, lse_plain.abs().max().item()):
+                raise AssertionError(f"decode {label}: lse vs plain {lse_err:.3g}")
+        else:
+            lse_err = 0.0       # held by decode_check: lse -1e30, o 0
+        b_ms, b_by = cost.decode_attention(mb, mh, mhkv, mhd, kv_len).bound_ms()
+        kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
+        shapes[label] = dict(
+            max_abs_err=r["o_err"], max_ulp_excess=r["ulp_excess"],
+            lse_vs_plain=lse_err,
+            ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
+            plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
+                                                           return_lse=True), 20),
+            library_ms=(timer.ms(lambda: sdpa(F, q[:, :, None], kc, vc, causal=False), 200)
+                        if kv_len else None),
+            bound_ms=b_ms, bound_by=b_by, shape=list(shape))
+        say(f"  decode_attention {label} q {tuple(q.shape)} cache block "
+            f"{(mb, m, mhkv, mhd)}: {json.dumps(shapes[label])}")
+        del q, k, v, o, lse, kc, vc
 
     # ---- flash attention: the prefill's (B, S, H, hd) activations, read
     # transposed; ragged lengths and the 128-row / 128-key tile edges;
@@ -4027,6 +4095,616 @@ def serving_model_reading(measured: dict) -> dict:
 
 
 # ------------------------------- main -----------------------------------------
+# ------------------------------- phase 20: the multi-device layer ------------
+#: each of phase 20's child runs is killed past this many seconds (a hung
+#: collective fails the phase)
+PHASE20_TIMEOUT_S = 240
+#: (a) olmo_1b steps with and without the (1, 1) mesh
+MESH_TRAIN_STEPS = 4
+#: (a) then olmo_1b served, 2 requests of this many tokens + new tokens
+MESH_SERVE_PROMPT, MESH_SERVE_TOKENS = 512, 8
+#: (b) olmoe_1b_7b on two gloo ranks: new tokens a request, and the short
+#: request's prompt (rank 1's block of the cache, positions 1032 on, stays
+#: empty for all of its steps)
+CP_NEW_TOKENS, CP_SHORT_PROMPT = 16, 64
+#: (c) olmo_1b at full width with this many layers, 2 x 2048 a rank
+DP_LAYERS, DP_BATCH_PER_RANK = 2, 2
+#: a gradient through int8 and back moves by at most half its block's step,
+#: max |block| / 254, on each rank, and the step averages the two ranks':
+#: at most 1/254 of a rank's largest value, held here as 1/127 of the
+#: averaged gradient's largest (a rank's largest value at most twice it)
+INT8_SCALED = 1.0 / 127
+
+
+def phase20_cfg(part: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if part == "olmoe":
+        return dataclasses.replace(get_config("olmoe_1b_7b"), moe_dispatch="shard_map",
+                                   decode_attn="context_parallel")
+    if part == "dp":
+        return dataclasses.replace(get_config("olmo_1b"), n_layers=DP_LAYERS)
+    return get_config("olmo_1b")
+
+
+def phase20_join(job_dir: Path, part: str, rank: int, world: int, backend: str):
+    """Join part ``part``'s process group through a FileStore of its own
+    under ``job_dir``; returns this rank's card (card ``rank`` modulo the
+    cards present: over gloo two ranks may share one)."""
+    from repro_torch.launch.mesh import init_ranks
+    return init_ranks("cuda", backend=backend, rank=rank, world_size=world,
+                      init_method=f"file://{job_dir / f'store-{part}'}")
+
+
+def phase20_write(job_dir: Path, name: str, out: dict) -> None:
+    (job_dir / f"{name}.json").write_text(json.dumps(out))
+
+
+def mesh_train_one_rank(torch, job_dir: Path) -> None:
+    """(a) run_train on the full olmo_1b, 8 x 2048, MESH_TRAIN_STEPS steps on
+    one repeated batch: without a mesh, then on one NCCL rank with the
+    (1, 1) mesh and FSDP (the sharded step at mesh size 1), counters
+    zeroed just before and read just after. The mesh run's losses within
+    1e-3 of the other's (relative: the global norm sums in another
+    order), both finite and starting where phase 8's do. Then the engine
+    without a mesh and on the (1, 1) mesh: each captures its decode step
+    once (no collective spans two ranks), and the mesh engine's logits
+    are held against the other's to its first token difference."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_axis_rules, parse_mesh
+    from repro_torch.launch.train import run_train
+    from repro_torch.models import init_params
+    from repro_torch.parallel.logical import use_rules
+    from repro_torch.serve import ServeEngine
+
+    dev = phase20_join(job_dir, "a", 0, 1, "nccl")
+    cfg = phase20_cfg("train")
+    kw = dict(steps=MESH_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+              repeat=True, device=dev)
+    base = run_train(cfg, **kw)
+    torch.cuda.empty_cache()
+    mesh = parse_mesh("1x1", dev)
+    kernels.reset_launches()
+    res = run_train(cfg, mesh=mesh, fsdp=True, **kw)
+    counts = kernels.launches()
+    n = cfg.n_layers * MESH_TRAIN_STEPS
+    want = {**dict.fromkeys(counts, 0), "flash_attention_fwd_lse": 2 * n,
+            "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    if counts != want:
+        raise AssertionError(f"(a) launch counts {counts} != {want}")
+    # phase 8's bound on its first step; four steps from this seed climb
+    # at the fourth before they fall (phase 8 reads eight)
+    expect = math.log(cfg.vocab) + 0.5
+    for r in (base, res):
+        if not (all(math.isfinite(x) for x in r.losses)
+                and abs(r.losses[0] - expect) <= 0.5):
+            raise AssertionError(f"(a) losses {r.losses} (step 0 should be near "
+                                 f"{expect:.3f})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, base.losses))
+    if rel > 1e-3:
+        raise AssertionError(f"(a) mesh losses {res.losses} vs {base.losses}")
+    out = {"launches": counts, "loss_rel_diff": rel}
+    for name, r in (("no_mesh", base), ("mesh_1x1_fsdp", res)):
+        out[name] = {"losses": r.losses, "step_times_s": r.step_times,
+                     "steady_mean_s": sum(r.step_times[1:]) / len(r.step_times[1:]),
+                     "tokens_per_s": r.tokens_per_s,
+                     "peak_memory_gib": (r.peak_memory_bytes or 0) / 2**30}
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (2, MESH_SERVE_PROMPT), generator=gen,
+                            device=dev)
+    served = {}
+    for name, rules in (("no_mesh", None), ("mesh_1x1", make_axis_rules(mesh, cfg))):
+        sampled = []
+        with (use_rules(rules, mesh) if rules else contextlib.nullcontext()), \
+                sampled_logits(sampled):
+            engine = ServeEngine(cfg, params, max_batch=2, device=dev,
+                                 max_len=MESH_SERVE_PROMPT + MESH_SERVE_TOKENS)
+            r = engine.generate(prompts, n_tokens=MESH_SERVE_TOKENS)
+        served[name] = (torch.tensor(r.tokens).t(),
+                        torch.stack([lg for lg, _ in sampled], 1).cpu(), engine.captures)
+    (t_mesh, lg_mesh, cap_mesh), (t_one, lg_one, cap_one) = served["mesh_1x1"], served["no_mesh"]
+    out["serve"] = {**held_engine_steps(t_mesh, t_one, lg_mesh, lg_one),
+                    "captures": [cap_one, cap_mesh]}
+    if not (cap_one == cap_mesh == 1
+            and out["serve"]["engine_scaled_err"] <= SCALED_TOL_SMALL):
+        raise AssertionError(f"(a) the engine on the (1, 1) mesh {out['serve']}")
+    phase20_write(job_dir, "a", out)
+    dist.destroy_process_group()
+
+
+def eager_serve(torch, kernels, cfg, params, prompts, feed, max_len: int) -> dict:
+    """Prefill, then len(feed) - 1 eager decode steps fed ``feed`` (a list
+    of (B,) token tensors, the first the prefill's): the logits of the
+    prefill's last position and of every step, whole over the vocabulary,
+    f32 on the CPU (B, steps, V), and the decode kernel's launches in each
+    step."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.transformer import gather_vocab
+
+    s = prompts.shape[1]
+    per_step = []
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=max_len)
+        outs = [gather_vocab(cfg, logits[:, -1]).float().cpu()]
+        for i, tok in enumerate(feed[:-1]):
+            before = kernels.launches()["decode_attention"]
+            lg, cache = decode_step(cfg, params, cache, tok, s + i)
+            outs.append(gather_vocab(cfg, lg).float().cpu())
+            per_step.append(kernels.launches()["decode_attention"] - before)
+    return {"logits": torch.stack(outs, 1), "per_step": per_step}
+
+
+def olmoe_requests(torch, cfg, dev):
+    """phase 20(b)'s prompts: REQUESTS x PROMPT_LEN from the serving seed,
+    and the first one cut to CP_SHORT_PROMPT tokens."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN), generator=gen,
+                            device=dev)
+    return prompts, prompts[:1, :CP_SHORT_PROMPT].clone()
+
+
+def olmoe_single(torch, job_dir: Path) -> None:
+    """(b), the single-device side: olmoe_1b_7b through the engine (CUDA
+    graph) for its TTFT and TPOT and greedy tokens, then eager steps fed
+    those tokens with the routes recorded; the short request alike."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = phase20_cfg("olmoe")
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=SEED, device=dev)
+    prompts, short = olmoe_requests(torch, cfg, dev)
+    max_len = PROMPT_LEN + CP_NEW_TOKENS
+    engine = ServeEngine(cfg, params, max_batch=REQUESTS, max_len=max_len,
+                         device=dev)
+    engine.generate(prompts, n_tokens=CP_NEW_TOKENS)
+    warm = engine.generate(prompts, n_tokens=CP_NEW_TOKENS)
+    short_res = engine.generate(short, n_tokens=CP_NEW_TOKENS)
+    arrays, out = {}, {"ttft_s": warm.ttft, "tpot_s": warm.tpot}
+    for name, p, res in (("long", prompts, warm), ("short", short, short_res)):
+        feed = [torch.tensor(t, device=dev) for t in res.tokens]
+        routes = []
+        with recorded_routes(routes):
+            run = eager_serve(torch, kernels, cfg, params, p, feed, max_len)
+        arrays[f"{name}/tokens"] = torch.tensor(res.tokens).numpy()
+        arrays[f"{name}/logits"] = run["logits"].numpy()
+        for i, r in enumerate(routes):
+            arrays[f"{name}/route{i}"] = r.numpy()
+        out[f"{name}_routes"] = len(routes)
+    import numpy as np
+    np.savez(job_dir / "b_single.npz", **arrays)
+    phase20_write(job_dir, "b_single", out)
+
+
+def device_route_replay(torch, routes: list, rows: int):
+    """:func:`replayed_routes` for a serving engine, whose decode step a CUDA
+    graph may capture. ``routes`` on the device, a prefill's calls then one
+    pass of calls a decode step: the prefill's calls (any token count but
+    ``rows``) take theirs in call order from the host, the decode steps'
+    calls (``rows`` tokens) theirs from a table on the device at a counter
+    the step itself advances, so that a replayed graph reads the next
+    step's. Returns a context manager; each entry starts again from the
+    first call, with the same table and counter."""
+    from repro_torch.models import layers
+
+    prefill = [r for r in routes if r.shape[0] != rows]
+    table = torch.stack([r for r in routes if r.shape[0] == rows])
+    at = torch.zeros(1, dtype=torch.int64, device=table.device)
+
+    @contextlib.contextmanager
+    def run():
+        route, calls = layers._route, iter(prefill)
+        at.zero_()
+
+        def replaying(p, xt, k):
+            probs, _, _ = route(p, xt, k)
+            if xt.shape[0] == rows:
+                idx = table.index_select(0, at)[0]
+                at.add_(1)
+            else:
+                idx = next(calls)
+            gates = probs.gather(1, idx)
+            return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+        layers._route = replaying
+        try:
+            yield
+        finally:
+            layers._route = route
+
+    return run
+
+
+@contextlib.contextmanager
+def sampled_logits(store: list):
+    """The whole-vocabulary logits the engine samples each token from (f32,
+    on the device), each with the decode kernel's launch count when the
+    engine read them, in the order of the samples drawn inside the block."""
+    from repro_torch import kernels
+    from repro_torch.serve import engine
+
+    gather = engine.gather_vocab
+
+    def recording(cfg, logits):
+        out = gather(cfg, logits)
+        store.append((out.float(), kernels.launches()["decode_attention"]))
+        return out
+
+    engine.gather_vocab = recording
+    try:
+        yield
+    finally:
+        engine.gather_vocab = gather
+
+
+def olmoe_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> None:
+    """(b), one of two ranks, mesh (1, 2): each rank holds 32 experts, 8 of
+    the 16 heads, half the vocabulary and the half of the cache's sequence
+    that is its block. Every run routes each token to the experts the
+    single-device run chose (:func:`device_route_replay`), so the two
+    compute the same function: eager steps fed the single-device tokens,
+    then the engine's generate twice, the second timed and read (its
+    tokens, the logits it sampled them from, the decode kernel's launches
+    in each step; counters zeroed just before and read just after); the
+    short request alike. Over gloo (two ranks sharing the card) the engine
+    decodes eagerly; over NCCL (a card a rank) it captures the step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_axis_rules, parse_mesh
+    from repro_torch.launch.shardings import param_shardings, shard_tree
+    from repro_torch.models import init_params
+    from repro_torch.parallel.logical import use_rules
+    from repro_torch.serve import ServeEngine
+
+    dev = phase20_join(job_dir, "b", rank, world, backend)
+    cfg = phase20_cfg("olmoe")
+    mesh = parse_mesh(f"1x{world}", dev)
+    with np.load(job_dir / "b_single.npz") as data:
+        single = {k: data[k] for k in data.files}
+    max_len = PROMPT_LEN + CP_NEW_TOKENS
+    out: dict = {"rank": rank}
+    arrays: dict = {}
+    with use_rules(make_axis_rules(mesh, cfg), mesh):
+        for r in range(world):          # one rank at a time holds the whole
+            if r == rank:
+                full = init_params(cfg, seed=SEED, device=dev)
+                params = shard_tree(full, param_shardings(cfg, mesh), mesh, copy=True)
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        out["local_params"] = sum(t.numel() for t in _leaves(params))
+        out["local_experts"] = params["stack"][0]["l0"]["moe"]["wi"].shape[0]
+        out["local_heads"] = params["stack"][0]["l0"]["attn"]["wq"].shape[1] // cfg.hd
+        prompts, short = olmoe_requests(torch, cfg, dev)
+        engine = ServeEngine(cfg, params, max_batch=REQUESTS, max_len=max_len,
+                             device=dev)
+        for name, p in (("long", prompts), ("short", short)):
+            feed = [torch.from_numpy(t).to(dev) for t in single[f"{name}/tokens"]]
+            n = sum(1 for k in single if k.startswith(f"{name}/route"))
+            replay = device_route_replay(
+                torch, [torch.from_numpy(single[f"{name}/route{i}"]).to(dev)
+                        for i in range(n)], p.shape[0])
+            with replay():
+                rep = eager_serve(torch, kernels, cfg, params, p, feed, max_len)
+            arrays[f"{name}/replayed"] = rep["logits"].numpy()
+            with replay():              # the batch size's first run (a capture)
+                engine.generate(p, n_tokens=CP_NEW_TOKENS)
+            sampled = []
+            kernels.reset_launches()
+            with replay(), sampled_logits(sampled):
+                res = engine.generate(p, n_tokens=CP_NEW_TOKENS)
+            out[name] = {"launches": kernels.launches(), "ttft_s": res.ttft,
+                         "tpot_s": res.tpot, "tokens": res.tokens,
+                         "per_step": [b - a for (_, a), (_, b) in zip(sampled, sampled[1:])]}
+            arrays[f"{name}/engine"] = torch.stack([lg for lg, _ in sampled], 1).cpu().numpy()
+        out["captures"] = engine.captures
+    if rank == 0:
+        np.savez(job_dir / "b_ranks.npz", **arrays)
+    phase20_write(job_dir, f"b_rank{rank}", out)
+    dist.destroy_process_group()
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+@contextlib.contextmanager
+def captured_grads(store: list):
+    """The gradients each train step hands AdamW (reduced over the data
+    axes, through int8 where compressed, this rank's block under FSDP), for
+    phase 20(c)'s comparison."""
+    from repro_torch.train import trainer
+
+    update = trainer.adamw_update
+
+    def capturing(params, grads, *args, **kw):
+        store.append(grads)
+        return update(params, grads, *args, **kw)
+
+    trainer.adamw_update = capturing
+    try:
+        yield
+    finally:
+        trainer.adamw_update = update
+
+
+#: (c)'s runs on the mesh: (name, compress_dp_grads, fsdp)
+DP_RUNS = (("plain", False, False), ("compressed", True, False), ("fsdp", False, True))
+
+
+def dp_train_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> None:
+    """(c), one of two ranks, mesh (2, 1): olmo_1b at full width with
+    DP_LAYERS layers on this rank's DP_BATCH_PER_RANK x TRAIN_SEQ rows of
+    the global batch, each of DP_RUNS (plain, compressed gradients, FSDP);
+    rank 0 first steps on the whole batch alone. Each run's first step
+    gives the gradients the optimizer received, which rank 0 holds (and
+    the loss) against the one-process step's (its block of them under
+    FSDP); its second step is timed (the first pays the process's first
+    launches)."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import make_axis_rules, parse_mesh
+    from repro_torch.launch.shardings import param_shardings, shard_tree
+    from repro_torch.models import init_params, param_dtype
+    from repro_torch.parallel.logical import use_rules
+    from repro_torch.train import (AdamWConfig, SyntheticTokens, adamw_init,
+                                   make_train_step)
+
+    dev = phase20_join(job_dir, "c", rank, world, backend)
+    cfg = phase20_cfg("dp")
+    batch = next(iter(SyntheticTokens(cfg.vocab, DP_BATCH_PER_RANK * world, TRAIN_SEQ,
+                                      seed=SEED, device=dev)))
+
+    def two_steps(step, params, together: bool):
+        """(loss and gradient tree of the first step, seconds of the
+        second); ``together``: every rank takes the steps (and starts the
+        timed one at a barrier)."""
+        opt = adamw_init(params)
+        got = []
+        with captured_grads(got):
+            _, _, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        if together:
+            dist.barrier()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        float(step(params, opt, batch)[2]["loss"])
+        return loss, got[0], time.perf_counter() - t0
+
+    out: dict = {"rank": rank}
+    if rank == 0:
+        params = init_params(cfg, seed=SEED, device=dev, dtype=param_dtype(cfg))
+        want_loss, want, out["single_step_s"] = two_steps(
+            make_train_step(cfg, AdamWConfig()), params, together=False)
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = parse_mesh(f"{world}x1", dev)
+    with use_rules(make_axis_rules(mesh, cfg), mesh):
+        for tag, compress, fsdp in DP_RUNS:
+            specs = param_shardings(cfg, mesh, fsdp=fsdp)
+            full = init_params(cfg, seed=SEED, device=dev, dtype=param_dtype(cfg))
+            params = shard_tree(full, specs, mesh, copy=True)
+            del full
+            step = make_train_step(cfg, AdamWConfig(), compress_dp_grads=compress,
+                                   fsdp=fsdp)
+            kernels.reset_launches()
+            loss, got, dt = two_steps(step, params, together=True)
+            out[tag] = {"step_s": dt, "loss": loss, "launches": kernels.launches()}
+            if rank == 0:
+                errs = [scaled_err(g, w) for g, w in
+                        zip(_leaves(got), _leaves(shard_tree(want, specs, mesh)))]
+                lim = SCALED_TOL_SMALL + (INT8_SCALED if compress else 0.0)
+                out[tag] |= {"loss_rel_diff": abs(loss - want_loss) / abs(want_loss),
+                             "grad_scaled_err_max": max(errs), "limit": lim}
+                if not (abs(loss - want_loss) <= SCALED_TOL_SMALL * abs(want_loss)
+                        and max(errs) <= lim):
+                    raise AssertionError(f"(c) {tag}: loss {loss} vs {want_loss}, "
+                                         f"gradient scaled errors {max(errs):.3g} > {lim:.3g}")
+            del params, got
+            torch.cuda.empty_cache()
+    phase20_write(job_dir, f"c_rank{rank}", out)
+    dist.destroy_process_group()
+
+
+def phase20_child(part: str, job_dir: str, rank: int, world: int, backend: str) -> int:
+    """Entry of phase 20's child processes (``chip_smoke.py --phase20 PART
+    DIR RANK WORLD BACKEND``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn = {"a": lambda: mesh_train_one_rank(torch, Path(job_dir)),
+          "b": lambda: olmoe_rank(torch, Path(job_dir), rank, world, backend),
+          "c": lambda: dp_train_rank(torch, Path(job_dir), rank, world, backend)}[part]
+    fn()
+    return 0
+
+
+def run_phase20_part(part: str, world: int, job_dir: Path, backend: str) -> None:
+    """Start ``world`` children of ``part`` together (each writing its
+    output to a log under ``job_dir``) and wait for all of them; once one
+    fails, or PHASE20_TIMEOUT_S have passed, kill the rest (a rank left
+    waiting in a collective for a failed one never returns). Fails, with
+    every rank's last lines, unless every one exited 0; relays the last
+    lines of each otherwise."""
+    logs = [job_dir / f"{part}-rank{r}.log" for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--phase20", part, str(job_dir), str(r),
+                 str(world), backend], stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PHASE20_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(p.poll() for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    tails = [[x for x in log.read_text().splitlines() if x.strip()] for log in logs]
+    if any(p.returncode for p in procs):
+        why = (f"not done within {PHASE20_TIMEOUT_S} s" if time.monotonic() > deadline
+               else "a rank failed")
+        raise AssertionError(
+            f"phase 20 ({part}): {why}; exit codes {[p.returncode for p in procs]}\n"
+            + "\n".join(f"[rank {r}] {x}" for r, t in enumerate(tails) for x in t[-40:]))
+    for r, t in enumerate(tails):
+        for line in t[-8:]:
+            say(f"      [{part} rank {r}] {line}")
+
+
+def held_engine_steps(tokens, want_tokens, logits, want_logits) -> dict:
+    """Two engines' greedy runs of the same requests, tokens (B, n) and the
+    logits each token was sampled from (B, n, V): per sequence, the steps
+    up to and including the first where the tokens differ (all n if none),
+    whose logits were computed from the same inputs and are held; the
+    largest scaled difference of the logits over them."""
+    held, errs = [], []
+    for i in range(tokens.shape[0]):
+        diff = (tokens[i] != want_tokens[i]).nonzero()
+        k = int(diff[0]) + 1 if diff.numel() else tokens.shape[1]
+        held.append(k)
+        errs.append(scaled_err(logits[i, :k], want_logits[i, :k]))
+    return {"steps_held": held, "engine_scaled_err": max(errs)}
+
+
+def _two_ranks(backend: str) -> str:
+    return ("two gloo ranks sharing the card" if backend == "gloo"
+            else f"two {backend} ranks, a card each")
+
+
+def phase20_a(job_dir: Path) -> tuple[dict, dict]:
+    """(a): (launches, readings)."""
+    say(f"[20a] olmo_1b run_train, {TRAIN_BATCH} x {TRAIN_SEQ}, {MESH_TRAIN_STEPS} "
+        f"steps: no mesh, then one NCCL rank on the (1, 1) mesh with FSDP; then "
+        f"served, 2 x {MESH_SERVE_PROMPT} + {MESH_SERVE_TOKENS} tokens, the step "
+        f"captured with and without the mesh")
+    run_phase20_part("a", 1, job_dir, "nccl")
+    a = json.loads((job_dir / "a.json").read_text())
+    say(f"    {json.dumps(a)}")
+    return a["launches"], a
+
+
+def phase20_b(torch, job_dir: Path, backend: str) -> tuple[dict, dict]:
+    """(b) over ``backend``: (launches summed over the ranks, readings)."""
+    import numpy as np
+
+    cfg = phase20_cfg("olmoe")
+    say(f"[20b] olmoe_1b_7b on {_two_ranks(backend)}, mesh (1, 2), moe_dispatch shard_map, "
+        f"decode_attn context_parallel: {REQUESTS} x {PROMPT_LEN} + {CP_NEW_TOKENS} "
+        f"tokens and 1 x {CP_SHORT_PROMPT} + {CP_NEW_TOKENS}, routed as one device "
+        f"routed them, against one device")
+    olmoe_single(torch, job_dir)        # no collective: in this process
+    torch.cuda.empty_cache()
+    run_phase20_part("b", 2, job_dir, backend)
+    single = json.loads((job_dir / "b_single.json").read_text())
+    ranks = [json.loads((job_dir / f"b_rank{r}.json").read_text()) for r in range(2)]
+    with np.load(job_dir / "b_single.npz") as d:
+        s_arr = {k: d[k] for k in d.files}
+    with np.load(job_dir / "b_ranks.npz") as d:
+        r_arr = {k: d[k] for k in d.files}
+    steps = CP_NEW_TOKENS - 1
+    L = cfg.n_layers
+    want = {**dict.fromkeys(ranks[0]["long"]["launches"], 0),
+            "decode_attention": L * steps, "flash_attention": L,
+            "rmsnorm": (1 + 2 * L) * CP_NEW_TOKENS}
+    for r, rk in enumerate(ranks):
+        if not (rk["local_experts"] == cfg.moe_experts // 2
+                and rk["local_heads"] == cfg.n_heads // 2):
+            raise AssertionError(f"(b) rank {r} holds {rk['local_experts']} experts, "
+                                 f"{rk['local_heads']} heads")
+        for name in ("long", "short"):
+            if rk[name]["launches"] != want or rk[name]["per_step"] != [L] * steps:
+                raise AssertionError(
+                    f"(b) rank {r} {name}: launches {rk[name]['launches']} != {want}, "
+                    f"decode launches per step {rk[name]['per_step']} (want {L} each)")
+            if rk[name]["tokens"] != ranks[0][name]["tokens"]:
+                raise AssertionError(f"(b) {name}: the ranks returned other tokens")
+    b_read = {"single_ttft_s": single["ttft_s"], "single_tpot_s": single["tpot_s"],
+              "ranks_ttft_s": [rk["long"]["ttft_s"] for rk in ranks],
+              "ranks_tpot_s": [rk["long"]["tpot_s"] for rk in ranks],
+              "short_ranks_ttft_s": [rk["short"]["ttft_s"] for rk in ranks],
+              "short_ranks_tpot_s": [rk["short"]["tpot_s"] for rk in ranks],
+              "captures": [rk["captures"] for rk in ranks],
+              "local_params": [rk["local_params"] for rk in ranks],
+              "launches_rank": [rk["long"]["launches"] for rk in ranks]}
+    for name in ("long", "short"):
+        want_logits = torch.from_numpy(s_arr[f"{name}/logits"])
+        held = held_engine_steps(
+            torch.tensor(ranks[0][name]["tokens"]).t(),
+            torch.from_numpy(s_arr[f"{name}/tokens"]).t(),
+            torch.from_numpy(r_arr[f"{name}/engine"]), want_logits)
+        rep = torch.from_numpy(r_arr[f"{name}/replayed"])
+        b_read[name] = {**held, "replayed_routes_scaled_err": scaled_err(rep, want_logits),
+                        "replayed_routes_greedy_agreement":
+                        (rep.argmax(-1) == want_logits.argmax(-1)).float().mean().item()}
+        x = b_read[name]
+        if not (x["engine_scaled_err"] <= SCALED_TOL_FULL
+                and x["replayed_routes_scaled_err"] <= SCALED_TOL_FULL
+                and x["replayed_routes_greedy_agreement"] >= 0.8):
+            raise AssertionError(f"(b) {name}: 2 ranks vs one device {x}")
+    say(f"    {json.dumps(b_read)}")
+    return summed(*[rk[name]["launches"] for rk in ranks for name in ("long", "short")]), b_read
+
+
+def phase20_c(job_dir: Path, backend: str) -> tuple[dict, list]:
+    """(c) over ``backend``: (launches summed over the ranks and runs,
+    each rank's readings)."""
+    say(f"[20c] olmo_1b at full width, {DP_LAYERS} layers, on {_two_ranks(backend)}, "
+        f"mesh (2, 1), "
+        f"{DP_BATCH_PER_RANK} x {TRAIN_SEQ} a rank, against one process's "
+        f"{2 * DP_BATCH_PER_RANK} x {TRAIN_SEQ} step: plain, with compressed "
+        f"gradients, with FSDP")
+    run_phase20_part("c", 2, job_dir, backend)
+    c = [json.loads((job_dir / f"c_rank{r}.json").read_text()) for r in range(2)]
+    n = DP_LAYERS * 2                   # layers x the two steps of a run
+    want = {**dict.fromkeys(c[0]["plain"]["launches"], 0),
+            "flash_attention_fwd_lse": 2 * n, "flash_attention_bwd_dkv": n,
+            "flash_attention_bwd_dq": n}
+    for r, x in enumerate(c):
+        for tag, _, _ in DP_RUNS:
+            if x[tag]["launches"] != want:
+                raise AssertionError(f"(c) rank {r} {tag}: launches "
+                                     f"{x[tag]['launches']} != {want}")
+    say(f"    {json.dumps(c)}")
+    return summed(*[x[t]["launches"] for x in c for t, _, _ in DP_RUNS]), c
+
+
+def summed(*runs: dict) -> dict:
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
+def check_multi_device(torch, card: str) -> tuple[dict, dict]:
+    """Phase 20: the multi-device layer on the card, in child processes
+    (each under PHASE20_TIMEOUT_S): (a) one NCCL rank, (b) two gloo ranks
+    sharing the card serving OLMoE expert- and context-parallel, (c) two
+    gloo ranks of data parallelism, plain, with compressed gradients and
+    with FSDP. Returns the launch counts by path and the readings."""
+    import tempfile
+
+    job_dir = Path(tempfile.mkdtemp(prefix="phase20-"))
+    t0 = time.perf_counter()
+    counts, readings = {}, {}
+    counts["olmo_1b_mesh_train"], readings["a"] = phase20_a(job_dir)
+    counts["olmoe_1b_7b_two_ranks"], readings["b"] = phase20_b(torch, job_dir, "gloo")
+    counts["olmo_1b_dp_train"], readings["c"] = phase20_c(job_dir, "gloo")
+    say(f"    phase 20 in {time.perf_counter() - t0:.1f} s on {card}")
+    return counts, readings
+
+
 def main() -> int:
     import dataclasses
 
@@ -4226,11 +4904,17 @@ def main() -> int:
 
     # 18. training through the fused RMSNorm and the SSD scan
     rmsnorm_train = check_rmsnorm_training(torch, kernels)
+    torch.cuda.empty_cache()
+
+    # 20. the multi-device layer: one NCCL rank, two gloo ranks sharing the
+    # card (context- and expert-parallel serving, data-parallel training)
+    multi_device, _ = check_multi_device(torch, card)
 
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
-               "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train}
+               "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train,
+               **multi_device}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
@@ -4275,4 +4959,8 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--capture-failure"]:
         sys.path.insert(0, str(ROOT / "src"))
         sys.exit(capture_failure_raises())
+    if sys.argv[1:2] == ["--phase20"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        part, job_dir, rank, world, backend = sys.argv[2:7]
+        sys.exit(phase20_child(part, job_dir, int(rank), int(world), backend))
     sys.exit(main())

@@ -12,6 +12,7 @@ stack (``mamba2_130m``), Jamba's hybrid attention/SSM blocks with MoE
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from ..models.config import ModelConfig
@@ -20,6 +21,25 @@ from ..models.config import ModelConfig
 ARCH_IDS = ["mistral_nemo_12b", "mamba2_130m", "olmo_1b", "minitron_4b",
             "command_r_35b", "gpt3_175b", "olmoe_1b_7b", "qwen3_moe_235b",
             "llama32_vision_11b", "seamless_m4t_medium", "jamba_v01_52b"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (sequence length, global batch, phase) cell of the reference's
+    shape grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    phase: str               # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

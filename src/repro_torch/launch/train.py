@@ -1,4 +1,5 @@
-"""Training launcher of the port: one device, synthetic tokens.
+"""Training launcher of the port: synthetic tokens on one device or over
+a (data, model) mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b \\
       --steps 8 --batch 8 --seq 2048 --repeat
@@ -6,11 +7,23 @@
       --steps 8 --batch 8 --seq 2048 --repeat
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
+  # 8 ranks, one card each (NCCL), or on the CPU (gloo):
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch olmo_1b --smoke --steps 20 --mesh 2x4 --fsdp
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch olmo_1b --smoke --steps 20 --mesh 2x4 --fsdp --device cpu
+
 :func:`run_train` is the importable body; ``main`` is the argparse shell,
-with the reference's flags (``--mesh`` and ``--fsdp`` wait for the
-multi-device layer). Every architecture trains (``--arch``), on the
+with the reference's flags. Every architecture trains (``--arch``), on the
 CUDA card unless ``device`` (``--device``) says otherwise: ``--device
-cpu`` runs the kernels' plain versions.
+cpu`` runs the kernels' plain versions. With ``mesh`` (``--mesh 2x4``,
+data x model, or pod x data x model) the run joins the process group that
+``torchrun`` (or ``torch.multiprocessing.spawn`` with ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set) describes: NCCL on
+card ``LOCAL_RANK``, gloo with ``--device cpu``; each rank holds its
+blocks of the parameters (``--fsdp``: FSDP-sharded over the data axes too)
+and takes its rows of the global batch, which every rank draws from the
+same seed.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from ..train.data import SyntheticTokens
 from ..train.fault import StragglerMonitor
 from ..train.optimizer import AdamWConfig, adamw_init
 from ..train.trainer import make_train_step
+from ..parallel.logical import use_rules
 
 
 @dataclasses.dataclass
@@ -41,25 +55,56 @@ class TrainResult:
     peak_memory_bytes: int | None  # torch.cuda.max_memory_allocated; None on CPU
     n_params: int
     device: str
+    mesh: dict | None = None     # axis -> size, where the run had a mesh
 
 
 def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
               seq: int = 128, accum: int = 1, lr: float = 3e-4,
               seed: int = 0, device=None, ckpt_dir: str | None = None,
-              ckpt_every: int = 0, repeat: bool = False) -> TrainResult:
+              ckpt_every: int = 0, repeat: bool = False, mesh=None,
+              fsdp: bool = False,
+              compress_dp_grads: bool = False) -> TrainResult:
     """Initialise params from ``seed`` (in ``cfg.param_dtype``), then take
     ``steps`` AdamW steps on synthetic tokens (numpy, ``seed``), with the
     image embeddings or audio frames the config's memory takes; with
     ``repeat`` every step sees the first batch (the loss must fall). Saves
     a checkpoint every ``ckpt_every`` steps (asynchronously) to
-    ``ckpt_dir``."""
-    device = resolve_device(device)
+    ``ckpt_dir``. ``mesh``: a :class:`~repro_torch.parallel.dist.Mesh`, or
+    a spec such as ``"2x4"`` over the process group (joined here if it is
+    not yet); each rank then trains its blocks (``fsdp``, as
+    ``make_train_step``) and the result's losses are the global ones."""
+    if mesh is None:
+        return _run(cfg, steps, batch, seq, accum, lr, seed,
+                    resolve_device(device), ckpt_dir, ckpt_every, repeat,
+                    None, fsdp, compress_dp_grads)
+    from .mesh import init_ranks, make_axis_rules, parse_mesh
+    if isinstance(mesh, str):
+        dev = init_ranks(device or "cuda")
+        mesh = parse_mesh(mesh, dev)
+    else:
+        dev = resolve_device(device)
+    with use_rules(make_axis_rules(mesh, cfg), mesh):
+        return _run(cfg, steps, batch, seq, accum, lr, seed, dev, ckpt_dir,
+                    ckpt_every, repeat, mesh, fsdp, compress_dp_grads)
+
+
+def _run(cfg, steps, batch, seq, accum, lr, seed, device, ckpt_dir,
+         ckpt_every, repeat, mesh, fsdp, compress_dp_grads) -> TrainResult:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    master = cfg.param_dtype == "bfloat16"
     params = init_params(cfg, seed=seed, device=device,
                          dtype=param_dtype(cfg))
-    opt = adamw_init(params, master=cfg.param_dtype == "bfloat16")
-    step_fn = make_train_step(cfg, AdamWConfig(lr=lr), accum=accum)
+    n_params = param_count(params)
+    if mesh is not None:
+        from .shardings import opt_shardings, param_shardings, shard_tree
+        params = shard_tree(params, param_shardings(cfg, mesh, fsdp), mesh,
+                            copy=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    opt = adamw_init(params, master=master)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=lr), accum=accum,
+                              compress_dp_grads=compress_dp_grads, fsdp=fsdp)
     extras = {}
     if cfg.family == "vlm":
         extras["image_embeds"] = (cfg.n_image_tokens, cfg.d_model)
@@ -74,8 +119,12 @@ def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
             tempfile.gettempdir(), "repro_torch_launch_train"))
     mon = StragglerMonitor()
     losses, times = [], []
-    print(f"{cfg.name}: {param_count(params):,} params on {device}, "
-          f"{batch} x {seq} tokens per step, accum {accum}")
+    where = "" if mesh is None else f", mesh {mesh.sizes}" + (
+        " fsdp" if fsdp else "")
+    say = print if mesh is None or torch.distributed.get_rank() == 0 else \
+        (lambda *a, **k: None)
+    say(f"{cfg.name}: {n_params:,} params on {device}{where}, "
+        f"{batch} x {seq} tokens per step, accum {accum}")
     for step in range(steps):
         b = first if repeat or step == 0 else next(data)
         synchronize(device)
@@ -87,10 +136,17 @@ def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
         losses.append(loss)
         times.append(dt)
         if step % 5 == 0 or step == steps - 1:
-            print(f"step {step:4d}  loss {loss:7.4f}  grad_norm "
+            say(f"step {step:4d}  loss {loss:7.4f}  grad_norm "
                   f"{float(metrics['grad_norm']):8.4f}  {dt * 1e3:8.1f} ms")
         if mgr and (step + 1) % ckpt_every == 0:
-            mgr.save_async(step + 1, {"params": params, "opt": opt})
+            tree = {"params": params, "opt": opt}
+            if mesh is not None:     # the checkpoint holds whole arrays
+                from .shardings import gather_tree
+                tree = gather_tree(tree, {
+                    "params": param_shardings(cfg, mesh, fsdp),
+                    "opt": opt_shardings(cfg, mesh, fsdp, master)}, mesh)
+            if mesh is None or torch.distributed.get_rank() == 0:
+                mgr.save_async(step + 1, tree)
     if mgr:
         mgr.wait()
     steady = times[1:] or times
@@ -98,8 +154,9 @@ def run_train(cfg: ModelConfig, steps: int = 20, batch: int = 8,
             if device.type == "cuda" else None)
     return TrainResult(losses=losses, step_times=times,
                        tokens_per_s=batch * seq * len(steady) / sum(steady),
-                       peak_memory_bytes=peak, n_params=param_count(params),
-                       device=str(device))
+                       peak_memory_bytes=peak, n_params=n_params,
+                       device=str(device),
+                       mesh=None if mesh is None else mesh.sizes)
 
 
 def main():
@@ -115,27 +172,30 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeat", action="store_true",
                     help="train on the first batch at every step")
-    ap.add_argument("--mesh", help="multi-device mesh (not ported)")
-    ap.add_argument("--fsdp", action="store_true", help="(not ported)")
+    ap.add_argument("--mesh", help="e.g. 2x4 (data x model), over the ranks "
+                    "torchrun starts")
+    ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--bf16-params", action="store_true")
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", help="default: the CUDA card")
     args = ap.parse_args()
-    if args.mesh or args.fsdp:
-        raise NotImplementedError(
-            "--mesh and --fsdp wait for the multi-device layer "
-            "(ROADMAP.md queue 1 item 9)")
+    if args.fsdp and not args.mesh:
+        ap.error("--fsdp shards over a mesh: give --mesh")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.bf16_params:
         cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     res = run_train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                     accum=args.accum, lr=args.lr, seed=args.seed,
                     device=args.device, ckpt_dir=args.ckpt_dir,
-                    ckpt_every=args.ckpt_every, repeat=args.repeat)
+                    ckpt_every=args.ckpt_every, repeat=args.repeat,
+                    mesh=args.mesh, fsdp=args.fsdp)
     peak = ("" if res.peak_memory_bytes is None
             else f", peak memory {res.peak_memory_bytes / 2**30:.2f} GiB")
-    print(f"done: {res.tokens_per_s:.1f} tokens/s{peak}")
+    if not args.mesh or torch.distributed.get_rank() == 0:
+        print(f"done: {res.tokens_per_s:.1f} tokens/s{peak}")
+    if args.mesh:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -36,6 +36,15 @@ alone. Parameters are dictionaries of tensors with the
 reference's names and shapes; projection matrices may be held in the
 compute dtype (``_mm`` casts a weight to the activation's dtype first, as
 the reference does per call).
+
+Under installed rules and a mesh (``parallel/logical.use_rules``), each
+parameter is this rank's block of what ``param_spec`` shards on 'model'
+(Megatron tensor parallelism): q/k/v and the MLP's wi/wg column-parallel,
+wo row-parallel with its output all-reduced (:func:`_row_out`), the
+experts split (``parallel/moe.py``), and a decode step's cache the rank's
+block of the sequence, merged by the log-sum-exp (``parallel/context.py``).
+Without rules, nothing here reads the mesh and every path is the one
+above.
 """
 from __future__ import annotations
 
@@ -48,12 +57,51 @@ from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention, flash_attention_train
 from ..kernels.rmsnorm.ops import fused_rmsnorm
 from ..kernels.ssd.ops import ssd_chunk
+from ..parallel import dist as pd
+from ..parallel.logical import current_mesh, current_rules
 from .config import ModelConfig
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Projection matmul: the weight in the activation's dtype."""
     return torch.matmul(x, w.to(x.dtype))
+
+
+# ============================ the model axis =================================
+def model_mesh():
+    """The installed mesh when rules are installed with it and its 'model'
+    axis has more than one rank, else None: the layers then hold the local
+    blocks that ``param_spec`` names (heads, ff, vocab, experts) and put the
+    axis' collectives in themselves."""
+    mesh = current_mesh()
+    if mesh is None or current_rules() is None or mesh.size("model") == 1:
+        return None
+    return mesh
+
+
+def reduce_dtype(cfg: ModelConfig, y: torch.Tensor) -> torch.dtype:
+    """The dtype a row-parallel product's partial sums are all-reduced in:
+    f32, as the reference's dot emits f32 before its cast, or the
+    activation's with ``cfg.matmul_out == "bf16"``."""
+    return y.dtype if cfg.matmul_out == "bf16" else torch.float32
+
+
+def _split(n: int, width: int, cfg_n: int, what: str) -> bool:
+    """Whether a projection of ``width`` columns of ``n``-wide heads holds a
+    block of the config's ``cfg_n`` heads (True) or all of them."""
+    if width % n:
+        raise NotImplementedError(
+            f"{what}: a block of {width} columns splits a head of {n}; the "
+            "port shards whole heads (a model axis that divides the heads)")
+    return width // n != cfg_n
+
+
+def _row_out(y: torch.Tensor, cfg: ModelConfig, mesh, split: bool) -> torch.Tensor:
+    """A row-parallel product's output summed over 'model' where its input
+    was split."""
+    if not split:
+        return y
+    return pd.reduce_from(y, mesh.group("model"), reduce_dtype(cfg, y))
 
 
 # ================================ norms ======================================
@@ -137,6 +185,9 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
     (B, S, Hkv, hd), so prefill can fill the cache in the same pass."""
     b, s, _ = x.shape
     hd = cfg.hd
+    mesh = model_mesh()
+    if mesh is not None:
+        return _self_attention_model_axis(p, x, cfg, rope, causal, mesh)
     q = _mm(x, p["wq"]).view(b, s, cfg.n_heads, hd)
     k = _mm(x, p["wk"]).view(b, s, cfg.n_kv_heads, hd)
     v = _mm(x, p["wv"]).view(b, s, cfg.n_kv_heads, hd)
@@ -146,6 +197,29 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, rope,
                 causal)                                     # (B, H, S, hd)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
     return _mm(o, p["wo"]), k, v
+
+
+def _self_attention_model_axis(p, x, cfg, rope, causal, mesh):
+    """:func:`self_attention` on this rank's heads (Megatron): q/k/v
+    column-parallel, the attention on the local heads, wo row-parallel and
+    its output all-reduced. k and v come back with this rank's kv heads
+    (all of them where the K/V projections are whole)."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    split = _split(hd, p["wq"].shape[1], cfg.n_heads, "wq")
+    hq, hk = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    if split != _split(hd, p["wk"].shape[1], cfg.n_kv_heads, "wk"):
+        raise NotImplementedError("query and K/V heads must both be split "
+                                  "over 'model', or neither")
+    if split:
+        x = pd.copy_to(x, mesh.group("model"))
+    q = rotate(_mm(x, p["wq"]).view(b, s, hq, hd), *rope)
+    k = rotate(_mm(x, p["wk"]).view(b, s, hk, hd), *rope)
+    v = _mm(x, p["wv"]).view(b, s, hk, hd)
+    o = _attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal)
+    o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    return _row_out(_mm(o, p["wo"]), cfg, mesh, split), k, v
 
 
 def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -160,6 +234,11 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     Returns (out (B, 1, d), cache_k, cache_v)."""
     b, _, _ = x.shape
     hd = cfg.hd
+    mesh = current_mesh()
+    if mesh is not None and current_rules() is not None and (
+            mesh.size("model") > 1 or cfg.decode_attn == "context_parallel"):
+        return _decode_context_parallel(p, x, cache_k, cache_v, pos, cfg,
+                                        rope, kv_len, mesh)
     q = _mm(x, p["wq"]).view(b, 1, cfg.n_heads, hd)
     k = _mm(x, p["wk"]).view(b, 1, cfg.n_kv_heads, hd)
     v = _mm(x, p["wv"]).view(b, 1, cfg.n_kv_heads, hd)
@@ -172,6 +251,52 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                          return_lse=False)                 # (B, H, hd)
     o = o.reshape(b, 1, cfg.n_heads * hd)
     return _mm(o, p["wo"]), cache_k, cache_v
+
+
+def _decode_context_parallel(p, x, cache_k, cache_v, pos, cfg, rope, kv_len,
+                             mesh):
+    """:func:`decode_self_attention` with the cache's sequence sharded on
+    'model' (``cache_shardings``; ``init_cache`` under the rules holds this
+    rank's block of ``max_len / m`` positions, all kv heads): q/k/v on this
+    rank's heads, gathered to all heads (tiny); the new K/V written by the
+    rank whose block holds ``pos``, on the device; the attention over the
+    local block through the decode kernel with its LSE, merged over
+    'model' (``parallel/context.py``); this rank's heads of o through the
+    row-parallel wo, all-reduced. The reference chooses, with
+    ``decode_attn``, between this schedule and the partitioner's over the
+    same sequence-sharded cache; the port runs this one under any model
+    axis of more than one rank, and with ``decode_attn ==
+    "context_parallel"`` under a model axis of one too."""
+    from ..parallel.context import decode_attention_cache_layout
+    b = x.shape[0]
+    hd = cfg.hd
+    group = mesh.group("model") if mesh.size("model") > 1 else None
+    split = _split(hd, p["wq"].shape[1], cfg.n_heads, "wq")
+    hq, hk = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    if split != _split(hd, p["wk"].shape[1], cfg.n_kv_heads, "wk"):
+        raise NotImplementedError("query and K/V heads must both be split "
+                                  "over 'model', or neither")
+    q = rotate(_mm(x, p["wq"]).view(b, 1, hq, hd), *rope)
+    k = rotate(_mm(x, p["wk"]).view(b, 1, hk, hd), *rope)
+    v = _mm(x, p["wv"]).view(b, 1, hk, hd)
+    if split:      # every rank's heads of q, k and v in one gather
+        qkv = pd.all_gather(torch.cat([q, k, v], dim=2)[None], 0, group)
+        q, k, v = (t.transpose(0, 2).reshape(b, 1, -1, hd) for t in
+                   qkv.split([hq, hk, hk], dim=3))
+    s_local = cache_k.shape[1]
+    local = pos - mesh.index("model") * s_local
+    mine = (local >= 0) & (local < s_local)
+    at = local.clamp(0, s_local - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache.index_copy_(1, at, torch.where(
+            mine[:, None, None, None], new.to(cache.dtype),
+            cache.index_select(1, at)))
+    o = decode_attention_cache_layout(mesh, q[:, 0], cache_k, cache_v,
+                                      kv_len)                # (B, H, hd)
+    if split:
+        o = o[:, mesh.index("model") * hq:(mesh.index("model") + 1) * hq]
+    o = o.reshape(b, 1, hq * hd)
+    return _row_out(_mm(o, p["wo"]), cfg, mesh, split), cache_k, cache_v
 
 
 def _memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig):
@@ -221,8 +346,13 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, silu(x wg) * (x wi), or (without ``wg``) GELU(x wi); then
     wo. GELU is the tanh form, ``jax.nn.gelu``'s default (PyTorch's
     default, the erf form, differs by ~1e-3)."""
+    mesh = model_mesh()
+    split = mesh is not None and p["wi"].shape[1] != cfg.d_ff
+    if split:
+        x = pd.copy_to(x, mesh.group("model"))
     g = _mm(x, p["wg"]) if "wg" in p else None
-    return _mm(_activation(_mm(x, p["wi"]), g), p["wo"])
+    y = _mm(_activation(_mm(x, p["wi"]), g), p["wo"])
+    return _row_out(y, cfg, mesh, split)
 
 
 # ================================= MoE =======================================
@@ -270,25 +400,44 @@ def moe_dispatch(p: dict, xt: torch.Tensor, cfg: ModelConfig,
 def moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
         capacity_factor: float | None = None) -> torch.Tensor:
     """Top-k token-choice MoE with capacity-bounded scatter dispatch
-    (Switch/GShard style), the reference's ``moe`` without a device mesh.
-    x: (B, S, d). Each (token, slot) goes to its expert's buffer (E, cap, d)
-    at its rank there; a slot past the capacity is dropped: its row is zero
-    and its combine reads slot (0, 0) with weight 0, as the reference. The
-    experts
-    are three batched products over (E, cap, d); the combine gathers each
-    slot's output back and weights it by its gate.
+    (Switch/GShard style), the reference's ``moe``. x: (B, S, d). Each
+    (token, slot) goes to its expert's buffer (E, cap, d) at its rank there;
+    a slot past the capacity is dropped: its row is zero and its combine
+    reads slot (0, 0) with weight 0, as the reference. The experts are three
+    batched products over (E, cap, d); the combine gathers each slot's
+    output back and weights it by its gate (:func:`moe_experts`).
 
-    The reference's hand-scheduled expert-parallel dispatch
-    (``moe_dispatch="shard_map"``) needs a device mesh and raises here."""
-    if cfg.moe_dispatch == "shard_map":
-        raise NotImplementedError(
-            "moe_dispatch='shard_map' needs a device mesh (ROADMAP.md queue 1 "
-            "item 9); the port dispatches by scatter")
+    Under installed rules and a mesh (``parallel/moe.py``): with
+    ``moe_dispatch="shard_map"`` and a 'model' axis that divides the
+    experts, the reference's expert-parallel schedule (routing over this
+    rank's tokens); otherwise the same dispatch as one device over the
+    global batch, each rank running its experts. Without a mesh
+    ``"shard_map"`` computes this scatter dispatch, as the reference does."""
+    mesh = current_mesh()
+    if mesh is not None and current_rules() is not None:
+        from ..parallel.moe import moe_mesh, moe_shard_map
+        if (cfg.moe_dispatch == "shard_map" and "model" in mesh.axis_names
+                and cfg.moe_experts % mesh.size("model") == 0):
+            return moe_shard_map(p, x, cfg, mesh, capacity_factor)
+        return moe_mesh(p, x, cfg, mesh, capacity_factor)
     b, s, d = x.shape
-    e, t, k = cfg.moe_experts, b * s, cfg.moe_top_k
-    xt = x.reshape(t, d)
+    xt = x.reshape(b * s, d)
     gates, idx, rank, keep, cap = moe_dispatch(p, xt, cfg, capacity_factor)
-    slot = torch.where(keep, idx * cap + rank, 0)          # (expert, rank)
+    y = moe_experts(p, xt, gates, idx, rank, keep, cap, 0, cfg.moe_experts)
+    return y.reshape(b, s, d)
+
+
+def moe_experts(p: dict, xt: torch.Tensor, gates, idx, rank, keep, cap: int,
+                lo: int, e_local: int) -> torch.Tensor:
+    """The experts ``lo .. lo + e_local - 1`` (``p``'s expert weights) over
+    their capacity buffers, combined back to token order: (T, d), the sum
+    of each token's slots routed to these experts (all of them, on one
+    device), weighted by their gates."""
+    t, d = xt.shape
+    k = idx.shape[1]
+    if lo or e_local != p["router"].shape[1]:
+        keep = keep & (idx >= lo) & (idx < lo + e_local)
+    slot = torch.where(keep, (idx - lo) * cap + rank, 0)   # (expert, rank)
     w_keep = gates * keep
     # The reference adds each pair's token, times (gate > 0), into its
     # slot. Pairs with a gate > 0 have distinct slots, so plain row copies
@@ -296,17 +445,16 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # add zeros (the dropped ones to slot (0, 0)), which changes nothing:
     # they go to a spare row past the buffer instead (an accumulating
     # scatter took 20 ms a layer at OLMoE's prefill on an H100).
-    dest = torch.where(w_keep > 0, slot, e * cap)
-    rows = x.new_zeros((e * cap + 1, d))
+    dest = torch.where(w_keep > 0, slot, e_local * cap)
+    rows = xt.new_zeros((e_local * cap + 1, d))
     for j in range(k):
         rows.index_copy_(0, dest[:, j], xt)
-    buf = rows[:-1].view(e, cap, d)
-    h = torch.bmm(buf, p["wi"].to(x.dtype))
-    g = torch.bmm(buf, p["wg"].to(x.dtype)) if "wg" in p else None
-    out = torch.bmm(_activation(h, g), p["wo"].to(x.dtype))
-    y = out.view(e * cap, d).index_select(0, slot.reshape(-1)).view(t, k, d)
-    y = (y * w_keep[..., None].to(x.dtype)).sum(dim=1)
-    return y.reshape(b, s, d)
+    buf = rows[:-1].view(e_local, cap, d)
+    h = torch.bmm(buf, p["wi"].to(xt.dtype))
+    g = torch.bmm(buf, p["wg"].to(xt.dtype)) if "wg" in p else None
+    out = torch.bmm(_activation(h, g), p["wo"].to(xt.dtype))
+    y = out.view(e_local * cap, d).index_select(0, slot.reshape(-1)).view(t, k, d)
+    return (y * w_keep[..., None].to(xt.dtype)).sum(dim=1)
 
 
 def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -314,6 +462,10 @@ def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     token, and the outputs combine by the top-k gates. Exact (nothing
     dropped) and free of host reads, so a decode step that runs it can be
     captured in a CUDA graph. x: (B, S, d)."""
+    mesh = model_mesh()
+    if mesh is not None and p["wi"].shape[0] != cfg.moe_experts:
+        from ..parallel.moe import moe_dense_mesh
+        return moe_dense_mesh(p, x, cfg, mesh)
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     xt = x.reshape(b * s, d)

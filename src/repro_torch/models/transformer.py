@@ -74,6 +74,16 @@ into one). The cache write, the RoPE angles and the attention's ``kv_len``
 are computed from it on the device, so one step captured in a CUDA graph
 (``serve/engine.py``) is replayed at every later position; the memory is
 read by address, so a replay sees what was copied into it.
+
+Over a mesh (inside ``use_rules(rules, mesh)``), the functions take this
+rank's blocks: the parameters ``launch/shardings.param_shardings`` names,
+its rows of the batch and, from :func:`init_cache` (given the global batch
+and ``max_len``), its block of the cache. Where a model axis shards the
+vocabulary, the embedding is looked up per block and summed, and the
+logits are this rank's block of the vocabulary (:func:`gather_vocab`),
+which ``loss_fn`` reduces by the vocab-parallel cross-entropy. SSM,
+hybrid, cross-attention and encoder layers raise under a model axis of
+more than one rank (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -86,6 +96,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..kernels.rmsnorm.ops import fused_rmsnorm
+from ..parallel import dist as pd
+from ..parallel.logical import current_mesh, current_rules
 from . import layers as L
 from .config import ModelConfig
 
@@ -96,12 +108,18 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs every layer pattern of the reference (dense, MoE,
-    SSM, hybrid attention/SSM blocks, cross-attention, encoder-decoder)
-    on one device; what needs a device mesh raises."""
-    if cfg.moe_experts and cfg.moe_dispatch == "shard_map":
+    SSM, hybrid attention/SSM blocks, cross-attention, encoder-decoder) on
+    one device and over data axes. Under installed rules with a 'model'
+    axis of more than one rank it runs attention with an MLP or MoE;
+    SSM, hybrid, cross-attention and encoder layers raise there."""
+    if L.model_mesh() is None:
+        return
+    kinds = {cfg.layer_kind(i) for i in range(cfg.block_size)}
+    if "ssm" in kinds or cfg.cross_attn_every > 0 or cfg.is_enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: moe_dispatch='shard_map' needs a device mesh "
-            "(ROADMAP.md queue 1 item 9); the port dispatches by scatter")
+            f"{cfg.name}: SSM, hybrid, cross-attention and encoder layers "
+            "under a model axis of more than one rank wait for port slice 16 "
+            "(ROADMAP.md queue 1 item 9); run them over data axes")
 
 
 # ================================ init =======================================
@@ -152,7 +170,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     check_supported(cfg)
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"     # shapes only (launch/shardings)
+           else torch.Generator(device=device).manual_seed(seed))
     norm_init, _ = L.make_norm(cfg)
     params: dict = {
         "embed": L.dense_init(gen, cfg.d_model, (cfg.vocab, cfg.d_model),
@@ -301,6 +320,59 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The tokens' embeddings in ``dtype``. Where a model axis shards the
+    vocabulary, each rank looks up the tokens in its rows (zero for the
+    others) and the sum over 'model' (exact: one term is not zero) puts
+    every row together."""
+    emb = params["embed"]
+    mesh = L.model_mesh()
+    if mesh is None or emb.shape[0] == cfg.vocab:
+        return emb[tokens].to(dtype)
+    v_l = emb.shape[0]
+    local = tokens - mesh.index("model") * v_l
+    mine = (local >= 0) & (local < v_l)
+    x = emb[local.clamp(0, v_l - 1)] * mine[..., None]
+    return pd.reduce_from(x, mesh.group("model")).to(dtype)
+
+
+def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """h times the head: (..., V), or where a model axis shards the
+    vocabulary this rank's block of it (..., V / m), as the reference's
+    logits are sharded on 'vocab' (:func:`gather_vocab` puts them
+    together)."""
+    head = _head(cfg, params)
+    mesh = L.model_mesh()
+    if mesh is not None and head.shape[1] != cfg.vocab:
+        h = pd.copy_to(h, mesh.group("model"))
+    return L._mm(h, head)
+
+
+def gather_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary: a rank's block of them gathered
+    over 'model' (a no-op where they are whole)."""
+    mesh = L.model_mesh()
+    if mesh is None or logits.shape[-1] == cfg.vocab:
+        return logits
+    return pd.all_gather(logits, -1, mesh.group("model"))
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, mesh):
+    """(logsumexp, gold logit) of f32 logits that are this rank's block of
+    the vocabulary (Megatron's vocab-parallel cross-entropy): a MAX and two
+    SUMs over 'model'."""
+    import torch.distributed as dist
+    g = mesh.group("model")
+    v_l = logits.shape[-1]
+    m = pd.all_reduce(logits.detach().amax(-1), g, op=dist.ReduceOp.MAX)
+    se = pd.reduce_from(torch.exp(logits - m[..., None]).sum(-1), g)
+    local = labels - mesh.index("model") * v_l
+    mine = (local >= 0) & (local < v_l)
+    gold = torch.gather(logits, -1, local.clamp(0, v_l - 1)[..., None])[..., 0]
+    return m + torch.log(se), pd.reduce_from(gold * mine, g)
+
+
 def _rope(cfg: ModelConfig, n: int, device):
     """RoPE tables of positions 0..n-1; None without attention."""
     if cfg.attention_free:
@@ -316,6 +388,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor
     0..T-1) and an MLP, then ``enc_final_norm``. Runs in the frames' dtype,
     as the reference does; the decoder casts the result to its compute
     dtype."""
+    check_supported(cfg)
     rope = _rope(cfg, frames.shape[1], frames.device)
 
     def mix(b, i, lp, h):
@@ -338,9 +411,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             memory: torch.Tensor | None = None) -> torch.Tensor:
     """tokens: (B, S) int; memory: (B, M, d), the VLM's image embeddings or
     the encoder's output, for the cross-attention layers (skipped without
-    it). Returns logits (B, S, V) in the compute dtype."""
+    it). Returns logits (B, S, V) in the compute dtype (this rank's block
+    of V where a model axis shards the vocabulary)."""
+    check_supported(cfg)
     dtype = compute_dtype(cfg)
-    x = params["embed"][tokens].to(dtype)
+    x = _embed(cfg, params, tokens, dtype)
     rope = _rope(cfg, tokens.shape[1], x.device)
 
     def mix(b, i, lp, h):
@@ -349,7 +424,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         return L.self_attention(lp["attn"], h, cfg, rope)[0]
 
     h = _run_stack(cfg, params, x, mix, cross=_cross(cfg, memory))
-    return L._mm(h, _head(cfg, params))
+    return _logits(cfg, params, h)
 
 
 def _memory_from_batch(cfg: ModelConfig, params: dict, batch: dict):
@@ -366,12 +441,17 @@ def _memory_from_batch(cfg: ModelConfig, params: dict, batch: dict):
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy over f32 logits (``logsumexp``),
     weighted by ``batch["mask"]`` where given; the memory from
-    :func:`_memory_from_batch`."""
+    :func:`_memory_from_batch`. Vocabulary-sharded logits (a model axis)
+    take the vocab-parallel cross-entropy."""
     memory = _memory_from_batch(cfg, params, batch)
     logits = forward(cfg, params, batch["tokens"], memory=memory).float()
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh = L.model_mesh()
+    if mesh is not None and logits.shape[-1] != cfg.vocab:
+        logz, gold = _vocab_parallel_terms(logits, labels, mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(logz)
@@ -416,10 +496,27 @@ def cache_spec(cfg: ModelConfig) -> CacheSpec:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """A zero cache for ``batch`` sequences of ``max_len`` positions. Under
+    installed rules and a mesh, this rank's block of it as
+    ``cache_shardings`` lays it out: the batch over the data axes (where
+    they divide it) and, on a model axis of more than one rank, the
+    sequence over 'model' (``max_len`` must be a multiple of it)."""
     check_supported(cfg)
     device = resolve_device(device)
     nb = cfg.n_blocks
     spec = cache_spec(cfg)
+    mesh = current_mesh()
+    if mesh is not None and current_rules() is not None:
+        from ..launch.mesh import batch_axes
+        n_data = mesh.size(batch_axes(mesh))
+        if batch % n_data == 0:
+            batch //= n_data
+        m = mesh.size("model")
+        if m > 1 and spec.n_attn:
+            if max_len % m:
+                raise ValueError(f"max_len {max_len}: the cache's sequence is "
+                                 f"split over a model axis of {m}")
+            max_len //= m
     cache: dict = {}
     if spec.n_attn:
         shape = (nb, spec.n_attn, batch, max_len, cfg.n_kv_heads, cfg.hd)
@@ -447,15 +544,20 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     them. ``memory`` as for :func:`forward` (it is not cached: decode
     takes it again)."""
     b, s = tokens.shape
+    check_supported(cfg)
+    mesh = L.model_mesh()
+    m = 1 if mesh is None else mesh.size("model")
     if cache is None:
         max_len = s if max_len is None else max_len
         if max_len < s:
             raise ValueError(f"max_len {max_len} < prompt length {s}")
-        cache = init_cache(cfg, b, max_len, tokens.device)
+        if mesh is not None:
+            max_len = -(-max_len // m) * m
+        cache = _local_rows_cache(cfg, b, max_len, tokens.device)
     else:
-        _check_cache(cache, b, s)
+        _check_cache(cache, b, s, m)
     dtype = compute_dtype(cfg)
-    x = params["embed"][tokens].to(dtype)
+    x = _embed(cfg, params, tokens, dtype)
     rope = _rope(cfg, s, x.device)
 
     def mix(blk, slot, lp, h):
@@ -465,22 +567,51 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cache["conv"][blk, slot] = tail
             return out
         out, k, v = L.self_attention(lp["attn"], h, cfg, rope)
-        cache["k"][blk, slot, :, :s] = k
-        cache["v"][blk, slot, :, :s] = v
+        if mesh is None:
+            cache["k"][blk, slot, :, :s] = k
+            cache["v"][blk, slot, :, :s] = v
+        else:
+            _fill_sequence_block(cfg, cache, blk, slot, k, v, mesh)
         return out
 
     h = _run_stack(cfg, params, x, mix, cross=_cross(cfg, memory))
-    return L._mm(h, _head(cfg, params)), cache
+    return _logits(cfg, params, h), cache
 
 
-def _check_cache(cache: dict, b: int, s: int) -> None:
-    """A cache given to prefill serves ``b`` sequences of ``s`` tokens."""
+def _local_rows_cache(cfg: ModelConfig, b: int, max_len: int, device) -> dict:
+    """:func:`init_cache` for ``b`` local rows (the caller's block of the
+    data axes): the batch it is given is already this rank's."""
+    mesh = current_mesh()
+    if mesh is not None and current_rules() is not None:
+        from ..launch.mesh import batch_axes
+        b *= mesh.size(batch_axes(mesh))
+    return init_cache(cfg, b, max_len, device)
+
+
+def _fill_sequence_block(cfg: ModelConfig, cache: dict, blk: int, slot: int,
+                         k: torch.Tensor, v: torch.Tensor, mesh) -> None:
+    """Write the prompt's K/V (B, S, this rank's kv heads, hd) into this
+    rank's block of the sequence-sharded cache: the heads gathered over
+    'model', the block's positions kept."""
+    if k.shape[2] != cfg.n_kv_heads:        # every rank's heads, one gather
+        k, v = pd.all_gather(torch.stack([k, v]), 3, mesh.group("model")).unbind(0)
+    s_local = cache["k"].shape[3]
+    lo = mesh.index("model") * s_local
+    n = max(0, min(k.shape[1] - lo, s_local))
+    if n:
+        cache["k"][blk, slot, :, :n] = k[:, lo:lo + n]
+        cache["v"][blk, slot, :, :n] = v[:, lo:lo + n]
+
+
+def _check_cache(cache: dict, b: int, s: int, m: int = 1) -> None:
+    """A cache given to prefill serves ``b`` sequences of ``s`` tokens (its
+    sequence split over ``m`` ranks)."""
     for name, t in cache.items():
         if t.shape[2] != b:
             raise ValueError(f"cache {name!r} holds {t.shape[2]} sequences, the "
                              f"prompt batch {b}")
-    if "k" in cache and cache["k"].shape[3] < s:
-        raise ValueError(f"cache of {cache['k'].shape[3]} positions < prompt "
+    if "k" in cache and cache["k"].shape[3] * m < s:
+        raise ValueError(f"cache of {cache['k'].shape[3] * m} positions < prompt "
                          f"length {s}")
 
 
@@ -505,8 +636,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     int; memory: (B, M, d) as for :func:`forward`, read by address.
     Updates ``cache`` in place and returns (logits (B, V), cache).
     Reads nothing on the host: CUDA-graph capturable."""
+    check_supported(cfg)
     dtype = compute_dtype(cfg)
-    x = params["embed"][token][:, None, :].to(dtype)       # (B, 1, d)
+    x = _embed(cfg, params, token, dtype)[:, None, :]      # (B, 1, d)
     pos = position(pos, x.device)
     if not cfg.attention_free:
         rope = L.rope_tables(pos, cfg.hd, cfg.rope_theta)
@@ -531,4 +663,4 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                                             mem_len)
 
     h = _run_stack(cfg, params, x, mix, dense_moe=True, cross=cross)
-    return L._mm(h[:, 0], _head(cfg, params)), cache
+    return _logits(cfg, params, h[:, 0]), cache

@@ -25,7 +25,7 @@ the device, so the replayed step writes its K/V at the new position and
 attends over ``pos + 1`` keys. Sampling stays outside the graph. A capture
 that fails raises; the engine never falls back to eager decoding on the
 card. On the CPU, which the caller asks for explicitly, the same step runs
-eagerly. The kernels' launch counters count the graph's replays
+eagerly, as it does on the card under a mesh of more than one rank. The kernels' launch counters count the graph's replays
 (``kernels.launches()``).
 
 Prefill writes the first S positions of the cache, which leaves the same
@@ -54,9 +54,11 @@ import torch
 
 from ..device import resolve_device, synchronize
 from ..kernels._build import CountedGraph
-from ..models import decode_step, init_cache, prefill
+from ..models import decode_step, prefill
 from ..models.config import ModelConfig
-from ..models.transformer import compute_dtype
+from ..models.transformer import _local_rows_cache, compute_dtype, gather_vocab
+from ..parallel import dist as pd
+from ..parallel.logical import current_mesh, current_rules
 
 
 @dataclasses.dataclass
@@ -95,7 +97,7 @@ class _Slot:
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device,
                  memory_shape: tuple | None = None):
-        self.cache = init_cache(cfg, batch, max_len, device)
+        self.cache = _local_rows_cache(cfg, batch, max_len, device)
         self.token = torch.zeros(batch, dtype=torch.int64, device=device)
         self.pos = torch.zeros(1, dtype=torch.int64, device=device)
         self.memory = (None if memory_shape is None else torch.zeros(
@@ -112,6 +114,23 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = resolve_device(device)
+        # Under installed rules and a mesh (``launch/mesh.py``), created and
+        # called inside ``use_rules``: the prompts are the global batch, of
+        # which each rank serves its rows of the data axes where they divide
+        # it (else every rank serves all of it); the cache holds a multiple
+        # of the model axis' positions; the logits are gathered over the
+        # vocabulary to sample and split rows' tokens over the data axes to
+        # return. The decode step is captured where no collective spans two
+        # ranks (a mesh of one rank). Over more ranks every step runs
+        # eagerly: a gloo collective stages a CUDA tensor through the host
+        # and cannot be captured, and a step captured with NCCL collectives
+        # is unproven (over two H100s it did not finish; PERF.md).
+        self.mesh = current_mesh() if current_rules() is not None else None
+        if self.mesh is not None:
+            m = self.mesh.size("model")
+            self.max_len = -(-max_len // m) * m
+        self._capturable = self.device.type == "cuda" and (
+            self.mesh is None or max(self.mesh.shape) == 1)
         self._slots: dict[int, _Slot] = {}
         self.captures = 0            # decode steps captured into a CUDA graph
         self.capture_s = 0.0         # host seconds spent capturing them
@@ -128,11 +147,37 @@ class ServeEngine:
                 f"+ {n_tokens} new tokens > max_len {self.max_len}; "
                 f"re-create the engine with max_len >= {s + n_tokens}")
 
-    @staticmethod
-    def _sample(logits: torch.Tensor, temperature: float,
+    def _data_axes(self):
+        if self.mesh is None:
+            return None
+        return ("pod", "data") if "pod" in self.mesh.axis_names else "data"
+
+    def _rows_split(self, b: int) -> bool:
+        """Whether the ranks of the data axes each serve their block of a
+        batch of ``b`` rows (where there are several and they divide it)."""
+        ax = self._data_axes()
+        n = 1 if ax is None else self.mesh.size(ax)
+        return n > 1 and b % n == 0
+
+    def _local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch (all of it where the batch is
+        not split)."""
+        if not self._rows_split(x.shape[0]):
+            return x
+        ax = self._data_axes()
+        blk = x.shape[0] // self.mesh.size(ax)
+        return x[self.mesh.index(ax) * blk:(self.mesh.index(ax) + 1) * blk]
+
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch of a rank's block of rows (gathered over the
+        data axes)."""
+        return pd.all_gather(x, 0, self.mesh.group(self._data_axes()))
+
+    def _sample(self, logits: torch.Tensor, temperature: float,
                 rng: torch.Generator | None) -> torch.Tensor:
         """Greedy argmax, or one categorical draw per row from ``rng``;
         every call draws a fresh variate, so positions differ."""
+        logits = gather_vocab(self.cfg, logits)
         if temperature <= 0.0 or rng is None:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
@@ -166,7 +211,7 @@ class ServeEngine:
         slot.pos.fill_(pos)
         if memory is not None:
             slot.memory.copy_(memory)
-        if self.device.type != "cuda":
+        if not self._capturable:
             return decode_step(self.cfg, self.params, slot.cache, slot.token,
                                slot.pos, slot.memory)[0]
         if slot.graph is None:
@@ -190,13 +235,16 @@ class ServeEngine:
         graph = CountedGraph()
         t0 = time.perf_counter()
         try:
-            with graph.capture():
+            # thread-local: a CUDA call of another thread (NCCL's watchdog
+            # polling the events of earlier collectives) leaves the capture
+            # valid; this thread's own host reads still fail it
+            with graph.capture(capture_error_mode="thread_local"):
                 slot.logits = step()
         except RuntimeError as e:    # torch raises CUDA errors as RuntimeErrors
             raise RuntimeError(
                 f"ServeEngine: capturing the decode step of {self.cfg.name} at "
                 f"batch {slot.token.shape[0]} in a CUDA graph failed; the "
-                f"engine does not decode eagerly on the card") from e
+                f"engine does not decode eagerly where it can capture") from e
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
         slot.graph = graph
@@ -211,8 +259,10 @@ class ServeEngine:
         the engine's device."""
         b, s = prompts.shape
         self._check_window(b, s, n_tokens)
+        split = self._rows_split(b)
+        prompts = self._local_rows(prompts)
         if memory is not None:
-            memory = memory.to(self.device)
+            memory = self._local_rows(memory.to(self.device))
         with torch.no_grad():
             t0 = time.perf_counter()
             logits, slot = self._prefill(prompts, memory)
@@ -227,6 +277,8 @@ class ServeEngine:
                 toks.append(self._sample(logits_i, temperature, rng))
             synchronize(self.device)
             dt = time.perf_counter() - t1
+            if split:
+                toks = [self._all_rows(t) for t in toks]
         tpot = dt / max(n_tokens - 1, 1)
         return GenerationResult(
             tokens=[t.tolist() for t in toks], ttft=ttft, tpot=tpot,
@@ -242,8 +294,9 @@ class ServeEngine:
         and timed on its own. ``memory`` as for :meth:`generate`."""
         b, s = prompts.shape
         self._check_window(b, s, warmup + n_steps + 1)
+        prompts = self._local_rows(prompts)
         if memory is not None:
-            memory = memory.to(self.device)
+            memory = self._local_rows(memory.to(self.device))
         with torch.no_grad():
             t0 = time.perf_counter()
             logits, slot = self._prefill(prompts, memory)

@@ -7,8 +7,13 @@ written to a temp file and moved into place with ``os.replace`` (atomic on
 POSIX), then ``MANIFEST.json`` with the latest step. An empty dict (a
 non-parametric norm) is recorded by a ``~empty~`` marker, so restore is
 lossless. bf16 tensors are stored as f32 (exact; numpy has no bf16).
-Restore returns numpy arrays, or tensors on ``device``; restoring onto
-another mesh waits for the multi-device layer (ROADMAP.md queue 1 item 9).
+Restore returns numpy arrays, or tensors on ``device``.
+
+Elastic restore: checkpoints hold *whole* arrays (a run over a mesh
+gathers its blocks before it saves); ``restore(shardings=...)`` keeps the
+block of every leaf that the given spec tree names on the mesh installed
+with ``use_rules`` (``launch/shardings.py``), whatever mesh wrote it: a
+run restarted on (1, 4) reads a (2, 2) run's checkpoint unchanged.
 """
 from __future__ import annotations
 
@@ -37,15 +42,18 @@ def _host(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    if isinstance(tree, (dict, list, tuple)):
+def _flatten(tree, prefix: str = "", leaf: type | None = None) -> dict:
+    """{path: leaf}; ``leaf`` a type whose instances are leaves even where
+    they are tuples (a spec tree's PartitionSpecs)."""
+    if isinstance(tree, (dict, list, tuple)) and not (
+            leaf is not None and isinstance(tree, leaf)):
         items = (sorted(tree.items()) if isinstance(tree, dict)
                  else [(str(i), v) for i, v in enumerate(tree)])
         out = {}
         if not items:
             out[f"{prefix}~empty~"] = np.zeros(0, np.uint8)
         for k, v in items:
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(_flatten(v, f"{prefix}{k}/", leaf))
         return out
     return {prefix.rstrip("/"): tree}
 
@@ -147,11 +155,9 @@ class CheckpointManager:
 
     def restore(self, step: int | None = None, shardings=None, device=None):
         """(step, tree) of a checkpoint (default the latest): numpy arrays,
-        or tensors on ``device``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh waits for the multi-device layer "
-                "(ROADMAP.md queue 1 item 9)")
+        or tensors on ``device``. ``shardings``: a spec tree of the tree's
+        structure (or of a part of it: leaves it does not reach stay whole);
+        each leaf is cut to this rank's block on the installed mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -159,8 +165,25 @@ class CheckpointManager:
         path = self.dir / f"ckpt_{step:08d}.npz"
         with np.load(path) as data:
             flat = {k: data[k] for k in data.files}
+        if shardings is not None:
+            flat = _local_blocks(flat, shardings)
         if device is not None:
             flat = {k: v if k.endswith("~empty~")
                     else torch.from_numpy(np.array(v)).to(device)
                     for k, v in flat.items()}
         return step, _unflatten(flat)
+
+
+def _local_blocks(flat: dict, shardings) -> dict:
+    """Each flattened leaf cut to this rank's block by its spec in
+    ``shardings`` (by path; leaves without a spec stay whole)."""
+    from ..launch.shardings import local_shard
+    from ..parallel.logical import PartitionSpec, current_mesh
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("restore(shardings=...) cuts blocks on the mesh "
+                         "installed with use_rules(rules, mesh); none is")
+    specs = {k: v for k, v in _flatten(shardings, leaf=PartitionSpec).items()
+             if isinstance(v, PartitionSpec)}
+    return {k: np.ascontiguousarray(local_shard(v, specs[k], mesh))
+            if k in specs else v for k, v in flat.items()}

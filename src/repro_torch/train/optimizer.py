@@ -94,14 +94,18 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
-                 lr_scale: float | torch.Tensor = 1.0):
+                 lr_scale: float | torch.Tensor = 1.0,
+                 gnorm: torch.Tensor | None = None):
     """One AdamW step with global-norm clipping, in place. Returns
     (params, state), the objects passed in.
 
     With a ``master`` tree in ``state`` the update goes to the f32 master
-    weights and the live params are re-cast from them."""
+    weights and the live params are re-cast from them. ``gnorm`` is the
+    gradients' global norm where the trees are one rank's blocks of a
+    sharded whole (the trainer's, over a mesh); default: their own norm."""
     step = int(state["step"]) + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1.0 - cfg.b1 ** step
     bc2 = 1.0 - cfg.b2 ** step

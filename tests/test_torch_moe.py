@@ -106,9 +106,15 @@ def test_moe_gelu_experts_match_reference(x):
 
 
 def test_moe_shard_map_dispatch_raises(moe_params, x):
-    _, cfg = _cfgs(moe_dispatch="shard_map")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        L.moe(moe_params[1], torch.from_numpy(x), cfg)
+    """Without a mesh, moe_dispatch="shard_map" does not raise: it is the
+    scatter dispatch, as the reference's ``moe`` falls back to it, drops
+    included."""
+    jcfg, cfg = _cfgs(moe_dispatch="shard_map")
+    jp, tp = moe_params
+    for cf in (None, 1.0):
+        want = np.asarray(JL.moe(jp, jnp.asarray(x), jcfg, capacity_factor=cf))
+        got = L.moe(tp, torch.from_numpy(x), cfg, capacity_factor=cf)
+        np.testing.assert_allclose(got.numpy(), want, **LAYER_TOL)
 
 
 # ------------------------------ the model -------------------------------------

@@ -222,13 +222,14 @@ def test_three_train_steps_match_reference(olmo):
 
 
 def test_train_step_refuses_forward_only_kernels():
-    """Only what needs a device mesh is refused: the RMSNorm and SSM
-    configs train (their kernels have a backward) and remat "dots" runs."""
+    """Nothing is refused: the RMSNorm and SSM configs train (their
+    kernels have a backward), remat "dots" runs, and compressed
+    data-parallel gradients on one device are the int8 round trip
+    (``tests/test_torch_parallel.py`` holds the step against the
+    reference's)."""
     for arch in ("mistral_nemo_12b", "mamba2_130m"):
         make_train_step(get_config(arch, smoke=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_train_step(get_config("olmo_1b", smoke=True),
-                        compress_dp_grads=True)
+    make_train_step(get_config("olmo_1b", smoke=True), compress_dp_grads=True)
     cfg = dataclasses.replace(get_config("olmo_1b", smoke=True), remat="dots")
     loss = loss_fn(cfg, init_params(cfg, device="cpu", dtype=torch.float32),
                    _batch(cfg, seed=0)[1])
@@ -315,7 +316,7 @@ def test_checkpoint_roundtrip_keeps_structure(tmp_path):
     assert len(tree["params"]["stack"]) == cfg.n_blocks
     for a, b in zip(tree_leaves(params), tree_leaves(tree["params"])):
         np.testing.assert_array_equal(_np(a), _np(b))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="use_rules"):   # no mesh installed
         mgr.restore(shardings={})
 
 
