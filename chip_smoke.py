@@ -10,7 +10,9 @@ train through the fused RMSNorm and the SSD scan: Mamba2-130M at full
 width and depth, Mistral-NeMo-12B at full width with two layers, and run
 the multi-device layer: OLMo-1B on one NCCL rank's mesh with FSDP,
 OLMoE-1B-7B served expert- and context-parallel on two gloo ranks that
-share the card, and a data-parallel OLMo-1B step on two.
+share the card, and a data-parallel OLMo-1B step on two; then Mamba2-130M,
+Llama-3.2-Vision-11B and SeamlessM4T-medium served with every layer kind
+split over a model axis of two gloo ranks sharing the card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -67,7 +69,12 @@ Phases, each fatal on failure:
      F.rms_norm's backward under autograd; decode attention on one rank's
      block of a context-parallel cache (CP_DECODE_CASES: mistral's serving
      cache halved, the block full, empty and ragged), its LSE also held
-     against the plain version's;
+     against the plain version's; the gated norm over rows split across
+     ranks (RMSNORM_SPLIT_SHAPES: Mamba2's and Jamba's rank blocks at
+     their serving shapes, ragged and odd widths): each statistic and
+     apply launch, forward and backward, against its plain version, and
+     the blocks put together against the one-launch norm and its
+     backward, each timed beside its bound;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -213,8 +220,21 @@ Phases, each fatal on failure:
      rank's block under FSDP) against one process's 4 x 2048 step within
      SCALED_TOL_SMALL (INT8_SCALED more compressed), launches 2L / L / L
      a rank a step;
+ 21. every layer kind under a model axis (``launch/shardings.py``'s
+     segmented Mamba2 split, the split-row gated norm, cross-attention on
+     local heads, the encoder), in child processes on two gloo ranks
+     sharing the card, mesh (1, 2), against one device in this process
+     (MA_SERVE: mamba2_130m 8 x 2048 + 16 at full width and depth,
+     llama32_vision_11b and seamless_m4t_medium 1 x 256 + 8 at full width
+     and depth): the engine's sampled logits up to each sequence's first
+     token difference (mamba2 relative to one device's own plain-scan
+     reading), the launches (every gated norm a statistic and an apply
+     launch), and a 2-layer mamba2_130m train step's loss and gradients
+     (the split norm's backward launches), the gradients held relative to
+     one device's own plain-scan reading as the logits are;
  19. one JSON line of kernel numbers, the card's name and power limit, and
-     a last JSON line ``{"ok": true, "device": {...}}``.
+     a last JSON line ``{"ok": true, "device": {...}}``; a kernel that the
+     main path never launched fails the run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -1506,6 +1526,175 @@ def check_rmsnorm_bwd(torch, timer) -> dict:
                 ms=top["ms"], plain_ms=top["plain_ms"], library_ms=top["library_ms"],
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"], shape=top["shape"],
                 clean_l2={"ms": top["clean_l2_ms"]}, shapes=shapes, checks=checks)
+
+
+# ------------------------------- phase 3: split-row gated norm ---------------
+#: The gated norm over rows split across the ranks of a model axis, (label,
+#: rows, this rank's width, the full width, ranks): Mamba2's 1536 on two
+#: ranks at the serving shapes of phase 21 (8 x 2048 prefill, 8 decode
+#: rows), Jamba's 8192 on two at Part C's (4 x 2048, 4), and ragged rows.
+#: Each rank's gate is a column slice of its own in_proj output, whose row
+#: is 2 d + 2 N + H / ranks wide (mamba2: 1804 elements, rows on 8 bytes,
+#: so the scalar path; jamba: 8288, the 16-byte path).
+RMSNORM_SPLIT_SHAPES = (("mamba2 prefill", 8 * 2048, 768, 1536, 2, 1804),
+                        ("mamba2 decode", 8, 768, 1536, 2, 1804),
+                        ("jamba prefill", 4 * 2048, 4096, 8192, 2, 8288),
+                        ("jamba decode", 4, 4096, 8192, 2, 8288))
+RMSNORM_SPLIT_EXTRA = (("ragged", 100, 768, 3072, 4, 1600), ("one row", 1, 4096, 8192, 2, 8288),
+                       ("odd width", 37, 100, 200, 2, 212))
+#: the statistic launches' f32 row sums against their plain versions,
+#: relative to the sum of the terms' magnitudes (another summation order)
+SPLIT_SUM_REL = 1e-5
+
+
+def split_inputs(torch, g, rows: int, d: int, dn: int, ranks: int, width: int) -> dict:
+    """Every rank's block of one split row: y (f32), the gate (bf16, each
+    rank's the first d columns of its own (rows, ``width``) in_proj output,
+    read through that row stride), w and dh of the whole row; ``blocks``
+    the column slices, ``z`` the whole gate (the blocks side by side)."""
+    y = torch.randn(rows, dn, generator=g, device="cuda")
+    zs = [torch.randn(rows, width, generator=g, device="cuda").to(torch.bfloat16)[:, :d]
+          for _ in range(ranks)]
+    w = torch.rand(dn, generator=g, device="cuda") + 0.5
+    dh = torch.randn(rows, dn, generator=g, device="cuda").to(torch.bfloat16)
+    return {"y": y, "zs": zs, "z": torch.cat(zs, 1), "w": w, "dh": dh,
+            "blocks": [slice(r * d, (r + 1) * d) for r in range(ranks)]}
+
+
+def split_blocks(inp, c):
+    """One rank's block of y, z, w and dh (y, w and dh contiguous, z the
+    rank's strided gate)."""
+    r = c.start // (c.stop - c.start)
+    return (inp["y"][:, c].contiguous(), inp["zs"][r], inp["w"][c].contiguous(),
+            inp["dh"][:, c].contiguous())
+
+
+def split_rows_check(torch, inp, dn: int, label: str) -> dict:
+    """Each launch on every block against its plain version on the same
+    inputs (the statistics within SPLIT_SUM_REL of the terms' magnitudes,
+    the outputs within one bf16 ulp + 2^-14 of their largest, dw within
+    TOL), and the blocks put together against the one-launch gated norm
+    and its backward over the whole row (one bf16 ulp; the summed
+    statistics differ from the one-launch sum in order only); the
+    backward's dy and dz, which round twice after the sums, within
+    RMSNORM_GATED_ULPS."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm import ref
+    errs = {"stat": 0.0, "apply": 0.0, "bwd_stat": 0.0, "bwd_apply": 0.0,
+            "whole_fwd_ulp": 0.0, "whole_bwd": 0.0}
+    stats = bstats = 0
+    for c in inp["blocks"]:
+        y, z, w, dh = split_blocks(inp, c)
+        got, want = ops.gated_norm_stat(y, z, w), ref.gated_norm_stat_ref(y, z)
+        scale = ref.gated_norm_stat_ref(y.abs(), z).clamp_min(1e-30)
+        errs["stat"] = max(errs["stat"], float(((got - want).abs() / scale).max()))
+        stats = stats + got
+        got, want = ops.gated_norm_bwd_stat(dh, y, z, w), ref.gated_norm_bwd_stat_ref(dh, y, z, w)
+        g_abs = (y.to(torch.bfloat16).float() * torch.nn.functional.silu(z).float()).abs()
+        scale = torch.stack([(g_abs * g_abs).sum(-1),
+                             (dh.float().abs() * w * g_abs).sum(-1)], -1).clamp_min(1e-30)
+        errs["bwd_stat"] = max(errs["bwd_stat"], float(((got - want).abs() / scale).max()))
+        bstats = bstats + got
+    for name, worst in (("stat", SPLIT_SUM_REL), ("bwd_stat", SPLIT_SUM_REL)):
+        if not errs[name] <= worst:
+            raise AssertionError(f"split norm {label}: {name} {errs[name]:.3g} > {worst}")
+    outs, grads = [], []
+    for c in inp["blocks"]:
+        y, z, w, dh = split_blocks(inp, c)
+        got = ops.gated_norm_apply(y, z, w, stats, dn)
+        want = ref.gated_norm_apply_ref(y, z, w, stats, dn)
+        errs["apply"] = max(errs["apply"], bf16_ulps_over(torch, got, want))
+        outs.append(got)
+        got = ops.gated_norm_bwd_apply(dh, y, z, w, bstats, dn)
+        want = ref.gated_norm_bwd_apply_ref(dh, y, z, w, bstats, dn)
+        for a, b in zip(got[:2], want[:2]):
+            errs["bwd_apply"] = max(errs["bwd_apply"], bf16_ulps_over(torch, a, b))
+        compare(torch, got[2], want[2], f"split norm {label} dw")
+        grads.append(got)
+    whole = ops.fused_rmsnorm(inp["y"], inp["w"], gate=inp["z"])[0]
+    errs["whole_fwd_ulp"] = bf16_ulps_over(torch, torch.cat(outs, 1), whole)
+    wdx, wdz, _ = ops.fused_rmsnorm_bwd(inp["dh"], None, inp["y"], inp["w"], gate=inp["z"])
+    errs["whole_bwd"] = max(bf16_ulps_over(torch, torch.cat([g[0] for g in grads], 1), wdx),
+                            bf16_ulps_over(torch, torch.cat([g[1] for g in grads], 1), wdz))
+    for name, worst in (("apply", 1.0), ("whole_fwd_ulp", 1.0),
+                        ("bwd_apply", RMSNORM_GATED_ULPS), ("whole_bwd", RMSNORM_GATED_ULPS)):
+        if not errs[name] <= worst:
+            raise AssertionError(f"split norm {label}: {name} {errs[name]:.3g} bf16 ulps "
+                                 f"> {worst}")
+    return errs
+
+
+def bf16_ulps_over(torch, got, want) -> float:
+    """The largest |got - want| in bf16 ulps of |want| (at least 2^-14 of
+    the tensor's largest |want|, where a value near zero has tiny ulps)."""
+    got, want = got.double(), want.double()
+    floor = want.abs().max().clamp_min(1e-30) * 2.0 ** -14
+    ulp = (want.abs() * 2.0 ** -7).clamp_min(floor)
+    return float(((got - want).abs() / ulp).max())
+
+
+def check_rmsnorm_split(torch, timer) -> dict:
+    """Row 1's split-row form: every case of RMSNORM_SPLIT_SHAPES and
+    RMSNORM_SPLIT_EXTRA held by :func:`split_rows_check`; at the serving
+    shapes each of the four launches timed on rank 0's block (a graph
+    replay, the L2 flushed by a write) beside its bound and its plain
+    version, the plan it takes (the one-launch norm's instantiation: the
+    registers and spills phase 2 reports). Returns the four launches'
+    rows for the kernels line, keyed as ``kernels.WRAPPERS``."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm import ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    checks, shapes = {}, {}
+    for label, rows, d, dn, ranks, width in RMSNORM_SPLIT_SHAPES + RMSNORM_SPLIT_EXTRA:
+        inp = split_inputs(torch, g, rows, d, dn, ranks, width)
+        key = f"{label} ({rows}, {d} of {dn})"
+        checks[key] = split_rows_check(torch, inp, dn, key)
+        say(f"  split norm {key}: {json.dumps(checks[key])}")
+        if (label, rows, d, dn, ranks, width) not in RMSNORM_SPLIT_SHAPES:
+            continue
+        y, z, w, dh = split_blocks(inp, inp["blocks"][0])
+        st = ops.gated_norm_stat(y, z, w) * ranks
+        bst = ops.gated_norm_bwd_stat(dh, y, z, w).contiguous()
+        calls = {
+            "rmsnorm_split_stat": (lambda: ops.gated_norm_stat(y, z, w),
+                                   lambda: ref.gated_norm_stat_ref(y, z),
+                                   cost.rmsnorm(rows, d, "gated_stat"), False),
+            "rmsnorm_split_apply": (lambda: ops.gated_norm_apply(y, z, w, st, dn),
+                                    lambda: ref.gated_norm_apply_ref(y, z, w, st, dn),
+                                    cost.rmsnorm(rows, d, "gated_apply"), False),
+            "rmsnorm_bwd_split_stat": (lambda: ops.gated_norm_bwd_stat(dh, y, z, w),
+                                       lambda: ref.gated_norm_bwd_stat_ref(dh, y, z, w),
+                                       cost.rmsnorm_bwd(rows, d, "gated_stat"), True),
+            "rmsnorm_bwd_split_apply": (
+                lambda: ops.gated_norm_bwd_apply(dh, y, z, w, bst, dn),
+                lambda: ref.gated_norm_bwd_apply_ref(dh, y, z, w, bst, dn),
+                cost.rmsnorm_bwd(rows, d, "gated_apply"), True)}
+        vec = d % 8 == 0 and z.stride(0) % 8 == 0
+        for name, (fn, plain, work, bwd) in calls.items():
+            b_ms, b_by = work.bound_ms()
+            got, want = fn(), plain()
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            t = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                    for a, b in pairs),
+                 "shape": [rows, d], "full_width": dn, "gate_row_stride": z.stride(0),
+                 "plan": (ops.plan_bwd if bwd else ops.plan)(rows, d, gated=True, vec=vec),
+                 "ms": timer.ms(fn, 30), "plain_ms": timer.ms(plain, 10),
+                 "bound_ms": b_ms, "bound_by": b_by}
+            t["bound_share"] = b_ms / t["ms"]
+            shapes.setdefault(name, {})[label] = t
+            say(f"  split norm {name} {label}: {json.dumps(t)}")
+        del inp
+    out = {}
+    for name, by_shape in shapes.items():
+        top = by_shape["mamba2 prefill"]
+        out[name] = dict(max_abs_err=max(t["max_abs_err"] for t in by_shape.values()),
+                         ms=top["ms"], plain_ms=top["plain_ms"], library_ms=None,
+                         bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                         shape=top["shape"], shapes=by_shape,
+                         **({"checks": checks} if name == "rmsnorm_split_stat" else {}))
+    return out
 
 
 # ------------------------------- phase 3: SSD ---------------------------------
@@ -4099,6 +4288,10 @@ def serving_model_reading(measured: dict) -> dict:
 #: each of phase 20's child runs is killed past this many seconds (a hung
 #: collective fails the phase)
 PHASE20_TIMEOUT_S = 240
+#: a collective of phase 20's children that waits longer than this raises
+#: (NCCL's watchdog names it), and each child prints every thread's stack
+#: this long before its kill
+PHASE20_PG_TIMEOUT_S, PHASE20_STACKS_BEFORE_S = 150, 20
 #: (a) olmo_1b steps with and without the (1, 1) mesh
 MESH_TRAIN_STEPS = 4
 #: (a) then olmo_1b served, 2 requests of this many tokens + new tokens
@@ -4134,7 +4327,20 @@ def phase20_join(job_dir: Path, part: str, rank: int, world: int, backend: str):
     cards present: over gloo two ranks may share one)."""
     from repro_torch.launch.mesh import init_ranks
     return init_ranks("cuda", backend=backend, rank=rank, world_size=world,
-                      init_method=f"file://{job_dir / f'store-{part}'}")
+                      init_method=f"file://{job_dir / f'store-{part}'}",
+                      timeout=PHASE20_PG_TIMEOUT_S)
+
+
+def phase20_progress(part: str, rank: int):
+    """A function that prints one progress line of child ``part`` / ``rank``
+    with the seconds since it was made (the child's output is unbuffered,
+    so a killed child's log ends at its last line)."""
+    t0 = time.perf_counter()
+
+    def line(msg: str) -> None:
+        say(f"[{part} rank {rank} {time.perf_counter() - t0:7.1f} s] {msg}")
+
+    return line
 
 
 def phase20_write(job_dir: Path, name: str, out: dict) -> None:
@@ -4364,9 +4570,12 @@ def olmoe_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> Non
     from repro_torch.parallel.logical import use_rules
     from repro_torch.serve import ServeEngine
 
+    step = phase20_progress("b", rank)
     dev = phase20_join(job_dir, "b", rank, world, backend)
+    step(f"joined over {backend} on {dev}")
     cfg = phase20_cfg("olmoe")
     mesh = parse_mesh(f"1x{world}", dev)
+    step(f"{mesh}")
     with np.load(job_dir / "b_single.npz") as data:
         single = {k: data[k] for k in data.files}
     max_len = PROMPT_LEN + CP_NEW_TOKENS
@@ -4380,6 +4589,7 @@ def olmoe_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> Non
                 del full
                 torch.cuda.empty_cache()
             dist.barrier()
+        step("parameters sharded")
         out["local_params"] = sum(t.numel() for t in _leaves(params))
         out["local_experts"] = params["stack"][0]["l0"]["moe"]["wi"].shape[0]
         out["local_heads"] = params["stack"][0]["l0"]["attn"]["wq"].shape[1] // cfg.hd
@@ -4392,20 +4602,25 @@ def olmoe_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> Non
             replay = device_route_replay(
                 torch, [torch.from_numpy(single[f"{name}/route{i}"]).to(dev)
                         for i in range(n)], p.shape[0])
+            step(f"{name}: eager steps")
             with replay():
                 rep = eager_serve(torch, kernels, cfg, params, p, feed, max_len)
             arrays[f"{name}/replayed"] = rep["logits"].numpy()
+            step(f"{name}: the engine's first run")
             with replay():              # the batch size's first run (a capture)
                 engine.generate(p, n_tokens=CP_NEW_TOKENS)
+            step(f"{name}: the engine's second run, {engine.captures} captured")
             sampled = []
             kernels.reset_launches()
             with replay(), sampled_logits(sampled):
                 res = engine.generate(p, n_tokens=CP_NEW_TOKENS)
+            step(f"{name}: done")
             out[name] = {"launches": kernels.launches(), "ttft_s": res.ttft,
                          "tpot_s": res.tpot, "tokens": res.tokens,
                          "per_step": [b - a for (_, a), (_, b) in zip(sampled, sampled[1:])]}
             arrays[f"{name}/engine"] = torch.stack([lg for lg, _ in sampled], 1).cpu().numpy()
         out["captures"] = engine.captures
+        engine.close()
     if rank == 0:
         np.savez(job_dir / "b_ranks.npz", **arrays)
     phase20_write(job_dir, f"b_rank{rank}", out)
@@ -4518,34 +4733,306 @@ def dp_train_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> 
     dist.destroy_process_group()
 
 
+# ------------------------------- phase 21: the model axis of every layer kind --
+#: (arch, requests, prompt length, new tokens): mamba2_130m at full width
+#: and depth; llama32_vision_11b and seamless_m4t_medium at full width and
+#: depth with a short window, which bounds the host-staged collectives of
+#: two gloo ranks sharing the card
+MA_SERVE = (("mamba2_130m", 8, 2048, 16), ("llama32_vision_11b", 1, 256, 8),
+            ("seamless_m4t_medium", 1, 256, 8))
+#: the train step of the model axis: mamba2_130m at full width with this
+#: many layers, MA_TRAIN_BATCH x MA_TRAIN_SEQ (the split norm's backward)
+MA_TRAIN_LAYERS, MA_TRAIN_BATCH, MA_TRAIN_SEQ = 2, 2, 256
+#: mamba2_130m's whole-model readings, two ranks against one device, are
+#: held relative to one device's own bf16 noise: its logits through the
+#: plain scan (``plain_scan``) against the kernel's, the same reading phase
+#: 7 takes; the two ranks at most SSM_REL times that, with a floor of
+#: SCALED_TOL_FULL (a reading below the other limits)
+MA_SSM_FLOOR = SCALED_TOL_FULL
+#: the train step's gradients, two ranks against one device, in bf16: the
+#: model axis computes one device's gradients in f32 within 1e-6 of their
+#: largest on the CPU (tests/test_torch_model_axis.py); in bf16 each split
+#: sum rounds otherwise (the CPU's plain versions read up to 0.017 at 2 x
+#: 64 tokens; the H100 read 0.032 at 2 x 256, PERF.md PR 26), so they are
+#: held as the logits are: within SSM_REL times one device's plain-scan
+#: reading, at least this
+MA_GRAD_FLOOR = SCALED_TOL_FULL
+
+
+def ma_cfg(arch: str):
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def ma_inputs(torch, cfg, requests: int, prompt: int, dev):
+    """The prompts and, for a VLM or an encoder-decoder, the memory source
+    (image embeddings or audio frames), from the seeds."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (requests, prompt), generator=gen, device=dev)
+    src = None
+    if cfg.family == "vlm" or cfg.is_enc_dec:
+        m = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+        src = torch.randn((requests, m, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16)
+    return prompts, src
+
+
+def ma_train_cfg():
+    import dataclasses
+    return dataclasses.replace(ma_cfg("mamba2_130m"), n_layers=MA_TRAIN_LAYERS)
+
+
+def ma_train_batch(torch, cfg, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    t = torch.randint(0, cfg.vocab, (MA_TRAIN_BATCH, MA_TRAIN_SEQ + 1), generator=gen,
+                      device=dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def ma_grads(torch, cfg, params, batch):
+    """(loss, gradient of every leaf) of ``loss_fn`` at ``params``."""
+    from repro_torch.models import loss_fn
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss = loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def ma_serve(torch, kernels, cfg, params, requests, prompt, new, dev) -> dict:
+    """The engine's generate twice (the first captures or warms), the second
+    read: tokens, the logits each was sampled from (f32, on the host), the
+    launches (counters zeroed just before), TTFT and TPOT."""
+    from repro_torch.models import encode
+    from repro_torch.serve import ServeEngine
+
+    prompts, src = ma_inputs(torch, cfg, requests, prompt, dev)
+    with torch.no_grad():
+        memory = None if src is None else encode(cfg, params, src) if cfg.is_enc_dec else src
+        engine = ServeEngine(cfg, params, max_batch=requests, max_len=prompt + new,
+                             device=dev)
+        engine.generate(prompts, n_tokens=new, memory=memory)
+        sampled: list = []
+        kernels.reset_launches()
+        with sampled_logits(sampled):
+            res = engine.generate(prompts, n_tokens=new, memory=memory)
+    return {"tokens": torch.tensor(res.tokens).t(),
+            "logits": torch.stack([lg for lg, _ in sampled], 1).cpu(),
+            "launches": kernels.launches(), "ttft_s": res.ttft, "tpot_s": res.tpot,
+            "captures": engine.captures}
+
+
+def model_axis_single(torch, job_dir: Path) -> None:
+    """Phase 21, one device: each MA_SERVE arch through the engine (its
+    decode step captured), and mamba2_130m again with the scan through its
+    plain version (one device's own bf16 noise); the train step's loss and
+    gradients."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+
+    dev = torch.device("cuda")
+    arrays, out = {}, {}
+    for arch, requests, prompt, new in MA_SERVE:
+        cfg = ma_cfg(arch)
+        params = init_params(cfg, seed=SEED, device=dev)
+        r = ma_serve(torch, kernels, cfg, params, requests, prompt, new, dev)
+        arrays[f"{arch}/tokens"] = r["tokens"].numpy()
+        arrays[f"{arch}/logits"] = r["logits"].numpy()
+        out[arch] = {k: r[k] for k in ("launches", "ttft_s", "tpot_s", "captures")}
+        if cfg.family == "ssm":
+            with plain_scan():
+                p = ma_serve(torch, kernels, cfg, params, requests, prompt, new, dev)
+            held = held_engine_steps(p["tokens"], r["tokens"], p["logits"], r["logits"])
+            out[arch]["plain_scan"] = held
+        del params
+        torch.cuda.empty_cache()
+    cfg = ma_train_cfg()
+    params = init_params(cfg, seed=SEED, device=dev, dtype=torch.float32)
+    batch = ma_train_batch(torch, cfg, dev)
+    loss, grads = ma_grads(torch, cfg, params, batch)
+    with plain_scan():          # one device's own bf16 noise: the plain scan
+        _, plain = ma_grads(torch, cfg, params, batch)
+    out["train_loss"] = loss
+    out["train_plain_scan_err"] = max(scaled_err(a, b) for a, b in zip(plain, grads))
+    for i, g in enumerate(grads):
+        arrays[f"train/grad{i}"] = g.float().cpu().numpy()
+    np.savez(job_dir / "ma_single.npz", **arrays)
+    phase20_write(job_dir, "ma_single", out)
+
+
+def model_axis_rank(torch, job_dir: Path, rank: int, world: int, backend: str) -> None:
+    """Phase 21, one of two ranks, mesh (1, 2): each MA_SERVE arch made as
+    this rank's blocks (``init_local_params``: the Mamba2 layer by heads,
+    attention, cross-attention, the encoder and the MLP by Megatron's
+    split, the vocabulary in halves), served through the engine (eager over
+    gloo); then the train step, its gradients gathered whole."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_axis_rules, parse_mesh
+    from repro_torch.launch.shardings import gather_tree, init_local_params, param_shardings
+    from repro_torch.parallel.logical import use_rules
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    step = phase20_progress("ma", rank)
+    dev = phase20_join(job_dir, "ma", rank, world, backend)
+    mesh = parse_mesh(f"1x{world}", dev)
+    arrays, out = {}, {"rank": rank}
+    for arch, requests, prompt, new in MA_SERVE:
+        cfg = ma_cfg(arch)
+        with use_rules(make_axis_rules(mesh, cfg), mesh):
+            params = init_local_params(cfg, mesh, seed=SEED, device=dev)
+            step(f"{arch}: weights made")
+            r = ma_serve(torch, kernels, cfg, params, requests, prompt, new, dev)
+        step(f"{arch}: served, TTFT {r['ttft_s']:.3f} s, TPOT {r['tpot_s']:.4f} s")
+        arrays[f"{arch}/tokens"] = r["tokens"].numpy()
+        arrays[f"{arch}/logits"] = r["logits"].numpy()
+        out[arch] = {k: r[k] for k in ("launches", "ttft_s", "tpot_s", "captures")}
+        out[arch]["local_params"] = sum(t.numel() for t in tree_leaves(params))
+        del params
+        torch.cuda.empty_cache()
+    cfg = ma_train_cfg()
+    with use_rules(make_axis_rules(mesh, cfg), mesh):
+        specs = param_shardings(cfg, mesh)
+        params = init_local_params(cfg, mesh, seed=SEED, device=dev, dtype=torch.float32)
+        kernels.reset_launches()
+        loss, grads = ma_grads(torch, cfg, params, ma_train_batch(torch, cfg, dev))
+        out["train_launches"] = kernels.launches()
+        whole = gather_tree(tree_unflatten(params, list(grads)), specs, mesh)
+    out["train_loss"] = loss
+    for i, g in enumerate(tree_leaves(whole)):
+        arrays[f"train/grad{i}"] = g.float().cpu().numpy()
+    step("train step done")
+    if rank == 0:
+        np.savez(job_dir / "ma_ranks.npz", **arrays)
+    phase20_write(job_dir, f"ma_rank{rank}", out)
+    dist.destroy_process_group()
+
+
+def phase21(torch, job_dir: Path, card: str) -> tuple[dict, dict]:
+    """Phase 21: SSM, cross-attention and encoder layers under a model axis
+    on two gloo ranks sharing the card, mesh (1, 2), against one device in
+    the same run (its side in this process first, no collective). Holds:
+    each arch's engine on the two ranks, per sequence up to its first token
+    difference, the sampled logits within SCALED_TOL_FULL of one device's
+    (mamba2_130m: within SSM_REL times one device's own plain-scan reading,
+    at least MA_SSM_FLOOR); the ranks' tokens alike; the launches: the same
+    as one device's but every gated norm a statistic and an apply launch
+    of the split-row form; the train step's loss within 1e-3 relative and
+    every gradient leaf within SSM_REL times one device's plain-scan
+    reading of its largest (at least MA_GRAD_FLOOR), the split norm's
+    backward launched. (The model axis computes one device's gradients in
+    f32 to 1e-6 on the CPU, ``tests/test_torch_model_axis.py``; in bf16
+    the split sums round otherwise.) Returns (launches summed over ranks and runs,
+    readings)."""
+    import numpy as np
+
+    say(f"[21] every layer kind under a model axis on two gloo ranks sharing the "
+        f"card, mesh (1, 2), against one device: "
+        + ", ".join(f"{a} {r} x {p} + {n}" for a, r, p, n in MA_SERVE)
+        + f"; a {MA_TRAIN_LAYERS}-layer mamba2_130m train step, "
+        f"{MA_TRAIN_BATCH} x {MA_TRAIN_SEQ}")
+    t0 = time.perf_counter()
+    model_axis_single(torch, job_dir)
+    torch.cuda.empty_cache()
+    run_phase20_part("ma", 2, job_dir, "gloo")
+    single = json.loads((job_dir / "ma_single.json").read_text())
+    ranks = [json.loads((job_dir / f"ma_rank{r}.json").read_text()) for r in range(2)]
+    with np.load(job_dir / "ma_single.npz") as d:
+        s_arr = {k: torch.from_numpy(d[k]) for k in d.files}
+    with np.load(job_dir / "ma_ranks.npz") as d:
+        r_arr = {k: torch.from_numpy(d[k]) for k in d.files}
+    readings, counts = {}, []
+    for arch, requests, prompt, new in MA_SERVE:
+        cfg = ma_cfg(arch)
+        held = held_engine_steps(r_arr[f"{arch}/tokens"], s_arr[f"{arch}/tokens"],
+                                 r_arr[f"{arch}/logits"], s_arr[f"{arch}/logits"])
+        limit = SCALED_TOL_FULL
+        if "plain_scan" in single[arch]:
+            limit = max(MA_SSM_FLOOR, SSM_REL * single[arch]["plain_scan"]["engine_scaled_err"])
+        one = single[arch]["launches"]
+        n_ssm = sum(cfg.layer_kind(i % cfg.block_size) == "ssm" for i in range(cfg.n_layers))
+        want = dict(one)
+        if n_ssm:
+            gated = n_ssm * new
+            want |= {"rmsnorm": one["rmsnorm"] - gated, "rmsnorm_split_stat": gated,
+                     "rmsnorm_split_apply": gated}
+        readings[arch] = {**held, "limit": limit,
+                          "single": {k: single[arch][k] for k in ("ttft_s", "tpot_s")},
+                          "ranks_ttft_s": [x[arch]["ttft_s"] for x in ranks],
+                          "ranks_tpot_s": [x[arch]["tpot_s"] for x in ranks],
+                          "local_params": [x[arch]["local_params"] for x in ranks],
+                          "plain_scan": single[arch].get("plain_scan")}
+        say(f"    {arch}: {json.dumps(readings[arch])}")
+        for r, x in enumerate(ranks):
+            if x[arch]["launches"] != want:
+                raise AssertionError(f"(21) {arch} rank {r}: launches {x[arch]['launches']} "
+                                     f"!= {want}")
+            counts.append(x[arch]["launches"])
+        if not (held["engine_scaled_err"] <= limit and min(held["steps_held"]) >= 1):
+            raise AssertionError(f"(21) {arch}: two ranks vs one device {readings[arch]}")
+    grads = [(r_arr[f"train/grad{i}"], s_arr[f"train/grad{i}"])
+             for i in range(sum(1 for k in s_arr if k.startswith("train/grad")))]
+    errs = [scaled_err(a, b) for a, b in grads]
+    loss_rel = abs(ranks[0]["train_loss"] - single["train_loss"]) / abs(single["train_loss"])
+    grad_limit = max(MA_GRAD_FLOOR, SSM_REL * single["train_plain_scan_err"])
+    readings["train"] = {"loss": [single["train_loss"], ranks[0]["train_loss"]],
+                         "loss_rel_diff": loss_rel, "grad_scaled_err_max": max(errs),
+                         "plain_scan_grad_scaled_err": single["train_plain_scan_err"],
+                         "limit": grad_limit,
+                         "launches_rank": [x["train_launches"] for x in ranks]}
+    say(f"    train step: {json.dumps(readings['train'])}")
+    for x in ranks:
+        la = x["train_launches"]
+        if not (la["rmsnorm_bwd_split_stat"] > 0
+                and la["rmsnorm_bwd_split_stat"] == la["rmsnorm_bwd_split_apply"]):
+            raise AssertionError(f"(21) train step launches {la}")
+        counts.append(la)
+    if not (loss_rel <= 1e-3 and max(errs) <= grad_limit):
+        raise AssertionError(f"(21) train step: {readings['train']}")
+    say(f"    phase 21 in {time.perf_counter() - t0:.1f} s on {card}")
+    return summed(*counts), readings
+
+
 def phase20_child(part: str, job_dir: str, rank: int, world: int, backend: str) -> int:
     """Entry of phase 20's child processes (``chip_smoke.py --phase20 PART
     DIR RANK WORLD BACKEND``)."""
+    import faulthandler
+
     import torch
 
+    faulthandler.dump_traceback_later(PHASE20_TIMEOUT_S - PHASE20_STACKS_BEFORE_S)
     torch.backends.cuda.matmul.allow_tf32 = False
     fn = {"a": lambda: mesh_train_one_rank(torch, Path(job_dir)),
           "b": lambda: olmoe_rank(torch, Path(job_dir), rank, world, backend),
-          "c": lambda: dp_train_rank(torch, Path(job_dir), rank, world, backend)}[part]
+          "c": lambda: dp_train_rank(torch, Path(job_dir), rank, world, backend),
+          "ma": lambda: model_axis_rank(torch, Path(job_dir), rank, world, backend)}[part]
     fn()
     return 0
 
 
-def run_phase20_part(part: str, world: int, job_dir: Path, backend: str) -> None:
-    """Start ``world`` children of ``part`` together (each writing its
-    output to a log under ``job_dir``) and wait for all of them; once one
-    fails, or PHASE20_TIMEOUT_S have passed, kill the rest (a rank left
-    waiting in a collective for a failed one never returns). Fails, with
-    every rank's last lines, unless every one exited 0; relays the last
-    lines of each otherwise."""
+def run_phase20_part(part: str, world: int, job_dir: Path, backend: str,
+                     script: str = __file__, timeout: float = PHASE20_TIMEOUT_S) -> None:
+    """Start ``world`` children of ``part`` together (``script --phase20
+    PART DIR RANK WORLD BACKEND``, each writing its output to a log under
+    ``job_dir``) and wait for all of them; once one fails, or ``timeout``
+    seconds have passed, kill the rest (a rank left waiting in a collective
+    for a failed one never returns). Fails, with every rank's last lines,
+    unless every one exited 0; relays the last lines of each otherwise."""
     logs = [job_dir / f"{part}-rank{r}.log" for r in range(world)]
     procs = []
     for r, log in enumerate(logs):
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, __file__, "--phase20", part, str(job_dir), str(r),
-                 str(world), backend], stdout=f, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + PHASE20_TIMEOUT_S
+                [sys.executable, "-u", script, "--phase20", part, str(job_dir),
+                 str(r), str(world), backend], stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, NCCL_DEBUG="WARN")))
+    deadline = time.monotonic() + timeout
     while any(p.poll() is None for p in procs):
         if time.monotonic() > deadline or any(p.poll() for p in procs):
             break
@@ -4556,7 +5043,7 @@ def run_phase20_part(part: str, world: int, job_dir: Path, backend: str) -> None
         p.wait()
     tails = [[x for x in log.read_text().splitlines() if x.strip()] for log in logs]
     if any(p.returncode for p in procs):
-        why = (f"not done within {PHASE20_TIMEOUT_S} s" if time.monotonic() > deadline
+        why = (f"not done within {timeout} s" if time.monotonic() > deadline
                else "a rank failed")
         raise AssertionError(
             f"phase 20 ({part}): {why}; exit codes {[p.returncode for p in procs]}\n"
@@ -4792,6 +5279,7 @@ def main() -> int:
     numbers = {"rmsnorm": check_rmsnorm(torch, timer, probe) | {"build": rmsnorm_build}}
     numbers["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, timer) | {
         "build": rmsnorm_bwd_build}
+    numbers.update(check_rmsnorm_split(torch, timer))
     numbers.update(check_kernels(torch, timer))
     numbers["decode_attention"]["build"] = decode_build
     numbers["ssd"] = check_ssd(torch, timer) | {"build": ssd_build}
@@ -4910,11 +5398,15 @@ def main() -> int:
     # card (context- and expert-parallel serving, data-parallel training)
     multi_device, _ = check_multi_device(torch, card)
 
+    # 21. SSM, cross-attention and encoder layers under a model axis
+    import tempfile
+    model_axis, _ = phase21(torch, Path(tempfile.mkdtemp(prefix="phase21-")), card)
+
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
                "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train,
-               **multi_device}
+               **multi_device, "model_axis_two_ranks": model_axis}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
               for name in dense}
 
@@ -4924,6 +5416,12 @@ def main() -> int:
     # reference takes of its plain rmsnorm under jax.value_and_grad
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:43",
                 "rmsnorm_bwd": "src/repro/models/layers.py:47",
+                # the gated norm's row split over a model axis: the Pallas
+                # norm's statistic and apply, and the backward's alike
+                "rmsnorm_split_stat": "src/repro/kernels/rmsnorm/kernel.py:43",
+                "rmsnorm_split_apply": "src/repro/kernels/rmsnorm/kernel.py:43",
+                "rmsnorm_bwd_split_stat": "src/repro/models/layers.py:47",
+                "rmsnorm_bwd_split_apply": "src/repro/models/layers.py:47",
                 "decode_attention": "src/repro/kernels/decode_attention/kernel.py:89",
                 "flash_attention": f"{fa}/kernel.py:112",
                 "flash_attention_fwd_lse": f"{fa}/backward.py:109",
@@ -4932,11 +5430,19 @@ def main() -> int:
                 "pricing": "src/repro/kernels/pricing/kernel.py:165",
                 "pricing_f32": "src/repro/kernels/pricing/kernel.py:235",
                 "ssd": "src/repro/kernels/ssd/kernel.py:86"}
-    shown = {"rmsnorm_bwd": "fused_rmsnorm_bwd"}
-    sources = {"rmsnorm_bwd": "rmsnorm", "flash_attention_fwd_lse": "flash_attention",
+    shown = {"rmsnorm_bwd": "fused_rmsnorm_bwd", "rmsnorm_split_stat": "gated_norm_stat",
+             "rmsnorm_split_apply": "gated_norm_apply",
+             "rmsnorm_bwd_split_stat": "gated_norm_bwd_stat",
+             "rmsnorm_bwd_split_apply": "gated_norm_bwd_apply"}
+    sources = {"rmsnorm_bwd": "rmsnorm", "rmsnorm_split_stat": "rmsnorm",
+               "rmsnorm_split_apply": "rmsnorm", "rmsnorm_bwd_split_stat": "rmsnorm",
+               "rmsnorm_bwd_split_apply": "rmsnorm", "flash_attention_fwd_lse": "flash_attention",
                "flash_attention_bwd_dkv": "flash_attention",
                "flash_attention_bwd_dq": "flash_attention",
                "pricing_f32": "pricing"}
+    idle = [name for name in numbers if not counts[name]]
+    if idle:
+        return fail(f"kernels never launched on the main path: {idle}")
     line = []
     for name, n in numbers.items():
         src = sources.get(name, name)

@@ -48,3 +48,13 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise ValueError(f"unknown architecture {arch!r}")
     mod = importlib.import_module(f"{__name__}.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def cells(arch: str) -> list[str]:
+    """Applicable shape names for an arch (long_500k only for sub-quadratic
+    families: full-attention archs skip it)."""
+    cfg = get_config(arch)
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return names

@@ -2,7 +2,9 @@
 
   rmsnorm          — fused residual add + RMSNorm (replaces the Pallas
                      ``fused_rmsnorm_fwd``), and its backward
-                     (``fused_rmsnorm_bwd``, no Pallas counterpart).
+                     (``fused_rmsnorm_bwd``, no Pallas counterpart); the
+                     gated norm over rows split across ranks, a statistic
+                     and an apply launch each way (``gated_norm_*``).
   decode_attention — split-KV decode attention with exported LSE, reading
                      the cache in its model layout (``decode_attention_fwd``).
   flash_attention  — FlashAttention-2 on bf16 tensor cores, GQA, causal
@@ -29,11 +31,17 @@ from .flash_attention.ops import (flash_attention, flash_attention_bwd_dkv,
                                   flash_attention_fwd_lse,
                                   flash_attention_train)
 from .pricing.ops import pricing_f32, pricing_f64
-from .rmsnorm.ops import fused_rmsnorm, fused_rmsnorm_bwd
+from .rmsnorm.ops import (fused_rmsnorm, fused_rmsnorm_bwd, gated_norm_apply,
+                          gated_norm_bwd_apply, gated_norm_bwd_stat,
+                          gated_norm_stat)
 from .ssd.ops import ssd_chunk
 
 #: Every wrapper whose ``launches`` counter a run can read or reset.
 WRAPPERS = {"rmsnorm": fused_rmsnorm, "rmsnorm_bwd": fused_rmsnorm_bwd,
+            "rmsnorm_split_stat": gated_norm_stat,
+            "rmsnorm_split_apply": gated_norm_apply,
+            "rmsnorm_bwd_split_stat": gated_norm_bwd_stat,
+            "rmsnorm_bwd_split_apply": gated_norm_bwd_apply,
             "decode_attention": decode_attention,
             "flash_attention": flash_attention,
             "flash_attention_fwd_lse": flash_attention_fwd_lse,
@@ -55,5 +63,7 @@ def launches() -> dict[str, int]:
 __all__ = ["decode_attention", "flash_attention", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd_lse",
            "flash_attention_train", "fused_rmsnorm", "fused_rmsnorm_bwd",
+           "gated_norm_apply", "gated_norm_bwd_apply", "gated_norm_bwd_stat",
+           "gated_norm_stat",
            "pricing_f32", "pricing_f64", "ssd_chunk", "WRAPPERS", "launches",
            "reset_launches"]

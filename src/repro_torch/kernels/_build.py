@@ -190,6 +190,15 @@ def launched(wrapper, work=None) -> None:
         cost.record(wrapper.__name__, work)
 
 
+def meta_launch(wrapper, work) -> None:
+    """A call on meta tensors (the dry run, ``launch/dryrun.py``): nothing
+    runs and no launch is counted; ``work`` (a callable giving the kernel's
+    :class:`~.cost.Work`) is added to an active op count, so a cell is
+    counted as the card runs it, not as the plain version would."""
+    from . import cost
+    cost.record(wrapper.__name__, work)
+
+
 class CountedGraph:
     """A ``torch.cuda.CUDAGraph`` whose replays count the kernels they run:
     :meth:`capture` collects the wrappers' launches into ``tally``, and

@@ -62,6 +62,11 @@ def rmsnorm(rows: int, d: int, kind: str) -> Work:
     written; w in f32 once. Operations: ~5 an element (the add, the
     square, the scalings), ~15 gated (the exp and the divide of the SiLU,
     its product)."""
+    if kind == "gated_stat":   # split rows: y and z read, a float a row out
+        return Work(rows * d * 6 + rows * 4, 12.0 * rows * d, F32_FLOP_PER_S)
+    if kind == "gated_apply":  # y, z and the summed floats read, the output written
+        return Work(rows * d * 8 + rows * 4 + d * 4, 15.0 * rows * d,
+                    F32_FLOP_PER_S)
     per = {"residual": 8, "plain": 6}.get(kind, 8)
     ops = 15.0 if kind.startswith("gated") else 5.0
     return Work(rows * d * per + d * 4, ops * rows * d, F32_FLOP_PER_S)
@@ -74,6 +79,12 @@ def rmsnorm_bwd(rows: int, d: int, kind: str, with_dr: bool = True) -> Work:
     read, the f32 dy and the bf16 dz written; w read and dw written once
     in f32. Operations: ~12 an element (the row sums, ds, the dw share),
     ~30 gated (the SiLU's exp and divides, the chain's products)."""
+    if kind == "gated_stat":   # split rows: y, z and dh read, two floats a row out
+        return Work(rows * d * 8 + rows * 8 + d * 4, 14.0 * rows * d,
+                    F32_FLOP_PER_S)
+    if kind == "gated_apply":  # the gated backward, and the summed floats read
+        return Work(rows * d * 14 + rows * 8 + d * 8, 30.0 * rows * d,
+                    F32_FLOP_PER_S)
     per = {"residual": 8, "plain": 6}.get(kind, 14) + (2 if with_dr and
                                                          kind != "gated" else 0)
     ops = 30.0 if kind.startswith("gated") else 12.0

@@ -85,6 +85,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         o, lse = decode_attention_ref(q, k, v, kv_len, return_lse=True)
         return (o, lse) if return_lse else o
+    if q.device.type == "meta":     # the dry run: every key of the cache
+        b, h, hd = q.shape
+        _build.meta_launch(decode_attention, lambda: cost.decode_attention(
+            b, h, k.shape[1], hd, k.shape[2]))
+        o = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _build.refuse_grad("decode_attention", q, k, v)

@@ -84,6 +84,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Forward only: on the card it refuses inputs that want a gradient."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
+    if q.device.type == "meta":
+        b, h, sq, hd = q.shape
+        _build.meta_launch(flash_attention, lambda: cost.flash_attention(
+            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        return _like_model(b, h, sq, hd, q)
     _check("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention (forward only; "
                        "flash_attention_train differentiates)", q, k, v)
@@ -111,6 +116,12 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     calls it inside its ``forward``)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal)
+    if q.device.type == "meta":
+        b, h, sq, hd = q.shape
+        _build.meta_launch(flash_attention_fwd_lse, lambda: cost.flash_attention_fwd_lse(
+            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        return (_like_model(b, h, sq, hd, q),
+                torch.empty((b, h, sq), dtype=torch.float32, device=q.device))
     _check("flash_attention_fwd_lse", q, k, v)
     b, h, sq, hd = q.shape
     _, hkv, sk, _ = k.shape
@@ -137,6 +148,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
     (B, H, Sq) f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd, causal)
+    if q.device.type == "meta":
+        b, h, sq, hd = q.shape
+        _, hkv, sk, _ = k.shape
+        _build.meta_launch(flash_attention_bwd_dkv, lambda: cost.flash_attention_bwd_dkv(
+            b, h, hkv, sq, sk, hd, causal))
+        return _like_model(b, hkv, sk, hd, k), _like_model(b, hkv, sk, hd, k)
     _check("flash_attention_bwd_dkv", q, k, v, do)
     b, h, sq, hd = q.shape
     _, hkv, sk, _ = k.shape
@@ -164,6 +181,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
     :func:`flash_attention_bwd_dkv`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, causal)
+    if q.device.type == "meta":
+        b, h, sq, hd = q.shape
+        _build.meta_launch(flash_attention_bwd_dq, lambda: cost.flash_attention_bwd_dq(
+            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        return _like_model(b, h, sq, hd, q)
     _check("flash_attention_bwd_dq", q, k, v, do)
     b, h, sq, hd = q.shape
     _, hkv, sk, _ = k.shape

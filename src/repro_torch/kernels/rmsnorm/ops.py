@@ -14,6 +14,14 @@ device: the same forward, and :func:`fused_rmsnorm_bwd` in backward (the
 backward kernel on the card, counted in ``fused_rmsnorm_bwd.launches``;
 :func:`.ref.fused_rmsnorm_bwd_ref` on the CPU). Under ``torch.no_grad()``
 a call launches the forward alone, as serving does.
+
+:func:`split_gated_rmsnorm` is the gated norm of a row split over ranks
+(the Mamba2 layer under a model axis, each rank its heads' columns): a
+statistic launch (:func:`gated_norm_stat`, each row's sum of g² over the
+block), an all-reduce of those (T,) floats over the group, and an apply
+launch (:func:`gated_norm_apply`), each launch of the same kernel and
+counted on its own; its backward alike (:func:`gated_norm_bwd_stat`, an
+all-reduce of (T, 2), :func:`gated_norm_bwd_apply`).
 """
 from __future__ import annotations
 
@@ -22,7 +30,9 @@ import ctypes
 import torch
 
 from .. import _build, cost
-from .ref import fused_rmsnorm_bwd_ref, fused_rmsnorm_ref
+from .ref import (fused_rmsnorm_bwd_ref, fused_rmsnorm_ref, gated_norm_apply_ref,
+                  gated_norm_bwd_apply_ref, gated_norm_bwd_stat_ref,
+                  gated_norm_stat_ref)
 
 #: The widest row the kernel takes: with 16-byte vectors, gated, and with
 #: one element a vector (a width not a multiple of 8, or rows that do not
@@ -101,6 +111,14 @@ def _forward(x, w, residual, eps, gate):
     """The forward: the kernel on the card, the plain version on the CPU."""
     if x.device.type == "cpu":
         return fused_rmsnorm_ref(x, w, residual, eps, gate=gate)
+    if x.device.type == "meta":
+        t, d = x.shape
+        _build.meta_launch(fused_rmsnorm, lambda: cost.rmsnorm(
+            t, d, "gated" if gate is not None else
+            "plain" if residual is None else "residual"))
+        return (torch.empty(t, d, dtype=gate.dtype if gate is not None else x.dtype,
+                            device=x.device),
+                None if gate is not None else torch.empty_like(x))
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm: no kernel for device {x.device}")
     want = torch.float32 if gate is not None else torch.bfloat16
@@ -175,6 +193,15 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
     order (no atomics: two calls give the same bits)."""
     if x.device.type == "cpu":
         return fused_rmsnorm_bwd_ref(dh, dr, x, w, residual, eps, gate)
+    if x.device.type == "meta":
+        t, d = x.shape
+        kind = "gated" if gate is not None else "plain" if residual is None else "residual"
+        _build.meta_launch(fused_rmsnorm_bwd, lambda: cost.rmsnorm_bwd(t, d, kind,
+                                                                       dr is not None))
+        dx = torch.empty_like(x)
+        second = (torch.empty_like(gate) if gate is not None
+                  else dx if residual is not None else None)
+        return dx, second, torch.empty(d, dtype=torch.float32, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm_bwd: no kernel for device {x.device}")
     gated = gate is not None
@@ -240,5 +267,194 @@ def plan_bwd(rows: int, d: int, gated: bool = False, vec: bool = True) -> dict:
     return dict(zip(("grid", "threads", "vectors_per_thread", "vector"), out))
 
 
+# ------------------------- split rows (a rank's block) -----------------------
+def _split_checks(name: str, x, gate, w, tensors=()) -> tuple[int, int, bool]:
+    """The card's checks of a split-row launch: f32 x and bf16 gate of one
+    (T, d) block (the gate read through its row stride), f32 w of d.
+    Returns (T, d, vec)."""
+    _check_gate(x, gate, None)
+    if x.dtype != torch.float32 or gate.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: x {x.dtype} with a {gate.dtype} gate not supported")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (T, d) tensor")
+    t, d = x.shape
+    if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"{name}: w must be a contiguous float32 (d,)")
+    if any(u.device != x.device for u in (gate, w, *tensors)):
+        raise ValueError(f"{name}: tensors on different devices")
+    vec = d % 8 == 0 and w.data_ptr() % 16 == 0 and all(
+        _build.rows_aligned(u) for u in (x, gate, *tensors))
+    if d > (MAX_D_GATED if vec else MAX_D_SCALAR):
+        raise ValueError(f"{name}: d {d} wider than the kernel takes here")
+    return t, d, vec
+
+
+def _on_card(name: str, x) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return True
+
+
+def _fwd_split(x, gate, w, y, stat_out, stats, t, d, dn, eps, vec):
+    fn = _build.bind("rmsnorm", "rmsnorm_fwd_split", [
+        *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    opt = [None if u is None else _build.ptr(u) for u in (y, stat_out, stats)]
+    err = fn(_build.ptr(x), _build.ptr(gate), _build.ptr(w), *opt, t, d, dn,
+             gate.stride(0), eps, int(vec), _build.stream_ptr(x.device))
+    _build.check("rmsnorm", err)
+
+
+def gated_norm_stat(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The split-row gated norm's statistic launch over this rank's block
+    (x f32 and gate bf16 (T, d), w (d,), read for the launch's plan only):
+    each row's f32 sum of g² = (x·silu(gate))² over the block, (T,)."""
+    if x.device.type == "meta":
+        _build.meta_launch(gated_norm_stat, lambda: cost.rmsnorm(*x.shape, "gated_stat"))
+        return torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if not _on_card("gated_norm_stat", x):
+        return gated_norm_stat_ref(x, gate)
+    t, d, vec = _split_checks("gated_norm_stat", x, gate, w)
+    out = torch.empty(t, dtype=torch.float32, device=x.device)
+    if t:
+        _fwd_split(x, gate, w, None, out, None, t, d, d, 0.0, vec)
+        _build.launched(gated_norm_stat, lambda: cost.rmsnorm(t, d, "gated_stat"))
+    return out
+
+
+def gated_norm_apply(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                     stats: torch.Tensor, dn: int, eps: float = 1e-6) -> torch.Tensor:
+    """The split-row gated norm's apply launch: g normalised by the row's
+    mean square over the full width ``dn`` (``stats``, (T,) f32, the sum of
+    g² over every rank's block), times this block's ``w``; (T, d) bf16."""
+    if x.device.type == "meta":
+        _build.meta_launch(gated_norm_apply, lambda: cost.rmsnorm(*x.shape, "gated_apply"))
+        return torch.empty(x.shape, dtype=gate.dtype, device=x.device)
+    if not _on_card("gated_norm_apply", x):
+        return gated_norm_apply_ref(x, gate, w, stats, dn, eps)
+    t, d, vec = _split_checks("gated_norm_apply", x, gate, w)
+    if stats.shape != (t,) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError("gated_norm_apply: stats must be a contiguous float32 (T,)")
+    y = torch.empty(t, d, dtype=torch.bfloat16, device=x.device)
+    if t:
+        _fwd_split(x, gate, w, y, None, stats, t, d, dn, eps, vec)
+        _build.launched(gated_norm_apply, lambda: cost.rmsnorm(t, d, "gated_apply"))
+    return y
+
+
+def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, vec):
+    dx = dz = part = dw = None
+    if stat_out is None:
+        dx = torch.empty(t, d, dtype=torch.float32, device=x.device)
+        dz = torch.empty(t, d, dtype=torch.bfloat16, device=x.device)
+        part = torch.empty(min(t, BWD_MAX_BLOCKS), d, dtype=torch.float32,
+                           device=x.device)
+        dw = torch.empty(d, dtype=torch.float32, device=x.device)
+    fn = _build.bind("rmsnorm", "rmsnorm_bwd_split", [
+        *[ctypes.c_void_p] * 10, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    opt = [None if u is None else _build.ptr(u)
+           for u in (dx, dz, part, dw, stat_out, stats)]
+    err = fn(_build.ptr(dh), _build.ptr(x), _build.ptr(gate), _build.ptr(w), *opt,
+             t, d, dn, gate.stride(0), eps, int(vec), _build.stream_ptr(x.device))
+    _build.check("rmsnorm", err)
+    return dx, dz, dw
+
+
+def _bwd_split_checks(name, dh, x, gate, w):
+    if dh.shape != x.shape or dh.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: dh must be bf16 of x's shape")
+    dh = dh.contiguous()
+    t, d, vec = _split_checks(name, x, gate, w, (dh,))
+    if d > (MAX_D_BWD if vec else MAX_D_SCALAR):
+        raise ValueError(f"{name}: d {d} wider than the backward takes here")
+    return dh, t, d, vec
+
+
+def gated_norm_bwd_stat(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """The split-row backward's statistic launch: each row's f32 sums over
+    this block of g² and of w·dh·g, (T, 2)."""
+    if x.device.type == "meta":
+        _build.meta_launch(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(*x.shape,
+                                                                         "gated_stat"))
+        return torch.empty(x.shape[0], 2, dtype=torch.float32, device=x.device)
+    if not _on_card("gated_norm_bwd_stat", x):
+        return gated_norm_bwd_stat_ref(dh, x, gate, w)
+    dh, t, d, vec = _bwd_split_checks("gated_norm_bwd_stat", dh, x, gate, w)
+    out = torch.empty(t, 2, dtype=torch.float32, device=x.device)
+    if t:
+        _bwd_split(dh, x, gate, w, out, None, t, d, d, 0.0, vec)
+        _build.launched(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(t, d, "gated_stat"))
+    return out
+
+
+def gated_norm_bwd_apply(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                         w: torch.Tensor, stats: torch.Tensor, dn: int,
+                         eps: float = 1e-6):
+    """The split-row backward's apply launch, given both row sums over every
+    block (``stats`` (T, 2) f32): (dx f32, dgate bf16, dw f32 of this
+    block's columns), as :func:`fused_rmsnorm_bwd`'s gated form over the
+    whole row gives them."""
+    if x.device.type == "meta":
+        _build.meta_launch(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(*x.shape,
+                                                                          "gated_apply"))
+        return (torch.empty_like(x), torch.empty(x.shape, dtype=gate.dtype, device=x.device),
+                torch.empty(x.shape[1], dtype=torch.float32, device=x.device))
+    if not _on_card("gated_norm_bwd_apply", x):
+        return gated_norm_bwd_apply_ref(dh, x, gate, w, stats, dn, eps)
+    dh, t, d, vec = _bwd_split_checks("gated_norm_bwd_apply", dh, x, gate, w)
+    if stats.shape != (t, 2) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError("gated_norm_bwd_apply: stats must be a contiguous float32 (T, 2)")
+    if t == 0:
+        return (torch.empty(0, d, dtype=torch.float32, device=x.device),
+                torch.empty(0, d, dtype=torch.bfloat16, device=x.device),
+                torch.zeros(d, dtype=torch.float32, device=x.device))
+    out = _bwd_split(dh, x, gate, w, None, stats, t, d, dn, eps, vec)
+    _build.launched(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(t, d, "gated_apply"))
+    return out
+
+
+def split_gated_rmsnorm(x: torch.Tensor, w: torch.Tensor, gate: torch.Tensor,
+                        group, dn: int, eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm(x·silu(gate), w) of rows split over ``group``'s ranks: x, gate
+    (T, d) and w (d,) this rank's block of columns, ``dn`` the full width.
+    The row sums are all-reduced over ``group`` between the statistic and
+    apply launches, forward and backward. Returns (T, d) in the gate's
+    dtype. Differentiable (:class:`_SplitGatedNorm`)."""
+    from ...parallel.dist import all_reduce
+    _check_gate(x, gate, None)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, gate)):
+        return _SplitGatedNorm.apply(x, w, gate, group, dn, eps)
+    stats = all_reduce(gated_norm_stat(x, gate, w), group)
+    return gated_norm_apply(x, gate, w, stats, dn, eps)
+
+
+class _SplitGatedNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, gate, group, dn, eps):
+        from ...parallel.dist import all_reduce
+        stats = all_reduce(gated_norm_stat(x, gate, w), group)
+        ctx.save_for_backward(x, w, gate)
+        ctx.group, ctx.dn, ctx.eps = group, dn, eps
+        return gated_norm_apply(x, gate, w, stats, dn, eps)
+
+    @staticmethod
+    def backward(ctx, dh):
+        from ...parallel.dist import all_reduce
+        x, w, gate = ctx.saved_tensors
+        stats = all_reduce(gated_norm_bwd_stat(dh, x, gate, w), ctx.group)
+        dx, dz, dw = gated_norm_bwd_apply(dh, x, gate, w, stats, ctx.dn, ctx.eps)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dw if need[1] else None,
+                dz if need[2] else None, None, None, None)
+
+
 fused_rmsnorm.launches = 0
 fused_rmsnorm_bwd.launches = 0
+gated_norm_stat.launches = 0
+gated_norm_apply.launches = 0
+gated_norm_bwd_stat.launches = 0
+gated_norm_bwd_apply.launches = 0

@@ -1,5 +1,7 @@
 """Plain PyTorch version of fused residual add + RMSNorm, and of the gated
-norm of the Mamba2 layer, with the backward of both forms."""
+norm of the Mamba2 layer, with the backward of both forms; and the plain
+versions of the split-row gated norm's four launches (a rank's block of
+each row, the row sums added over the ranks in between)."""
 from __future__ import annotations
 
 import torch
@@ -46,9 +48,7 @@ def fused_rmsnorm_bwd_ref(dh: torch.Tensor, dr: torch.Tensor | None,
         dgate in the gate's dtype, dw).
     dw is float32, (d,)."""
     if gate is not None:
-        xb = x.to(gate.dtype)
-        sz = F.silu(gate)
-        s = (xb * sz).float()
+        s = _gated_rows(x, gate)
     else:
         s = x.float() if residual is None else x.float() + residual.float()
     rstd = torch.rsqrt(torch.mean(s * s, dim=-1, keepdim=True) + eps)
@@ -62,9 +62,65 @@ def fused_rmsnorm_bwd_ref(dh: torch.Tensor, dr: torch.Tensor | None,
             ds = ds + dr.float()
         dx = ds.to(x.dtype)
         return dx, (dx if residual is not None else None), dw
+    return (*_gated_chain_bwd(ds, x, gate), dw)
+
+
+def _gated_chain_bwd(ds: torch.Tensor, x: torch.Tensor, gate: torch.Tensor):
+    """(dx, dgate) of the gate's chain g = x·silu(gate), given ds = dL/dg in
+    f32, rounded where torch's autograd of the unfused chain rounds."""
+    xb = x.to(gate.dtype)
+    sz = F.silu(gate)
     dg = ds.to(gate.dtype)
     dx = (dg * sz).to(x.dtype)
     zf = gate.float()
     sig = torch.sigmoid(zf)
     dz = ((dg * xb).float() * (sig * (1 + zf * (1 - sig)))).to(gate.dtype)
-    return dx, dz, dw
+    return dx, dz
+
+
+# ------------------------- split rows (a rank's block) -----------------------
+def _gated_rows(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """g = x·silu(gate) in the gate's dtype, as f32 (T, d)."""
+    return (x.to(gate.dtype) * F.silu(gate)).float()
+
+
+def gated_norm_stat_ref(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The statistic launch: each row's f32 sum of g² over this block, (T,)."""
+    g = _gated_rows(x, gate)
+    return (g * g).sum(-1)
+
+
+def gated_norm_apply_ref(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                         stats: torch.Tensor, dn: int, eps: float = 1e-6) -> torch.Tensor:
+    """The apply launch: g normalised by rsqrt(stats / dn + eps), stats the
+    sum of g² over the whole row (every block), times this block's w; in
+    the gate's dtype."""
+    g = _gated_rows(x, gate)
+    rstd = torch.rsqrt(stats.float() / dn + eps)[:, None]
+    return (g * rstd * w.float()).to(gate.dtype)
+
+
+def gated_norm_bwd_stat_ref(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """The backward's statistic launch: each row's f32 sums over this block
+    of g² and of w·dh·g, (T, 2)."""
+    g = _gated_rows(x, gate)
+    return torch.stack([(g * g).sum(-1), (dh.float() * w.float() * g).sum(-1)], -1)
+
+
+def gated_norm_bwd_apply_ref(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+                             w: torch.Tensor, stats: torch.Tensor, dn: int,
+                             eps: float = 1e-6):
+    """The backward's apply launch, given both sums over the whole row:
+    (dx, dgate, dw of this block's columns), as
+    :func:`fused_rmsnorm_bwd_ref` defines them over the whole row."""
+    s = _gated_rows(x, gate)
+    stats = stats.float()
+    rstd = torch.rsqrt(stats[:, 0] / dn + eps)[:, None]
+    sh = s * rstd
+    dhf = dh.float()
+    dw = (dhf * sh).sum(0)
+    g = dhf * w.float()
+    mean = stats[:, 1:2] * rstd / dn
+    ds = rstd * (g - sh * mean)
+    return (*_gated_chain_bwd(ds, x, gate), dw)

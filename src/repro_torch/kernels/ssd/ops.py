@@ -118,6 +118,16 @@ def _forward(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     if x.device.type == "cpu":
         y, h = _plain(x, dt, B, C, dA)
         return y.contiguous(), h
+    if x.device.type == "meta":
+        lead, n, p = x.shape[:-1], B.shape[-1], x.shape[-1]
+        nb, nh = (x.shape[0], x.shape[2]) if four_d else (1, x.shape[0])
+        y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        h = torch.empty(*lead[:1], *lead[2:], p, n, dtype=torch.float32,
+                        device=x.device)
+        _build.meta_launch(ssd_chunk, lambda: cost.ssd(nb, x.shape[1], nh, p, n, cost.ssd_bytes(
+            x.numel(), x.element_size(), dt.numel(), stored_numel(B),
+            B.element_size(), h.numel())))
+        return y, h
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
     if x.dim() not in (3, 4):

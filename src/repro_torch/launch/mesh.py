@@ -10,6 +10,7 @@ names and sizes, so ``Mesh(shape, axis_names)`` serves them without ranks.
 """
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -21,13 +22,17 @@ from ..parallel.logical import AxisRules, P, PartitionSpec
 
 def init_ranks(device: str = "cuda", backend: str | None = None,
                init_method: str | None = None, rank: int | None = None,
-               world_size: int | None = None) -> torch.device:
+               world_size: int | None = None,
+               timeout: float | None = None) -> torch.device:
     """Join the default process group, if not yet joined, and return this
     rank's device. ``rank``, ``world_size`` and the rendezvous come from
     the arguments or from ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
     ``MASTER_PORT`` (``torchrun`` sets them). ``backend`` defaults to NCCL
     on CUDA and gloo on the CPU; a CUDA rank takes card ``LOCAL_RANK``
-    modulo the cards present (gloo lets several ranks share one)."""
+    modulo the cards present (gloo lets several ranks share one). An NCCL
+    group is bound to that card (``device_id``), so that NCCL does not
+    guess the card from the global rank. ``timeout``: seconds a collective
+    may wait before it raises (torch's default where None)."""
     dev = torch.device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -41,6 +46,10 @@ def init_ranks(device: str = "cuda", backend: str | None = None,
             kw["rank"] = rank
         if world_size is not None:
             kw["world_size"] = world_size
+        if timeout is not None:
+            kw["timeout"] = datetime.timedelta(seconds=timeout)
+        if backend == "nccl" and dev.type == "cuda":
+            kw["device_id"] = dev
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 **kw)
     return dev

@@ -14,15 +14,29 @@ list cannot be; the port shards that leaf's own largest dim. Shapes come
 from ``init_params`` / ``init_cache`` on the meta device: nothing is
 allocated. :func:`local_shard` cuts this rank's block of a whole tensor by
 its spec.
+
+The Mamba2 layer's projection is split by segments, not in one block (a
+difference by design from the reference, which reshards): ``in_proj``'s
+columns ``[z | x | B | C | dt]`` carry a
+:class:`~repro_torch.parallel.logical.Segments` entry that gives each rank
+its heads' z, x and dt and all of B and C, and the conv cache's ``[x | B |
+C]`` channels alike; ``out_proj``'s rows and the state's heads split in one
+block as the reference's. Where the model axis does not divide the heads
+(``ssm_split``) the SSM stays whole on every rank and those entries are
+None. :func:`local_shard`, :func:`shard_tree`, :func:`gather_tree` and the
+checkpoint's restore apply the segments, so a gathered tree equals the
+whole one.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models import init_cache, init_params
 from ..models.config import ModelConfig
+from ..models.layers import ssm_dims, ssm_split
 from ..models.transformer import param_dtype
-from ..parallel.logical import P, PartitionSpec, param_spec
+from ..parallel.logical import P, PartitionSpec, Segments, param_spec
 from .mesh import batch_axes, make_axis_rules, mesh_sizes, safe_spec
 
 
@@ -55,9 +69,28 @@ def _fsdp_spec(spec: PartitionSpec, shape: tuple[int, ...], mesh) -> PartitionSp
     return P(*entries)
 
 
-def param_shardings(cfg: ModelConfig, mesh, fsdp: bool = False):
-    """Spec tree matching ``init_params(cfg)``."""
-    rules = make_axis_rules(mesh)
+def ssm_segments(cfg: ModelConfig, channels: bool = False) -> Segments:
+    """The Mamba2 ``in_proj``'s columns as segments over 'model' (z, x, B, C,
+    dt), or with ``channels`` the conv's (x, B, C)."""
+    d_in, n, h, _ = ssm_dims(cfg)
+    if channels:
+        return Segments("model", (d_in, n, n), (True, False, False))
+    return Segments("model", (d_in, d_in, n, n, h), (True, True, False, False, True))
+
+
+def _ssm_entry(cfg: ModelConfig, mesh, entry, channels: bool = False):
+    """A 'model' entry of an SSM leaf (in_proj's columns, the conv cache's
+    channels) as the segmented split, or None where the heads do not
+    divide the model axis."""
+    if entry != "model":
+        return entry
+    return ssm_segments(cfg, channels) if ssm_split(cfg, mesh.size("model")) else None
+
+
+def param_shardings(cfg: ModelConfig, mesh, fsdp: bool = False, rules=None):
+    """Spec tree matching ``init_params(cfg)``, under ``rules`` (default
+    ``make_axis_rules(mesh)``; ``kv_replicate`` keeps wk/wv whole)."""
+    rules = make_axis_rules(mesh) if rules is None else rules
     sizes = mesh_sizes(mesh)
     shapes = init_params(cfg, device="meta", dtype=param_dtype(cfg))
 
@@ -65,7 +98,10 @@ def param_shardings(cfg: ModelConfig, mesh, fsdp: bool = False):
         spec = param_spec(path[-1:], tuple(leaf.shape), rules, sizes)
         if fsdp:
             spec = _fsdp_spec(spec, tuple(leaf.shape), mesh)
-        return safe_spec(tuple(leaf.shape), spec, mesh)
+        spec = safe_spec(tuple(leaf.shape), spec, mesh)
+        if path[-1] == "in_proj":
+            spec = P(spec[0], _ssm_entry(cfg, mesh, spec[1]))
+        return spec
 
     return _map(one, shapes)
 
@@ -103,8 +139,9 @@ def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int) -> dict:
     if "ssm" in shapes:
         specs["ssm"] = safe_spec(tuple(shapes["ssm"].shape),
                                  P(None, None, ba, "model", None, None), mesh)
-        specs["conv"] = safe_spec(tuple(shapes["conv"].shape),
-                                  P(None, None, ba, None, "model"), mesh)
+        conv = safe_spec(tuple(shapes["conv"].shape),
+                         P(None, None, ba, None, "model"), mesh)
+        specs["conv"] = P(*conv[:4], _ssm_entry(cfg, mesh, conv[4], channels=True))
     return specs
 
 
@@ -119,18 +156,55 @@ def decode_input_shardings(cfg: ModelConfig, mesh, batch: int,
 
 
 # ------------------------------- local blocks --------------------------------
+def _segment_pieces(x, dim: int, seg: Segments, i: int, n: int) -> list:
+    """Rank ``i`` of ``n``'s pieces of the whole dim ``dim`` of ``x``: each
+    split segment's block ``i``, each whole segment as it is."""
+    pieces, off = [], 0
+    for size, split in zip(seg.sizes, seg.split):
+        lo, width = (off + i * (size // n), size // n) if split else (off, size)
+        pieces.append(x[(slice(None),) * dim + (slice(lo, lo + width),)])
+        off += size
+    return pieces
+
+
 def local_shard(x, spec: PartitionSpec, mesh):
     """This rank's block of the whole tensor (or numpy array) ``x`` under
     ``spec``: each sharded dim cut into the axes' size and this rank's
-    place along them taken (a view where it can be)."""
+    place along them taken (a view where it can be; a copy where the dim
+    is split by :class:`Segments`)."""
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
         n = mesh.size(ax)
-        blk = x.shape[dim] // n
         i = mesh.index(ax)
+        if isinstance(ax, Segments):
+            pieces = _segment_pieces(x, dim, ax, i, n)
+            x = (np.concatenate(pieces, dim) if isinstance(x, np.ndarray)
+                 else torch.cat(pieces, dim))
+            continue
+        blk = x.shape[dim] // n
         x = x[(slice(None),) * dim + (slice(i * blk, (i + 1) * blk),)]
     return x
+
+
+def _spec_at(specs, path: tuple):
+    """The spec at ``path`` (keys, list places as ints or digit strings)."""
+    for k in path:
+        specs = specs[int(k)] if isinstance(specs, list) else specs[k]
+    return specs
+
+
+def init_local_params(cfg: ModelConfig, mesh, seed: int = 0, device=None,
+                      dtype: torch.dtype | None = None) -> dict:
+    """This rank's blocks of ``init_params(cfg, seed)`` under
+    ``param_shardings(cfg, mesh)``, made a layer at a time: each leaf is
+    drawn whole (the same values as the whole init's), its block kept as a
+    copy of its own and the rest freed, so a model larger than one card's
+    memory is made on the ranks that hold it."""
+    specs = param_shardings(cfg, mesh)
+    return init_params(cfg, seed=seed, device=device, dtype=dtype, leaf=lambda path, t:
+                       local_shard(t, _spec_at(specs, path), mesh).clone(
+                           memory_format=torch.contiguous_format))
 
 
 def shard_tree(tree, specs, mesh, copy: bool = False):
@@ -151,8 +225,17 @@ def gather_tree(tree, specs, mesh):
     if isinstance(specs, PartitionSpec):
         x = tree
         for dim, ax in enumerate(specs):
-            if ax is not None and mesh.size(ax) > 1:
-                x = all_gather(x.contiguous(), dim, mesh.group(ax))
+            if ax is None or mesh.size(ax) == 1:
+                continue
+            x = all_gather(x.contiguous(), dim, mesh.group(ax))
+            if isinstance(ax, Segments):     # rank blocks -> segment order
+                n = mesh.size(ax)
+                ranks = x.chunk(n, dim)
+                local = ax.local_sizes(n)
+                parts = [r.split(local, dim) for r in ranks]
+                x = torch.cat([p for j, split in enumerate(ax.split)
+                               for p in ([parts[r][j] for r in range(n)] if split
+                                         else [parts[0][j]])], dim)
         return x
     if isinstance(specs, dict):
         return {k: gather_tree(tree[k], specs[k], mesh) for k in tree}

@@ -76,6 +76,11 @@ class ModelConfig:
         return self.attn_every < 0
 
     @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def block_size(self) -> int:
         """Layers per repeated heterogeneous block (lcm of the patterns)."""
         b = 1
@@ -110,3 +115,50 @@ class ModelConfig:
     def layer_is_cross(self, idx: int) -> bool:
         return (self.cross_attn_every > 0
                 and idx % self.cross_attn_every == self.cross_attn_every - 1)
+
+    # --- parameter counts (for roofline MODEL_FLOPS) -------------------------
+    def param_count(self, active_only: bool = False) -> float:
+        d, hd = self.d_model, self.hd
+        total = 0.0
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                total += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                total += self.n_heads * hd * d
+                if self.layer_is_cross(i):
+                    total += 2 * (d * self.n_heads * hd) + 2 * d * self.n_kv_heads * hd
+            else:
+                d_in = self.ssm_expand * d
+                nheads = d_in // self.ssm_head_dim
+                total += d * (2 * d_in + 2 * self.ssm_state + nheads)
+                total += d_in * self.ssm_conv + d_in * d
+            if self.d_ff:
+                n_mats = 3 if self.gated else 2
+                if self.layer_is_moe(i):
+                    e = self.moe_top_k if active_only else self.moe_experts
+                    total += e * n_mats * d * self.d_ff + d * self.moe_experts
+                else:
+                    total += n_mats * d * self.d_ff
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.is_enc_dec:
+            # encoder layers: self-attn + FFN at the same width
+            total += self.encoder_layers * (
+                d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                + self.n_heads * hd * d
+                + (3 if self.gated else 2) * d * self.d_ff)
+        return total
+
+    def model_flops(self, tokens: float, training: bool = True,
+                    decode_kv: int = 0) -> float:
+        """6·N·D (training) or 2·N·D (inference) with N = active params.
+
+        ``decode_kv`` adds the attention KV-cache FLOPs (4·kv·d_attn per
+        token per attn layer), which 6·N·D omits."""
+        n = self.param_count(active_only=True)
+        base = (6.0 if training else 2.0) * n * tokens
+        if decode_kv:
+            n_attn = sum(1 for i in range(self.n_layers)
+                         if self.layer_kind(i) == "attn")
+            base += (4.0 * decode_kv * self.n_heads * self.hd
+                     * n_attn * tokens) * (3.0 if training else 1.0)
+        return base

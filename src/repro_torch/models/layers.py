@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention, flash_attention_train
-from ..kernels.rmsnorm.ops import fused_rmsnorm
+from ..kernels.rmsnorm.ops import fused_rmsnorm, split_gated_rmsnorm
 from ..kernels.ssd.ops import ssd_chunk
 from ..parallel import dist as pd
 from ..parallel.logical import current_mesh, current_rules
@@ -94,6 +94,42 @@ def _split(n: int, width: int, cfg_n: int, what: str) -> bool:
             f"{what}: a block of {width} columns splits a head of {n}; the "
             "port shards whole heads (a model axis that divides the heads)")
     return width // n != cfg_n
+
+
+def _heads_split(p: dict, cfg: ModelConfig, mesh):
+    """(q split, K/V split) of an attention layer's projections under a
+    model axis: both, or the queries alone (``kv_replicate``: the K/V
+    projections whole on every rank, where the kv heads do not divide the
+    axis), or neither."""
+    hd = cfg.hd
+    split = mesh is not None and _split(hd, p["wq"].shape[1], cfg.n_heads, "wq")
+    kv_split = mesh is not None and _split(hd, p["wk"].shape[1], cfg.n_kv_heads, "wk")
+    if kv_split and not split:
+        raise NotImplementedError("K/V heads split over 'model' with the query "
+                                  "heads whole")
+    return split, kv_split
+
+
+def _kv_projections(p: dict, mesh, split: bool, kv_split: bool):
+    """wk and wv as this rank computes with them: whole on every rank under
+    ``kv_replicate`` (and then, where the queries are split, their
+    gradients summed over 'model': each rank's queries read some heads)."""
+    if split and not kv_split and torch.is_grad_enabled():
+        g = mesh.group("model")
+        return pd.copy_to(p["wk"], g), pd.copy_to(p["wv"], g)
+    return p["wk"], p["wv"]
+
+
+def _query_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, hq: int,
+                    mesh, dim: int):
+    """K/V of every kv head cut (along ``dim``) to those this rank's ``hq``
+    query heads read (GQA: query head i reads kv head i // group)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hq % g and g % hq:
+        raise NotImplementedError(f"{hq} query heads a rank and a GQA group of {g}")
+    r = mesh.index("model")
+    lo, hi = r * hq // g, ((r + 1) * hq - 1) // g + 1
+    return k.narrow(dim, lo, hi - lo), v.narrow(dim, lo, hi - lo)
 
 
 def _row_out(y: torch.Tensor, cfg: ModelConfig, mesh, split: bool) -> torch.Tensor:
@@ -206,17 +242,16 @@ def _self_attention_model_axis(p, x, cfg, rope, causal, mesh):
     (all of them where the K/V projections are whole)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    split = _split(hd, p["wq"].shape[1], cfg.n_heads, "wq")
+    split, kv_split = _heads_split(p, cfg, mesh)
     hq, hk = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    if split != _split(hd, p["wk"].shape[1], cfg.n_kv_heads, "wk"):
-        raise NotImplementedError("query and K/V heads must both be split "
-                                  "over 'model', or neither")
     if split:
         x = pd.copy_to(x, mesh.group("model"))
+    wk, wv = _kv_projections(p, mesh, split, kv_split)
     q = rotate(_mm(x, p["wq"]).view(b, s, hq, hd), *rope)
-    k = rotate(_mm(x, p["wk"]).view(b, s, hk, hd), *rope)
-    v = _mm(x, p["wv"]).view(b, s, hk, hd)
-    o = _attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+    k = rotate(_mm(x, wk).view(b, s, hk, hd), *rope)
+    v = _mm(x, wv).view(b, s, hk, hd)
+    ka, va = (k, v) if split == kv_split else _query_kv_heads(k, v, cfg, hq, mesh, 2)
+    o = _attend(q.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
                 causal)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return _row_out(_mm(o, p["wo"]), cfg, mesh, split), k, v
@@ -271,18 +306,17 @@ def _decode_context_parallel(p, x, cache_k, cache_v, pos, cfg, rope, kv_len,
     b = x.shape[0]
     hd = cfg.hd
     group = mesh.group("model") if mesh.size("model") > 1 else None
-    split = _split(hd, p["wq"].shape[1], cfg.n_heads, "wq")
+    split, kv_split = _heads_split(p, cfg, mesh if group is not None else None)
     hq, hk = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    if split != _split(hd, p["wk"].shape[1], cfg.n_kv_heads, "wk"):
-        raise NotImplementedError("query and K/V heads must both be split "
-                                  "over 'model', or neither")
     q = rotate(_mm(x, p["wq"]).view(b, 1, hq, hd), *rope)
     k = rotate(_mm(x, p["wk"]).view(b, 1, hk, hd), *rope)
     v = _mm(x, p["wv"]).view(b, 1, hk, hd)
-    if split:      # every rank's heads of q, k and v in one gather
+    if kv_split:   # every rank's heads of q, k and v in one gather
         qkv = pd.all_gather(torch.cat([q, k, v], dim=2)[None], 0, group)
         q, k, v = (t.transpose(0, 2).reshape(b, 1, -1, hd) for t in
                    qkv.split([hq, hk, hk], dim=3))
+    elif split:    # kv_replicate: the queries alone
+        q = pd.all_gather(q[None], 0, group).transpose(0, 2).reshape(b, 1, -1, hd)
     s_local = cache_k.shape[1]
     local = pos - mesh.index("model") * s_local
     mine = (local >= 0) & (local < s_local)
@@ -299,12 +333,36 @@ def _decode_context_parallel(p, x, cache_k, cache_v, pos, cfg, rope, kv_len,
     return _row_out(_mm(o, p["wo"]), cfg, mesh, split), cache_k, cache_v
 
 
-def _memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig):
-    """The memory's keys and values, each (B, Hkv, M, hd): views of the
-    (B, M, Hkv, hd) projections, as the cache is read."""
+def _cross_heads(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                 cfg: ModelConfig):
+    """Cross-attention's heads here: (x, memory, q heads, kv heads, mesh,
+    split). Under a model axis whose ranks hold a block of the heads (wq
+    column-parallel, wk/wv alike: the memory's K/V on local heads, the
+    memory whole on every rank), x and the memory enter through
+    ``copy_to`` (their gradients summed over 'model')."""
+    hd = cfg.hd
+    mesh = model_mesh()
+    split, kv_split = _heads_split(p, cfg, mesh)
+    hq, hk = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    if split:
+        x = pd.copy_to(x, mesh.group("model"))
+        memory = pd.copy_to(memory, mesh.group("model"))
+    return x, memory, hq, hk, mesh, split, kv_split
+
+
+def _memory_heads(p, memory, cfg, hq, hk, mesh, split, kv_split):
+    """The memory's K/V on the heads this rank's queries read."""
+    wk, wv = _kv_projections(p, mesh, split, kv_split)
+    k, v = _memory_kv({"wk": wk, "wv": wv}, memory, cfg, hk)
+    return (k, v) if split == kv_split else _query_kv_heads(k, v, cfg, hq, mesh, 1)
+
+
+def _memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig, hk: int):
+    """The memory's keys and values on ``hk`` heads, each (B, hk, M, hd):
+    views of the (B, M, hk, hd) projections, as the cache is read."""
     b, m, _ = memory.shape
-    k = _mm(memory, p["wk"]).view(b, m, cfg.n_kv_heads, cfg.hd)
-    v = _mm(memory, p["wv"]).view(b, m, cfg.n_kv_heads, cfg.hd)
+    k = _mm(memory, p["wk"]).view(b, m, hk, cfg.hd)
+    v = _mm(memory, p["wv"]).view(b, m, hk, cfg.hd)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -312,13 +370,15 @@ def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) queries; memory: (B, M, d) (image embeddings or the
     encoder's output), in x's dtype. Queries from x, keys and values from
-    the memory, no RoPE, no mask. Returns (B, S, d)."""
+    the memory, no RoPE, no mask. Returns (B, S, d). Under a model axis on
+    this rank's heads, wo row-parallel and all-reduced."""
     b, s, _ = x.shape
-    q = _mm(x, p["wq"]).view(b, s, cfg.n_heads, cfg.hd)
-    k, v = _memory_kv(p, memory, cfg)
+    x, memory, hq, hk, mesh, split, kv_split = _cross_heads(p, x, memory, cfg)
+    q = _mm(x, p["wq"]).view(b, s, hq, cfg.hd)
+    k, v = _memory_heads(p, memory, cfg, hq, hk, mesh, split, kv_split)
     o = _attend(q.transpose(1, 2), k, v, False)             # (B, H, S, hd)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return _mm(o, p["wo"])
+    o = o.transpose(1, 2).reshape(b, s, hq * cfg.hd)
+    return _row_out(_mm(o, p["wo"]), cfg, mesh, split)
 
 
 def decode_cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor,
@@ -329,10 +389,11 @@ def decode_cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor,
     kernel's ``kv_len``: every key). The memory's K/V are projected in
     every step, as the reference does. Returns (B, 1, d)."""
     b = x.shape[0]
-    q = _mm(x, p["wq"]).view(b, cfg.n_heads, cfg.hd)
-    k, v = _memory_kv(p, memory, cfg)
+    x, memory, hq, hk, mesh, split, kv_split = _cross_heads(p, x, memory, cfg)
+    q = _mm(x, p["wq"]).view(b, hq, cfg.hd)
+    k, v = _memory_heads(p, memory, cfg, hq, hk, mesh, split, kv_split)
     o = decode_attention(q, k, v, mem_len, return_lse=False)  # (B, H, hd)
-    return _mm(o.reshape(b, 1, cfg.n_heads * cfg.hd), p["wo"])
+    return _row_out(_mm(o.reshape(b, 1, hq * cfg.hd), p["wo"]), cfg, mesh, split)
 
 
 # ================================= MLP =======================================
@@ -495,6 +556,85 @@ def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
     return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim
 
 
+def ssm_split(cfg: ModelConfig, m: int) -> bool:
+    """Whether a model axis of ``m`` ranks splits the Mamba2 layer by heads
+    (the segmented split of ``launch/shardings.py``): where ``in_proj``'s
+    columns are sharded (the reference's rule, ``m`` divides their count)
+    and ``m`` divides the heads. Else the layer is whole on every rank."""
+    d_in, n, h, _ = ssm_dims(cfg)
+    return m > 1 and h % m == 0 and (2 * d_in + 2 * n + h) % m == 0
+
+
+def _ssm_local(p: dict, cfg: ModelConfig):
+    """How this rank holds the Mamba2 layer: (mesh, heads here, first head,
+    out_proj's first row), mesh None where the layer runs as on one device
+    (no model axis, or out_proj whole). The heads are all of them where
+    ``in_proj`` is whole (the heads do not divide the axis): then every rank
+    computes the whole layer and its block of out_proj's rows takes its
+    block of the output's columns."""
+    d_in, n, h, hp = ssm_dims(cfg)
+    mesh = model_mesh()
+    rows = p["out_proj"].shape[0]
+    if mesh is None or rows == d_in:
+        return None, h, 0, 0
+    width = p["in_proj"].shape[1]
+    r = mesh.index("model")
+    if width == 2 * d_in + 2 * n + h:
+        return mesh, h, 0, r * rows
+    h_l = (width - 2 * n) // (2 * hp + 1)
+    return mesh, h_l, r * h_l, 0
+
+
+def _ssm_weights(p: dict, cfg: ModelConfig, mesh, h_l: int, lo: int) -> dict:
+    """The layer's weights as this rank computes with them: in_proj
+    (its columns [z | x | B | C | dt] of the rank's heads), conv_w (the
+    channels [x | B | C] of its heads), A_log, D, dt_bias and norm_w of
+    its heads, out_proj its rows. Under a model axis each leaf that every
+    rank holds whole but uses in part (and B and C's columns of in_proj)
+    enters through ``copy_to``: its gradient summed over 'model'."""
+    if mesh is None:
+        return p
+    d_in, n, h, hp = ssm_dims(cfg)
+    g = mesh.group("model")
+    w_in = p["in_proj"]
+    if h_l == h:
+        w_in = pd.copy_to(w_in, g)
+    elif torch.is_grad_enabled() and w_in.requires_grad:
+        c = 2 * h_l * hp
+        w_in = torch.cat([w_in[:, :c], pd.copy_to(w_in[:, c:c + 2 * n], g),
+                          w_in[:, c + 2 * n:]], 1)
+    conv = pd.copy_to(p["conv_w"], g)
+    if h_l != h:
+        conv = torch.cat([conv[:, lo * hp:(lo + h_l) * hp], conv[:, d_in:]], 1)
+    heads = slice(lo, lo + h_l)
+    return {"in_proj": w_in, "conv_w": conv,
+            "A_log": pd.copy_to(p["A_log"], g)[heads],
+            "D": pd.copy_to(p["D"], g)[heads],
+            "dt_bias": pd.copy_to(p["dt_bias"], g)[heads],
+            "norm_w": pd.copy_to(p["norm_w"], g)[lo * hp:(lo + h_l) * hp],
+            "out_proj": p["out_proj"]}
+
+
+def _ssm_norm_out(p: dict, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+                  mesh, h_l: int, row0: int) -> torch.Tensor:
+    """The gated norm of y (..., h_l P) f32 by z, then out_proj: on one
+    device the fused gated norm; under a model axis with the heads split
+    the split-row norm (its row sums all-reduced over 'model'), with the
+    layer whole on every rank the fused norm and this rank's block of the
+    output's columns; then out_proj's rows here, all-reduced over 'model'."""
+    d_in, _, h, hp = ssm_dims(cfg)
+    if mesh is None:
+        return _mm(_gated_norm(y, z, p["norm_w"]), p["out_proj"])
+    if h_l == h:
+        y = _gated_norm(y, z, p["norm_w"])
+        y = y[..., row0:row0 + p["out_proj"].shape[0]]
+    else:
+        d = z.shape[-1]
+        y = split_gated_rmsnorm(y.reshape(-1, d), p["norm_w"], z.reshape(-1, d),
+                                mesh.group("model"), d_in).view(z.shape)
+    return _row_out(_mm(y, p["out_proj"]), cfg, mesh, True)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal 1-D conv. x: (B, S, C); w: (K, C).
 
@@ -530,7 +670,12 @@ def ssm_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     min(128, S)`` holds S <= 128 or S % 128 == 0 only.
     """
     b, s, _ = x.shape
-    d_in, n, h, hp = ssm_dims(cfg)
+    _, n, _, hp = ssm_dims(cfg)
+    mesh, h, lo, row0 = _ssm_local(p, cfg)
+    if mesh is not None:
+        x = pd.copy_to(x, mesh.group("model"))
+    p = _ssm_weights(p, cfg, mesh, h, lo)
+    d_in = h * hp
     k = cfg.ssm_conv
     zxbcdt = _mm(x, p["in_proj"])
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, h], dim=-1)
@@ -543,8 +688,8 @@ def ssm_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     y, state = ssd_chunk(xs, dt, Bm[:, :, None].expand(b, s, h, n),
                          Cm[:, :, None].expand(b, s, h, n), dA)
     y = y + p["D"][:, None] * xs.float()
-    y = _gated_norm(y.view(b, s, d_in), z, p["norm_w"])
-    return _mm(y, p["out_proj"]), state, conv_tail
+    out = _ssm_norm_out(p, y.view(b, s, d_in), z, cfg, mesh, h, row0)
+    return out, state, conv_tail
 
 
 def ssm_decode_step(p: dict, x: torch.Tensor, state: torch.Tensor,
@@ -553,7 +698,10 @@ def ssm_decode_step(p: dict, x: torch.Tensor, state: torch.Tensor,
     conv_cache: (B, K-1, d_in + 2N). Both caches are updated in place.
     Returns (out (B, 1, d), state, conv_cache)."""
     b = x.shape[0]
-    d_in, n, h, hp = ssm_dims(cfg)
+    _, n, _, hp = ssm_dims(cfg)
+    mesh, h, lo, row0 = _ssm_local(p, cfg)
+    p = _ssm_weights(p, cfg, mesh, h, lo)
+    d_in = h * hp
     zxbcdt = _mm(x, p["in_proj"])[:, 0]
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, h], dim=-1)
     window = torch.cat([conv_cache.to(xbc.dtype), xbc[:, None]], dim=1)
@@ -568,8 +716,8 @@ def ssm_decode_step(p: dict, x: torch.Tensor, state: torch.Tensor,
         torch.einsum("bhp,bn,bh->bhpn", xs, Bm.float(), dt))
     y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
     y = y + p["D"][:, None] * xs
-    y = _gated_norm(y.reshape(b, d_in), z, p["norm_w"])
-    return _mm(y, p["out_proj"])[:, None], state, conv_cache
+    out = _ssm_norm_out(p, y.reshape(b, d_in), z, cfg, mesh, h, row0)
+    return out[:, None], state, conv_cache
 
 
 # =============================== initializers ================================

@@ -81,9 +81,14 @@ its rows of the batch and, from :func:`init_cache` (given the global batch
 and ``max_len``), its block of the cache. Where a model axis shards the
 vocabulary, the embedding is looked up per block and summed, and the
 logits are this rank's block of the vocabulary (:func:`gather_vocab`),
-which ``loss_fn`` reduces by the vocab-parallel cross-entropy. SSM,
-hybrid, cross-attention and encoder layers raise under a model axis of
-more than one rank (:func:`check_supported`).
+which ``loss_fn`` reduces by the vocab-parallel cross-entropy. Every
+layer kind runs under a model axis: attention, MLP and MoE as Megatron
+splits them, the Mamba2 layer by its heads (the segmented split of
+``launch/shardings.py``, its gated norm over split rows), cross-attention
+on this rank's heads over a memory that every rank holds whole, and the
+encoder as the decoder; the cache's SSM state and conv tail are this
+rank's heads (where they divide the axis), its K/V this rank's block of
+the sequence.
 """
 from __future__ import annotations
 
@@ -97,7 +102,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from ..kernels.rmsnorm.ops import fused_rmsnorm
 from ..parallel import dist as pd
-from ..parallel.logical import current_mesh, current_rules
+from ..parallel.logical import current_mesh, current_rules, use_rules
 from . import layers as L
 from .config import ModelConfig
 
@@ -109,17 +114,9 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs every layer pattern of the reference (dense, MoE,
     SSM, hybrid attention/SSM blocks, cross-attention, encoder-decoder) on
-    one device and over data axes. Under installed rules with a 'model'
-    axis of more than one rank it runs attention with an MLP or MoE;
-    SSM, hybrid, cross-attention and encoder layers raise there."""
-    if L.model_mesh() is None:
-        return
-    kinds = {cfg.layer_kind(i) for i in range(cfg.block_size)}
-    if "ssm" in kinds or cfg.cross_attn_every > 0 or cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM, hybrid, cross-attention and encoder layers "
-            "under a model axis of more than one rank wait for port slice 16 "
-            "(ROADMAP.md queue 1 item 9); run them over data axes")
+    one device and under any mesh; the pattern must tile the stack (a
+    ValueError where ``n_layers`` is not a multiple of the block)."""
+    cfg.n_blocks
 
 
 # ================================ init =======================================
@@ -155,8 +152,16 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
+def _mapped(tree, leaf, path: tuple):
+    """``leaf(path, tensor)`` over a dict tree (a layer's parameters)."""
+    if isinstance(tree, torch.Tensor):
+        return leaf(path, tree)
+    return {k: _mapped(v, leaf, path + (k,)) for k, v in tree.items()}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                dtype: torch.dtype | None = None) -> dict:
+                dtype: torch.dtype | None = None, blocks: range | None = None,
+                leaf=None) -> dict:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``:
     the reference's leaves and shapes (``lnx``/``xattn`` on cross layers,
     ``enc_stack`` and ``enc_final_norm`` for an encoder-decoder),
@@ -166,29 +171,47 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     training passes ``param_dtype(cfg)``. Under ``param_dtype="bfloat16"``
     with bf16 ``dtype`` the LayerNorm ``w``/``b`` leaves are bf16 too, as
     the reference casts every f32 leaf (RMSNorm weights stay f32: the fused
-    norm kernel and its backward take f32 weights)."""
+    norm kernel and its backward take f32 weights).
+
+    ``blocks``: make only these blocks of the stack (``params["stack"]``
+    holds them in order), each equal to the same block of the whole init:
+    the others' weights are drawn and dropped, so the generator stands
+    where the whole init's does (a model too large for one card in parts,
+    :func:`forward_part`). ``leaf(path, tensor)``: applied to each leaf as
+    it is made, a layer at a time, and kept instead (this rank's block of
+    it, ``launch/shardings.init_local_params``), so the whole tree never
+    exists at once."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
     gen = (None if device.type == "meta"     # shapes only (launch/shardings)
            else torch.Generator(device=device).manual_seed(seed))
     norm_init, _ = L.make_norm(cfg)
+    put = (lambda path, t: t) if leaf is None else leaf
+    keep = range(cfg.n_blocks) if blocks is None else blocks
     params: dict = {
-        "embed": L.dense_init(gen, cfg.d_model, (cfg.vocab, cfg.d_model),
-                              dtype, device),
-        "final_norm": norm_init(cfg.d_model, device),
-        "stack": [{f"l{i}": _init_layer(gen, cfg, i, dtype, device)
-                   for i in range(cfg.block_size)}
-                  for _ in range(cfg.n_blocks)],
+        "embed": put(("embed",), L.dense_init(gen, cfg.d_model, (cfg.vocab, cfg.d_model),
+                                               dtype, device)),
+        "final_norm": _mapped(norm_init(cfg.d_model, device), put, ("final_norm",)),
+        "stack": [],
     }
+    for b in range(cfg.n_blocks):
+        blk = {}
+        for i in range(cfg.block_size):
+            lp = _init_layer(gen, cfg, i, dtype, device)
+            if b in keep:
+                blk[f"l{i}"] = _mapped(lp, put, ("stack", b, f"l{i}"))
+        if b in keep:
+            params["stack"].append(blk)
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model,
-                                         (cfg.d_model, cfg.vocab), dtype,
-                                         device)
+        params["lm_head"] = put(("lm_head",), L.dense_init(
+            gen, cfg.d_model, (cfg.d_model, cfg.vocab), dtype, device))
     if cfg.is_enc_dec:
-        params["enc_stack"] = [_init_encoder_layer(gen, cfg, dtype, device)
-                               for _ in range(cfg.encoder_layers)]
-        params["enc_final_norm"] = norm_init(cfg.d_model, device)
+        params["enc_stack"] = [_mapped(_init_encoder_layer(gen, cfg, dtype, device), put,
+                                       ("enc_stack", i))
+                               for i in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = _mapped(norm_init(cfg.d_model, device), put,
+                                           ("enc_final_norm",))
     if (cfg.norm == "layernorm" and cfg.param_dtype == "bfloat16"
             and dtype == torch.bfloat16):
         norms = [params, *params.get("enc_stack", []),
@@ -250,12 +273,16 @@ def _stack(cfg: ModelConfig, layers: list, final_norm: dict, x: torch.Tensor,
     attention or SSM branch output; ``cross(layer, h)``, where given,
     returns the cross-attention of a layer that has one (``xattn``), after
     its self-attention; ``dense_moe`` runs MoE layers dropless
-    (:func:`_ffn`). Returns the final-normed (B, S, d)."""
+    (:func:`_ffn`). Returns the final-normed (B, S, d), or without
+    ``final_norm`` (RMSNorm configs) the residual stream after the last
+    layer, which a later call takes as its ``x``."""
     shape = x.shape
     if cfg.norm != "rmsnorm":
         return _run_stack_layernorm(cfg, final_norm, x, mix, layers,
                                     dense_moe, cross)
     d = shape[-1]
+    w_last = (torch.ones(d, dtype=torch.float32, device=x.device)
+              if final_norm is None else final_norm["w"])
 
     def layer(h, x, b, i, lp, w_next):
         a = mix(b, i, lp, h.view(shape))
@@ -270,9 +297,9 @@ def _stack(cfg: ModelConfig, layers: list, final_norm: dict, x: torch.Tensor,
     h, x = fused_rmsnorm(x.reshape(-1, d), layers[0][2]["ln1"]["w"])
     for n, (b, i, lp) in enumerate(layers):
         w_next = (layers[n + 1][2]["ln1"]["w"] if n + 1 < len(layers)
-                  else final_norm["w"])
+                  else w_last)
         h, x = _remat(cfg, layer, h, x, b, i, lp, w_next)
-    return h.view(shape)
+    return (h if final_norm is not None else x).view(shape)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -288,6 +315,15 @@ def _remat(cfg: ModelConfig, fn, *args):
     all but the ``aten.mm`` outputs) or "none" (save everything)."""
     if not torch.is_grad_enabled() or cfg.remat == "none":
         return fn(*args)
+    rules, mesh = current_rules(), current_mesh()
+    if rules is not None:
+        # backward recomputes the layer in autograd's own thread (a CUDA
+        # tensor's), where the rules installed here are not: install them
+        layer = fn
+
+        def fn(*a):
+            with use_rules(rules, mesh):
+                return layer(*a)
     if cfg.remat == "full":
         return checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
@@ -427,6 +463,32 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _logits(cfg, params, h)
 
 
+def forward_part(cfg: ModelConfig, params: dict, inp: torch.Tensor,
+                 first: bool, last: bool) -> torch.Tensor:
+    """The decoder over a contiguous part of its layers (an RMSNorm config
+    without memory), for a model run in parts on one card: ``params`` from
+    ``init_params(cfg, blocks=...)``, whose ``stack`` is the part's blocks.
+    ``inp``: the tokens (B, S) where ``first``, else the residual stream
+    (B, S, d) a previous part returned. Returns the logits where ``last``,
+    else the residual stream after the part's last layer. The parts in
+    order compute :func:`forward` but for one rounding: a part starts from
+    the residual in the compute dtype, where the whole stack normalises the
+    unrounded f32 sum (``fused_rmsnorm``)."""
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"forward_part: {cfg.name} is not an RMSNorm config")
+    x = _embed(cfg, params, inp, compute_dtype(cfg)) if first else inp
+    rope = _rope(cfg, x.shape[1], x.device)
+
+    def mix(b, i, lp, h):
+        if "ssm" in lp:
+            return L.ssm_layer(lp["ssm"], h, cfg)[0]
+        return L.self_attention(lp["attn"], h, cfg, rope)[0]
+
+    h = _run_stack(cfg, params, x, mix) if last else _stack(
+        cfg, list(_layers(cfg, params)), None, x, mix)
+    return _logits(cfg, params, h) if last else h
+
+
 def _memory_from_batch(cfg: ModelConfig, params: dict, batch: dict):
     """The memory ``loss_fn`` attends to: the batch's ``image_embeds`` for
     the VLM, the encoder's output over its ``audio_frames`` for the
@@ -524,6 +586,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     if spec.n_ssm:
         d_in, n, h, hp = L.ssm_dims(cfg)
+        if mesh is not None and current_rules() is not None and L.ssm_split(
+                cfg, mesh.size("model")):      # this rank's heads
+            h //= mesh.size("model")
+            d_in = h * hp
         cache["ssm"] = torch.zeros((nb, spec.n_ssm, batch, h, hp, n),
                                    dtype=torch.float32, device=device)
         cache["conv"] = torch.zeros(

@@ -19,9 +19,17 @@ tensors when two ranks share one card (NCCL refuses that); gloo stages a
 CUDA tensor through the host and takes only ``all_reduce`` and
 ``broadcast`` there, so the gather and reduce-scatter below are written as
 all-reduces unless the group's backend is NCCL.
+
+Each collective of a group of more than one rank is recorded where it is
+issued here, by its logical kind (all-gather, all-reduce, reduce-scatter,
+and a broadcast as a collective-permute), with its operand's bytes and the
+group's size, in every open :func:`recording`: a gather that gloo carries
+as an all-reduce is still an all-gather there, so a trace's collectives do
+not depend on the backend (``validation/opcount.trace_cost``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -105,7 +113,7 @@ class Mesh:
         tuple of names)."""
         if isinstance(axes, str):
             axes = (axes,)
-        axes = tuple(a for a in axes if a in self.axis_names)
+        axes = tuple(str(a) for a in axes if a in self.axis_names)
         if self.device_mesh is None:
             raise ValueError(f"{self!r} has no ranks")
         if len(axes) == 1:
@@ -126,18 +134,52 @@ class Mesh:
 
 
 # ------------------------------- collectives ---------------------------------
+_RECORDERS: list[list] = []
+_HLO_DTYPES = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.int64: "s64", torch.int32: "s32",
+               torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred"}
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, every collective issued here on a group of more
+    than one rank appends ``(kind, operand bytes, shape text,
+    participants)`` to the list it yields, in issue order."""
+    rec: list = []
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _record(kind: str, x: torch.Tensor, n: int) -> None:
+    if _RECORDERS:
+        shape = f"{_HLO_DTYPES.get(x.dtype, str(x.dtype))}[{','.join(map(str, x.shape))}]"
+        item = (kind, x.numel() * x.element_size(), shape, n)
+        for rec in _RECORDERS:
+            rec.append(item)
+
+
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def backend(group) -> str:
+    """The group's backend name ("nccl", "gloo", "fake")."""
+    return dist.get_backend(group)
+
+
 def _nccl(group) -> bool:
-    return dist.get_backend(group) == "nccl"
+    return backend(group) == "nccl"
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A new tensor: ``op`` of ``x`` over the group's ranks."""
-    if group_size(group) == 1:
+    n = group_size(group)
+    if n == 1:
         return x
+    _record("all-reduce", x, n)
     y = x.clone()
     dist.all_reduce(y, op=op, group=group)
     return y
@@ -149,6 +191,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x
+    _record("all-gather", x, n)
     dim = dim % x.dim()
     if _nccl(group):
         src = x.movedim(dim, 0).contiguous()
@@ -170,6 +213,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x
+    _record("reduce-scatter", x, n)
     dim = dim % x.dim()
     blk = x.shape[dim] // n
     r = dist.get_rank(group)
@@ -178,13 +222,16 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         out = src.new_empty((blk, *src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, dim)
-    y = all_reduce(x, group)
+    y = x.clone()
+    dist.all_reduce(y, group=group)
     return y.narrow(dim, r * blk, blk).clone()
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     """``x`` as the group's rank ``src`` holds it, in place."""
-    if group_size(group) > 1:
+    n = group_size(group)
+    if n > 1:
+        _record("collective-permute", x, n)
         dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
 

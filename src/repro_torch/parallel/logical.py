@@ -39,6 +39,36 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class Segments(str):
+    """A spec entry for a dim made of segments, each either split over the
+    mesh axis (its blocks, rank by rank) or whole on every rank: the Mamba2
+    ``in_proj``'s ``[z | x | B | C | dt]`` columns, whose z, x and dt follow
+    the rank's heads while B and C (one group for every head) stay whole,
+    and the conv cache's ``[x | B | C]`` channels. It is the axis' name as a
+    string (so a spec reads as the reference's, sharded over that axis), and
+    ``sizes`` / ``split`` give the whole dim's segments."""
+
+    sizes: tuple
+    split: tuple
+
+    def __new__(cls, axis: str, sizes, split):
+        obj = super().__new__(cls, axis)
+        obj.sizes, obj.split = tuple(int(n) for n in sizes), tuple(bool(b) for b in split)
+        if len(obj.sizes) != len(obj.split):
+            raise ValueError(f"Segments: {obj.sizes} and {obj.split}")
+        return obj
+
+    def __repr__(self) -> str:
+        return f"Segments({str(self)!r}, {self.sizes}, {self.split})"
+
+    def __reduce__(self):          # copies and pickles keep the segments
+        return Segments, (str(self), self.sizes, self.split)
+
+    def local_sizes(self, n: int) -> tuple:
+        """The segments' widths on one of ``n`` ranks."""
+        return tuple(s // n if sp else s for s, sp in zip(self.sizes, self.split))
+
+
 @dataclasses.dataclass(frozen=True)
 class AxisRules:
     """logical axis -> mesh axis (or tuple of mesh axes, or None)."""

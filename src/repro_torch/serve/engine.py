@@ -25,8 +25,9 @@ the device, so the replayed step writes its K/V at the new position and
 attends over ``pos + 1`` keys. Sampling stays outside the graph. A capture
 that fails raises; the engine never falls back to eager decoding on the
 card. On the CPU, which the caller asks for explicitly, the same step runs
-eagerly, as it does on the card under a mesh of more than one rank. The kernels' launch counters count the graph's replays
-(``kernels.launches()``).
+eagerly, as it does on the card where a mesh axis of more than one rank
+communicates over gloo (ranks sharing a card). The kernels' launch
+counters count the graph's replays (``kernels.launches()``).
 
 Prefill writes the first S positions of the cache, which leaves the same
 contents as the reference's copy of the prefill cache into a serving-length
@@ -120,20 +121,31 @@ class ServeEngine:
         # it (else every rank serves all of it); the cache holds a multiple
         # of the model axis' positions; the logits are gathered over the
         # vocabulary to sample and split rows' tokens over the data axes to
-        # return. The decode step is captured where no collective spans two
-        # ranks (a mesh of one rank). Over more ranks every step runs
-        # eagerly: a gloo collective stages a CUDA tensor through the host
-        # and cannot be captured, and a step captured with NCCL collectives
-        # is unproven (over two H100s it did not finish; PERF.md).
+        # return. The decode step is captured where every collective it
+        # issues can be: those of a group of one rank (none), and NCCL's.
+        # Over a gloo group of more ranks every step runs eagerly: gloo
+        # stages a CUDA tensor through the host, which a capture cannot.
         self.mesh = current_mesh() if current_rules() is not None else None
         if self.mesh is not None:
             m = self.mesh.size("model")
             self.max_len = -(-max_len // m) * m
         self._capturable = self.device.type == "cuda" and (
-            self.mesh is None or max(self.mesh.shape) == 1)
+            self.mesh is None or all(
+                self.mesh.size(ax) == 1 or pd.backend(self.mesh.group(ax)) == "nccl"
+                for ax in self.mesh.axis_names))
         self._slots: dict[int, _Slot] = {}
         self.captures = 0            # decode steps captured into a CUDA graph
         self.capture_s = 0.0         # host seconds spent capturing them
+
+    def close(self) -> None:
+        """Release every slot: its cache and its captured decode graph. A
+        graph that holds NCCL collectives must be gone before the process
+        group is destroyed (``torch.distributed.destroy_process_group``
+        waits on a communicator that a live graph still uses); the engine
+        captures again at its next step."""
+        self._slots.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # --- shared plumbing ----------------------------------------------------
     def _check_window(self, b: int, s: int, n_tokens: int) -> None:

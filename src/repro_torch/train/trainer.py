@@ -141,7 +141,7 @@ class _MeshLayout:
         from ..launch.mesh import batch_axes
         from ..launch.shardings import batch_shardings, param_shardings
         self.cfg, self.mesh = cfg, mesh
-        self.specs = param_shardings(cfg, mesh, fsdp=fsdp)
+        self.specs = param_shardings(cfg, mesh, fsdp=fsdp, rules=current_rules())
         self.leaf_specs = _spec_leaves(self.specs)
         self.data = batch_axes(mesh)
         self.data_axes = _axes(self.data)
@@ -196,7 +196,7 @@ class _MeshLayout:
         mask = local.get("mask")
         count = (torch.ones_like(local["labels"], dtype=torch.float32).sum()
                  if mask is None else mask.float().sum().clamp_min(1.0))
-        share = (count / pd.all_reduce(count, self.dgroup)).item()
+        share = count / pd.all_reduce(count, self.dgroup)     # on the device
         loss, grads = _loss_and_grads(self.cfg, whole, used, local, accum)
         for p in leaves:
             p.requires_grad_(False)
@@ -224,8 +224,7 @@ class _MeshLayout:
         sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square() / c
                  for g, c in zip(grads, self.copies))
         if math.prod(self.mesh.shape) > 1:
-            sq = sq.clone()
-            dist.all_reduce(sq)
+            sq = pd.all_reduce(sq, dist.group.WORLD)
         return sq.sqrt()
 
 

@@ -106,7 +106,8 @@ def test_minitron_group3_decodes_like_the_reference():
 # ------------------------------ the import rule -------------------------------
 def _port_files() -> list[Path]:
     return [ROOT / "chip_smoke.py",
-            *sorted(f for pat in ("flash_*.py", "ssd_*.py", "decode_*.py")
+            *sorted(f for pat in ("flash_*.py", "ssd_*.py", "decode_*.py",
+                                  "model_axis_*.py", "multi_device_*.py")
                     for f in (ROOT / "tools").glob(pat)),
             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
 

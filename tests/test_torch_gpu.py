@@ -830,3 +830,40 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(tree_leaves(gpu), tree_leaves(cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=2e-3)
     assert int(opt["step"]) == 1
+
+
+# ------------------------- the split-row gated norm --------------------------
+@pytest.mark.parametrize("rows,d,dn,width", [(8, 768, 1536, 1804), (300, 4096, 8192, 8288),
+                                             (37, 100, 200, 212)])
+def test_split_row_norm_launches_match_plain(cuda, rows, d, dn, width):
+    """Each statistic and apply launch of the gated norm over a split row
+    (one rank's block, its gate a column slice of its in_proj output)
+    against its plain version: the sums within 1e-5 of the terms'
+    magnitudes, the outputs within the bf16 tolerance; and two blocks put
+    together against the one-launch gated norm."""
+    from repro_torch.kernels.rmsnorm import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ys = [torch.randn(rows, d, generator=g, device="cuda") for _ in range(dn // d)]
+    zs = [torch.randn(rows, width, generator=g, device="cuda").to(torch.bfloat16)[:, :d]
+          for _ in ys]
+    w = torch.rand(dn, generator=g, device="cuda") + 0.5
+    ws = w.split(d)
+    dh = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+    stats = sum(ops.gated_norm_stat(y, z, wb) for y, z, wb in zip(ys, zs, ws))
+    want = sum(ref.gated_norm_stat_ref(y, z) for y, z in zip(ys, zs))
+    assert float(((stats - want).abs() / want).max()) <= 1e-5
+    outs = [ops.gated_norm_apply(y, z, wb.contiguous(), stats, dn)
+            for y, z, wb in zip(ys, zs, ws)]
+    for o, y, z, wb in zip(outs, ys, zs, ws):
+        torch.testing.assert_close(o.float(), ref.gated_norm_apply_ref(
+            y, z, wb, stats, dn).float(), rtol=2e-2, atol=2e-2)
+    whole = ops.fused_rmsnorm(torch.cat(ys, 1), w, gate=torch.cat(zs, 1))[0]
+    torch.testing.assert_close(torch.cat(outs, 1).float(), whole.float(),
+                               rtol=2e-2, atol=2e-2)
+    bst = ops.gated_norm_bwd_stat(dh, ys[0], zs[0], ws[0].contiguous())
+    torch.testing.assert_close(bst, ref.gated_norm_bwd_stat_ref(dh, ys[0], zs[0], ws[0]),
+                               rtol=1e-4, atol=1e-3)
+    got = ops.gated_norm_bwd_apply(dh, ys[0], zs[0], ws[0].contiguous(), bst * 2, dn)
+    for a, b in zip(got, ref.gated_norm_bwd_apply_ref(dh, ys[0], zs[0], ws[0],
+                                                      bst * 2, dn)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)

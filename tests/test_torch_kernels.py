@@ -215,11 +215,16 @@ def test_cpu_tensors_do_not_count_as_launches():
                           torch.ones(1, 1, 4, 32)).sum().backward()
     xg = torch.ones(4, 32, requires_grad=True)
     fused_rmsnorm(xg, torch.ones(32), xg)[0].sum().backward()
+    from repro_torch.kernels.rmsnorm.ops import split_gated_rmsnorm
+    split_gated_rmsnorm(xg, torch.ones(32), torch.ones(4, 32, dtype=torch.bfloat16),
+                        None, 64).float().sum().backward()
     assert launches() == {"rmsnorm": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
                           "flash_attention": 0, "flash_attention_fwd_lse": 0,
                           "flash_attention_bwd_dkv": 0,
                           "flash_attention_bwd_dq": 0, "pricing": 0,
-                          "pricing_f32": 0, "ssd": 0}
+                          "pricing_f32": 0, "ssd": 0, "rmsnorm_split_stat": 0,
+                          "rmsnorm_split_apply": 0, "rmsnorm_bwd_split_stat": 0,
+                          "rmsnorm_bwd_split_apply": 0}
 
 
 # ------------------------------ import rule ----------------------------------

@@ -105,7 +105,7 @@ def test_moe_gelu_experts_match_reference(x):
                                    want, **LAYER_TOL)
 
 
-def test_moe_shard_map_dispatch_raises(moe_params, x):
+def test_moe_shard_map_dispatch_without_mesh_matches_reference(moe_params, x):
     """Without a mesh, moe_dispatch="shard_map" does not raise: it is the
     scatter dispatch, as the reference's ``moe`` falls back to it, drops
     included."""

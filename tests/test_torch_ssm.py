@@ -156,10 +156,21 @@ def test_ssd_model_layout_matches_reference_scan(b, s, h, p, n):
 
 
 def test_ssd_other_devices_raise():
+    """Meta tensors (the dry run) take the meta route: the kernel's outputs
+    as shapes, its work recorded in an op count, no launch and no plain
+    scan; a CPU tensor takes the plain version; the card the kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels import cost
     args = [_t(a) for a in _ssd_inputs(np.random.default_rng(0), (2,), 8,
                                        4, 4)]
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ssd_chunk(*(a.to("meta") for a in args))
+    kernels.reset_launches()
+    with cost.counting() as tally:
+        y, h = ssd_chunk(*(a.to("meta") for a in args))
+    assert y.device.type == h.device.type == "meta"
+    want_y, want_h = ssd_chunk(*args)
+    assert y.shape == want_y.shape and h.shape == want_h.shape
+    assert tally["launches"] == {"ssd_chunk": 1} and tally["bytes"] > 0
+    assert kernels.launches()["ssd"] == 0
 
 
 # ------------------------------- the layer -----------------------------------

@@ -218,8 +218,151 @@ def serve(job, inp, out):
         out[f"{name}/one"] = np.array(one.tokens)    # rows the data axes do not split
 
 
+def _rows(x, mesh):
+    """The global batch of a tensor whose rows are this rank's block of the
+    data axes (where they split it)."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.parallel.dist import all_gather
+    ax = batch_axes(mesh)
+    return all_gather(x.contiguous(), 0, mesh.group(ax)) if mesh.size(ax) > 1 else x
+
+
+def model_axis(job, inp, out):
+    """Each arch of ``job["archs"]`` (f32 SMOKE; and each of
+    ``job["variants"]``, a SMOKE config changed, on its own meshes) over
+    each mesh: the whole
+    parameters sharded and gathered back, prefill (the memory, where the
+    arch has one, the image embeddings or the encoder's output), the cache
+    after prefill gathered whole, decode steps fed the given tokens, and
+    one train step (loss, the updated parameters gathered whole)."""
+    from repro_torch.launch.shardings import cache_shardings
+    from repro_torch.models import encode
+    from repro_torch.train.optimizer import tree_leaves
+    entries = [(a, cfg_of(job, a), job["meshes"], job.get("kv_replicate_meshes", []))
+               for a in job["archs"]]
+    entries += [(name, dataclasses.replace(cfg_of(job, v["arch"]), **v["change"]),
+                 v["meshes"], []) for name, v in job.get("variants", {}).items()]
+    for arch, cfg, meshes, kv_meshes in entries:
+        params = params_from_jax_numpy(cfg, tree_from(inp, f"{arch}/params"), "cpu",
+                                       dtype=torch.float32)
+        tokens = torch.from_numpy(inp[f"{arch}/tokens"]).long()
+        src = inp.get(f"{arch}/memory")
+        b, n = tokens.shape
+        s, steps, max_len = n - job["steps"], job["steps"], job["max_len"]
+        runs = [(m, False) for m in meshes] + [(m, True) for m in kv_meshes]
+        for shape, kvrep in runs:
+            mesh = mesh_of(shape)
+            tag = f"{arch}/{'x'.join(map(str, shape))}{'/kvrep' if kvrep else ''}"
+            rules = make_axis_rules(mesh, cfg, kv_replicate=kvrep)
+            with use_rules(rules, mesh):
+                specs = param_shardings(cfg, mesh, rules=rules)
+                p = shard_tree(params, specs, mesh, copy=True)
+                whole = gather_tree(p, specs, mesh)
+                out[f"{tag}/gathered_err"] = np.array(max(
+                    float((a - w).abs().max()) for a, w in
+                    zip(tree_leaves(whole), tree_leaves(params))))
+                direct = params_from_jax_numpy(cfg, tree_from(inp, f"{arch}/params"), "cpu",
+                                               dtype=torch.float32, shardings=specs,
+                                               mesh=mesh)
+                out[f"{tag}/converted_err"] = np.array(max(
+                    float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(direct), tree_leaves(p))))
+                out[f"{tag}/local_numel"] = np.array(sum(t.numel() for t in tree_leaves(p)))
+                if "ckpt_dir" in job:       # a whole checkpoint restored as blocks
+                    mgr = CheckpointManager(Path(job["ckpt_dir"]) / tag.replace("/", "_"))
+                    if dist.get_rank() == 0:
+                        mgr.save(0, params)
+                    dist.barrier()
+                    _, restored = mgr.restore(0, shardings=specs, device="cpu")
+                    out[f"{tag}/restored_err"] = np.array(max(
+                        float((a - b).abs().max()) for a, b in
+                        zip(tree_leaves(restored), tree_leaves(p))))
+                rows = shard_tree(tokens, P(("pod", "data") if len(shape) == 3
+                                            else "data", None), mesh)
+                memory = None
+                if src is not None:
+                    memory = shard_tree(torch.from_numpy(src), P(
+                        ("pod", "data") if len(shape) == 3 else "data", None, None), mesh)
+                    if cfg.is_enc_dec:
+                        memory = encode(cfg, p, memory)
+                logits, cache = prefill(cfg, p, rows[:, :s], max_len=max_len,
+                                        memory=memory)
+                out[f"{tag}/prefill"] = _rows(gather_vocab(cfg, logits), mesh).numpy()
+                full = gather_tree(cache, cache_shardings(cfg, mesh, b, max_len), mesh)
+                for k, v in full.items():
+                    out[f"{tag}/cache/{k}"] = v.float().clone().numpy()
+                for i in range(steps):
+                    lg, cache = decode_step(cfg, p, cache, rows[:, s + i], s + i,
+                                            memory=memory)
+                    out[f"{tag}/decode{i}"] = _rows(gather_vocab(cfg, lg), mesh).numpy()
+                batch = {k: torch.from_numpy(v) for k, v in
+                         tree_from(inp, f"{arch}/batch").items()}
+                if not kvrep:               # the gradients themselves, gathered
+                    from repro_torch.models import loss_fn
+                    from repro_torch.train.optimizer import tree_unflatten
+                    local = shard_tree(batch, {k: P(("pod", "data") if len(shape) == 3
+                                                    else "data", *(None,) * (v.dim() - 1))
+                                               for k, v in batch.items()}, mesh)
+                    leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+                    grads = torch.autograd.grad(loss_fn(cfg, p, local), leaves)
+                    for t in leaves:
+                        t.requires_grad_(False)
+                    from repro_torch.launch.mesh import batch_axes
+                    from repro_torch.parallel.dist import all_reduce
+                    from repro_torch.train.trainer import _MeshLayout
+                    ba = batch_axes(mesh)
+                    if mesh.size(ba) > 1:       # the mean over the data ranks' rows
+                        grads = [all_reduce(g, mesh.group(ba)) / mesh.size(ba)
+                                 for g in grads]
+                    # the router's gradient where the experts are split: each
+                    # rank's share of a sum over 'model' (the trainer sums it)
+                    partial = _MeshLayout(cfg, mesh, False)._model_partial(p)
+                    grads = [all_reduce(g, mesh.group("model")) if part else g
+                             for g, part in zip(grads, partial)]
+                    whole_g = gather_tree(tree_unflatten(p, list(grads)), specs, mesh)
+                    for i, g in enumerate(tree_leaves(whole_g)):
+                        out[f"{tag}/grad{i}"] = g.numpy()
+                step = make_train_step(cfg, AdamWConfig(lr=job["lr"]))
+                p, _, m = step(p, adamw_init(p), batch)
+                out[f"{tag}/loss"] = m["loss"].numpy()
+                _put(out, f"{tag}/params", gather_tree(p, specs, mesh))
+
+
+def collectives(job, inp, out):
+    """One attention, MLP, MoE and SSM layer's forward over each mesh,
+    traced (``validation/opcount.trace_cost``): each collective record as
+    (kind, operand bytes, shape, participants, trips), JSON."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.validation.opcount import trace_cost
+    for shape in job.get("meshes_coll", job["meshes"]):
+        mesh = mesh_of(shape)
+        for kind, arch in job["layers"].items():
+            cfg = cfg_of(job, arch)
+            with use_rules(make_axis_rules(mesh, cfg), mesh):
+                params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+                p = shard_tree(params, param_shardings(cfg, mesh), mesh, copy=True)
+                lp = next(lp for lp in p["stack"][0].values()
+                          if {"attention": "attn", "mlp": "mlp", "moe": "moe",
+                              "ssm": "ssm"}[kind] in lp)
+                x = torch.from_numpy(inp["coll_x"][:, :, :cfg.d_model].copy())
+                x = shard_tree(x, P(batch_axes(mesh), None, None), mesh)
+                rope = L.rope_tables(torch.arange(x.shape[1]), cfg.hd, cfg.rope_theta)
+                run = {"attention": lambda: L.self_attention(lp["attn"], x, cfg, rope),
+                       "mlp": lambda: L.mlp(lp["mlp"], x, cfg),
+                       "moe": lambda: L.moe(lp["moe"], x, cfg),
+                       "ssm": lambda: L.ssm_layer(lp["ssm"], x, cfg)}[kind]
+                summary = trace_cost(run, "cpu")
+            recs = [[r.kind, r.bytes_, r.shape, r.participants, r.trips]
+                    for r in summary.collectives]
+            out[f"coll/{'x'.join(map(str, shape))}/{kind}"] = np.array(json.dumps(
+                {"records": recs, "link": summary.collective_bytes}))
+
+
 CHECKS = {"context_parallel": context_parallel, "moe": moe,
-          "pipeline": pipeline, "train": train, "serve": serve}
+          "pipeline": pipeline, "train": train, "serve": serve,
+          "model_axis": model_axis, "collectives": collectives}
 
 
 def main(job_dir: str, rank: int, world: int) -> None:
