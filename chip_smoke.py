@@ -12,17 +12,22 @@ the multi-device layer: OLMo-1B on one NCCL rank's mesh with FSDP,
 OLMoE-1B-7B served expert- and context-parallel on two gloo ranks that
 share the card, and a data-parallel OLMo-1B step on two; then Mamba2-130M,
 Llama-3.2-Vision-11B and SeamlessM4T-medium served with every layer kind
-split over a model axis of two gloo ranks sharing the card.
+split over a model axis of two gloo ranks sharing the card; then the
+kernels' contract on the paths: the head-dim-16 SMOKE configs served and
+trained, every SMOKE config in float32 against the CPU, Mistral-NeMo-12B
+served and OLMo-1B trained in float32 at full size.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each fatal on failure:
   1. the card and the toolchain;
   2. build every kernel from ``src/repro_torch/kernels/*/csrc`` with nvcc
-     (sm_90a), one process per source, and a small measurement helper
-     (PROBE_SOURCE), all in parallel, printing ``-Xptxas -v``; every
-     RMSNorm, flash-attention, decode and SSD instantiation's registers,
-     spills (none allowed) and shared memory;
+     (sm_90a), one process per source (the float32 attention kernels'
+     sources among them), and a small measurement helper (PROBE_SOURCE),
+     all in parallel, printing ``-Xptxas -v``; every RMSNorm (bf16 and
+     float32), flash-attention and decode (hd 16, 32, 64, 128; bf16 and
+     float32) and SSD instantiation's registers, spills (none allowed) and
+     shared memory;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at ragged ones, with its time, the plain
      version's, one PyTorch library call's (where one exists) and the least
@@ -74,7 +79,15 @@ Phases, each fatal on failure:
      their serving shapes, ragged and odd widths): each statistic and
      apply launch, forward and backward, against its plain version, and
      the blocks put together against the one-launch norm and its
-     backward, each timed beside its bound;
+     backward, each timed beside its bound; then the contract's further
+     instantiations (:func:`check_contract`): hd 16 in bf16 (decode, the
+     serving forward, the three training kernels) held as the bf16 ones
+     are, float32 at hd 16, 32, 64 and 128 (decode over a bf16 and an f32
+     cache, with a replayed captured launch; the serving forward; the
+     training kernels, the backward bit-identical across two calls) and
+     row 1 with its backward and split-row launches in float32, at the
+     reference's float32 tolerances (2e-5 forward, 2e-4 backward), each
+     timed beside its bound, its plain version and SDPA or F.rms_norm;
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -157,9 +170,9 @@ Phases, each fatal on failure:
      CUDA events beside it) and printed beside the catalog H100; the three
      cases (serving, mamba2, moe) built (each certifies its twin),
      predicted, their decode step counted on the kernels' route (the moe
-     twin's hd 16 on the plain route, without a wall clock, the reason
-     recorded) and timed; the reference's bands gate every row, and
-     BENCH_validation_torch.json is written;
+     twin at its hd 16 on the kernels too), every case timed (a case
+     without a wall clock fails); the reference's bands gate every row,
+     and BENCH_validation_torch.json is written;
  13. a reading: the paper's serving model (``serving_sweep`` on a one-chip
      catalog H100) for mistral_nemo_12b and olmoe_1b_7b beside their
      measured warm TTFT and steady TPOT;
@@ -190,7 +203,8 @@ Phases, each fatal on failure:
      2 x 2048, through the kernels against the same model with the plain
      routes swapped in (loss and every leaf within SCALED_TOL_SMALL,
      launches exact), one SMOKE step of each RMSNorm config card vs CPU;
-     (b) ``run_train`` on the full mamba2_130m, 8 x 2048, TRAIN_STEPS steps
+     (b) ``run_train`` on mamba2_130m at full width, MAMBA2_TRAIN_LAYERS of
+     its 24 layers, 8 x 2048, TRAIN_STEPS steps
      (launches per step: 1 + 4L forward norms under remat "full", 1 + 2L
      backward, 2L scans, L plain scan backwards), a falling loss, step
      time, tokens/s, MFU, peak memory and one profiled step split into
@@ -204,8 +218,8 @@ Phases, each fatal on failure:
      8 x 2048, MESH_TRAIN_STEPS steps, without a mesh and then on one NCCL
      rank with the (1, 1) mesh and FSDP, the losses alike and within phase
      8's bound, launches as phase 8's, step time and peak memory side by
-     side; (b) olmoe_1b_7b at full width and depth on two gloo ranks
-     sharing the card, mesh (1, 2), ``moe_dispatch="shard_map"`` and
+     side; (b) olmoe_1b_7b at full width, CP_LAYERS of its 16 layers, on
+     two gloo ranks sharing the card, mesh (1, 2), ``moe_dispatch="shard_map"`` and
      ``decode_attn="context_parallel"`` (32 experts, 8 heads, half the
      vocabulary and half the cache's sequence a rank), 4 x 2048 + 16
      tokens and 1 x 64 + 16 (rank 1's block empty in every step), every
@@ -232,9 +246,34 @@ Phases, each fatal on failure:
      launch), and a 2-layer mamba2_130m train step's loss and gradients
      (the split norm's backward launches), the gradients held relative to
      one device's own plain-scan reading as the logits are;
- 19. one JSON line of kernel numbers, the card's name and power limit, and
-     a last JSON line ``{"ok": true, "device": {...}}``; a kernel that the
-     main path never launched fails the run.
+ 22. head dim 16 in bf16: ``run_serve`` on the SMOKE configs of
+     minitron_4b, command_r_35b, gpt3_175b and qwen3_moe_235b, 4 x 2048 +
+     32, counters zeroed just before and read just after (flash and decode
+     at bf16/hd16 on every layer), graph tokens against eager ones, each
+     SMOKE config card vs CPU at 2e-2; qwen3_moe_235b's SMOKE config trains
+     3 steps at its own hd 16, card vs CPU;
+ 23. float32: every architecture's SMOKE config, prefill and 4
+     teacher-forced decode steps, card vs CPU at the CPU tests' float32
+     tolerances (F32_PREFILL_TOL, F32_DECODE_TOL; the caches as
+     check_small_model_f32 says), a MoE config routed as the CPU routed;
+     3 train steps of mistral_nemo_12b's and minitron_4b's SMOKE configs
+     (RMSNorm, LayerNorm) card vs CPU; counters zeroed just before and read
+     just after;
+ 24. ``run_serve`` on mistral_nemo_12b in float32 at full width and depth,
+     1 x 2048 + 32 (rows 1-3 in float32), counters zeroed just before and
+     read just after, graph tokens identical to eager ones, the decode path
+     against a teacher-forced forward within 1e-4 of the largest logit or
+     within SSM_REL times the plain route's reading on the card, TTFT,
+     TPOT and peak memory;
+ 25. ``run_train`` on olmo_1b in float32 at full width and depth, 4 x
+     2048, 3 steps (rows 5-7 in float32), counters zeroed just before and
+     read just after, a loss that starts near ln V + 1/2 and falls, step
+     time and peak memory;
+ 19. one JSON line of kernel numbers (the contract's instantiations as
+     ``<kernel>[<dtype>/hd<hd>]``, each with its launches on the paths of
+     phases 22-25), the card's name and power limit, the run's total time,
+     and a last JSON line ``{"ok": true, "device": {...}}``; a kernel that
+     the main path never launched fails the run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -312,11 +351,25 @@ PARALLEL_TIMEOUT_S = 600
 # rung (100,224 cells, 103 s on the card once, predicted over the limit
 # and skipped in two other runs) is cut to leave time for the MoE serving
 # and validation phases, the 50,000 rung (50,112 cells, 67-68 s on the
-# H100) to leave time for phase 20.
-SEARCH_LADDER = (None, 20_000)
+# H100) to leave time for phase 20, the 20,000 rung (20,160 cells, 29.7-
+# 31.9 s on the kernel and as long again on numpy) to hold the run under
+# RUN_LIMIT_S.
+SEARCH_LADDER = (None, 10_000)
 SEARCH_LIMIT_S = 120
 PHASE4B_TIMEOUT_S = 720
 REPRICE_TURNS = 2                  # 3 before phase 20; cut to leave time for it
+#: the whole run's time limit on the card, the kernels' build included
+#: (PERF.md section 6 records each run's total against it). The run prints
+#: each phase's seconds and flags a total over it; what was cut to stay
+#: under it, in this order: the float32 mistral path to 1 request
+#: (F32_REQUESTS), then the depth of phase 20's olmoe_1b_7b (CP_LAYERS)
+#: and of phase 18's mamba2_130m training (MAMBA2_TRAIN_LAYERS), then the
+#: size of phase 4b's largest dense search (SEARCH_LADDER). Phase 21's
+#: mamba2_130m keeps its 24 layers: at 12 its two ranks read 0.101 against
+#: a limit of twice one device's plain-scan reading, 0.032 there (the
+#: H100), a noise reading that depth moves; at 24 the two read 0.12 and
+#: 0.08
+RUN_LIMIT_S = 614.7
 
 
 def fail(msg: str) -> int:
@@ -564,33 +617,51 @@ def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
 SSD_ENTRY = r"ssd_chunk_kernelI(13__nv_bfloat16|f)Li(\d+)E"
 
 
-#: Mangled entry names of the RMSNorm kernel: rmsnorm_kernel<VW, PER, GATE>.
-RMSNORM_ENTRY = r"rmsnorm_kernelILi(\d+)ELi(\d+)ELb([01])E"
+#: Mangled entry names of the RMSNorm kernel: rmsnorm_kernel<Elt, VW, PER,
+#: GATE>, Elt bf16 or float.
+RMSNORM_ENTRY = r"rmsnorm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])E"
 #: its instantiations: (VW, PER) = (8, 1), (8, 2), (8, 4) and (1, 4), each
-#: with and without the gate but (8, 4)
-RMSNORM_BUILDS = 7
+#: with and without the gate but (8, 4), in bf16 and in float32
+RMSNORM_BUILDS = 14
+
+
+def elt_label(mangled: str) -> str:
+    return "f32" if mangled == "f" else "bf16"
 
 
 def rmsnorm_label(m) -> str:
-    return f"rmsnorm<vw {m.group(1)}, per {m.group(2)}{', gated' if m.group(3) == '1' else ''}>"
+    return (f"rmsnorm<{elt_label(m.group(1))}, vw {m.group(2)}, per {m.group(3)}"
+            f"{', gated' if m.group(4) == '1' else ''}>")
 
 
-#: Mangled entry names of the RMSNorm backward: rmsnorm_bwd_kernel<VW, PER,
-#: GATE> ((8, 1), (8, 2) and (1, 4), each with and without the gate) and
-#: rmsnorm_dw_kernel, which sums dw's per-block shares.
-RMSNORM_BWD_ENTRY = r"rmsnorm_(bwd_kernelILi(\d+)ELi(\d+)ELb([01])E|dw_kernel)"
-RMSNORM_BWD_BUILDS = 7
+#: Mangled entry names of the RMSNorm backward: rmsnorm_bwd_kernel<Elt, VW,
+#: PER, GATE> ((8, 1), (8, 2) and (1, 4), each with and without the gate, in
+#: bf16 and float32) and rmsnorm_dw_kernel, which sums dw's per-block shares.
+RMSNORM_BWD_ENTRY = (r"rmsnorm_(bwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])E"
+                     r"|dw_kernel)")
+RMSNORM_BWD_BUILDS = 13
 
 
 def rmsnorm_bwd_label(m) -> str:
     if m.group(2) is None:
         return "rmsnorm_dw"
-    return (f"rmsnorm_bwd<vw {m.group(2)}, per {m.group(3)}"
-            f"{', gated' if m.group(4) == '1' else ''}>")
+    return (f"rmsnorm_bwd<{elt_label(m.group(2))}, vw {m.group(3)}, per {m.group(4)}"
+            f"{', gated' if m.group(5) == '1' else ''}>")
 
 
 #: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
 DECODE_ENTRY = r"decode_attention_kernelILi(\d+)ELi(\d+)E"
+#: its instantiations: hd 16, 32, 64, 128, each at NREP 1, 2, 3, 4, 8
+DECODE_BUILDS = 20
+#: the serving forward, the forward with LSE, dK/dV and dQ at hd 16, 32, 64, 128
+FLASH_BUILDS = 16
+#: the float32 decode kernel, decode_f32_kernel<HD, KV> (a float32 or a
+#: bf16 cache), and the float32 flash kernels
+DECODE_F32_ENTRY = r"decode_f32_kernelILi(\d+)E(f|13__nv_bfloat16)E"
+DECODE_F32_BUILDS = 8
+FLASH_F32_KERNELS = {"flash_fwd_f32_kernel": 0, "flash_bwd_dkv_f32_kernel": 1,
+                     "flash_bwd_dq_f32_kernel": 2}
+FLASH_F32_BUILDS = 16
 
 
 def decode_label(m) -> str:
@@ -602,6 +673,25 @@ def decode_build_report(log: str) -> dict:
     :func:`ptxas_report` and the dynamic shared memory of a block."""
     return ptxas_report(log, DECODE_ENTRY, decode_label, lambda m: {
         "smem_bytes": decode_plan(1, int(m.group(2)), 1, int(m.group(1)))["smem_bytes"]})
+
+
+def decode_f32_label(m) -> str:
+    return f"decode_f32<{m.group(1)}, {elt_label(m.group(2))} cache>"
+
+
+def flash_f32_build_report(log: str) -> dict:
+    """Per float32 flash kernel instantiation (``kernel<hd[, lse]>``):
+    :func:`ptxas_report` and the dynamic shared memory a launch takes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    smem = _build.bind("flash_attention_f32", "flash_attention_f32_smem_bytes",
+                       [ctypes.c_int, ctypes.c_int])
+    return ptxas_report(
+        log, r"(" + "|".join(FLASH_F32_KERNELS) + r")ILi(\d+)E(Lb(\d)E)?",
+        lambda m: f"{m.group(1)}<{m.group(2)}{', lse' if m.group(4) == '1' else ''}>",
+        lambda m: {"smem_bytes": smem(FLASH_F32_KERNELS[m.group(1)], int(m.group(2)))})
 
 
 def ssd_label(m) -> str:
@@ -636,6 +726,43 @@ def ssd_build_report(log: str) -> dict:
     smem = _build.bind("ssd", "ssd_smem_bytes", [ctypes.c_int] * 3)
     return ptxas_report(log, SSD_ENTRY, ssd_label, lambda m: {
         "smem_bytes_p64": smem(64, int(m.group(2)), int(m.group(1) != "f"))})
+
+
+#: phase 2's ptxas readings: each family's columns, and its count of kernels
+BUILD_COLUMNS = {
+    "rmsnorm": "registers, spilled bytes, static shared memory",
+    "rmsnorm_bwd": "registers, spilled bytes, static shared memory",
+    "flash_attention": "registers at entry, spilled bytes, dynamic shared memory",
+    "decode_attention": "registers, spilled bytes, dynamic shared memory",
+    "flash_attention_f32": "registers, spilled bytes, shared memory",
+    "decode_attention_f32": "registers, spilled bytes, shared memory",
+    "ssd": "registers, spilled bytes, dynamic shared memory at P = 64"}
+BUILD_COUNTS = {"rmsnorm": RMSNORM_BUILDS, "rmsnorm_bwd": RMSNORM_BWD_BUILDS,
+                "flash_attention": FLASH_BUILDS, "decode_attention": DECODE_BUILDS,
+                "flash_attention_f32": FLASH_F32_BUILDS,
+                "decode_attention_f32": DECODE_F32_BUILDS, "ssd": 4}
+
+
+def build_reports(logs: dict[str, str]) -> tuple[dict[str, dict], list[str]]:
+    """Phase 2: each kernel family's instantiations as ptxas reported them
+    in ``logs`` (``_build.build_all``'s), and the faults: a family with
+    another count of kernels than BUILD_COUNTS, or one that spilled."""
+    reports = {
+        "rmsnorm": ptxas_report(logs["rmsnorm"], RMSNORM_ENTRY, rmsnorm_label),
+        "rmsnorm_bwd": ptxas_report(logs["rmsnorm"], RMSNORM_BWD_ENTRY, rmsnorm_bwd_label),
+        "flash_attention": flash_build_report(logs["flash_attention"]),
+        "decode_attention": decode_build_report(logs["decode_attention"]),
+        "flash_attention_f32": flash_f32_build_report(logs["flash_attention_f32"]),
+        "decode_attention_f32": ptxas_report(logs["decode_attention_f32"],
+                                             DECODE_F32_ENTRY, decode_f32_label),
+        "ssd": ssd_build_report(logs["ssd"])}
+    faults = []
+    for name, report in reports.items():
+        spilled = [k for k, v in report.items() if v.get("spill_bytes", 1)]
+        if len(report) != BUILD_COUNTS[name] or spilled:
+            faults.append(f"{name} build: {len(report)} of {BUILD_COUNTS[name]} "
+                          f"kernels, spills in {spilled}")
+    return reports, faults
 
 
 # ------------------------------- phase 3 --------------------------------------
@@ -778,11 +905,12 @@ def decode_check(torch, q, k, v, kv_len: int, o, lse, label: str,
 
 
 def decode_replay_check(torch, fn, q, k, v, lens, label: str,
-                        check: bool = True) -> dict:
+                        check: bool = True, hold=None) -> dict:
     """``fn(q, k, v, kv_len)`` captured once into a CUDA graph with a device
     kv_len, then replayed with kv_len set on the device to each of ``lens``
-    (clamped to [0, S] by the kernel); each replay held by
-    :func:`decode_check`. Returns {kv_len: readings}."""
+    (clamped to [0, S] by the kernel); each replay held by ``hold`` (by
+    default :func:`decode_check`). Returns {kv_len: readings}."""
+    hold = hold or decode_check
     kl = torch.zeros(1, dtype=torch.int32, device=q.device)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -796,8 +924,7 @@ def decode_replay_check(torch, fn, q, k, v, lens, label: str,
     for n in lens:
         kl.fill_(n)
         graph.replay()
-        out[n] = decode_check(torch, q, k, v, n, o, lse, f"{label} at kv_len {n}",
-                              check)
+        out[n] = hold(torch, q, k, v, n, o, lse, f"{label} at kv_len {n}", check)
     return out
 
 
@@ -2125,6 +2252,426 @@ def check_training_kernels(torch, timer) -> dict:
     return out
 
 
+# ------------------------------- phase 3: the kernels' contract ---------------
+# The Pallas kernels take float32 and bfloat16 at any head dim that fits;
+# the port's rows 1-3 and 5-7 take both dtypes at hd 16, 32, 64 and 128.
+# Each instantiation of that contract beyond the bf16 ones at hd 32, 64 and
+# 128 (hd 16 in bf16; float32 at every hd) is held here against its plain
+# version, in bf16 at phase 3's TOL (and the
+# row and ulp checks of the bf16 instantiations), in float32 at the
+# reference's own float32 tolerances (tests/test_kernels.py,
+# tests/test_flash_backward.py): 2e-5 for the forward kernels, 2e-4 for the
+# backward, with TF32 off (main sets it). Each is timed at the shape its
+# path gives it (hd 16: the SMOKE configs' heads at the serving length; f32
+# hd 128: mistral_nemo_12b's float32 serving and olmo_1b's float32 training
+# shapes) beside its bound, its plain version and one library call.
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+F32_BWD_TOL = dict(rtol=2e-4, atol=2e-4)
+CONTRACT_HDS = (16, 32, 64, 128)
+#: the float32 model's serving shape (phase 24: 1 request x 2048 + 32,
+#: cut from 2 to hold the run under RUN_LIMIT_S)
+F32_REQUESTS = 1
+#: the float32 training shape (phase 8f: olmo_1b, 4 x 2048)
+F32_TRAIN_BATCH = 4
+#: the float32 head dims a main path runs (the SMOKE configs' 16 and 32,
+#: the full configs' 128); hd 64 is held here and runs on no path
+F32_PATH_HDS = (16, 32, 128)
+
+
+def contract_flash_cases(hd: int, dtype: str) -> tuple:
+    """The serving forward's cases at ``hd``: (label, (B, H, Hkv, Sq, Sk,
+    causal)). The first is the timed one: the hd-16 SMOKE configs' heads
+    (8/2) at the serving length, or mistral_nemo_12b's float32 prefill."""
+    if hd == 128 and dtype == "f32":
+        first = ("serve f32", (F32_REQUESTS, 32, 8, PROMPT_LEN, PROMPT_LEN, True))
+    else:
+        first = ("serve", (REQUESTS, 8, 2, PROMPT_LEN, PROMPT_LEN, True))
+    return (first,
+            ("smoke", (2, 6, 2, 16, 16, True)),          # minitron SMOKE's 6/2
+            ("ragged-causal", (2, 8, 8, 1000, 1000, True)),
+            ("ragged-full", (1, 8, 2, 70, 130, False)),
+            ("causal-sq>sk", (2, 4, 2, 130, 70, True)),
+            ("edge-127", (1, 8, 2, 127, 127, True)),
+            ("edge-129", (1, 8, 2, 129, 129, True)),
+            ("edge-257-full", (1, 8, 2, 257, 257, False)),
+            ("gqa16", (1, 64, 4, 200, 200, True)))
+
+
+def contract_train_cases(hd: int, dtype: str) -> tuple:
+    """The training kernels' cases at ``hd``, the first timed: olmo_1b's
+    float32 shape at hd 128, else the SMOKE heads at the training length."""
+    if hd == 128 and dtype == "f32":
+        first = ("train f32", (F32_TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, True))
+    else:
+        first = ("train", (F32_TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ, True))
+    return (first,
+            ("smoke", (2, 4, 2, 16, 16, True)),
+            ("gqa-ragged", (2, 6, 2, 1000, 1000, True)),
+            ("full", (2, 8, 2, 300, 500, False)),
+            ("edge-129", (1, 8, 2, 129, 129, True)),
+            ("edge-sq>sk", (1, 8, 2, 300, 129, True)))
+
+
+def contract_decode_cases(hd: int, dtype: str) -> tuple:
+    """Decode's cases at ``hd``: (label, (B, H, Hkv, S, kv_len)), the first
+    timed: the hd-16 SMOKE heads over the serving cache, or
+    mistral_nemo_12b's float32 decode; kv_len 0, 1 and S; GQA 3 and 16."""
+    s = PROMPT_LEN + NEW_TOKENS + 1
+    last = PROMPT_LEN + NEW_TOKENS - 1
+    if hd == 128 and dtype == "f32":
+        first = ("serve f32", (F32_REQUESTS, 32, 8, s, last))
+    else:
+        first = ("serve", (REQUESTS, 8, 2, s, last))
+    return (first,
+            ("kv_len 0", (REQUESTS, 8, 2, s, 0)),
+            ("kv_len 1", (REQUESTS, 8, 2, s, 1)),
+            ("kv_len S", (REQUESTS, 8, 2, s, s)),
+            ("smoke", (2, 6, 2, 21, 17)),
+            ("ragged-mha", (3, 8, 8, 300, 299)),
+            ("gqa16", (2, 64, 4, 600, 577)))
+
+
+def contract_inputs(torch, g, b, heads, s, hd, dtype):
+    """Seeded (B, heads, S, hd) views of (B, S, heads, hd) tensors."""
+    return torch.randn((b, s, heads, hd), generator=g, device="cuda").to(dtype).transpose(1, 2)
+
+
+def check_contract_flash(torch, timer, dtype: str, hd: int) -> dict:
+    """The serving forward at ``hd`` in ``dtype`` against its plain version
+    over :func:`contract_flash_cases`, timed at the first."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + hd)
+    errs, rows, main = [], [], None
+    for label, (b, h, hkv, sq, sk, causal) in contract_flash_cases(hd, dtype):
+        args = (contract_inputs(torch, g, b, h, sq, hd, dt),
+                contract_inputs(torch, g, b, hkv, sk, hd, dt),
+                contract_inputs(torch, g, b, hkv, sk, hd, dt))
+        o = flash_attention(*args, causal=causal)
+        want = flash_attention_ref(*args, causal=causal)
+        name = f"flash[{dtype}/hd{hd}] {label}"
+        errs.append(compare(torch, o, want, name, F32_TOL if dtype == "f32" else TOL))
+        rows.append(row_scaled_errs(o, want)[1])
+        if dtype == "bf16" and not rows[-1] <= TRAIN_ROW_REL:
+            raise AssertionError(f"{name}: a row's max |kernel - plain| is "
+                                 f"{rows[-1]:.3g} x its max |plain|")
+        if main is None:
+            main = (args, (b, h, hkv, sq, sk, causal))
+        del o, want
+    args, (b, h, hkv, sq, sk, causal) = main
+    b_ms, b_by = cost.flash_attention(b, h, hkv, sq, sk, hd, causal,
+                                      f32=dtype == "f32").bound_ms()
+    return dict(max_abs_err=max(errs), max_row_scaled_err=max(rows),
+                ms=timer.ms(lambda: flash_attention(*args, causal=causal), 10),
+                plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 3),
+                library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 10),
+                bound_ms=b_ms, bound_by=b_by, shape=[b, h, hkv, sq, sk, hd, causal])
+
+
+def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
+    """The forward with LSE, dK/dV and dQ at ``hd`` in ``dtype`` against
+    their plain versions over :func:`contract_train_cases` (bf16: each row
+    within TRAIN_ROW_REL, as phase 3's; f32: element-wise at F32_TOL and
+    F32_BWD_TOL), the backward bit-identical across two calls; timed at the
+    first case. Returns {wrapper: entry}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_delta, flash_attention_bwd_dkv_ref, flash_attention_bwd_dq_ref,
+        flash_attention_fwd_lse_ref)
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3 + hd)
+    names = TRAIN_KERNELS
+    errs = dict.fromkeys(names, 0.0)
+    main = None
+    for label, (b, h, hkv, sq, sk, causal) in contract_train_cases(hd, dtype):
+        q = contract_inputs(torch, g, b, h, sq, hd, dt)
+        k = contract_inputs(torch, g, b, hkv, sk, hd, dt)
+        v = contract_inputs(torch, g, b, hkv, sk, hd, dt)
+        do = contract_inputs(torch, g, b, h, sq, hd, dt)
+        tag = f"training attention [{dtype}/hd{hd}] {label}"
+        if dtype == "bf16":
+            res = training_case(torch, q, k, v, do, causal, tag)
+            lse, dd = res["inputs"]
+            errs[names[0]] = max(errs[names[0]], res["o"]["max_abs_err"])
+            errs[names[1]] = max(errs[names[1]], res["dk"]["max_abs_err"],
+                                 res["dv"]["max_abs_err"])
+            errs[names[2]] = max(errs[names[2]], res["dq"]["max_abs_err"])
+        else:
+            o, lse = flash_attention_fwd_lse(q, k, v, causal)
+            orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+            errs[names[0]] = max(errs[names[0]], compare(torch, o, orf, f"{tag} o", F32_TOL),
+                                 compare(torch, lse, lser, f"{tag} lse", F32_TOL))
+            dd = attention_delta(o, do)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+            dkr, dvr = flash_attention_bwd_dkv_ref(q, k, v, do, lser, dd, causal)
+            errs[names[1]] = max(errs[names[1]],
+                                 compare(torch, dk, dkr, f"{tag} dk", F32_BWD_TOL),
+                                 compare(torch, dv, dvr, f"{tag} dv", F32_BWD_TOL))
+            dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+            errs[names[2]] = max(errs[names[2]], compare(
+                torch, dq, flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal),
+                f"{tag} dq", F32_BWD_TOL))
+            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+            dq2 = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+            if not all(bool(torch.equal(x, y)) for x, y in ((dk, dk2), (dv, dv2), (dq, dq2))):
+                raise AssertionError(f"{tag}: two calls of the backward kernels "
+                                     f"gave different bits")
+            lse = lser
+            del o, orf, dk, dv, dkr, dvr, dq, dk2, dv2, dq2
+        if main is None:
+            main = (q, k, v, do, lse, dd, (b, h, hkv, sq, sk, causal))
+    q, k, v, do, lse, dd, (b, h, hkv, sq, sk, causal) = main
+    calls = {names[0]: (lambda: flash_attention_fwd_lse(q, k, v, causal),
+                        lambda: flash_attention_fwd_lse_ref(q, k, v, causal)),
+             names[1]: (lambda: flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal),
+                        lambda: flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd, causal)),
+             names[2]: (lambda: flash_attention_bwd_dq(q, k, v, do, lse, dd, causal),
+                        lambda: flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, causal))}
+    kernel_ms = {name: timer.ms(calls[name][0], 10) for name in names}
+    lib_fwd = timer.ms(lambda: sdpa(F, q, k, v, causal=causal), 10)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        sdpa(F, *leaves, causal=causal).backward(do)
+    lib_pair = timer.eager_ms(sdpa_fwd_bwd, 10) - lib_fwd
+    out = {}
+    for name in names:
+        w = getattr(cost, name)(b, h, hkv, sq, sk, hd, causal, f32=dtype == "f32")
+        b_ms, b_by = w.bound_ms()
+        lib = (dict(library_ms=lib_fwd) if name == names[0] else
+               dict(library_ms=None, library_bwd_pair_ms=lib_pair,
+                    library_note="SDPA backward (forward + backward through "
+                                 "autograd less the forward): the work of "
+                                 "dK/dV and dQ together"))
+        out[name] = dict(max_abs_err=errs[name], ms=kernel_ms[name],
+                         plain_ms=timer.ms(calls[name][1], 3), **lib,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=[b, h, hkv, sq, sk, hd, causal])
+    return out
+
+
+def f32_decode_check(torch, q, k, v, kv_len: int, o, lse, label: str,
+                     check: bool = True) -> dict:
+    """A float32 decode call held (always; ``check`` is
+    :func:`decode_check`'s): at kv_len 0 o = 0 and lse = -1e30, else o and
+    lse within F32_TOL of the plain version. Returns {"o_err": max |o -
+    plain|}."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    torch.cuda.synchronize()
+    kv_len = max(0, min(kv_len, k.shape[2]))
+    if kv_len == 0:
+        if not (bool((o == 0).all()) and bool((lse == -1e30).all())):
+            raise AssertionError(f"{label}: kv_len 0 must give o = 0, lse = -1e30")
+        return {"o_err": 0.0}
+    orf, lser = decode_attention_ref(q, k, v, kv_len, return_lse=True)
+    compare(torch, lse, lser, f"{label} lse", F32_TOL)
+    return {"o_err": compare(torch, o, orf, f"{label} o", F32_TOL)}
+
+
+def check_contract_decode(torch, timer, dtype: str, hd: int) -> dict:
+    """Decode attention at ``hd`` in ``dtype`` against its plain version over
+    :func:`contract_decode_cases`, each called eagerly with a device kv_len
+    and, for the first case, through one captured launch replayed with
+    kv_len changed on the device; bf16 held by :func:`decode_check`, f32
+    at F32_TOL, over both a bf16 cache (a float32 model's) and an f32 one.
+    Timed at the first case with the cache the path reads."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    caches = (torch.bfloat16, torch.float32) if dtype == "f32" else (torch.bfloat16,)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7 + hd)
+    errs, main = [], None
+    for cdt in caches:
+        for label, (b, h, hkv, s, kv_len) in contract_decode_cases(hd, dtype):
+            q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
+            k = contract_inputs(torch, g, b, hkv, s, hd, cdt)
+            v = contract_inputs(torch, g, b, hkv, s, hd, cdt)
+            kl = torch.full((1,), kv_len, dtype=torch.int32, device="cuda")
+            o, lse = decode_attention(q, k, v, kl)
+            tag = f"decode[{dtype}/hd{hd}, {str(cdt)[6:]} cache] {label}"
+            hold = decode_check if dtype == "bf16" else f32_decode_check
+            errs.append(hold(torch, q, k, v, kv_len, o, lse, tag)["o_err"])
+            if main is None:
+                main = (q, k, v, kv_len, (b, h, hkv, s))
+                lens = (0, 1, 17, kv_len // 2, kv_len, s, s + 100)
+                reps = decode_replay_check(torch, decode_attention, q, k, v, lens,
+                                           f"{tag} replayed", hold=hold)
+                errs += [x["o_err"] for x in reps.values()]
+            del o, lse
+    q, k, v, kv_len, (b, h, hkv, s) = main
+    kl = torch.full((1,), kv_len, dtype=torch.int32, device="cuda")
+    kc, vc = k[:, :, :kv_len].to(dt), v[:, :, :kv_len].to(dt)
+    b_ms, b_by = cost.decode_attention(b, h, hkv, hd, kv_len, f32=dtype == "f32",
+                                       cache_bytes=k.element_size()).bound_ms()
+    return dict(max_abs_err=max(errs),
+                ms=timer.ms(lambda: decode_attention(q, k, v, kl), 50),
+                plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
+                                                               return_lse=True), 10),
+                library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], kc, vc, causal=False), 50),
+                library_note=("SDPA over the valid prefix of the cache in q's dtype"
+                              + (" (the bf16 cache cast to f32 outside the call)"
+                                 if k.dtype != dt else "")),
+                bound_ms=b_ms, bound_by=b_by, cache_dtype=str(k.dtype),
+                shape=[b, h, hkv, s, hd, kv_len])
+
+
+#: row 1 in float32, (label, rows, d, kind): the float32 mistral_nemo_12b
+#: serving path's residual norms (decode, 2 x 2048 prefill), the first norm,
+#: Mamba2's gated norm with a float32 gate read through its row stride
+#: (decode and prefill), ragged widths on the scalar path; the first shape
+#: of each of the forward and the backward is timed.
+RMSNORM_F32_SHAPES = (("mistral f32 prefill", F32_REQUESTS * PROMPT_LEN, 5120, "residual"),
+                      ("mistral f32 decode", F32_REQUESTS, 5120, "residual"),
+                      ("mistral f32 first norm", F32_REQUESTS, 5120, "plain"),
+                      ("mamba2 f32 decode gated", SSM_REQUESTS, 1536, "gated"),
+                      ("mamba2 f32 prefill gated", SSM_REQUESTS * PROMPT_LEN, 1536, "gated"),
+                      ("wide f32", 300, 12288, "residual"),
+                      ("ragged f32", 7, 100, "residual"),
+                      ("ragged f32 gated", 3, 770, "gated"))
+
+
+def rmsnorm_f32_inputs(torch, g, rows: int, d: int, kind: str) -> dict:
+    """Seeded float32 inputs of one call: x, r (residual), w in [0.5, 1.5),
+    the gate z as the first d columns of a wider (rows, 2 d + 280) tensor,
+    and dh, dr for the backward."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    inp = {"x": randn(rows, d), "w": torch.rand(d, generator=g, device=dev) + 0.5,
+           "r": randn(rows, d) if kind == "residual" else None,
+           "z": (2 * randn(rows, 2 * d + 280))[:, :d] if kind == "gated" else None,
+           "dh": randn(rows, d), "dr": randn(rows, d) if kind == "residual" else None}
+    return inp
+
+
+def check_contract_rmsnorm(torch, timer) -> dict:
+    """Row 1 and its backward in float32 against their plain versions at
+    RMSNORM_F32_SHAPES (F32_TOL forward, F32_BWD_TOL backward), the gated
+    norm over rows split in two blocks (each statistic and apply launch,
+    forward and backward, and the blocks against the one-launch norm);
+    timed at the first shape beside F.rms_norm (after the add) and its
+    backward under autograd. Returns {"rmsnorm": .., "rmsnorm_bwd": ..}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.rmsnorm.ops import (
+        MAX_D_BWD, fused_rmsnorm, fused_rmsnorm_bwd, gated_norm_apply,
+        gated_norm_bwd_apply, gated_norm_bwd_stat, gated_norm_stat)
+    from repro_torch.kernels.rmsnorm.ref import (fused_rmsnorm_bwd_ref,
+                                                 fused_rmsnorm_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    errs, bwd_errs, main = [0.0], [0.0], None
+    for label, rows, d, kind in RMSNORM_F32_SHAPES:
+        inp = rmsnorm_f32_inputs(torch, g, rows, d, kind)
+        x, w, r, z = inp["x"], inp["w"], inp["r"], inp["z"]
+        y, rout = fused_rmsnorm(x, w, r, eps=RMSNORM_EPS, gate=z)
+        wy, wr = fused_rmsnorm_ref(x, w, r, eps=RMSNORM_EPS, gate=z)
+        errs.append(compare(torch, y, wy, f"rmsnorm f32 {label}", F32_TOL))
+        if rout is not None:
+            errs.append(compare(torch, rout, wr, f"rmsnorm f32 {label} residual", F32_TOL))
+        dr = inp["dr"]
+        if d > MAX_D_BWD:                   # the backward's widest row
+            continue
+        got = fused_rmsnorm_bwd(inp["dh"], dr, x, w, r, RMSNORM_EPS, z)
+        want = fused_rmsnorm_bwd_ref(inp["dh"], dr, x, w, r, RMSNORM_EPS, z)
+        for part, a, b in zip(("dx", "d2", "dw"), got, want):
+            if b is not None:
+                bwd_errs.append(compare(torch, a, b, f"rmsnorm_bwd f32 {label} {part}",
+                                        F32_BWD_TOL))
+        if main is None:
+            main = inp
+        say(f"  rmsnorm f32 {label} ({rows}, {d}) {kind}: forward max|err| "
+            f"{max(errs):.3g}, backward {max(bwd_errs):.3g}")
+    # the gated norm over rows split in two blocks, each launch alone
+    inp = rmsnorm_f32_inputs(torch, g, SSM_REQUESTS * 64, 1536, "gated")
+    x, w, z, dh = inp["x"], inp["w"], inp["z"], inp["dh"]
+    half = x.shape[1] // 2
+    blocks = [(x[:, i * half:(i + 1) * half].contiguous(), z[:, i * half:(i + 1) * half],
+               w[i * half:(i + 1) * half].contiguous(), dh[:, i * half:(i + 1) * half].contiguous())
+              for i in range(2)]
+    stats = sum(gated_norm_stat(bx, bz, bw) for bx, bz, bw, _ in blocks)
+    ys = [gated_norm_apply(bx, bz, bw, stats, x.shape[1], RMSNORM_EPS)
+          for bx, bz, bw, _ in blocks]
+    whole = fused_rmsnorm(x, w, eps=RMSNORM_EPS, gate=z)[0]
+    errs.append(compare(torch, torch.cat(ys, 1), whole, "split f32 forward", F32_TOL))
+    bstats = sum(gated_norm_bwd_stat(bdh, bx, bz, bw) for bx, bz, bw, bdh in blocks)
+    parts = [gated_norm_bwd_apply(bdh, bx, bz, bw, bstats, x.shape[1], RMSNORM_EPS)
+             for bx, bz, bw, bdh in blocks]
+    wdx, wdz, wdw = fused_rmsnorm_bwd(dh, None, x, w, None, RMSNORM_EPS, z)
+    for i, (name, want) in enumerate((("dy", wdx), ("dz", wdz), ("dw", wdw))):
+        got = torch.cat([p[i] for p in parts], -1)
+        bwd_errs.append(compare(torch, got, want, f"split f32 backward {name}", F32_BWD_TOL))
+    say(f"  gated norm f32 over two blocks of {half}: forward and backward held")
+
+    x, w, r, dh, dr = main["x"], main["w"], main["r"], main["dh"], main["dr"]
+    rows, d = x.shape
+    b_ms, b_by = cost.rmsnorm(rows, d, "residual", f32=True).bound_ms()
+    fwd = dict(max_abs_err=max(errs),
+               ms=timer.ms(lambda: fused_rmsnorm(x, w, r, eps=RMSNORM_EPS), 20),
+               plain_ms=timer.ms(lambda: fused_rmsnorm_ref(x, w, r, eps=RMSNORM_EPS), 5),
+               library_ms=timer.ms(lambda: F.rms_norm(x + r, (d,), w, RMSNORM_EPS), 20),
+               library_note="F.rms_norm after the residual add (two calls)",
+               bound_ms=b_ms, bound_by=b_by, shape=[rows, d, "residual"])
+    b_ms, b_by = cost.rmsnorm_bwd(rows, d, "residual", True, f32=True).bound_ms()
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, r)]
+
+    def library_bwd():
+        for t in leaves:
+            t.grad = None
+        s = leaves[0] + leaves[2]
+        torch.autograd.backward([F.rms_norm(s, (d,), leaves[1], RMSNORM_EPS), s], [dh, dr])
+    bwd = dict(max_abs_err=max(bwd_errs),
+               ms=timer.ms(lambda: fused_rmsnorm_bwd(dh, dr, x, w, r, RMSNORM_EPS), 20),
+               plain_ms=timer.ms(lambda: fused_rmsnorm_bwd_ref(dh, dr, x, w, r, RMSNORM_EPS), 5),
+               library_ms=timer.eager_ms(library_bwd, 10),
+               library_note="F.rms_norm's backward under autograd (forward included)",
+               bound_ms=b_ms, bound_by=b_by, shape=[rows, d, "residual"])
+    return {"rmsnorm": fwd, "rmsnorm_bwd": bwd}
+
+
+def check_contract(torch, timer) -> tuple[dict, dict]:
+    """Phase 3's checks of the contract's further instantiations: hd 16 in bf16
+    (decode, the serving forward and the three training kernels) and float32
+    at hd 16, 32, 64 and 128, and row 1 and its backward in float32.
+    Returns (entries keyed "<wrapper>[<kind>]" for the kinds a main path
+    runs, the float32 hd-64 entries, held but on no path)."""
+    out, off_path = {}, {}
+    for dtype, hds in (("bf16", (16,)), ("f32", CONTRACT_HDS)):
+        for hd in hds:
+            kind = f"{dtype}/hd{hd}"
+            got = {"flash_attention": check_contract_flash(torch, timer, dtype, hd),
+                   "decode_attention": check_contract_decode(torch, timer, dtype, hd),
+                   **check_contract_training(torch, timer, dtype, hd)}
+            dest = out if dtype == "bf16" or hd in F32_PATH_HDS else off_path
+            for name, entry in got.items():
+                dest[f"{name}[{kind}]"] = entry
+                say(f"  {name}[{kind}]: {json.dumps(entry)}")
+            torch.cuda.empty_cache()
+    for name, entry in check_contract_rmsnorm(torch, timer).items():
+        out[f"{name}[f32]"] = entry
+        say(f"  {name}[f32]: {json.dumps(entry)}")
+    return out, off_path
+
+
 # ------------------------------- phase 4 --------------------------------------
 def exact_rows(rows: list[dict]) -> list[dict]:
     """Sweep rows with every float spelled exactly (``float.hex``)."""
@@ -2631,39 +3178,96 @@ def scaled_err(got, want) -> float:
             / want.float().abs().max()).item()
 
 
-def check_small_model(torch, arch: str) -> dict:
+#: float32 on the card against the CPU, at the tolerances at which the CPU
+#: tests hold the float32 port to JAX (tests/test_torch_model.py,
+#: tests/test_torch_ssm.py): prefill logits and the prefill's cache,
+#: float32 entries at F32_PREFILL_TOL and bf16 ones (a float32 model keeps
+#: its K/V and conv caches in bf16, as the reference) within one bf16 ulp of
+#: the larger of the two plus 1e-5 (BF16_CACHE_TOL: an f32 difference at a
+#: rounding boundary flips the last bit, and near zero the f32 projection's
+#: own rounding is worth more than one bf16 ulp); each decode step's logits
+#: at F32_DECODE_TOL; the cache after the decode steps, its float32
+#: entries (the SSM states) at F32_FINAL_CACHE_TOL and its bf16 ones within
+#: one bf16 ulp + 1e-3 (BF16_FINAL_CACHE_TOL). A decode step reads the
+#: bf16 cache back, so its inputs, and what it writes, carry the one-ulp
+#: differences the prefill's cache may have, as its logits do; so an SSM
+#: state moves by ~1e-3 (the mamba2_130m and jamba SMOKE configs' states
+#: read 1.25e-3 and 1.24e-3 after 4 steps on the H100, on the kernel and on
+#: the plain scan alike, against 1.3e-5 and 8.6e-6 after the prefill; phase
+#: 23 prints both routes' readings). atol 2e-3 clears those readings; as a
+#: control, the states shifted by F32_CONTROL_SHIFT (a decode step's update
+#: wrong by 1e-2) must fail it
+F32_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
+F32_DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
+F32_FINAL_CACHE_TOL = dict(rtol=1e-3, atol=2e-3)
+F32_CONTROL_SHIFT = 1e-2
+BF16_CACHE_TOL = dict(rtol=2.0 ** -7, atol=1e-5, of_larger=True)
+BF16_FINAL_CACHE_TOL = dict(rtol=2.0 ** -7, atol=1e-3, of_larger=True)
+
+
+def allclose_excess(got, want, tol: dict) -> float:
+    """The largest |got - want| - (atol + rtol |want|), as numpy's allclose
+    reads it (``of_larger``: rtol of the larger of |got|, |want|): at most 0
+    where the two are close."""
+    got, want = got.double(), want.double()
+    scale = got.abs().maximum(want.abs()) if tol.get("of_larger") else want.abs()
+    return ((got - want).abs() - (tol["atol"] + tol["rtol"] * scale)).max().item()
+
+
+def cache_excess(got: dict, want: dict, f32_tol: dict, bf16_tol: dict) -> float:
+    """:func:`allclose_excess` over a float32 model's cache entries: float32
+    entries at ``f32_tol``, bf16 ones at ``bf16_tol``."""
+    return max(allclose_excess(got[k], want[k],
+                               f32_tol if want[k].element_size() == 4 else bf16_tol)
+               for k in want if want[k].is_floating_point())
+
+
+def check_small_model(torch, arch: str, dtype: str = "bfloat16") -> dict:
     """The kernels' model on the card against the plain versions on the CPU:
-    the SMOKE config of ``arch`` in bf16, same weights, prefill plus 4
+    the SMOKE config of ``arch`` in ``dtype``, same weights, prefill plus 4
     teacher-forced decode steps (attending to seeded image embeddings, or
     to the encoder's output over seeded audio frames, where the config
-    cross-attends); logits of every step and the final cache, within 2e-2
-    of their largest value."""
+    cross-attends). bf16: logits of every step and the final cache, within
+    2e-2 of their largest value. float32: element-wise at F32_PREFILL_TOL
+    (prefill logits, float32 cache entries), F32_DECODE_TOL (each decode
+    step's logits) and BF16_CACHE_TOL (bf16 cache entries); a MoE config's
+    card run routed as the CPU run was (:func:`replayed_routes`), the
+    tokens the two route otherwise counted."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.models import (decode_step, encode, init_params, prefill,
-                                    to_device)
+    from repro_torch.models import decode_step, encode, init_params, prefill, to_device
+    from repro_torch.models.transformer import compute_dtype
 
     cfg = get_config(arch, smoke=True)
+    if dtype != cfg.dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     cpu = init_params(cfg, seed=SEED, device="cpu")
     g = torch.Generator().manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (2, 20), generator=g)
     s, steps = 16, 4
     m = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
-    src = torch.randn((2, m, cfg.d_model), generator=g).to(torch.bfloat16) if m else None
+    src = torch.randn((2, m, cfg.d_model), generator=g).to(compute_dtype(cfg)) if m else None
 
-    def run(params, dev):
+    def run(params, dev, keep_prefill=False):
         with torch.no_grad():
             memory = None if src is None else src.to(dev)
             if cfg.is_enc_dec:
                 memory = encode(cfg, params, memory)
             lg, cache = prefill(cfg, params, toks[:, :s].to(dev), max_len=s + steps,
                                 memory=memory)
+            # a copy: decode_step writes the cache in place
+            first = {k: v.cpu().clone() for k, v in cache.items()} if keep_prefill else None
             outs = [lg]
             for i in range(steps):
                 lg, cache = decode_step(cfg, params, cache,
                                         toks[:, s + i].to(dev), s + i, memory=memory)
                 outs.append(lg)
-        return [o.cpu() for o in outs], {k: v.cpu() for k, v in cache.items()}
+        final = {k: v.cpu() for k, v in cache.items()}
+        return ([o.cpu() for o in outs], final) + ((first,) if keep_prefill else ())
 
+    if dtype == "float32":
+        return check_small_model_f32(torch, cfg, cpu, run)
     if cfg.moe_experts:
         return check_small_moe_model(torch, cfg, cpu, run, s + steps)
     want, want_cache = run(cpu, "cpu")
@@ -2673,6 +3277,59 @@ def check_small_model(torch, arch: str) -> dict:
                                    for k in want_cache)}
     if not max(out.values()) <= SCALED_TOL_SMALL:
         raise AssertionError(f"small model {arch}: card vs CPU {out}")
+    return out
+
+
+def check_small_model_f32(torch, cfg, cpu, run) -> dict:
+    """:func:`check_small_model` in float32: ``run(params, device)`` on the
+    CPU and on the card, held element-wise (see there)."""
+    from repro_torch.models import to_device
+
+    routes, card_routes = [], []
+    moe = bool(cfg.moe_experts)
+    with (recorded_routes(routes) if moe else contextlib.nullcontext()):
+        want, want_cache, want_first = run(cpu, "cpu", keep_prefill=True)
+    card = to_device(cpu, "cuda")
+    if moe:
+        with recorded_routes(card_routes):
+            run(card, "cuda")
+    with (replayed_routes(torch, routes) if moe else contextlib.nullcontext()):
+        got, got_cache, got_first = run(card, "cuda", keep_prefill=True)
+    out = {"prefill_excess": allclose_excess(got[0], want[0], F32_PREFILL_TOL),
+           "decode_excess": max(allclose_excess(a, w, F32_DECODE_TOL)
+                                for a, w in zip(got[1:], want[1:])),
+           "prefill_cache_excess": cache_excess(got_first, want_first, F32_PREFILL_TOL,
+                                                BF16_CACHE_TOL),
+           "cache_excess": cache_excess(got_cache, want_cache, F32_FINAL_CACHE_TOL,
+                                        BF16_FINAL_CACHE_TOL),
+           "cache_max_abs_err": {k: (got_cache[k].double() - want_cache[k].double()
+                                     ).abs().max().item()
+                                 for k in want_cache if want_cache[k].is_floating_point()},
+           "prefill_max_abs_err": (got[0] - want[0]).abs().max().item(),
+           "decode_max_abs_err": max((a - w).abs().max().item()
+                                     for a, w in zip(got[1:], want[1:]))}
+    if moe:
+        out["tokens_routed_otherwise_unreplayed"] = sum(
+            int((a != b).any(-1).sum()) for a, b in zip(routes, card_routes))
+    states = [k for k in want_cache if want_cache[k].dtype == torch.float32]
+    if states:
+        # the same run through the scan's plain version, and the control
+        with plain_scan(), (replayed_routes(torch, routes) if moe
+                            else contextlib.nullcontext()):
+            _, plain_cache = run(card, "cuda")
+        out["plain_scan_cache_max_abs_err"] = {
+            k: (plain_cache[k].double() - want_cache[k].double()).abs().max().item()
+            for k in states}
+        out["control_excess"] = max(allclose_excess(
+            got_cache[k] + F32_CONTROL_SHIFT, want_cache[k], F32_FINAL_CACHE_TOL)
+            for k in states)
+        if not out["control_excess"] > 0:
+            raise AssertionError(f"small model {cfg.name} float32: the final cache's "
+                                 f"check passed states shifted by {F32_CONTROL_SHIFT:g}")
+    if not all(torch.isfinite(x).all() for x in got) or max(
+            out[k] for k in ("prefill_excess", "decode_excess", "prefill_cache_excess",
+                             "cache_excess")) > 0:
+        raise AssertionError(f"small model {cfg.name} float32: card vs CPU {out}")
     return out
 
 
@@ -3722,25 +4379,26 @@ def check_train_grads(torch, kernels) -> dict:
     return out
 
 
-def check_smoke_training(torch, arch: str = "olmo_1b", steps: int = 3) -> dict:
-    """The SMOKE config's ``steps`` train steps on the card against the same
-    steps on the CPU (plain versions): losses within 2e-2, parameters at the
-    reference's rtol 2e-2, atol 2e-3 (lr 1e-4, so that Adam's sign on a
-    near-zero gradient moves a weight by at most 3 x 2e-4). The batch
-    carries the image embeddings or audio frames the config's memory
-    takes. A SMOKE head width the training attention kernels do not take
-    (qwen3_moe_235b's 16) is raised to the narrowest they do."""
+def check_smoke_training(torch, arch: str = "olmo_1b", steps: int = 3,
+                         dtype: str = "bfloat16") -> dict:
+    """The SMOKE config's ``steps`` train steps in ``dtype`` on the card
+    against the same steps on the CPU (plain versions): losses within 2e-2
+    (float32: 1e-5, and the gradient norms within 1e-4, the float32
+    tolerances of tests/test_torch_train.py and test_torch_train_rmsnorm.py),
+    parameters at the reference's rtol 2e-2, atol 2e-3 (lr 1e-4, so that
+    Adam's sign on a near-zero gradient moves a weight by at most 3 x
+    2e-4). The batch carries the image embeddings or audio frames the
+    config's memory takes."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import _HEAD_DIMS
     from repro_torch.models import init_params, param_dtype, to_device
     from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
     from repro_torch.train.optimizer import tree_leaves
 
     cfg = get_config(arch, smoke=True)
-    if cfg.hd not in _HEAD_DIMS:
-        cfg = dataclasses.replace(cfg, head_dim=min(_HEAD_DIMS))
+    if dtype != cfg.dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     cpu = init_params(cfg, seed=SEED, device="cpu", dtype=param_dtype(cfg))
     gpu = to_device(cpu, "cuda")
     step = make_train_step(cfg, AdamWConfig(lr=1e-4))
@@ -3750,20 +4408,27 @@ def check_smoke_training(torch, arch: str = "olmo_1b", steps: int = 3) -> dict:
     if cfg.is_enc_dec:
         extras["audio_frames"] = (cfg.n_audio_frames, cfg.d_model)
     data = iter(SyntheticTokens(cfg.vocab, 4, 64, seed=SEED, extras=extras))
-    out = {"loss_cpu": [], "loss_card": []}
+    out = {"loss_cpu": [], "loss_card": [], "grad_norm_cpu": [], "grad_norm_card": []}
     opt_cpu, opt_gpu = adamw_init(cpu), adamw_init(gpu)
     for _ in range(steps):
         b = next(data)
         _, _, m = step(cpu, opt_cpu, b)
         out["loss_cpu"].append(float(m["loss"]))
+        out["grad_norm_cpu"].append(float(m["grad_norm"]))
         _, _, m = step(gpu, opt_gpu, {k: v.cuda() for k, v in b.items()})
         out["loss_card"].append(float(m["loss"]))
+        out["grad_norm_card"].append(float(m["grad_norm"]))
     rel = max(abs(a - b) / b for a, b in zip(out["loss_card"], out["loss_cpu"]))
+    grad_rel = max(abs(a - b) / b for a, b in zip(out["grad_norm_card"],
+                                                  out["grad_norm_cpu"]))
     worst = max(((a.cpu() - b).abs() - 2e-2 * b.abs()).max().item()
                 for a, b in zip(tree_leaves(gpu), tree_leaves(cpu)))
-    out.update(loss_rel_diff=rel, param_excess_over_rtol=worst)
-    if not (rel <= 2e-2 and worst <= 2e-3):
-        raise AssertionError(f"SMOKE training {arch} card vs CPU: {out}")
+    out.update(loss_rel_diff=rel, grad_norm_rel_diff=grad_rel,
+               param_excess_over_rtol=worst)
+    f32 = dtype == "float32"
+    if not (rel <= (1e-5 if f32 else 2e-2) and worst <= 2e-3
+            and (not f32 or grad_rel <= 1e-4)):
+        raise AssertionError(f"SMOKE training {arch} {dtype} card vs CPU: {out}")
     return out
 
 
@@ -3992,8 +4657,14 @@ def leaf_names(tree, prefix: str = "") -> list[str]:
     return [prefix[:-1]]
 
 
+#: phase 18 (b) trains mamba2_130m at full width with this many of its 24
+#: layers, cut to hold the run under RUN_LIMIT_S
+MAMBA2_TRAIN_LAYERS = 12
+
+
 def check_mamba2_training(torch, kernels) -> dict[str, int]:
-    """Phase 18 (b): ``run_train`` on the full mamba2_130m (24 layers), 8 x
+    """Phase 18 (b): ``run_train`` on mamba2_130m at full width with
+    MAMBA2_TRAIN_LAYERS of its 24 layers, 8 x
     2048, TRAIN_STEPS steps on one repeated batch, remat "full", counters
     zeroed just before and read just after; a finite loss that falls; step
     time, tokens/s, MFU, peak memory; then one step profiled on the device
@@ -4001,13 +4672,15 @@ def check_mamba2_training(torch, kernels) -> dict[str, int]:
     code: one layer's, profiled alone at the same shapes, times the layers,
     taken out of the groups its kernels fall in), rmsnorm forward, rmsnorm
     backward, other. Returns the run's launch counts."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd.ops import ssd_chunk_bwd_plain
     from repro_torch.launch.train import run_train
     from repro_torch.models import init_params, param_dtype
     from repro_torch.train import AdamWConfig, SyntheticTokens, adamw_init, make_train_step
 
-    cfg = get_config("mamba2_130m")
+    cfg = dataclasses.replace(get_config("mamba2_130m"), n_layers=MAMBA2_TRAIN_LAYERS)
     say(f"[18b] run_train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{TRAIN_STEPS} steps x {TRAIN_BATCH} x {TRAIN_SEQ} tokens on one repeated "
         f"batch, seed {SEED}, remat {cfg.remat}")
@@ -4188,17 +4861,229 @@ def check_rmsnorm_training(torch, kernels) -> dict[str, dict]:
     return counts
 
 
+# ------------------------------- phases 22-25: the kernels' contract ----------
+#: the SMOKE configs whose head dim is 16
+HD16_ARCHS = ("minitron_4b", "command_r_35b", "gpt3_175b", "qwen3_moe_235b")
+#: the float32 SMOKE train steps: an RMSNorm config and a LayerNorm one (at
+#: hd 32 and 16)
+F32_TRAIN_ARCHS = ("mistral_nemo_12b", "minitron_4b")
+F32_TRAIN_STEPS = 3
+#: the float32 olmo_1b run: 4 x 2048 tokens, 3 steps
+F32_RUN_STEPS = 3
+
+
+def path_counts(kernels) -> dict[str, int]:
+    """Every wrapper's launches since the reset, and each instantiation's
+    (``kernels.launches_by_kind``)."""
+    return kernels.launches() | kernels.launches_by_kind()
+
+
+def phase22_hd16(torch, kernels) -> dict[str, int]:
+    """Phase 22: head dim 16 in bf16. ``run_serve`` on the SMOKE config of
+    each of HD16_ARCHS, 4 x 2048 + 32 tokens, counters zeroed just before
+    and read just after (flash and decode at bf16/hd16 on every attention
+    layer), its graph tokens against eager ones, the SMOKE config card vs
+    CPU at 2e-2; then qwen3_moe_235b's SMOKE config trains 3 steps at its
+    own hd 16, card vs CPU. Returns the launch counts of the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+
+    t0 = time.perf_counter()
+    say(f"[22] head dim 16 (bf16): run_serve on the SMOKE configs of {HD16_ARCHS}, "
+        f"{REQUESTS} x {PROMPT_LEN} + {NEW_TOKENS}, then qwen3_moe_235b SMOKE trains")
+    runs = []
+    for arch in HD16_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        kernels.reset_launches()
+        res = run_serve(cfg, requests=REQUESTS, prompt_len=PROMPT_LEN,
+                        tokens=NEW_TOKENS, seed=SEED)
+        counts = path_counts(kernels)
+        want = {"flash_attention": cfg.n_layers,
+                "flash_attention[bf16/hd16]": cfg.n_layers,
+                "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
+                "decode_attention[bf16/hd16]": cfg.n_layers * (NEW_TOKENS - 1)}
+        got = {k: counts.get(k, 0) for k in want}
+        say(f"    {cfg.name} (hd {cfg.hd}, {cfg.n_heads}/{cfg.n_kv_heads} heads): TTFT "
+            f"{res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms; launches {got}")
+        if got != want:
+            raise AssertionError(f"{cfg.name}: launches {got} != {want}")
+        params, prompts = serve_inputs(torch, cfg, REQUESTS, SEED)
+        gve = graph_vs_eager(torch, cfg, params, prompts, res.tokens)
+        gve.pop("tokens")
+        del params
+        say(f"    graph vs eager decode: {json.dumps(gve)}")
+        say(f"    small config, card vs CPU plain: {check_small_model(torch, arch)}")
+        runs.append(counts)
+    kernels.reset_launches()
+    say(f"    qwen3_moe_235b SMOKE at hd 16, 3 steps, card vs CPU: "
+        f"{check_smoke_training(torch, 'qwen3_moe_235b')}")
+    counts = path_counts(kernels)
+    ran = {k: counts.get(k, 0) for k in ("flash_attention_fwd_lse[bf16/hd16]",
+                                          "flash_attention_bwd_dkv[bf16/hd16]",
+                                          "flash_attention_bwd_dq[bf16/hd16]")}
+    say(f"    training launches at hd 16: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"qwen3_moe_235b SMOKE training at hd 16: launches {ran}")
+    runs.append(counts)
+    say(f"    phase 22 in {time.perf_counter() - t0:.1f} s")
+    return summed(*runs)
+
+
+def phase23_f32_smoke(torch, kernels) -> dict[str, int]:
+    """Phase 23: every architecture's SMOKE config in float32 on the card
+    against the CPU (:func:`check_small_model`: prefill and 4
+    teacher-forced decode steps), then F32_TRAIN_STEPS train steps of each
+    of F32_TRAIN_ARCHS in float32 card vs CPU; counters zeroed just before
+    and read just after. Returns the launch counts."""
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    t0 = time.perf_counter()
+    say("[23] float32 SMOKE configs, card vs CPU: prefill logits and the prefill's "
+        f"f32 cache within {F32_PREFILL_TOL} (bf16 cache {BF16_CACHE_TOL}), decode "
+        f"logits within {F32_DECODE_TOL}, the final cache {F32_FINAL_CACHE_TOL} (bf16 "
+        f"{BF16_FINAL_CACHE_TOL}); train steps of {F32_TRAIN_ARCHS}")
+    kernels.reset_launches()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        say(f"    {cfg.name} float32 (hd {cfg.hd}): "
+            f"{json.dumps(check_small_model(torch, arch, dtype='float32'))}")
+    for arch in F32_TRAIN_ARCHS:
+        say(f"    {arch} SMOKE float32, {F32_TRAIN_STEPS} steps, card vs CPU: "
+            f"{check_smoke_training(torch, arch, F32_TRAIN_STEPS, dtype='float32')}")
+    counts = path_counts(kernels)
+    say(f"    launches by instantiation {kernels.launches_by_kind()}")
+    say(f"    phase 23 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+@contextlib.contextmanager
+def plain_serving_routes():
+    """The model's attention and fused RMSNorm through their plain versions
+    on the card (phase 24's comparison route)."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+    from repro_torch.models import layers, transformer
+
+    saved = (layers.flash_attention, layers.decode_attention, layers.fused_rmsnorm,
+             transformer.fused_rmsnorm)
+    layers.flash_attention = flash_attention_ref
+    layers.decode_attention = decode_attention_ref
+    layers.fused_rmsnorm = transformer.fused_rmsnorm = fused_rmsnorm_ref
+    try:
+        yield
+    finally:
+        (layers.flash_attention, layers.decode_attention, layers.fused_rmsnorm,
+         transformer.fused_rmsnorm) = saved
+
+
+def phase24_f32_serving(torch, kernels) -> dict[str, int]:
+    """Phase 24: ``run_serve`` on mistral_nemo_12b in float32 at full width
+    and depth, F32_REQUESTS x 2048 + 32 tokens, counters zeroed just before
+    and read just after (rows 1-3 in float32: rmsnorm, flash and decode at
+    f32/hd128, the decode reading the model's bf16 K/V cache); its graph
+    tokens identical to eager ``decode_step``; the decode path's logits
+    against a teacher-forced forward within 1e-4 of the largest logit, or
+    within SSM_REL times the same reading on the plain route on the card
+    where that is higher (the cache rounds K/V to bf16 where the forward
+    attends in f32). Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("mistral_nemo_12b"), dtype="float32")
+    say(f"[24] run_serve {cfg.name} in float32: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {F32_REQUESTS} requests x {PROMPT_LEN} + {NEW_TOKENS} tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = run_serve(cfg, requests=F32_REQUESTS, prompt_len=PROMPT_LEN,
+                    tokens=NEW_TOKENS, seed=SEED)
+    counts = path_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention[f32/hd128]": cfg.n_layers,
+            "decode_attention[f32/hd128]": cfg.n_layers * (NEW_TOKENS - 1),
+            "rmsnorm[f32]": (1 + 2 * cfg.n_layers) * NEW_TOKENS}
+    got = {k: counts.get(k, 0) for k in want}
+    say(f"    TTFT {res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms, "
+        f"{res.tokens_per_s:.2f} tokens/s, peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"float32 serving: launches {got} != {want}")
+    torch.cuda.empty_cache()
+    params, prompts = serve_inputs(torch, cfg, F32_REQUESTS, SEED)
+    gve = graph_vs_eager(torch, cfg, params, prompts, res.tokens)
+    gve.pop("tokens")
+    say(f"    graph vs eager decode: {json.dumps(gve)}")
+    kernel_route = full_model_readings(torch, cfg, params, prompts, res.tokens)
+    with plain_serving_routes():
+        plain_route = full_model_readings(torch, cfg, params, prompts, res.tokens)
+    del params
+    torch.cuda.empty_cache()
+    limit = max(1e-4, SSM_REL * plain_route["decode_vs_prefill_scaled_err"])
+    out = {"kernel_route": kernel_route, "plain_route": plain_route, "limit": limit,
+           "ttft_s": res.ttft, "tpot_s": res.tpot, "peak_memory_gib": peak / 2**30}
+    say(f"    decode vs teacher-forced forward: {json.dumps(out)}")
+    if not kernel_route["decode_vs_prefill_scaled_err"] <= limit:
+        raise AssertionError(f"float32 serving: decode vs prefill {kernel_route} "
+                             f"beyond {limit:.3g}")
+    say(f"    phase 24 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase25_f32_training(torch, kernels) -> dict[str, int]:
+    """Phase 25: ``run_train`` on olmo_1b in float32 at full width and
+    depth, F32_TRAIN_BATCH x 2048 tokens, F32_RUN_STEPS steps on one
+    repeated batch, counters zeroed just before and read just after (rows
+    5-7 in float32 at hd 128: 2L forward-with-LSE, L dK/dV and L dQ
+    launches a step under remat "full"); a finite loss that starts near
+    ln V + 1/2 and falls; step time and peak memory. Returns the counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_train
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo_1b"), dtype="float32")
+    say(f"[25] run_train {cfg.name} in float32: {cfg.n_layers} layers, "
+        f"{F32_RUN_STEPS} steps x {F32_TRAIN_BATCH} x {TRAIN_SEQ} tokens on one "
+        f"repeated batch, seed {SEED}, remat {cfg.remat}")
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    res = run_train(cfg, steps=F32_RUN_STEPS, batch=F32_TRAIN_BATCH, seq=TRAIN_SEQ,
+                    seed=SEED, repeat=True)
+    counts = path_counts(kernels)
+    n = cfg.n_layers * F32_RUN_STEPS
+    want = {"flash_attention_fwd_lse[f32/hd128]": 2 * n,
+            "flash_attention_bwd_dkv[f32/hd128]": n, "flash_attention_bwd_dq[f32/hd128]": n}
+    got = {k: counts.get(k, 0) for k in want}
+    say(f"    losses {res.losses}; step times (s) {res.step_times}; "
+        f"{res.tokens_per_s:.1f} tokens/s; peak memory "
+        f"{res.peak_memory_bytes / 2**30:.3f} GiB; launches {got}")
+    if got != want:
+        raise AssertionError(f"float32 training: launches {got} != {want}")
+    expect = math.log(cfg.vocab) + 0.5
+    falling_loss(res.losses, "float32 training")
+    if not abs(res.losses[0] - expect) <= 0.5:
+        raise AssertionError(f"float32 training: first loss {res.losses[0]} not near "
+                             f"{expect:.3f}")
+    torch.cuda.empty_cache()
+    say(f"    phase 25 in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # ------------------------------- phases 12-13 ---------------------------------
 def check_validation(card: str) -> dict:
     """Phase 12: the modeled-vs-measured loop on the card. Calibrates the
     card (the reference's host-clock protocol, CUDA events beside it),
     builds the three cases (each certifies its twin), predicts each at the
-    calibrated rates, counts its decode step on the kernels' route (a twin
-    whose shape the kernels do not take: the plain route, on the CPU, and no
-    wall clock, the reason in its row) and times its steady decode; gates
-    every row with the reference's bands and writes
-    BENCH_validation_torch.json (with the card's name and power limit).
-    Fatal on any band violation."""
+    calibrated rates, counts its decode step on the kernels' route (the moe
+    twin's hd 16 among them) and times its steady decode; every case must
+    have its wall clock; gates every row with the reference's bands and
+    writes BENCH_validation_torch.json (with the card's name and power
+    limit). Fatal on any band violation."""
     from repro_torch.systems.chips import H100, HBM
     from repro_torch.validation import (REPORT_PATH, check_report,
                                         measure_cases, write_report)
@@ -4235,7 +5120,9 @@ def check_validation(card: str) -> dict:
     report["device"] = {"name": name, "power_limit": limit}
     write_report(report)
     say(f"    wrote {REPORT_PATH.name}")
-    problems = check_report(report)
+    problems = check_report(report) + [
+        f"{row['case']}: no wall clock ({row.get('wallclock_absent')})"
+        for row in report["cases"] if "wallclock" not in row]
     if problems:
         raise AssertionError(f"validation bands broken: {problems}")
     return report
@@ -4300,6 +5187,9 @@ MESH_SERVE_PROMPT, MESH_SERVE_TOKENS = 512, 8
 #: request's prompt (rank 1's block of the cache, positions 1032 on, stays
 #: empty for all of its steps)
 CP_NEW_TOKENS, CP_SHORT_PROMPT = 16, 64
+#: (b) olmoe_1b_7b at full width, its depth cut from 16 to this many
+#: layers to hold the run under RUN_LIMIT_S
+CP_LAYERS = 4
 #: (c) olmo_1b at full width with this many layers, 2 x 2048 a rank
 DP_LAYERS, DP_BATCH_PER_RANK = 2, 2
 #: a gradient through int8 and back moves by at most half its block's step,
@@ -4315,7 +5205,7 @@ def phase20_cfg(part: str):
     from repro_torch.configs import get_config
     if part == "olmoe":
         return dataclasses.replace(get_config("olmoe_1b_7b"), moe_dispatch="shard_map",
-                                   decode_attn="context_parallel")
+                                   decode_attn="context_parallel", n_layers=CP_LAYERS)
     if part == "dp":
         return dataclasses.replace(get_config("olmo_1b"), n_layers=DP_LAYERS)
     return get_config("olmo_1b")
@@ -5090,7 +5980,7 @@ def phase20_b(torch, job_dir: Path, backend: str) -> tuple[dict, dict]:
     import numpy as np
 
     cfg = phase20_cfg("olmoe")
-    say(f"[20b] olmoe_1b_7b on {_two_ranks(backend)}, mesh (1, 2), moe_dispatch shard_map, "
+    say(f"[20b] olmoe_1b_7b ({cfg.n_layers} layers) on {_two_ranks(backend)}, mesh (1, 2), moe_dispatch shard_map, "
         f"decode_attn context_parallel: {REQUESTS} x {PROMPT_LEN} + {CP_NEW_TOKENS} "
         f"tokens and 1 x {CP_SHORT_PROMPT} + {CP_NEW_TOKENS}, routed as one device "
         f"routed them, against one device")
@@ -5171,7 +6061,9 @@ def phase20_c(job_dir: Path, backend: str) -> tuple[dict, list]:
 
 
 def summed(*runs: dict) -> dict:
-    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    """The counts of ``runs`` added, key by key."""
+    keys = {k: None for r in runs for k in r}
+    return {k: sum(r.get(k, 0) for r in runs) for k in keys}
 
 
 def check_multi_device(torch, card: str) -> tuple[dict, dict]:
@@ -5207,6 +6099,12 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    laps: dict[str, float] = {}
+
+    def lap(phases: str) -> None:
+        """Record the seconds since the previous lap under ``phases``."""
+        laps[phases] = round(time.perf_counter() - t_start - sum(laps.values()), 1)
+
     # 1. card and toolchain
     card = nvidia_smi("name,power.limit")
     say(f"[1] card: {card}")
@@ -5235,38 +6133,12 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "smem", "error", "warning")):
                 say(f"    {name}: {line.strip()}")
-    rmsnorm_build = ptxas_report(logs["rmsnorm"], RMSNORM_ENTRY, rmsnorm_label)
-    say(f"    rmsnorm kernels (registers, spilled bytes, static shared memory): "
-        f"{json.dumps(rmsnorm_build)}")
-    spilled = [k for k, v in rmsnorm_build.items() if v.get("spill_bytes", 1)]
-    if len(rmsnorm_build) != RMSNORM_BUILDS or spilled:
-        return fail(f"rmsnorm build: {len(rmsnorm_build)} kernels, spills in {spilled}")
-    rmsnorm_bwd_build = ptxas_report(logs["rmsnorm"], RMSNORM_BWD_ENTRY, rmsnorm_bwd_label)
-    say(f"    rmsnorm backward kernels (registers, spilled bytes, static shared "
-        f"memory): {json.dumps(rmsnorm_bwd_build)}")
-    spilled = [k for k, v in rmsnorm_bwd_build.items() if v.get("spill_bytes", 1)]
-    if len(rmsnorm_bwd_build) != RMSNORM_BWD_BUILDS or spilled:
-        return fail(f"rmsnorm backward build: {len(rmsnorm_bwd_build)} kernels, "
-                    f"spills in {spilled}")
-    flash_build = flash_build_report(logs["flash_attention"])
-    say(f"    flash-attention kernels (registers at entry, spilled bytes, "
-        f"dynamic shared memory): {json.dumps(flash_build)}")
-    spilled = [k for k, v in flash_build.items() if v.get("spill_bytes", 1)]
-    if len(flash_build) != 12 or spilled:
-        return fail(f"flash-attention build: {len(flash_build)} kernels, "
-                    f"spills in {spilled}")
-    decode_build = decode_build_report(logs["decode_attention"])
-    say(f"    decode kernels (registers, spilled bytes, dynamic shared memory): "
-        f"{json.dumps(decode_build)}")
-    spilled = [k for k, v in decode_build.items() if v.get("spill_bytes", 1)]
-    if len(decode_build) != 15 or spilled:
-        return fail(f"decode build: {len(decode_build)} kernels, spills in {spilled}")
-    ssd_build = ssd_build_report(logs["ssd"])
-    say(f"    SSD kernels (registers, spilled bytes, dynamic shared memory "
-        f"at P = 64): {json.dumps(ssd_build)}")
-    spilled = [k for k, v in ssd_build.items() if v.get("spill_bytes", 1)]
-    if len(ssd_build) != 4 or spilled:
-        return fail(f"SSD build: {len(ssd_build)} kernels, spills in {spilled}")
+    builds, faults = build_reports(logs)
+    for name, report in builds.items():
+        say(f"    {name} kernels ({BUILD_COLUMNS[name]}): {json.dumps(report)}")
+    if faults:
+        return fail("; ".join(faults))
+    lap("1-2")
 
     # 3. kernels vs plain
     say("[3] kernels against their plain versions (bf16, rtol=atol=2e-2; "
@@ -5276,22 +6148,39 @@ def main() -> int:
         f"{TRAIN_ROW_REL:g} of its max|plain|; "
         f"pricing f64 bit for bit, f32 within {DRIFT_BAND:g} of f64)")
     timer = Timer(torch)
-    numbers = {"rmsnorm": check_rmsnorm(torch, timer, probe) | {"build": rmsnorm_build}}
+    numbers = {"rmsnorm": check_rmsnorm(torch, timer, probe) | {"build": builds["rmsnorm"]}}
     numbers["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, timer) | {
-        "build": rmsnorm_bwd_build}
+        "build": builds["rmsnorm_bwd"]}
     numbers.update(check_rmsnorm_split(torch, timer))
     numbers.update(check_kernels(torch, timer))
-    numbers["decode_attention"]["build"] = decode_build
-    numbers["ssd"] = check_ssd(torch, timer) | {"build": ssd_build}
+    numbers["decode_attention"]["build"] = builds["decode_attention"]
+    numbers["ssd"] = check_ssd(torch, timer) | {"build": builds["ssd"]}
     numbers.update(check_training_kernels(torch, timer))
     for name, kernel in (("flash_attention", "flash_fwd_kernel<128>"),
                          ("flash_attention_fwd_lse", "flash_fwd_kernel<128, lse>"),
                          ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel<128>"),
                          ("flash_attention_bwd_dq", "flash_bwd_dq_kernel<128>")):
-        numbers[name]["build_hd128"] = flash_build[kernel]
+        numbers[name]["build_hd128"] = builds["flash_attention"][kernel]
     numbers.update(check_pricing(torch, timer))
+    say("[3] the contract's further instantiations: hd 16 in bf16 (held as "
+        f"above), float32 at hd {CONTRACT_HDS} and row 1 in float32 (forward "
+        f"{F32_TOL}, backward {F32_BWD_TOL}, TF32 off)")
+    contract, off_path = check_contract(torch, timer)
+    for name, entry in contract.items():
+        base, kind = name[:-1].split("[")
+        hd = kind.split("/hd")[1] if "/hd" in kind else None
+        if hd and base == "decode_attention":
+            entry["build"] = builds["decode_attention" + ("" if kind.startswith("bf16") else "_f32")]
+            entry["build"] = {k: v for k, v in entry["build"].items() if f"<{hd}," in k}
+        elif hd:
+            flash = builds["flash_attention" + ("" if kind.startswith("bf16") else "_f32")]
+            entry["build"] = {k: v for k, v in flash.items() if f"<{hd}" in k}
+    numbers.update(contract)
+    say(f"    held, and run on no path (no configuration has a float32 hd-64 "
+        f"attention): {sorted(off_path)}")
     del timer
     torch.cuda.empty_cache()
+    lap("3")
 
     # 4. the DSE path
     say("[4] DSE price phase: sweeps, a parallel sweep and reprice_grid on "
@@ -5316,6 +6205,7 @@ def main() -> int:
     say(f"    phase 4b in {time.perf_counter() - t0:.1f} s; pricing launches "
         f"{features['pricing']}, pricing_f32 launches "
         f"{features['pricing_f32']}")
+    lap("4-4b")
 
     # 5.-7. the serving paths
     cfg = get_config("mistral_nemo_12b")
@@ -5332,6 +6222,7 @@ def main() -> int:
     say(f"    pricing events profiled after the serving profiles: "
         f"{profiler_recheck(torch, kernels)}")
     torch.cuda.empty_cache()
+    lap("5-7")
 
     # 8. the training path
     say("[8] training olmo_1b: full-width gradients against the plain "
@@ -5342,6 +6233,7 @@ def main() -> int:
     say(f"    SMOKE, 3 steps, card vs CPU: {check_smoke_training(torch)}")
     train = check_training(torch, kernels)
     say(f"    training phase in {time.perf_counter() - t0:.1f} s")
+    lap("8")
 
     # 9. a GQA group-3 serving path: minitron_4b at full width, depth cut
     full = get_config("minitron_4b")
@@ -5360,6 +6252,7 @@ def main() -> int:
                     f"{child.stdout[-500:]} {child.stderr[-2000:]}")
     say(f"    {child.stdout.strip().splitlines()[-1]}")
     torch.cuda.empty_cache()
+    lap("9")
 
     # 10.-11. the MoE serving path: olmoe_1b_7b at full width and depth
     cfg = get_config("olmoe_1b_7b")
@@ -5372,6 +6265,7 @@ def main() -> int:
         "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
         "rmsnorm": (1 + 2 * cfg.n_layers) * NEW_TOKENS}, phase=10)
     torch.cuda.empty_cache()
+    lap("10-11")
 
     # 12. the modeled-vs-measured validation loop
     say("[12] validation: the card calibrated, the three cases predicted, "
@@ -5385,30 +6279,47 @@ def main() -> int:
         "against the measured warm TTFT and steady TPOT")
     serving_model_reading({"mistral_nemo_12b": dense_t, "olmoe_1b_7b": moe_t})
     torch.cuda.empty_cache()
+    lap("12-13")
 
     # 14.-17. cross-attention memory, the encoder, hybrid blocks and
     # speculative decoding
     new_paths = check_memory_hybrid_paths(torch, kernels)
+    lap("14-17")
 
     # 18. training through the fused RMSNorm and the SSD scan
     rmsnorm_train = check_rmsnorm_training(torch, kernels)
     torch.cuda.empty_cache()
+    lap("18")
 
     # 20. the multi-device layer: one NCCL rank, two gloo ranks sharing the
     # card (context- and expert-parallel serving, data-parallel training)
     multi_device, _ = check_multi_device(torch, card)
+    lap("20")
 
     # 21. SSM, cross-attention and encoder layers under a model axis
     import tempfile
     model_axis, _ = phase21(torch, Path(tempfile.mkdtemp(prefix="phase21-")), card)
+    lap("21")
+
+    # 22.-25. head dim 16 and float32 on the paths
+    hd16 = phase22_hd16(torch, kernels)
+    lap("22")
+    f32_smoke = phase23_f32_smoke(torch, kernels)
+    lap("23")
+    f32_serve = phase24_f32_serving(torch, kernels)
+    lap("24")
+    f32_train = phase25_f32_training(torch, kernels)
+    lap("25")
 
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
                "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train,
-               **multi_device, "model_axis_two_ranks": model_axis}
+               **multi_device, "model_axis_two_ranks": model_axis,
+               "hd16_smoke": hd16, "f32_smoke": f32_smoke,
+               "mistral_nemo_12b_f32": f32_serve, "olmo_1b_f32_train": f32_train}
     counts = {name: sum(c.get(name, 0) for c in by_path.values())
-              for name in dense}
+              for name in numbers}
 
     # 19. result
     fa = "src/repro/kernels/flash_attention"
@@ -5445,14 +6356,24 @@ def main() -> int:
         return fail(f"kernels never launched on the main path: {idle}")
     line = []
     for name, n in numbers.items():
-        src = sources.get(name, name)
-        line.append({"name": shown.get(name, name), "route": "cuda",
-                     "source": f"src/repro_torch/kernels/{src}/csrc/{src}.cu",
-                     "replaces": replaces[name], "launches": counts[name],
+        # "<wrapper>[<kind>]": one instantiation of the contract (a dtype and,
+        # for attention, a head dim), its float32 attention in <source>_f32.cu
+        base, _, kind = name.rstrip("]").partition("[")
+        src = sources.get(base, base)
+        path = f"{src}/csrc/{src}"
+        if kind.startswith("f32") and "attention" in src:
+            path += "_f32"
+        line.append({"name": shown.get(base, base) + (f"[{kind}]" if kind else ""),
+                     "route": "cuda", "source": f"src/repro_torch/kernels/{path}.cu",
+                     "replaces": replaces[base], "launches": counts[name],
                      "launches_by_path": {p: c[name] for p, c in by_path.items()
                                           if c.get(name)},
                      **n})
-    say(f"    total {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    say(f"    seconds by phase: {json.dumps(laps)}")
+    say(f"    total {total:.1f} s (limit {RUN_LIMIT_S} s, the kernels' build included)"
+        + (f": OVER THE LIMIT by {total - RUN_LIMIT_S:.1f} s" if total > RUN_LIMIT_S
+           else ""))
     say(json.dumps({"kernels": line}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel directory holds one ``csrc/<name>.cu`` with a plain C interface
-(no PyTorch headers), so a build takes seconds. The shared library goes to
+Each kernel directory holds ``csrc/<name>.cu`` with a plain C interface
+(no PyTorch headers), so a build takes seconds; the attention kernels'
+float32 versions are libraries of their own beside them
+(``csrc/<name>_f32.cu``), so that they build in parallel with the rest.
+The shared library goes to
 ``build/kernels/<name>-<hash>/lib<name>.so`` at the root of the checkout,
 keyed by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused. Nothing is built at import: a wrapper builds
@@ -11,10 +14,12 @@ at once, one ``nvcc`` process per source, all started together.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a non-zero code into an exception.
 
-Each wrapper counts its kernel's executions with :func:`launched`. A launch
-made while a stream is captured into a CUDA graph runs only when the graph
-is replayed, so it goes to the tally of the :class:`CountedGraph` being
-captured, and each replay adds that tally to the counters.
+Each wrapper counts its kernel's executions with :func:`launched`, in all
+(``<wrapper>.launches``) and by instantiation (``<wrapper>.by_kind``, keyed
+by :func:`kind`: the element type and, for attention, the head dim). A
+launch made while a stream is captured into a CUDA graph runs only when the
+graph is replayed, so it goes to the tally of the :class:`CountedGraph`
+being captured, and each replay adds that tally to the counters.
 """
 from __future__ import annotations
 
@@ -31,8 +36,10 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 _ROOT = _KERNELS_DIR.parents[2]
 BUILD_DIR = _ROOT / "build" / "kernels"
 
-#: Every kernel of the port, by the name of its directory and source.
-NAMES = ("rmsnorm", "decode_attention", "flash_attention", "pricing", "ssd")
+#: Every kernel library of the port, by the name of its source; a name
+#: ending in ``_f32`` is the float32 source in its kernel's directory.
+NAMES = ("rmsnorm", "decode_attention", "flash_attention", "pricing", "ssd",
+         "decode_attention_f32", "flash_attention_f32")
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -44,7 +51,8 @@ _lock = threading.Lock()
 
 
 def source(name: str) -> Path:
-    return _KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    directory = name[:-len("_f32")] if name.endswith("_f32") else name
+    return _KERNELS_DIR / directory / "csrc" / f"{name}.cu"
 
 
 def nvcc() -> str:
@@ -172,19 +180,39 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launched(wrapper, work=None) -> None:
-    """Count one launch of ``wrapper``'s kernel (its ``launches``). While
-    the current stream is capturing, the launch only runs at a replay: it
-    goes to the tally of the :class:`CountedGraph` being captured, or, in a
-    graph captured otherwise (a timing loop), is not counted. ``work``
-    (a callable giving the launch's :class:`~.cost.Work`) is added to an
-    active op count (:func:`.cost.counting`), and called only then."""
+def kind(dtype, hd: int | None = None) -> str:
+    """The instantiation a launch ran: ``"bf16"`` or ``"f32"``, and for the
+    attention kernels the head dim, e.g. ``"f32/hd16"``."""
+    name = {"torch.bfloat16": "bf16", "torch.float32": "f32"}.get(str(dtype), str(dtype))
+    return name if hd is None else f"{name}/hd{hd}"
+
+
+def _count(wrapper, kind_: str | None, n: int) -> None:
+    """Add ``n`` launches of ``wrapper``'s ``kind_`` instantiation to its
+    counters, the one place they are written: ``launches`` in all and
+    ``by_kind[kind_]`` where the wrapper names its kind (every attention and
+    RMSNorm wrapper does, so there ``launches`` is the sum of ``by_kind``)."""
+    wrapper.launches += n
+    if kind_ is not None:
+        by = wrapper.__dict__.setdefault("by_kind", {})
+        by[kind_] = by.get(kind_, 0) + n
+
+
+def launched(wrapper, work=None, kind: str | None = None) -> None:
+    """Count one launch of ``wrapper``'s kernel (its ``launches``, and its
+    ``by_kind[kind]``). While the current stream is capturing, the launch
+    only runs at a replay: it goes to the tally of the
+    :class:`CountedGraph` being captured, or, in a graph captured otherwise
+    (a timing loop), is not counted. ``work`` (a callable giving the
+    launch's :class:`~.cost.Work`) is added to an active op count
+    (:func:`.cost.counting`), and called only then."""
     import torch
     if torch.cuda.is_current_stream_capturing():
         if _tallies:
-            _tallies[-1][wrapper] = _tallies[-1].get(wrapper, 0) + 1
+            tally = _tallies[-1]
+            tally[wrapper, kind] = tally.get((wrapper, kind), 0) + 1
         return
-    wrapper.launches += 1
+    _count(wrapper, kind, 1)
     if work is not None:
         from . import cost
         cost.record(wrapper.__name__, work)
@@ -201,8 +229,8 @@ def meta_launch(wrapper, work) -> None:
 
 class CountedGraph:
     """A ``torch.cuda.CUDAGraph`` whose replays count the kernels they run:
-    :meth:`capture` collects the wrappers' launches into ``tally``, and
-    :meth:`replay` adds it to their counters."""
+    :meth:`capture` collects the wrappers' launches into ``tally``, keyed
+    ``(wrapper, kind)``, and :meth:`replay` adds it to their counters."""
 
     def __init__(self):
         import torch
@@ -222,5 +250,5 @@ class CountedGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        for wrapper, n in self.tally.items():
-            wrapper.launches += n
+        for (wrapper, kind_), n in self.tally.items():
+            _count(wrapper, kind_, n)

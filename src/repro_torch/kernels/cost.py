@@ -10,7 +10,9 @@ the kernels are ``ctypes`` calls that no PyTorch dispatch mode sees.
 Bytes count each input read once and each output written once, in the
 dtypes the kernel reads and writes; operations count what the kernel
 executes, at the peak rate of the units it runs them on (H100 SXM data
-sheet, dense, at its 700 W limit).
+sheet, dense, at its 700 W limit). ``f32=True`` is a float32 launch: its
+tensors 4 bytes a value, and the attention kernels' products on the CUDA
+cores (F32_FLOP_PER_S), not the bf16 tensor cores.
 """
 from __future__ import annotations
 
@@ -55,87 +57,102 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
 
 
 # ------------------------------ row 1 ----------------------------------------
-def rmsnorm(rows: int, d: int, kind: str) -> Work:
+def rmsnorm(rows: int, d: int, kind: str, f32: bool = False) -> Work:
     """The fused RMSNorm over (rows, d). kind "residual": x and r read, y and
-    the new residual written in bf16; "plain": x read, y and the residual
-    written; "gated": the f32 y and the bf16 z read, the bf16 output
-    written; w in f32 once. Operations: ~5 an element (the add, the
-    square, the scalings), ~15 gated (the exp and the divide of the SiLU,
-    its product)."""
+    the new residual written in the element type (bf16, or f32); "plain": x
+    read, y and the residual written; "gated": the f32 y and the z read,
+    the output written; w in f32 once. Operations: ~5 an element (the add,
+    the square, the scalings), ~15 gated (the exp and the divide of the
+    SiLU, its product)."""
+    e = 4 if f32 else 2        # bytes of an element-type value
     if kind == "gated_stat":   # split rows: y and z read, a float a row out
-        return Work(rows * d * 6 + rows * 4, 12.0 * rows * d, F32_FLOP_PER_S)
+        return Work(rows * d * (4 + e) + rows * 4, 12.0 * rows * d, F32_FLOP_PER_S)
     if kind == "gated_apply":  # y, z and the summed floats read, the output written
-        return Work(rows * d * 8 + rows * 4 + d * 4, 15.0 * rows * d,
+        return Work(rows * d * (4 + 2 * e) + rows * 4 + d * 4, 15.0 * rows * d,
                     F32_FLOP_PER_S)
-    per = {"residual": 8, "plain": 6}.get(kind, 8)
+    per = {"residual": 4 * e, "plain": 3 * e}.get(kind, 4 + 2 * e)
     ops = 15.0 if kind.startswith("gated") else 5.0
     return Work(rows * d * per + d * 4, ops * rows * d, F32_FLOP_PER_S)
 
 
-def rmsnorm_bwd(rows: int, d: int, kind: str, with_dr: bool = True) -> Work:
+def rmsnorm_bwd(rows: int, d: int, kind: str, with_dr: bool = True,
+                f32: bool = False) -> Work:
     """The fused RMSNorm's backward over (rows, d). kind "residual": x, r,
-    dh (and dr, ``with_dr``) read and one dx written in bf16; "plain": x,
-    dh (and dr) read, dx written; "gated": the f32 y, the bf16 z and dh
-    read, the f32 dy and the bf16 dz written; w read and dw written once
-    in f32. Operations: ~12 an element (the row sums, ds, the dw share),
-    ~30 gated (the SiLU's exp and divides, the chain's products)."""
+    dh (and dr, ``with_dr``) read and one dx written in the element type
+    (bf16, or f32); "plain": x, dh (and dr) read, dx written; "gated": the
+    f32 y, z and dh read, the f32 dy and dz written; w read and dw written
+    once in f32. Operations: ~12 an element (the row sums, ds, the dw
+    share), ~30 gated (the SiLU's exp and divides, the chain's products)."""
+    e = 4 if f32 else 2        # bytes of an element-type value
     if kind == "gated_stat":   # split rows: y, z and dh read, two floats a row out
-        return Work(rows * d * 8 + rows * 8 + d * 4, 14.0 * rows * d,
+        return Work(rows * d * (4 + 2 * e) + rows * 8 + d * 4, 14.0 * rows * d,
                     F32_FLOP_PER_S)
     if kind == "gated_apply":  # the gated backward, and the summed floats read
-        return Work(rows * d * 14 + rows * 8 + d * 8, 30.0 * rows * d,
+        return Work(rows * d * (8 + 3 * e) + rows * 8 + d * 8, 30.0 * rows * d,
                     F32_FLOP_PER_S)
-    per = {"residual": 8, "plain": 6}.get(kind, 14) + (2 if with_dr and
-                                                         kind != "gated" else 0)
+    per = {"residual": 4 * e, "plain": 3 * e}.get(kind, 8 + 3 * e) + (
+        e if with_dr and kind != "gated" else 0)
     ops = 30.0 if kind.startswith("gated") else 12.0
     return Work(rows * d * per + d * 8, ops * rows * d, F32_FLOP_PER_S)
 
 
 # ------------------------------ row 2 ----------------------------------------
-def decode_attention(b: int, h: int, hkv: int, hd: int, kv_len: int) -> Work:
+def decode_attention(b: int, h: int, hkv: int, hd: int, kv_len: int,
+                     f32: bool = False, cache_bytes: int | None = None) -> Work:
     """One query token per sequence over the kv_len valid cache rows: q and
-    o in bf16, the K and V rows read, the f32 lse written; two products
-    of 2 hd operations per (head, position) on the tensor cores."""
-    nb = 2 * b * h * hd * 2 + 2 * b * hkv * kv_len * hd * 2 + b * h * 4
-    return Work(nb, 4.0 * b * h * kv_len * hd, BF16_FLOP_PER_S)
+    o in bf16 (or f32), the K and V rows read (``cache_bytes`` a value: q's
+    size unless given; a float32 model keeps a bf16 cache), the f32 lse
+    written; two products of 2 hd operations per (head, position) on the
+    tensor cores (f32: the CUDA cores)."""
+    e = 4 if f32 else 2
+    c = e if cache_bytes is None else cache_bytes
+    nb = 2 * b * h * hd * e + 2 * b * hkv * kv_len * hd * c + b * h * 4
+    return Work(nb, 4.0 * b * h * kv_len * hd, F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
 
 
 # ------------------------------ rows 3, 5, 6, 7 ------------------------------
-def _attention_bytes(b, h, hkv, sq, sk, hd):
-    """(bytes of one bf16 (B, H, Sq, hd) tensor, of one (B, Hkv, Sk, hd)
-    one, of one f32 (B, H, Sq) row statistic)."""
-    return b * h * sq * hd * 2, b * hkv * sk * hd * 2, b * h * sq * 4
+def _attention_bytes(b, h, hkv, sq, sk, hd, f32=False):
+    """(bytes of one bf16 (or f32) (B, H, Sq, hd) tensor, of one (B, Hkv,
+    Sk, hd) one, of one f32 (B, H, Sq) row statistic)."""
+    e = 4 if f32 else 2
+    return b * h * sq * hd * e, b * hkv * sk * hd * e, b * h * sq * 4
 
 
-def flash_attention(b, h, hkv, sq, sk, hd, causal) -> Work:
+def _rate(f32: bool) -> float:
+    """The peak rate of the attention kernels' products: bf16 on the tensor
+    cores, f32 on the CUDA cores."""
+    return F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+
+
+def flash_attention(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:
     """The serving forward: q, k, v read, o written; two products of 2 hd
     operations per (query, key) pair."""
-    qb, kb, _ = _attention_bytes(b, h, hkv, sq, sk, hd)
+    qb, kb, _ = _attention_bytes(b, h, hkv, sq, sk, hd, f32)
     pairs = attention_pairs(sq, sk, causal)
-    return Work(2 * qb + 2 * kb, 4.0 * b * h * hd * pairs, BF16_FLOP_PER_S)
+    return Work(2 * qb + 2 * kb, 4.0 * b * h * hd * pairs, _rate(f32))
 
 
-def flash_attention_fwd_lse(b, h, hkv, sq, sk, hd, causal) -> Work:
+def flash_attention_fwd_lse(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:
     """The training forward: as :func:`flash_attention`, plus the f32 LSE."""
-    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd, f32)
     mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
-    return Work(2 * qb + 2 * kb + rows, 2 * mm, BF16_FLOP_PER_S)
+    return Work(2 * qb + 2 * kb + rows, 2 * mm, _rate(f32))
 
 
-def flash_attention_bwd_dkv(b, h, hkv, sq, sk, hd, causal) -> Work:
+def flash_attention_bwd_dkv(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:
     """dK/dV: q, do, k, v, LSE and D read, dk and dv written; four products
     (S = Q Kᵀ, dP = dO Vᵀ, dV += Pᵀ dO, dK += dSᵀ Q)."""
-    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd, f32)
     mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
-    return Work(2 * qb + 4 * kb + 2 * rows, 4 * mm, BF16_FLOP_PER_S)
+    return Work(2 * qb + 4 * kb + 2 * rows, 4 * mm, _rate(f32))
 
 
-def flash_attention_bwd_dq(b, h, hkv, sq, sk, hd, causal) -> Work:
+def flash_attention_bwd_dq(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:
     """dQ: q, do, k, v, LSE and D read, dq written; three products (S, dP,
     dQ += dS K)."""
-    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd)
+    qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd, f32)
     mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
-    return Work(3 * qb + 2 * kb + 2 * rows, 3 * mm, BF16_FLOP_PER_S)
+    return Work(3 * qb + 2 * kb + 2 * rows, 3 * mm, _rate(f32))
 
 
 # ------------------------------ row 4 ----------------------------------------

@@ -37,7 +37,7 @@
 //   fence, no atomic and no serial merge in a last block.
 // * Bytes in flight: one producer thread streams K and V with TMA through
 //   two 4-D tensor maps over the cache's (hd, Hkv, S, B) layout, one box of
-//   16 keys x 64 columns (128 bytes, swizzled; 32 columns at hd 32) per
+//   16 keys x 64 columns (128 bytes, swizzled; 32 columns at hd 32, 16 at hd 16) per
 //   copy, into a ring of ST stages; each stage completes on a "full"
 //   mbarrier with expect_tx bytes, and the consumer warp that used it
 //   releases it on its "empty" mbarrier. ST = 4 stages of 16 keys, one a
@@ -62,8 +62,9 @@
 // * P V in f32 on the CUDA cores, never rounded to bf16 (the reference keeps
 //   this product in f32: one bf16 rounding of P makes greedy decode disagree
 //   on near-ties). Each lane owns hd / 32 columns of every head's
-//   accumulator; a tile's P and rescale factors pass through a 544-byte
-//   buffer per warp.
+//   accumulator (hd 16: 16 lanes a row, the warp's two halves taking the
+//   even and the odd keys, added at the end); a tile's P and rescale
+//   factors pass through a 544-byte buffer per warp.
 // * Consumer warp w takes its block's tiles w, w + NCW, ...; each warp keeps
 //   its own (m, l, acc) and the warps merge in shared memory (reusing the
 //   ring) before the blocks merge.
@@ -113,6 +114,12 @@ struct Smem {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span: bytes a box row
   static constexpr int CW = SW / 2;                       // columns a box
   static constexpr int NC = HD / CW;                      // boxes a row
+  // P V's lane map: E columns a lane, LPR lanes a row, so a warp takes RPW
+  // rows of V at once (hd 16: two rows of 16 lanes, summed at the end)
+  static constexpr int E = HD >= 32 ? HD / 32 : 1;
+  static constexpr int LPR = HD / E;
+  static constexpr int RPW = 32 / LPR;
+  static_assert(SW == 32 || SW == 64 || SW == 128, "hd in {16, 32, 64, 128}");
   static constexpr int TILE = TK * HD * 2;                // a tile's K (or V) bytes
   static constexpr int STAGE = 2 * TILE;
   static constexpr int RING = ST * STAGE;
@@ -125,7 +132,8 @@ struct Smem {
 
 // Byte offset `off` of a chunk (rows of SW bytes from a 1024-byte aligned
 // base) as the TMA swizzle stores it: the 16-byte unit index XORed with the
-// row bits above it (128-byte swizzle: row % 8; 64-byte: (row / 2) % 4).
+// row bits above it (128-byte swizzle: row % 8; 64-byte: (row / 2) % 4;
+// 32-byte: (row / 4) % 2).
 template <int SW>
 __device__ __forceinline__ uint32_t swz(uint32_t off) {
   return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
@@ -246,22 +254,24 @@ struct Params {
 };
 
 // acc[r] = acc[r] * alpha[r] + sum_j p[j][r] v[j] over a tile's first
-// `rows` keys: this lane's E columns, every head, f32.
+// `rows` keys: this lane's E columns, every head, f32; where a warp takes
+// RPW rows at once, over the rows j with j % RPW == lane / LPR.
 template <int HD, int NREP>
-__device__ __forceinline__ void pv_tile(float (&acc)[NREP][HD / 32], const float* pb,
+__device__ __forceinline__ void pv_tile(float (&acc)[NREP][Smem<HD>::E], const float* pb,
                                         const uint8_t* vt, int rows, int lane) {
-  constexpr int E = HD / 32;
+  constexpr int E = Smem<HD>::E, LPR = Smem<HD>::LPR, RPW = Smem<HD>::RPW;
   const float* alpha = pb + TK * 8;
 #pragma unroll
   for (int r = 0; r < NREP; ++r)
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[r][e] *= alpha[r];
 #pragma unroll
-  for (int j = 0; j < TK; ++j) {
+  for (int j0 = 0; j0 < TK; j0 += RPW) {
+    const int j = j0 + lane / LPR;
     if (j < rows) {
       float vf[E], pr[8];
       constexpr int SW = Smem<HD>::SW;
-      const int byte = lane * E * 2;  // this lane's columns: box byte / SW
+      const int byte = lane % LPR * E * 2;  // this lane's columns: box byte / SW
       unpack<E>(*reinterpret_cast<const Slice<E>*>(
                     vt + byte / SW * TK * SW + swz<SW>(j * SW + byte % SW)),
                 vf);
@@ -285,7 +295,7 @@ __global__ void __launch_bounds__(THREADS)
     decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap, const Params p) {
   using G = Smem<HD>;
-  constexpr int E = HD / 32;
+  constexpr int E = G::E;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
@@ -434,6 +444,14 @@ __global__ void __launch_bounds__(THREADS)
       l0 += __shfl_xor_sync(0xffffffffu, l0, o);
       l1 += __shfl_xor_sync(0xffffffffu, l1, o);
     }
+    // the rows the warp's lane groups took apart: lane and lane + LPR hold
+    // the same columns
+#pragma unroll
+    for (int o = G::LPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < NREP; ++r)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
   }
   __syncthreads();  // the ring is idle: the warps' partials go there
 
@@ -445,10 +463,12 @@ __global__ void __launch_bounds__(THREADS)
       wm[warp * 8 + 2 * t] = m0, wm[warp * 8 + 2 * t + 1] = m1;
       wl[warp * 8 + 2 * t] = l0, wl[warp * 8 + 2 * t + 1] = l1;
     }
+    if (lane < G::LPR) {
 #pragma unroll
-    for (int r = 0; r < NREP; ++r)
+      for (int r = 0; r < NREP; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e) wacc[(warp * 8 + r) * HD + lane * E + e] = acc[r][e];
+        for (int e = 0; e < E; ++e) wacc[(warp * 8 + r) * HD + lane * E + e] = acc[r][e];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < valid * HD; i += THREADS) {
@@ -562,7 +582,9 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int Hkv, int S,
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -688,6 +710,7 @@ cudaError_t dispatch_group(const Args& a) {
 
 cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
+    case 16: return dispatch_group<16>(a);
     case 32: return dispatch_group<32>(a);
     case 64: return dispatch_group<64>(a);
     case 128: return dispatch_group<128>(a);
@@ -706,7 +729,7 @@ extern "C" {
 // (each split's first tiles are read before kv_len is known).
 // scratch: decode_attention_plan's info[4] bytes, zeroed once (null when
 // that is 0). strides: q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss in
-// elements. hd in {32, 64, 128}; any H / Hkv. One launch; returns
+// elements. hd in {16, 32, 64, 128}; any H / Hkv. One launch; returns
 // cudaGetLastError().
 int decode_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          const void* kv_len, void* scratch, int B, int H, int Hkv, int S,

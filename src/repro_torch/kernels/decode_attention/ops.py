@@ -1,14 +1,18 @@
 """Wrapper of the decode-attention kernel.
 
-A CUDA tensor goes to the kernel in ``csrc/decode_attention.cu``; a CPU
-tensor goes to the plain version in :mod:`.ref`. The kernel is one launch
-per call: the blocks of a head group split ``[0, kv_len)`` among themselves
-and merge their partials in the same launch, and ``kv_len`` is read from
-device memory, so a call captured into a CUDA graph stays right while the
-position advances between replays. ``decode_attention.launches`` counts the
-kernel's executions: one per eager call; a call made while a stream is
-captured adds to the graph's tally instead, which each replay adds to the
-counter (:func:`repro_torch.kernels._build.launched`).
+A CUDA tensor goes to a kernel: bfloat16 to ``csrc/decode_attention.cu``,
+float32 to ``csrc/decode_attention_f32.cu`` (CUDA cores, at float32
+accuracy), each at head dims 16, 32, 64 and 128; any other dtype or head
+dim raises. A CPU tensor goes to the plain version in :mod:`.ref`. Each
+kernel is one launch per call that reads ``kv_len`` from device memory,
+so a call captured into a CUDA graph stays right while the position
+advances between replays; in the bfloat16 kernel the blocks of a head
+group split ``[0, kv_len)`` among themselves and merge their partials in
+the same launch, in the float32 one a block serves one query head.
+``decode_attention.launches`` counts the kernels' executions
+(``.by_kind`` by dtype and head dim): one per eager call; a call made
+while a stream is captured adds to the graph's tally instead, which each
+replay adds to the counter (:func:`repro_torch.kernels._build.launched`).
 
 K and V may be any strided view of shape (B, Hkv, S, hd) with a unit last
 stride: the model passes its (B, S, Hkv, hd) cache transposed, which the
@@ -24,16 +28,18 @@ import torch
 from .. import _build, cost
 from .ref import decode_attention_ref
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.bfloat16, torch.float32)
 _plans: dict[tuple, dict] = {}       # (B, H, Hkv, hd) -> the kernel's launch plan
 _scratch: dict[tuple, torch.Tensor] = {}  # (device, bytes) -> zeroed scratch
 
 
-def supports(hd: int, n_rep: int) -> bool:
-    """Whether the kernel takes head dim ``hd`` and GQA group ``n_rep``
-    (H / Hkv): groups 1, 2, 3, 4 and 8 are compiled as they are, any other
-    runs in chunks of 8 query heads per head group."""
-    return hd in _HEAD_DIMS and n_rep >= 1
+def supports(hd: int, n_rep: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernels take head dim ``hd``, GQA group ``n_rep`` (H /
+    Hkv) and ``dtype``: in bfloat16 groups 1, 2, 3, 4 and 8 are compiled as
+    they are, any other runs in chunks of 8 query heads per head group; in
+    float32 a block serves one query head, so any group."""
+    return hd in _HEAD_DIMS and n_rep >= 1 and dtype in _DTYPES
 
 
 def check_kv_len(kv_len: torch.Tensor, device: torch.device) -> None:
@@ -74,12 +80,36 @@ def _scratch_for(device: torch.device, nbytes: int) -> torch.Tensor:
     return _scratch[key]
 
 
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what the kernels do not take, the shapes and dtypes before
+    the device: q (B, H, hd), k = v (B, Hkv, S, hd), hd in _HEAD_DIMS, H a
+    multiple of Hkv; bf16 q with a bf16 cache, or a float32 q with a
+    float32 cache or the bf16 cache a float32 model keeps."""
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("decode_attention: q (B, H, hd), k = v (B, Hkv, S, hd)")
+    b, h, hd = q.shape
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError("decode_attention: q and k disagree in B or hd")
+    if h % hkv or not supports(hd, h // hkv):
+        raise ValueError(f"decode_attention: hd {hd} not in {_HEAD_DIMS} or "
+                         f"{h} query heads not a multiple of {hkv} kv heads")
+    cache_ok = k.dtype == v.dtype and k.dtype in (q.dtype, torch.bfloat16)
+    if q.dtype not in _DTYPES or not cache_ok:
+        raise TypeError(f"decode_attention: dtypes q {q.dtype}, k {k.dtype}, "
+                        f"v {v.dtype} not supported (bfloat16, or a float32 q with a "
+                        f"float32 or bfloat16 cache)")
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len, return_lse: bool = True):
     """q: (B, H, hd); k, v: (B, Hkv, S, hd); kv_len: the valid prefix, a
     one-element int32 tensor on q's device (the decode path's), or a Python
-    int (turned into one). Returns o [, lse]. The kernel takes bfloat16
-    only; it clamps kv_len to [0, S]."""
+    int (turned into one). Returns o [, lse]. The kernels take a bfloat16 q
+    with a bfloat16 cache, or a float32 q with a float32 cache or the bf16
+    cache a float32 model keeps; they clamp kv_len to [0, S]."""
     if isinstance(kv_len, torch.Tensor):
         check_kv_len(kv_len, q.device)
     if q.device.type == "cpu":
@@ -88,25 +118,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "meta":     # the dry run: every key of the cache
         b, h, hd = q.shape
         _build.meta_launch(decode_attention, lambda: cost.decode_attention(
-            b, h, k.shape[1], hd, k.shape[2]))
+            b, h, k.shape[1], hd, k.shape[2], f32=q.dtype == torch.float32,
+            cache_bytes=k.element_size()))
         o = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
         return (o, lse) if return_lse else o
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _check(q, k, v)
     _build.refuse_grad("decode_attention", q, k, v)
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("decode_attention: q (B, H, hd), k = v (B, Hkv, S, hd)")
     b, h, hd = q.shape
     _, hkv, s, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != hd:
-        raise ValueError("decode_attention: q and k disagree in B or hd")
-    if h % hkv or not supports(hd, h // hkv):
-        raise ValueError(f"decode_attention: hd {hd} not in {_HEAD_DIMS} or "
-                         f"{h} query heads not a multiple of {hkv} kv heads")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"decode_attention: dtypes q {q.dtype}, k {k.dtype}, "
-                        f"v {v.dtype} not supported")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("decode_attention: tensors on different devices")
     if not all(_build.rows_aligned(t) for t in (q, k, v)):
@@ -116,10 +136,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=q.device)
     o = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    nbytes = plan(b, h, hkv, hd)["scratch_bytes"]
-    scratch = _build.ptr(_scratch_for(q.device, nbytes)) if nbytes else None
+    f32 = q.dtype == torch.float32
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                    *v.stride()[:3])
+
+    def work():
+        return cost.decode_attention(b, h, hkv, hd, max(0, min(int(kv_len.item()), s)),
+                                     f32=f32, cache_bytes=k.element_size())
+    if f32:
+        fn = _build.bind("decode_attention_f32", "decode_attention_f32_fwd", [
+            *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
+        if b * h:
+            err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                     _build.ptr(lse), _build.ptr(kv_len), b, h, hkv, s, hd,
+                     int(k.dtype == torch.bfloat16), strides,
+                     math.log2(math.e) / math.sqrt(hd), _build.stream_ptr(q.device))
+            _build.check("decode_attention_f32", err)
+            _build.launched(decode_attention, work, _build.kind(q.dtype, hd))
+        return (o, lse) if return_lse else o
+    nbytes = plan(b, h, hkv, hd)["scratch_bytes"]
+    scratch = _build.ptr(_scratch_for(q.device, nbytes)) if nbytes else None
     fn = _build.bind("decode_attention", "decode_attention_fwd", [
         *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
@@ -128,8 +165,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              strides, math.log2(math.e) / math.sqrt(hd),
              _build.stream_ptr(q.device))
     _build.check("decode_attention", err)
-    _build.launched(decode_attention, lambda: cost.decode_attention(
-        b, h, hkv, hd, max(0, min(int(kv_len.item()), s))))
+    _build.launched(decode_attention, work, _build.kind(q.dtype, hd))
     return (o, lse) if return_lse else o
 
 

@@ -19,7 +19,7 @@
 // rate is reached only through warpgroup products (wgmma), with loads
 // that overlap the math.
 //
-// Forward design (one template for hd 32, 64, 128, with and without LSE):
+// Forward design (one template for hd 16, 32, 64, 128, with and without LSE):
 // * Persistent: one block per SM (at most one per work item) walks work
 //   items of 128 query rows of one (batch, head). Heads go in groups whose
 //   K/V fit in ~40 MB of L2 together; inside a group the longest (last)
@@ -39,10 +39,11 @@
 //   8 consumer warps arrive on once the product reading it has finished.
 //   The ragged S edge is zero-filled by TMA and masked in the scores.
 // * Shared memory is swizzled as the products read it: 128-byte swizzle
-//   (64-byte at hd 32, whose rows are 64 bytes), boxes at most one swizzle
-//   span wide, so an hd 128 row is two 64-column chunks, each its own TMA
-//   box. hd 128: 2 x 32 KB of Q and two stages of 32 KB per ring, 192 KB;
-//   hd 64 and 32: four stages per ring, 160 KB and 80 KB.
+//   (64-byte at hd 32, 32-byte at hd 16, whose rows are that wide), boxes
+//   at most one swizzle span wide, so an hd 128 row is two 64-column
+//   chunks, each its own TMA box. hd 128: 2 x 32 KB of Q and two stages of
+//   32 KB per ring, 192 KB; hd 64, 32 and 16: four stages per ring, 160,
+//   80 and 40 KB.
 // * Each consumer warpgroup computes S = Q K^T as wgmma.m64n128k16 with
 //   both operands in shared memory (K-major) and O += P V as
 //   wgmma.m64n{hd}k16 with P in registers (the f32 accumulator of S packs
@@ -97,15 +98,20 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 
 // Swizzled shared-memory geometry of a row of HD bf16 values, shared by
 // every kernel here: rows are cut into chunks of one swizzle span (128
-// bytes; 64 at hd 32), each chunk its own TMA box and its own tile region.
+// bytes; 64 at hd 32, 32 at hd 16), each chunk its own TMA box and its own
+// tile region. At hd 16 a row is one 32-byte chunk and one k-step: the
+// 32-byte swizzle (16-byte units XORed with bit 7 of the address) has its
+// own descriptor layout and its own TMA mode, and the products whose N is
+// hd are m64n16k16.
 template <int HD>
 struct Geo {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span: bytes per chunk row
   static constexpr int CW = SW / 2;                       // columns per chunk (TMA box width)
   static constexpr int NC = HD / CW;                      // chunks per row
   static constexpr int KPC = SW / 32;                     // 16-column k-steps per chunk
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(SW == 32 || SW == 64 || SW == 128, "hd in {16, 32, 64, 128}");
 };
 
 // ------------------------------- forward -------------------------------------
@@ -330,7 +336,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WG_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -348,7 +362,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   } else {
-    static_assert(N == 128, "wgmma_rs: N in {32, 64, 128}");
+    static_assert(N == 128, "wgmma_rs: N in {16, 32, 64, 128}");
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -771,7 +785,9 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int heads, int S
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1282,7 +1298,7 @@ extern "C" {
 
 // q: (B, H, Sq, hd), k and v: (B, Hkv, Sk, hd), o: (B, H, Sq, hd), all bf16,
 // any strides with a unit last stride. strides: (sb, sh, ss) of q, k, v
-// and o in elements. Every row must start on 16 bytes. hd in {32, 64, 128}.
+// and o in elements. Every row must start on 16 bytes. hd in {16, 32, 64, 128}.
 // Returns cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int H,
                         int Hkv, int Sq, int Sk, int hd, int causal, float scale_log2,
@@ -1290,6 +1306,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch<16, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 32: return launch<32, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 64: return launch<64, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 128: return launch<128, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
@@ -1305,6 +1322,7 @@ int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch<16, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 32: return launch<32, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 64: return launch<64, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 128: return launch<128, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
@@ -1323,6 +1341,7 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 32: return launch_dkv<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
@@ -1339,6 +1358,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch_dq<16>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 32: return launch_dq<32>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 64: return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 128: return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
@@ -1350,6 +1370,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 // (with or without LSE), 1 dK/dV, 2 dQ; 0 for another hd.
 int flash_attention_smem_bytes(int kernel, int hd) {
   switch (hd) {
+    case 16: return kernel == 0 ? Fwd<16>::SMEM : kernel == 1 ? Dkv<16>::SMEM : Dq<16>::SMEM;
     case 32: return kernel == 0 ? Fwd<32>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;
     case 64: return kernel == 0 ? Fwd<64>::SMEM : kernel == 1 ? Dkv<64>::SMEM : Dq<64>::SMEM;
     case 128: return kernel == 0 ? Fwd<128>::SMEM : kernel == 1 ? Dkv<128>::SMEM : Dq<128>::SMEM;

@@ -2,9 +2,13 @@
 LSE, and the two backward kernels, tied together for training by
 :func:`flash_attention_train` (a ``torch.autograd.Function``).
 
-A CUDA tensor goes to the kernels in ``csrc/flash_attention.cu``; a CPU
-tensor goes to the plain versions in :mod:`.ref`. Each kernel's wrapper
-counts its launches in ``<wrapper>.launches``.
+A CUDA tensor goes to the kernels: bfloat16 to ``csrc/flash_attention.cu``
+(tensor cores), float32 to ``csrc/flash_attention_f32.cu`` (CUDA cores, at
+float32 accuracy), each at head dims 16, 32, 64 and 128; any other dtype or
+head dim raises. A CPU tensor goes to the plain versions in :mod:`.ref`.
+Each kernel's wrapper counts its launches in ``<wrapper>.launches``, and by
+instantiation (``"bf16/hd128"``, ``"f32/hd16"``, ...) in
+``<wrapper>.by_kind``.
 
 Q, K, V (and dO) may be any strided views of shape (B, H, S, hd) with a
 unit last stride, so the model passes its (B, S, H, hd) activations
@@ -24,35 +28,52 @@ from .ref import (attention_delta, flash_attention_bwd_dkv_ref,
                   flash_attention_bwd_dq_ref, flash_attention_fwd_lse_ref,
                   flash_attention_ref)
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.bfloat16, torch.float32)
 _LOG2E = math.log2(math.e)
 
 
-def supports(hd: int, n_rep: int) -> bool:
+def supports(hd: int, n_rep: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the forward, forward-with-LSE and backward kernels take head
-    dim ``hd`` and GQA group ``n_rep`` (H / Hkv): every kernel reads the kv
-    head h // n_rep of query head h, so any group."""
-    return hd in _HEAD_DIMS and n_rep >= 1
+    dim ``hd``, GQA group ``n_rep`` (H / Hkv) and ``dtype``: every kernel
+    reads the kv head h // n_rep of query head h, so any group."""
+    return hd in _HEAD_DIMS and n_rep >= 1 and dtype in _DTYPES
+
+
+def _lib(q: torch.Tensor) -> tuple[str, str]:
+    """(the library, the prefix of its entry points) for q's dtype."""
+    if q.dtype == torch.float32:
+        return "flash_attention_f32", "flash_attention_f32_"
+    return "flash_attention", "flash_attention_"
+
+
+def _work(fn, q, k, causal):
+    """The launch's :class:`~..cost.Work`, from the shapes and the dtype."""
+    b, h, sq, hd = q.shape
+    return lambda: fn(b, h, k.shape[1], sq, k.shape[2], hd, causal,
+                      f32=q.dtype == torch.float32)
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *more: torch.Tensor) -> None:
     """Raise on what the kernels do not take: q (B, H, Sq, hd), k = v
-    (B, Hkv, Sk, hd), bf16 rows on 16 bytes on one card; ``more`` are
-    further (B, H, Sq, hd) bf16 operands (dO)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
+    (B, Hkv, Sk, hd), bf16 or f32 (all of one dtype) rows on 16 bytes on
+    one card; ``more`` are further (B, H, Sq, hd) operands (dO). The
+    shapes and dtypes are checked before the device."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q (B, H, Sq, hd), k = v (B, Hkv, Sk, hd)")
     b, h, _, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[1]:
         raise ValueError(f"{name}: q and k disagree in B, hd or GQA")
-    if not supports(hd, h // k.shape[1]):
+    if hd not in _HEAD_DIMS:
         raise ValueError(f"{name}: hd {hd} not in {_HEAD_DIMS}")
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: dO must have q's shape")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, *more)):
-        raise TypeError(f"{name}: the kernel takes bfloat16 q, k, v (and dO)")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise TypeError(f"{name}: the kernels take bfloat16 or float32 q, k, v (and "
+                        f"dO) of one dtype, not {[str(t.dtype) for t in (q, k, v, *more)]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     if any(t.device != q.device for t in (k, v, *more)):
         raise ValueError(f"{name}: tensors on different devices")
     if not all(_build.rows_aligned(t) for t in (q, k, v, *more)):
@@ -86,8 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal)
     if q.device.type == "meta":
         b, h, sq, hd = q.shape
-        _build.meta_launch(flash_attention, lambda: cost.flash_attention(
-            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        _build.meta_launch(flash_attention, _work(cost.flash_attention, q, k, causal))
         return _like_model(b, h, sq, hd, q)
     _check("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention (forward only; "
@@ -97,15 +117,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = _like_model(b, h, sq, hd, q)
     if b * h * sq == 0:
         return o
-    fn = _build.bind("flash_attention", "flash_attention_fwd", [
+    lib, entry = _lib(q)
+    fn = _build.bind(lib, entry + "fwd", [
         *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
              b, h, hkv, sq, sk, hd, int(causal), _LOG2E / math.sqrt(hd),
              _strides(q, k, v, o), _build.stream_ptr(q.device))
-    _build.check("flash_attention", err)
-    _build.launched(flash_attention, lambda: cost.flash_attention(
-        b, h, hkv, sq, sk, hd, causal))
+    _build.check(lib, err)
+    _build.launched(flash_attention, _work(cost.flash_attention, q, k, causal),
+                    _build.kind(q.dtype, hd))
     return o
 
 
@@ -118,8 +139,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_lse_ref(q, k, v, causal)
     if q.device.type == "meta":
         b, h, sq, hd = q.shape
-        _build.meta_launch(flash_attention_fwd_lse, lambda: cost.flash_attention_fwd_lse(
-            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        _build.meta_launch(flash_attention_fwd_lse,
+                           _work(cost.flash_attention_fwd_lse, q, k, causal))
         return (_like_model(b, h, sq, hd, q),
                 torch.empty((b, h, sq), dtype=torch.float32, device=q.device))
     _check("flash_attention_fwd_lse", q, k, v)
@@ -129,16 +150,18 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return o, lse
-    fn = _build.bind("flash_attention", "flash_attention_fwd_lse", [
+    lib, entry = _lib(q)
+    fn = _build.bind(lib, entry + "fwd_lse", [
         *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
              _build.ptr(lse), b, h, hkv, sq, sk, hd, int(causal),
              _LOG2E / math.sqrt(hd), _strides(q, k, v, o),
              _build.stream_ptr(q.device))
-    _build.check("flash_attention", err)
-    _build.launched(flash_attention_fwd_lse, lambda: cost.flash_attention_fwd_lse(
-        b, h, hkv, sq, sk, hd, causal))
+    _build.check(lib, err)
+    _build.launched(flash_attention_fwd_lse,
+                    _work(cost.flash_attention_fwd_lse, q, k, causal),
+                    _build.kind(q.dtype, hd))
     return o, lse
 
 
@@ -151,8 +174,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
     if q.device.type == "meta":
         b, h, sq, hd = q.shape
         _, hkv, sk, _ = k.shape
-        _build.meta_launch(flash_attention_bwd_dkv, lambda: cost.flash_attention_bwd_dkv(
-            b, h, hkv, sq, sk, hd, causal))
+        _build.meta_launch(flash_attention_bwd_dkv,
+                           _work(cost.flash_attention_bwd_dkv, q, k, causal))
         return _like_model(b, hkv, sk, hd, k), _like_model(b, hkv, sk, hd, k)
     _check("flash_attention_bwd_dkv", q, k, v, do)
     b, h, sq, hd = q.shape
@@ -164,15 +187,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dd, causal: bool = True):
         return dk, dv
     if sq == 0:                     # no query: the gradients are zero
         return dk.zero_(), dv.zero_()
-    fn = _build.bind("flash_attention", "flash_attention_bwd_dkv", [
+    lib, entry = _lib(q)
+    fn = _build.bind(lib, entry + "bwd_dkv", [
         *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     err = fn(*map(_build.ptr, (q, k, v, do, lse, dd, dk, dv)), b, h, hkv, sq,
              sk, hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dk, dv), _build.stream_ptr(q.device))
-    _build.check("flash_attention", err)
-    _build.launched(flash_attention_bwd_dkv, lambda: cost.flash_attention_bwd_dkv(
-        b, h, hkv, sq, sk, hd, causal))
+    _build.check(lib, err)
+    _build.launched(flash_attention_bwd_dkv,
+                    _work(cost.flash_attention_bwd_dkv, q, k, causal),
+                    _build.kind(q.dtype, hd))
     return dk, dv
 
 
@@ -183,8 +208,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, causal)
     if q.device.type == "meta":
         b, h, sq, hd = q.shape
-        _build.meta_launch(flash_attention_bwd_dq, lambda: cost.flash_attention_bwd_dq(
-            b, h, k.shape[1], sq, k.shape[2], hd, causal))
+        _build.meta_launch(flash_attention_bwd_dq,
+                           _work(cost.flash_attention_bwd_dq, q, k, causal))
         return _like_model(b, h, sq, hd, q)
     _check("flash_attention_bwd_dq", q, k, v, do)
     b, h, sq, hd = q.shape
@@ -196,15 +221,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dd, causal: bool = True):
         return dq
     if sk == 0:                     # no key: the gradient is zero
         return dq.zero_()
-    fn = _build.bind("flash_attention", "flash_attention_bwd_dq", [
+    lib, entry = _lib(q)
+    fn = _build.bind(lib, entry + "bwd_dq", [
         *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 7, ctypes.c_float,
         ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     err = fn(*map(_build.ptr, (q, k, v, do, lse, dd, dq)), b, h, hkv, sq, sk,
              hd, int(causal), 1.0 / math.sqrt(hd),
              _strides(q, k, v, do, dq), _build.stream_ptr(q.device))
-    _build.check("flash_attention", err)
-    _build.launched(flash_attention_bwd_dq, lambda: cost.flash_attention_bwd_dq(
-        b, h, hkv, sq, sk, hd, causal))
+    _build.check(lib, err)
+    _build.launched(flash_attention_bwd_dq,
+                    _work(cost.flash_attention_bwd_dq, q, k, causal),
+                    _build.kind(q.dtype, hd))
     return dq
 
 

@@ -103,10 +103,29 @@ constexpr bool PREFETCH = true;    // the next row's loads before this one's sum
 __host__ __device__ constexpr int max_threads(int vw, int per) {
   return vw == 1 || per == 1 ? 1024 : 512;
 }
+// float32 rows of 4 vectors a thread take twice bf16's registers: their
+// blocks stop at 384 threads (170 registers a thread; 512 spilled at 128),
+// rows up to 384 x 4 x 8 = 12288 wide, the widest configuration's
+constexpr int F32_PER4_THREADS = 384;
+template <typename Elt, int VW, int PER>
+__host__ __device__ constexpr int kernel_threads() {
+  return sizeof(Elt) == 4 && VW == 8 && PER == 4 ? F32_PER4_THREADS : max_threads(VW, PER);
+}
 
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+// A value rounded to the element type T, where the unfused chain of torch
+// ops rounds it: to bf16, or not at all in float32.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return round_bf16(v);
+  } else {
+    return v;
+  }
 }
 
 // Loads of data another kernel may have just written go through the L2
@@ -149,13 +168,45 @@ __device__ __forceinline__ void store_bf16(bf16* dst, const float (&v)[VW]) {
   }
 }
 
+template <int VW>
+__device__ __forceinline__ void store_f32(float* dst, const float (&v)[VW]) {
+  if constexpr (VW == 8) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) dst[j] = v[j];
+  }
+}
+
+// Loads and stores of the element type: bf16 (a vector of 8 is 16 bytes)
+// or float32 (a vector of 8 is two 16-byte loads).
+template <int VW>
+__device__ __forceinline__ void load_elt(const bf16* src, bf16 (&dst)[VW]) {
+  load_bf16<VW>(src, dst);
+}
+template <int VW>
+__device__ __forceinline__ void load_elt(const float* src, float (&dst)[VW]) {
+  load_f32<VW>(src, dst);
+}
+template <int VW>
+__device__ __forceinline__ void store_elt(bf16* dst, const float (&v)[VW]) {
+  store_bf16<VW>(dst, v);
+}
+template <int VW>
+__device__ __forceinline__ void store_elt(float* dst, const float (&v)[VW]) {
+  store_f32<VW>(dst, v);
+}
+
+// Tensors in the element type (bf16 or float32) but w, and the gated
+// form's y, which are float32.
 struct Params {
-  const void* x;   // (rows, d): bf16, or the f32 y when gated
-  const bf16* r;   // residual (rows, d) or null
-  const bf16* z;   // gate (rows, d) at row stride zs, or null
+  const void* x;   // (rows, d): T, or the f32 y when gated
+  const void* r;   // residual (rows, d) or null
+  const void* z;   // gate (rows, d) at row stride zs, or null
   const float* w;  // (d,)
-  bf16* y;         // (rows, d)
-  bf16* rout;      // new residual (rows, d); null when gated
+  void* y;         // (rows, d)
+  void* rout;      // new residual (rows, d); null when gated
   int rows, d;
   int64_t zs;
   float eps;
@@ -165,10 +216,10 @@ struct Params {
 };
 
 // The loads of one row, every one issued before any of them is used: x and
-// r, or the f32 y and the gate z.
-template <int VW, int PER, bool GATE>
+// r, or the f32 y and the gate z (Elt deduced from the buffers).
+template <int VW, int PER, bool GATE, typename Elt>
 __device__ __forceinline__ void load_row(const Params& p, int row, int first,
-                                         bf16 (&xb)[PER][VW], bf16 (&rb)[PER][VW],
+                                         Elt (&xb)[PER][VW], Elt (&rb)[PER][VW],
                                          float (&yf)[PER][VW]) {
   const int nvec = p.d / VW, T = blockDim.x;
 #pragma unroll
@@ -178,20 +229,21 @@ __device__ __forceinline__ void load_row(const Params& p, int row, int first,
       const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
       if constexpr (GATE) {
         load_f32<VW>(static_cast<const float*>(p.x) + off, yf[k]);
-        load_bf16<VW>(p.z + (int64_t)row * p.zs + (int64_t)v * VW, rb[k]);
+        load_elt<VW>(static_cast<const Elt*>(p.z) + (int64_t)row * p.zs + (int64_t)v * VW, rb[k]);
       } else {
-        load_bf16<VW>(static_cast<const bf16*>(p.x) + off, xb[k]);
-        if (p.r) load_bf16<VW>(p.r + off, rb[k]);
+        load_elt<VW>(static_cast<const Elt*>(p.x) + off, xb[k]);
+        if (p.r) load_elt<VW>(static_cast<const Elt*>(p.r) + off, rb[k]);
       }
     }
   }
 }
 
-// VW elements a vector (8: 16 bytes of bf16; 1: the scalar path), PER
-// vectors a thread and row: thread t holds vectors first + k * T, k < PER,
-// of each row its block takes.
-template <int VW, int PER, bool GATE>
-__global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Params p) {
+// Elt the element type (bf16 or float), VW elements a vector (8: 16 bytes of
+// bf16, 32 of float; 1: the scalar path), PER vectors a thread and row:
+// thread t holds vectors first + k * T, k < PER, of each row its block
+// takes.
+template <typename Elt, int VW, int PER, bool GATE>
+__global__ void __launch_bounds__(kernel_threads<Elt, VW, PER>()) rmsnorm_kernel(const Params p) {
   __shared__ float red[2][32];  // the warps' partial sums, two rows' worth
   const int T = blockDim.x, tid = threadIdx.x;
   const int nvec = p.d / VW;
@@ -216,12 +268,13 @@ __global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Par
   const int warp = tid >> 5, lane = tid & 31, nw = (T + 31) >> 5;
   const int step = gridDim.x;
   // the raw loads of one row: x and r, or y and z
-  alignas(VW == 8 ? 16 : 2) bf16 xb[PER][VW];
-  alignas(VW == 8 ? 16 : 2) bf16 rb[PER][VW];
+  alignas(VW == 8 ? 16 : sizeof(Elt)) Elt xb[PER][VW];
+  alignas(VW == 8 ? 16 : sizeof(Elt)) Elt rb[PER][VW];
   float yf[PER][VW];
   // (the scalar path, for odd widths and unaligned rows, does not prefetch:
-  // its loads take too many registers)
-  constexpr bool prefetch = PREFETCH && VW == 8;
+  // its loads take too many registers; nor does float32 at PER 4, whose
+  // raw loads take twice bf16's registers)
+  constexpr bool prefetch = PREFETCH && VW == 8 && (sizeof(Elt) == 2 || PER < 4);
   int buf = 0, row = blockIdx.x;
   if (prefetch) load_row<VW, PER, GATE>(p, row, first, xb, rb, yf);
   for (; row < p.rows; row += step, buf ^= 1) {
@@ -236,8 +289,8 @@ __global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Par
         float e;
         if constexpr (GATE) {
           const float zf = to_f32(rb[k][j]);
-          const float sz = round_bf16(zf / (1.f + expf(-zf)));
-          e = round_bf16(round_bf16(yf[k][j]) * sz);
+          const float sz = round_to<Elt>(zf / (1.f + expf(-zf)));
+          e = round_to<Elt>(round_to<Elt>(yf[k][j]) * sz);
         } else {
           e = to_f32(xb[k][j]) + (p.r ? to_f32(rb[k][j]) : 0.f);
         }
@@ -245,7 +298,7 @@ __global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Par
         if (ok) sq += e * e;
       }
       if constexpr (!GATE) {
-        if (ok) store_bf16<VW>(p.rout + (int64_t)row * p.d + (int64_t)v * VW, s[k]);
+        if (ok) store_elt<VW>(static_cast<Elt*>(p.rout) + (int64_t)row * p.d + (int64_t)v * VW, s[k]);
       }
     }
     // the next row's loads fly while this one is summed and written
@@ -271,7 +324,7 @@ __global__ void __launch_bounds__(max_threads(VW, PER)) rmsnorm_kernel(const Par
         float o[VW];
 #pragma unroll
         for (int j = 0; j < VW; ++j) o[j] = s[k][j] * inv * wv[k][j];
-        store_bf16<VW>(p.y + (int64_t)row * p.d + (int64_t)v * VW, o);
+        store_elt<VW>(static_cast<Elt*>(p.y) + (int64_t)row * p.d + (int64_t)v * VW, o);
       }
     }
   }
@@ -308,9 +361,9 @@ bool pick(Plan* pl, int nb, int limit, bool many, bool gated) {
   return false;
 }
 
-template <int VW, int PER, bool GATE>
+template <typename Elt, int VW, int PER, bool GATE>
 cudaError_t run(Plan pl, const Params* p, cudaStream_t stream, Plan* plan_only) {
-  auto kernel = rmsnorm_kernel<VW, PER, GATE>;
+  auto kernel = rmsnorm_kernel<Elt, VW, PER, GATE>;
   if (pl.grid == 0) {  // the prefill design: one wave of blocks, from occupancy
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -329,16 +382,17 @@ cudaError_t run(Plan pl, const Params* p, cudaStream_t stream, Plan* plan_only) 
   return cudaGetLastError();
 }
 
-template <bool GATE>
+template <typename Elt, bool GATE>
 cudaError_t dispatch(const Plan& pl, const Params* p, cudaStream_t s, Plan* plan_only) {
-  if (pl.vw == 1) return run<1, 4, GATE>(pl, p, s, plan_only);
+  if (pl.vw == 1) return run<Elt, 1, 4, GATE>(pl, p, s, plan_only);
   if constexpr (!GATE) {
-    if (pl.per == 4) return run<8, 4, GATE>(pl, p, s, plan_only);
+    if (pl.per == 4) return run<Elt, 8, 4, GATE>(pl, p, s, plan_only);
   }
-  if (pl.per == 1) return run<8, 1, GATE>(pl, p, s, plan_only);
-  return run<8, 2, GATE>(pl, p, s, plan_only);
+  if (pl.per == 1) return run<Elt, 8, 1, GATE>(pl, p, s, plan_only);
+  return run<Elt, 8, 2, GATE>(pl, p, s, plan_only);
 }
 
+template <typename Elt>
 cudaError_t launch(const Params& p, bool vec, cudaStream_t stream, Plan* plan_only) {
   if (p.rows <= 0 || p.d <= 0 || (vec && p.d % 8)) return cudaErrorInvalidValue;
   Plan pl{};
@@ -354,8 +408,10 @@ cudaError_t launch(const Params& p, bool vec, cudaStream_t stream, Plan* plan_on
     pl.grid = 0;
   }
   if (!ok) return cudaErrorInvalidValue;  // wider than the kernel takes
-  return gated ? dispatch<true>(pl, &p, stream, plan_only)
-               : dispatch<false>(pl, &p, stream, plan_only);
+  if (sizeof(Elt) == 4 && pl.vw == 8 && pl.per == 4 && pl.threads > F32_PER4_THREADS)
+    return cudaErrorInvalidValue;  // wider than the float32 kernel takes
+  return gated ? dispatch<Elt, true>(pl, &p, stream, plan_only)
+               : dispatch<Elt, false>(pl, &p, stream, plan_only);
 }
 
 
@@ -402,30 +458,22 @@ constexpr int DW_COLS = 32, DW_GROUPS = 16;  // rmsnorm_dw_kernel's block
 
 __host__ __device__ constexpr int bwd_max_threads(int vw) { return vw == 1 ? 1024 : 512; }
 
-__device__ __forceinline__ float silu_bf16(float z, float e) {  // e = expf(-z)
-  return round_bf16(z / (1.f + e));
+template <typename Elt>
+__device__ __forceinline__ float silu_to(float z, float e) {  // e = expf(-z)
+  return round_to<Elt>(z / (1.f + e));
 }
 
-template <int VW>
-__device__ __forceinline__ void store_f32(float* dst, const float (&v)[VW]) {
-  if constexpr (VW == 8) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VW; ++j) dst[j] = v[j];
-  }
-}
-
+// Tensors in the element type but w, dw, the scratch and the gated
+// form's y and dy, which are float32.
 struct BwdParams {
-  const bf16* dh;   // (rows, d) gradient of the normed output
-  const bf16* dr;   // (rows, d) gradient of the new residual, or null
-  const void* x;    // (rows, d): bf16 a; gated: the f32 y
-  const bf16* r;    // residual (rows, d) or null
-  const bf16* z;    // gate (rows, d) at row stride zs, or null
+  const void* dh;   // (rows, d) gradient of the normed output
+  const void* dr;   // (rows, d) gradient of the new residual, or null
+  const void* x;    // (rows, d): Elt a; gated: the f32 y
+  const void* r;    // residual (rows, d) or null
+  const void* z;    // gate (rows, d) at row stride zs, or null
   const float* w;   // (d,)
-  void* dx;         // (rows, d): bf16 da (= dresidual); gated: the f32 dy
-  bf16* dz;         // gated: (rows, d), contiguous; else null
+  void* dx;         // (rows, d): Elt da (= dresidual); gated: the f32 dy
+  void* dz;         // gated: (rows, d), contiguous; else null
   float* part;      // (grid, d): each block's share of dw
   int rows, d;
   int64_t zs;
@@ -435,7 +483,7 @@ struct BwdParams {
   int dn;              // the full row's width, which the means divide by
 };
 
-template <int VW, int PER, bool GATE>
+template <typename Elt, int VW, int PER, bool GATE>
 __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const BwdParams p) {
   __shared__ float sums[2][2][32];  // each warp's two row sums, two rows' worth
   const int T = blockDim.x, tid = threadIdx.x;
@@ -455,24 +503,24 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
       const int v = tid + k * T;
       if (v < nvec) {
         const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
-        alignas(VW == 8 ? 16 : 2) bf16 hb[VW];
-        alignas(VW == 8 ? 16 : 2) bf16 ab[VW];
+        alignas(VW == 8 ? 16 : sizeof(Elt)) Elt hb[VW];
+        alignas(VW == 8 ? 16 : sizeof(Elt)) Elt ab[VW];
         float wv[VW];
-        load_bf16<VW>(p.dh + off, hb);
+        load_elt<VW>(static_cast<const Elt*>(p.dh) + off, hb);
         load_f32<VW, true>(p.w + (int64_t)v * VW, wv);
         if constexpr (GATE) {
           float yv[VW];
           load_f32<VW>(static_cast<const float*>(p.x) + off, yv);
-          load_bf16<VW>(p.z + (int64_t)row * p.zs + (int64_t)v * VW, ab);
+          load_elt<VW>(static_cast<const Elt*>(p.z) + (int64_t)row * p.zs + (int64_t)v * VW, ab);
 #pragma unroll
           for (int j = 0; j < VW; ++j) {
-            u[k][j] = round_bf16(yv[j]);
+            u[k][j] = round_to<Elt>(yv[j]);
             zz[k][j] = to_f32(ab[j]);
           }
         } else {
-          alignas(VW == 8 ? 16 : 2) bf16 rb[VW];
-          load_bf16<VW>(static_cast<const bf16*>(p.x) + off, ab);
-          if (p.r) load_bf16<VW>(p.r + off, rb);
+          alignas(VW == 8 ? 16 : sizeof(Elt)) Elt rb[VW];
+          load_elt<VW>(static_cast<const Elt*>(p.x) + off, ab);
+          if (p.r) load_elt<VW>(static_cast<const Elt*>(p.r) + off, rb);
 #pragma unroll
           for (int j = 0; j < VW; ++j) u[k][j] = to_f32(ab[j]) + (p.r ? to_f32(rb[j]) : 0.f);
         }
@@ -480,7 +528,7 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
         for (int j = 0; j < VW; ++j) {
           dh[k][j] = to_f32(hb[j]);
           float g = u[k][j];
-          if constexpr (GATE) g = round_bf16(g * silu_bf16(zz[k][j], expf(-zz[k][j])));
+          if constexpr (GATE) g = round_to<Elt>(g * silu_to<Elt>(zz[k][j], expf(-zz[k][j])));
           sq += g * g;
           dot += wv[j] * dh[k][j] * g;
         }
@@ -509,22 +557,22 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
         const int64_t off = (int64_t)row * p.d + (int64_t)v * VW;
         float wv[VW], o[VW];
         load_f32<VW, true>(p.w + (int64_t)v * VW, wv);
-        alignas(VW == 8 ? 16 : 2) bf16 drb[VW];
-        if (!GATE && p.dr) load_bf16<VW>(p.dr + off, drb);
+        alignas(VW == 8 ? 16 : sizeof(Elt)) Elt drb[VW];
+        if (!GATE && p.dr) load_elt<VW>(static_cast<const Elt*>(p.dr) + off, drb);
         if constexpr (GATE) {
           float oz[VW];
 #pragma unroll
           for (int j = 0; j < VW; ++j) {
             const float e = expf(-zz[k][j]);
-            const float sz = silu_bf16(zz[k][j], e), sig = 1.f / (1.f + e);
-            const float sh = round_bf16(u[k][j] * sz) * rstd;
+            const float sz = silu_to<Elt>(zz[k][j], e), sig = 1.f / (1.f + e);
+            const float sh = round_to<Elt>(u[k][j] * sz) * rstd;
             acc[k][j] += dh[k][j] * sh;
-            const float dg = round_bf16(rstd * (wv[j] * dh[k][j] - sh * mean));
-            o[j] = round_bf16(dg * sz);
-            oz[j] = round_bf16(dg * u[k][j]) * sig * (1.f + zz[k][j] * (1.f - sig));
+            const float dg = round_to<Elt>(rstd * (wv[j] * dh[k][j] - sh * mean));
+            o[j] = round_to<Elt>(dg * sz);
+            oz[j] = round_to<Elt>(dg * u[k][j]) * sig * (1.f + zz[k][j] * (1.f - sig));
           }
           store_f32<VW>(static_cast<float*>(p.dx) + off, o);
-          store_bf16<VW>(p.dz + off, oz);
+          store_elt<VW>(static_cast<Elt*>(p.dz) + off, oz);
         } else {
 #pragma unroll
           for (int j = 0; j < VW; ++j) {
@@ -532,7 +580,7 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
             acc[k][j] += dh[k][j] * sh;
             o[j] = rstd * (wv[j] * dh[k][j] - sh * mean) + (p.dr ? to_f32(drb[j]) : 0.f);
           }
-          store_bf16<VW>(static_cast<bf16*>(p.dx) + off, o);
+          store_elt<VW>(static_cast<Elt*>(p.dx) + off, o);
         }
       }
     }
@@ -567,6 +615,7 @@ __global__ void __launch_bounds__(DW_COLS * DW_GROUPS) rmsnorm_dw_kernel(
 
 // The backward's launch: PER from {1, 2} (16-byte vectors) or 4 (scalar),
 // the first whose threads fit the launch bound; the grid one wave.
+template <typename Elt>
 cudaError_t bwd_plan(Plan* pl, int rows, int d, bool vec, const void** kernel, bool gated) {
   if (rows <= 0 || d <= 0 || (vec && d % 8)) return cudaErrorInvalidValue;
   pl->vw = vec ? 8 : 1;
@@ -583,10 +632,12 @@ cudaError_t bwd_plan(Plan* pl, int rows, int d, bool vec, const void** kernel, b
   }
   if (!pl->per) return cudaErrorInvalidValue;  // wider than the kernel takes
   const void* table[2][3] = {
-      {(const void*)rmsnorm_bwd_kernel<8, 1, false>, (const void*)rmsnorm_bwd_kernel<8, 2, false>,
-       (const void*)rmsnorm_bwd_kernel<1, 4, false>},
-      {(const void*)rmsnorm_bwd_kernel<8, 1, true>, (const void*)rmsnorm_bwd_kernel<8, 2, true>,
-       (const void*)rmsnorm_bwd_kernel<1, 4, true>}};
+      {(const void*)rmsnorm_bwd_kernel<Elt, 8, 1, false>,
+       (const void*)rmsnorm_bwd_kernel<Elt, 8, 2, false>,
+       (const void*)rmsnorm_bwd_kernel<Elt, 1, 4, false>},
+      {(const void*)rmsnorm_bwd_kernel<Elt, 8, 1, true>,
+       (const void*)rmsnorm_bwd_kernel<Elt, 8, 2, true>,
+       (const void*)rmsnorm_bwd_kernel<Elt, 1, 4, true>}};
   *kernel = table[gated][pl->per == 4 ? 2 : pl->per - 1];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -600,10 +651,11 @@ cudaError_t bwd_plan(Plan* pl, int rows, int d, bool vec, const void** kernel, b
   return cudaSuccess;
 }
 
+template <typename Elt>
 cudaError_t launch_bwd(BwdParams p, float* dw, bool vec, cudaStream_t stream, Plan* plan_only) {
   Plan pl{};
   const void* kernel = nullptr;
-  cudaError_t e = bwd_plan(&pl, p.rows, p.d, vec, &kernel, p.z != nullptr);
+  cudaError_t e = bwd_plan<Elt>(&pl, p.rows, p.d, vec, &kernel, p.z != nullptr);
   if (e != cudaSuccess || plan_only) {
     if (plan_only) *plan_only = pl;
     return e;
@@ -620,6 +672,73 @@ cudaError_t launch_bwd(BwdParams p, float* dw, bool vec, cudaStream_t stream, Pl
   return cudaGetLastError();
 }
 
+// The entry points for both element types: f32 picks float32 x, residual,
+// gate, outputs and gradients, else bfloat16.
+cudaError_t fwd(const Params& p, bool vec, bool f32, cudaStream_t stream, Plan* plan_only) {
+  return f32 ? launch<float>(p, vec, stream, plan_only) : launch<bf16>(p, vec, stream, plan_only);
+}
+
+cudaError_t bwd(const BwdParams& p, float* dw, bool vec, bool f32, cudaStream_t stream,
+                Plan* plan_only) {
+  return f32 ? launch_bwd<float>(p, dw, vec, stream, plan_only)
+             : launch_bwd<bf16>(p, dw, vec, stream, plan_only);
+}
+
+int fwd_entry(const void* x, const void* r, const void* z, const void* w, void* y, void* rout,
+              int rows, int d, long long zs, float eps, int vec, bool f32, void* stream) {
+  const Params p{x, r, z, static_cast<const float*>(w), y, rout, rows, d, (int64_t)zs, eps,
+                 nullptr, nullptr, d};
+  return (int)fwd(p, vec != 0, f32, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+int fwd_split_entry(const void* x, const void* z, const void* w, void* y, void* stat_out,
+                    const void* stats, int rows, int d, int dn, long long zs, float eps, int vec,
+                    bool f32, void* stream) {
+  const Params p{x, nullptr, z, static_cast<const float*>(w), y, nullptr, rows, d,
+                 (int64_t)zs, eps, static_cast<float*>(stat_out),
+                 static_cast<const float*>(stats), dn};
+  return (int)fwd(p, vec != 0, f32, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+int plan_entry(int rows, int d, int gated, int vec, bool f32, int* out) {
+  Params p{};
+  p.rows = rows, p.d = d;
+  p.z = gated ? reinterpret_cast<const void*>(16) : nullptr;
+  Plan pl{};
+  const cudaError_t err = fwd(p, vec != 0, f32, nullptr, &pl);
+  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
+  return (int)err;
+}
+
+int bwd_entry(const void* dh, const void* dr, const void* x, const void* r, const void* z,
+              const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
+              long long zs, float eps, int vec, bool f32, void* stream) {
+  const BwdParams p{dh, dr, x, r, z, static_cast<const float*>(w), dx, dz,
+                    static_cast<float*>(part), rows, d, (int64_t)zs, eps, nullptr, nullptr, d};
+  return (int)bwd(p, static_cast<float*>(dw), vec != 0, f32, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+int bwd_split_entry(const void* dh, const void* x, const void* z, const void* w, void* dx,
+                    void* dz, void* part, void* dw, void* stat_out, const void* stats, int rows,
+                    int d, int dn, long long zs, float eps, int vec, bool f32, void* stream) {
+  const BwdParams p{dh, nullptr, x, nullptr, z, static_cast<const float*>(w), dx, dz,
+                    static_cast<float*>(part), rows, d, (int64_t)zs, eps,
+                    static_cast<float*>(stat_out), static_cast<const float*>(stats), dn};
+  return (int)bwd(p, static_cast<float*>(dw), vec != 0, f32, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+int bwd_plan_entry(int rows, int d, int gated, int vec, bool f32, int* out) {
+  BwdParams p{};
+  p.rows = rows, p.d = d;
+  p.z = gated ? reinterpret_cast<const void*>(16) : nullptr;
+  Plan pl{};
+  const cudaError_t err = bwd(p, nullptr, vec != 0, f32, nullptr, &pl);
+  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -631,11 +750,14 @@ extern "C" {
 // Returns cudaGetLastError() after the launch.
 int rmsnorm_fwd(const void* x, const void* r, const void* z, const void* w, void* y,
                 void* rout, int rows, int d, long long zs, float eps, int vec, void* stream) {
-  const Params p{x, static_cast<const bf16*>(r), static_cast<const bf16*>(z),
-                 static_cast<const float*>(w), static_cast<bf16*>(y),
-                 static_cast<bf16*>(rout), rows, d, (int64_t)zs, eps,
-                 nullptr, nullptr, d};
-  return (int)launch(p, vec != 0, static_cast<cudaStream_t>(stream), nullptr);
+  return fwd_entry(x, r, z, w, y, rout, rows, d, zs, eps, vec, false, stream);
+}
+
+// As rmsnorm_fwd with float32 x, residual, gate, y and new residual.
+int rmsnorm_fwd_f32(const void* x, const void* r, const void* z, const void* w, void* y,
+                    void* rout, int rows, int d, long long zs, float eps, int vec,
+                    void* stream) {
+  return fwd_entry(x, r, z, w, y, rout, rows, d, zs, eps, vec, true, stream);
 }
 
 // The gated norm over split rows: x the f32 y and z the bf16 gate (row
@@ -647,10 +769,14 @@ int rmsnorm_fwd(const void* x, const void* r, const void* z, const void* w, void
 int rmsnorm_fwd_split(const void* x, const void* z, const void* w, void* y, void* stat_out,
                       const void* stats, int rows, int d, int dn, long long zs, float eps,
                       int vec, void* stream) {
-  const Params p{x, nullptr, static_cast<const bf16*>(z), static_cast<const float*>(w),
-                 static_cast<bf16*>(y), nullptr, rows, d, (int64_t)zs, eps,
-                 static_cast<float*>(stat_out), static_cast<const float*>(stats), dn};
-  return (int)launch(p, vec != 0, static_cast<cudaStream_t>(stream), nullptr);
+  return fwd_split_entry(x, z, w, y, stat_out, stats, rows, d, dn, zs, eps, vec, false, stream);
+}
+
+// As rmsnorm_fwd_split with a float32 gate and y.
+int rmsnorm_fwd_split_f32(const void* x, const void* z, const void* w, void* y, void* stat_out,
+                          const void* stats, int rows, int d, int dn, long long zs, float eps,
+                          int vec, void* stream) {
+  return fwd_split_entry(x, z, w, y, stat_out, stats, rows, d, dn, zs, eps, vec, true, stream);
 }
 
 // The launch a call of these shapes makes, launching nothing: out[0..3] =
@@ -658,13 +784,12 @@ int rmsnorm_fwd_split(const void* x, const void* z, const void* w, void* y, void
 // Returns a CUDA error code (cudaErrorInvalidValue for a width the kernel
 // does not take).
 int rmsnorm_plan(int rows, int d, int gated, int vec, int* out) {
-  Params p{};
-  p.rows = rows, p.d = d;
-  p.z = gated ? reinterpret_cast<const bf16*>(16) : nullptr;
-  Plan pl{};
-  const cudaError_t err = launch(p, vec != 0, nullptr, &pl);
-  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
-  return (int)err;
+  return plan_entry(rows, d, gated, vec, false, out);
+}
+
+// As rmsnorm_plan for float32 rows.
+int rmsnorm_plan_f32(int rows, int d, int gated, int vec, int* out) {
+  return plan_entry(rows, d, gated, vec, true, out);
 }
 
 // The backward of rmsnorm_fwd. dh, dr, x (or the f32 y), r, z and w as the
@@ -677,13 +802,14 @@ int rmsnorm_plan(int rows, int d, int gated, int vec, int* out) {
 int rmsnorm_bwd(const void* dh, const void* dr, const void* x, const void* r, const void* z,
                 const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
                 long long zs, float eps, int vec, void* stream) {
-  const BwdParams p{static_cast<const bf16*>(dh), static_cast<const bf16*>(dr), x,
-                    static_cast<const bf16*>(r), static_cast<const bf16*>(z),
-                    static_cast<const float*>(w), dx, static_cast<bf16*>(dz),
-                    static_cast<float*>(part), rows, d, (int64_t)zs, eps,
-                    nullptr, nullptr, d};
-  return (int)launch_bwd(p, static_cast<float*>(dw), vec != 0,
-                         static_cast<cudaStream_t>(stream), nullptr);
+  return bwd_entry(dh, dr, x, r, z, w, dx, dz, part, dw, rows, d, zs, eps, vec, false, stream);
+}
+
+// As rmsnorm_bwd with float32 dh, dr, x, residual, gate, dx and dz.
+int rmsnorm_bwd_f32(const void* dh, const void* dr, const void* x, const void* r, const void* z,
+                    const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
+                    long long zs, float eps, int vec, void* stream) {
+  return bwd_entry(dh, dr, x, r, z, w, dx, dz, part, dw, rows, d, zs, eps, vec, true, stream);
 }
 
 // The gated backward over split rows (rmsnorm_fwd_split's): dh, x (the f32
@@ -696,25 +822,28 @@ int rmsnorm_bwd_split(const void* dh, const void* x, const void* z, const void* 
                       void* dz, void* part, void* dw, void* stat_out, const void* stats,
                       int rows, int d, int dn, long long zs, float eps, int vec,
                       void* stream) {
-  const BwdParams p{static_cast<const bf16*>(dh), nullptr, x, nullptr,
-                    static_cast<const bf16*>(z), static_cast<const float*>(w), dx,
-                    static_cast<bf16*>(dz), static_cast<float*>(part), rows, d,
-                    (int64_t)zs, eps, static_cast<float*>(stat_out),
-                    static_cast<const float*>(stats), dn};
-  return (int)launch_bwd(p, static_cast<float*>(dw), vec != 0,
-                         static_cast<cudaStream_t>(stream), nullptr);
+  return bwd_split_entry(dh, x, z, w, dx, dz, part, dw, stat_out, stats, rows, d, dn, zs, eps,
+                         vec, false, stream);
+}
+
+// As rmsnorm_bwd_split with float32 dh, gate and dz.
+int rmsnorm_bwd_split_f32(const void* dh, const void* x, const void* z, const void* w, void* dx,
+                          void* dz, void* part, void* dw, void* stat_out, const void* stats,
+                          int rows, int d, int dn, long long zs, float eps, int vec,
+                          void* stream) {
+  return bwd_split_entry(dh, x, z, w, dx, dz, part, dw, stat_out, stats, rows, d, dn, zs, eps,
+                         vec, true, stream);
 }
 
 // The backward's launch for these shapes, launching nothing: out[0..3] as
 // rmsnorm_plan's.
 int rmsnorm_bwd_plan(int rows, int d, int gated, int vec, int* out) {
-  BwdParams p{};
-  p.rows = rows, p.d = d;
-  p.z = gated ? reinterpret_cast<const bf16*>(16) : nullptr;
-  Plan pl{};
-  const cudaError_t err = launch_bwd(p, nullptr, vec != 0, nullptr, &pl);
-  out[0] = pl.grid, out[1] = pl.threads, out[2] = pl.per, out[3] = pl.vw;
-  return (int)err;
+  return bwd_plan_entry(rows, d, gated, vec, false, out);
+}
+
+// As rmsnorm_bwd_plan for float32 rows.
+int rmsnorm_bwd_plan_f32(int rows, int d, int gated, int vec, int* out) {
+  return bwd_plan_entry(rows, d, gated, vec, true, out);
 }
 
 const char* kernel_error_string(int err) {

@@ -1,8 +1,11 @@
 """Wrapper of the fused residual add + RMSNorm kernel and of its backward.
 
-A CUDA tensor goes to the kernel in ``csrc/rmsnorm.cu``; a CPU tensor goes
-to the plain version in :mod:`.ref`. Every call on the card is one launch,
-counted in ``fused_rmsnorm.launches``: the residual add and the norm, or
+A CUDA tensor goes to the kernel in ``csrc/rmsnorm.cu``, whose templates
+take the element type: bfloat16 or float32 rows (the gated form's y is
+float32 either way, its gate and output in the element type), counted by
+type in ``<wrapper>.by_kind``; float16 and other dtypes raise. A CPU
+tensor goes to the plain version in :mod:`.ref`. Every call on the card is
+one launch, counted in ``fused_rmsnorm.launches``: the residual add and the norm, or
 Mamba2's gate (the cast of y, SiLU of z and their product) and the norm.
 The kernel picks its launch from the shapes alone (:func:`plan`): up to 128
 rows one block a row (the decode step), more rows a one-wave grid whose
@@ -34,14 +37,34 @@ from .ref import (fused_rmsnorm_bwd_ref, fused_rmsnorm_ref, gated_norm_apply_ref
                   gated_norm_bwd_apply_ref, gated_norm_bwd_stat_ref,
                   gated_norm_stat_ref)
 
-#: The widest row the kernel takes: with 16-byte vectors, gated, and with
-#: one element a vector (a width not a multiple of 8, or rows that do not
-#: start on 16 bytes).
+#: The widest row the kernel takes: with 16-byte vectors (float32: 12288),
+#: gated, and with one element a vector (a width not a multiple of 8, or
+#: rows that do not start on 16 bytes).
 MAX_D, MAX_D_GATED, MAX_D_SCALAR = 16384, 8192, 4096
+MAX_D_F32 = 12288
 #: The widest row the backward takes with 16-byte vectors (either form;
 #: MAX_D_SCALAR otherwise), and the most blocks its grid has: the scratch
 #: rows of dw shares a call allocates (``BWD_MAX_BLOCKS`` in the source).
 MAX_D_BWD, BWD_MAX_BLOCKS = 8192, 1024
+#: The element types the kernels take.
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point ``name`` for rows of ``dtype`` (``<name>_f32``)."""
+    return name + "_f32" if dtype == torch.float32 else name
+
+
+def element_dtype(name: str, x: torch.Tensor, gate: torch.Tensor | None) -> torch.dtype:
+    """The element type of a call on the card (the gate's when gated, x's
+    otherwise), raising TypeError where the kernel does not take it:
+    bfloat16 or float32 only, and a gated call's x float32."""
+    elem = x.dtype if gate is None else gate.dtype
+    if elem not in _DTYPES or (gate is not None and x.dtype != torch.float32):
+        raise TypeError(f"{name}: dtype {x.dtype}"
+                        f"{'' if gate is None else f' with a {gate.dtype} gate'}"
+                        " not supported (bfloat16 or float32 rows)")
+    return elem
 
 
 def _check_gate(x: torch.Tensor, gate: torch.Tensor, residual) -> None:
@@ -64,13 +87,14 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor,
                   residual: torch.Tensor | None = None, eps: float = 1e-6,
                   gate: torch.Tensor | None = None):
     """x, residual: (T, d); w: (d,) float32. Returns (normed, new_residual),
-    both (T, d) in x's dtype. The kernel takes bfloat16 x only.
+    both (T, d) in x's dtype.
 
     ``gate`` (T, d), read in place through its row stride (unit last
     stride), gives the Mamba2 layer's gated norm rmsnorm(x * silu(gate), w)
     in the same launch: no residual, x float32 (or the gate's dtype on the
-    CPU), the gate bfloat16 on the card; returns (normed, None), normed in
-    the gate's dtype. Differentiable (:class:`_FusedRMSNorm`)."""
+    CPU), the gate bfloat16 or float32 on the card; returns (normed, None),
+    normed in the gate's dtype. Differentiable (:class:`_FusedRMSNorm`).
+    The kernel takes bfloat16 or float32 rows."""
     if gate is not None:
         _check_gate(x, gate, residual)
     if torch.is_grad_enabled() and any(
@@ -115,17 +139,14 @@ def _forward(x, w, residual, eps, gate):
         t, d = x.shape
         _build.meta_launch(fused_rmsnorm, lambda: cost.rmsnorm(
             t, d, "gated" if gate is not None else
-            "plain" if residual is None else "residual"))
+            "plain" if residual is None else "residual",
+            f32=(x.dtype if gate is None else gate.dtype) == torch.float32))
         return (torch.empty(t, d, dtype=gate.dtype if gate is not None else x.dtype,
                             device=x.device),
                 None if gate is not None else torch.empty_like(x))
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm: no kernel for device {x.device}")
-    want = torch.float32 if gate is not None else torch.bfloat16
-    if x.dtype != want or (gate is not None and gate.dtype != torch.bfloat16):
-        raise TypeError(f"fused_rmsnorm: dtype {x.dtype}"
-                        f"{'' if gate is None else f' with a {gate.dtype} gate'}"
-                        " not supported")
+    elem = element_dtype("fused_rmsnorm", x, gate)
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("fused_rmsnorm: x must be a contiguous (T, d) tensor")
     t, d = x.shape
@@ -139,19 +160,20 @@ def _forward(x, w, residual, eps, gate):
         tensors.append(residual)
     if any(u.device != x.device for u in tensors):
         raise ValueError("fused_rmsnorm: tensors on different devices")
-    y = torch.empty(t, d, dtype=torch.bfloat16, device=x.device)
+    y = torch.empty(t, d, dtype=elem, device=x.device)
     rout = torch.empty_like(x) if gate is None else None
     if t == 0:
         return y, rout
     rows = [u for u in (x, residual, gate, y, rout) if u is not None]
     vec = d % 8 == 0 and w.data_ptr() % 16 == 0 and all(
         _build.rows_aligned(u) for u in rows)
-    widest = MAX_D_SCALAR if not vec else MAX_D_GATED if gate is not None else MAX_D
+    widest = (MAX_D_SCALAR if not vec else MAX_D_GATED if gate is not None
+              else MAX_D_F32 if elem == torch.float32 else MAX_D)
     if d > widest:
         raise ValueError(f"fused_rmsnorm: d {d} wider than the kernel takes here ({widest}: "
-                         f"{MAX_D} with 16-byte rows, {MAX_D_GATED} gated, "
-                         f"{MAX_D_SCALAR} otherwise)")
-    fn = _build.bind("rmsnorm", "rmsnorm_fwd", [
+                         f"{MAX_D} with 16-byte rows ({MAX_D_F32} in float32), "
+                         f"{MAX_D_GATED} gated, {MAX_D_SCALAR} otherwise)")
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_fwd", elem), [
         *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u) for u in (residual, gate, rout)]
@@ -161,15 +183,17 @@ def _forward(x, w, residual, eps, gate):
     _build.check("rmsnorm", err)
     _build.launched(fused_rmsnorm, lambda: cost.rmsnorm(
         t, d, "gated" if gate is not None else
-        "plain" if residual is None else "residual"))
+        "plain" if residual is None else "residual", f32=elem == torch.float32),
+        _build.kind(elem))
     return y, rout
 
 
-def plan(rows: int, d: int, gated: bool = False, vec: bool = True) -> dict:
+def plan(rows: int, d: int, gated: bool = False, vec: bool = True,
+         dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch a call of these shapes makes on the current card, as the
     kernel picks it: blocks, threads a block, vectors a thread and row,
     elements a vector."""
-    fn = _build.bind("rmsnorm", "rmsnorm_plan", [
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_plan", dtype), [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 4)()
@@ -185,9 +209,11 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
     the gradient of the normed output, dr that of the new residual (None
     where it is unused; none when gated). Returns (dx, dresidual, dw), or
     gated (dy, dgate, dw), as :func:`.ref.fused_rmsnorm_bwd_ref` defines
-    them. On the card: bf16 dh, dr, x and residual (the gated form: f32 x,
-    the bf16 gate read through its row stride), f32 w; dx = dresidual is
-    one bf16 tensor, the gated dy f32 and dgate bf16 (contiguous), dw f32.
+    them. On the card: dh, dr, x and residual in the element type, bf16 or
+    f32 (the gated form: f32 x, the gate in the element type read through
+    its row stride), f32 w; dx = dresidual is one tensor of the element
+    type, the gated dy f32 and dgate in the gate's dtype (contiguous), dw
+    f32.
     One call is counted in ``fused_rmsnorm_bwd.launches``: the rows'
     kernel, then the kernel that sums dw's per-block shares in a fixed
     order (no atomics: two calls give the same bits)."""
@@ -196,8 +222,9 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
     if x.device.type == "meta":
         t, d = x.shape
         kind = "gated" if gate is not None else "plain" if residual is None else "residual"
+        f32 = (x.dtype if gate is None else gate.dtype) == torch.float32
         _build.meta_launch(fused_rmsnorm_bwd, lambda: cost.rmsnorm_bwd(t, d, kind,
-                                                                       dr is not None))
+                                                                       dr is not None, f32))
         dx = torch.empty_like(x)
         second = (torch.empty_like(gate) if gate is not None
                   else dx if residual is not None else None)
@@ -209,19 +236,17 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
         _check_gate(x, gate, residual)
         if dr is not None:
             raise ValueError("fused_rmsnorm_bwd: a gated norm has no residual gradient")
-    want = torch.float32 if gated else torch.bfloat16
-    if (x.dtype != want or dh.dtype != torch.bfloat16
-            or (gated and gate.dtype != torch.bfloat16)):
-        raise TypeError(f"fused_rmsnorm_bwd: dtypes x {x.dtype}, dh {dh.dtype}"
-                        f"{'' if gate is None else f', gate {gate.dtype}'} not supported")
+    elem = element_dtype("fused_rmsnorm_bwd", x, gate)
+    if dh.dtype != elem:
+        raise TypeError(f"fused_rmsnorm_bwd: dh {dh.dtype} with {elem} rows not supported")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("fused_rmsnorm_bwd: x must be a contiguous (T, d) tensor")
     t, d = x.shape
     if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError("fused_rmsnorm_bwd: w must be a contiguous float32 (d,)")
     for name, u in (("dh", dh), ("dr", dr), ("residual", residual)):
-        if u is not None and (u.shape != x.shape or u.dtype != torch.bfloat16):
-            raise ValueError(f"fused_rmsnorm_bwd: {name} must be bf16 of x's shape")
+        if u is not None and (u.shape != x.shape or u.dtype != elem):
+            raise ValueError(f"fused_rmsnorm_bwd: {name} must be {elem} of x's shape")
     if residual is not None and not residual.is_contiguous():
         raise ValueError("fused_rmsnorm_bwd: residual must be contiguous")
     if any(u is not None and u.device != x.device for u in (dh, dr, w, residual, gate)):
@@ -229,7 +254,7 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
     dh = dh.contiguous()
     dr = None if dr is None else dr.contiguous()
     dx = torch.empty(t, d, dtype=x.dtype, device=x.device)
-    dz = torch.empty(t, d, dtype=torch.bfloat16, device=x.device) if gated else None
+    dz = torch.empty(t, d, dtype=elem, device=x.device) if gated else None
     dw = torch.empty(d, dtype=torch.float32, device=x.device)
     second = dz if gated else dx if residual is not None else None
     if t == 0:
@@ -242,7 +267,7 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
         raise ValueError(f"fused_rmsnorm_bwd: d {d} wider than the backward takes here "
                          f"({widest}: {MAX_D_BWD} with 16-byte rows, {MAX_D_SCALAR} otherwise)")
     part = torch.empty(min(t, BWD_MAX_BLOCKS), d, dtype=torch.float32, device=x.device)
-    fn = _build.bind("rmsnorm", "rmsnorm_bwd", [
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_bwd", elem), [
         *[ctypes.c_void_p] * 10, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u) for u in (dr, residual, gate, dz)]
@@ -252,14 +277,15 @@ def fused_rmsnorm_bwd(dh: torch.Tensor, dr: torch.Tensor | None,
     _build.check("rmsnorm", err)
     _build.launched(fused_rmsnorm_bwd, lambda: cost.rmsnorm_bwd(
         t, d, "gated" if gated else "plain" if residual is None else "residual",
-        dr is not None))
+        dr is not None, elem == torch.float32), _build.kind(elem))
     return dx, second, dw
 
 
-def plan_bwd(rows: int, d: int, gated: bool = False, vec: bool = True) -> dict:
+def plan_bwd(rows: int, d: int, gated: bool = False, vec: bool = True,
+             dtype: torch.dtype = torch.bfloat16) -> dict:
     """The backward's launch for these shapes on the current card, as
     :func:`plan` gives the forward's."""
-    fn = _build.bind("rmsnorm", "rmsnorm_bwd_plan", [
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_bwd_plan", dtype), [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 4)()
@@ -269,11 +295,11 @@ def plan_bwd(rows: int, d: int, gated: bool = False, vec: bool = True) -> dict:
 
 # ------------------------- split rows (a rank's block) -----------------------
 def _split_checks(name: str, x, gate, w, tensors=()) -> tuple[int, int, bool]:
-    """The card's checks of a split-row launch: f32 x and bf16 gate of one
-    (T, d) block (the gate read through its row stride), f32 w of d.
-    Returns (T, d, vec)."""
+    """The card's checks of a split-row launch: f32 x and a bf16 or f32
+    gate of one (T, d) block (the gate read through its row stride), f32 w
+    of d. Returns (T, d, vec)."""
     _check_gate(x, gate, None)
-    if x.dtype != torch.float32 or gate.dtype != torch.bfloat16:
+    if x.dtype != torch.float32 or gate.dtype not in _DTYPES:
         raise TypeError(f"{name}: x {x.dtype} with a {gate.dtype} gate not supported")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (T, d) tensor")
@@ -298,7 +324,7 @@ def _on_card(name: str, x) -> bool:
 
 
 def _fwd_split(x, gate, w, y, stat_out, stats, t, d, dn, eps, vec):
-    fn = _build.bind("rmsnorm", "rmsnorm_fwd_split", [
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_fwd_split", gate.dtype), [
         *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u) for u in (y, stat_out, stats)]
@@ -309,10 +335,12 @@ def _fwd_split(x, gate, w, y, stat_out, stats, t, d, dn, eps, vec):
 
 def gated_norm_stat(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The split-row gated norm's statistic launch over this rank's block
-    (x f32 and gate bf16 (T, d), w (d,), read for the launch's plan only):
-    each row's f32 sum of g² = (x·silu(gate))² over the block, (T,)."""
+    (x f32 and gate bf16 or f32 (T, d), w (d,), read for the launch's plan
+    only): each row's f32 sum of g² = (x·silu(gate))² over the block, (T,)."""
+    f32 = gate.dtype == torch.float32
     if x.device.type == "meta":
-        _build.meta_launch(gated_norm_stat, lambda: cost.rmsnorm(*x.shape, "gated_stat"))
+        _build.meta_launch(gated_norm_stat, lambda: cost.rmsnorm(*x.shape, "gated_stat",
+                                                                 f32=f32))
         return torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     if not _on_card("gated_norm_stat", x):
         return gated_norm_stat_ref(x, gate)
@@ -320,7 +348,8 @@ def gated_norm_stat(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor) -> tor
     out = torch.empty(t, dtype=torch.float32, device=x.device)
     if t:
         _fwd_split(x, gate, w, None, out, None, t, d, d, 0.0, vec)
-        _build.launched(gated_norm_stat, lambda: cost.rmsnorm(t, d, "gated_stat"))
+        _build.launched(gated_norm_stat, lambda: cost.rmsnorm(t, d, "gated_stat", f32=f32),
+                        _build.kind(gate.dtype))
     return out
 
 
@@ -328,19 +357,23 @@ def gated_norm_apply(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
                      stats: torch.Tensor, dn: int, eps: float = 1e-6) -> torch.Tensor:
     """The split-row gated norm's apply launch: g normalised by the row's
     mean square over the full width ``dn`` (``stats``, (T,) f32, the sum of
-    g² over every rank's block), times this block's ``w``; (T, d) bf16."""
+    g² over every rank's block), times this block's ``w``; (T, d) in the
+    gate's dtype."""
+    f32 = gate.dtype == torch.float32
     if x.device.type == "meta":
-        _build.meta_launch(gated_norm_apply, lambda: cost.rmsnorm(*x.shape, "gated_apply"))
+        _build.meta_launch(gated_norm_apply, lambda: cost.rmsnorm(*x.shape, "gated_apply",
+                                                                  f32=f32))
         return torch.empty(x.shape, dtype=gate.dtype, device=x.device)
     if not _on_card("gated_norm_apply", x):
         return gated_norm_apply_ref(x, gate, w, stats, dn, eps)
     t, d, vec = _split_checks("gated_norm_apply", x, gate, w)
     if stats.shape != (t,) or stats.dtype != torch.float32 or not stats.is_contiguous():
         raise ValueError("gated_norm_apply: stats must be a contiguous float32 (T,)")
-    y = torch.empty(t, d, dtype=torch.bfloat16, device=x.device)
+    y = torch.empty(t, d, dtype=gate.dtype, device=x.device)
     if t:
         _fwd_split(x, gate, w, y, None, stats, t, d, dn, eps, vec)
-        _build.launched(gated_norm_apply, lambda: cost.rmsnorm(t, d, "gated_apply"))
+        _build.launched(gated_norm_apply, lambda: cost.rmsnorm(t, d, "gated_apply", f32=f32),
+                        _build.kind(gate.dtype))
     return y
 
 
@@ -348,11 +381,11 @@ def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, vec):
     dx = dz = part = dw = None
     if stat_out is None:
         dx = torch.empty(t, d, dtype=torch.float32, device=x.device)
-        dz = torch.empty(t, d, dtype=torch.bfloat16, device=x.device)
+        dz = torch.empty(t, d, dtype=gate.dtype, device=x.device)
         part = torch.empty(min(t, BWD_MAX_BLOCKS), d, dtype=torch.float32,
                            device=x.device)
         dw = torch.empty(d, dtype=torch.float32, device=x.device)
-    fn = _build.bind("rmsnorm", "rmsnorm_bwd_split", [
+    fn = _build.bind("rmsnorm", _entry("rmsnorm_bwd_split", gate.dtype), [
         *[ctypes.c_void_p] * 10, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u)
@@ -364,8 +397,8 @@ def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, vec):
 
 
 def _bwd_split_checks(name, dh, x, gate, w):
-    if dh.shape != x.shape or dh.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: dh must be bf16 of x's shape")
+    if dh.shape != x.shape or dh.dtype != gate.dtype:
+        raise ValueError(f"{name}: dh must be of x's shape in the gate's dtype")
     dh = dh.contiguous()
     t, d, vec = _split_checks(name, x, gate, w, (dh,))
     if d > (MAX_D_BWD if vec else MAX_D_SCALAR):
@@ -377,9 +410,10 @@ def gated_norm_bwd_stat(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
     """The split-row backward's statistic launch: each row's f32 sums over
     this block of g² and of w·dh·g, (T, 2)."""
+    f32 = gate.dtype == torch.float32
     if x.device.type == "meta":
-        _build.meta_launch(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(*x.shape,
-                                                                         "gated_stat"))
+        _build.meta_launch(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(
+            *x.shape, "gated_stat", f32=f32))
         return torch.empty(x.shape[0], 2, dtype=torch.float32, device=x.device)
     if not _on_card("gated_norm_bwd_stat", x):
         return gated_norm_bwd_stat_ref(dh, x, gate, w)
@@ -387,7 +421,8 @@ def gated_norm_bwd_stat(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
     out = torch.empty(t, 2, dtype=torch.float32, device=x.device)
     if t:
         _bwd_split(dh, x, gate, w, out, None, t, d, d, 0.0, vec)
-        _build.launched(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(t, d, "gated_stat"))
+        _build.launched(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(
+            t, d, "gated_stat", f32=f32), _build.kind(gate.dtype))
     return out
 
 
@@ -395,12 +430,13 @@ def gated_norm_bwd_apply(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
                          w: torch.Tensor, stats: torch.Tensor, dn: int,
                          eps: float = 1e-6):
     """The split-row backward's apply launch, given both row sums over every
-    block (``stats`` (T, 2) f32): (dx f32, dgate bf16, dw f32 of this
-    block's columns), as :func:`fused_rmsnorm_bwd`'s gated form over the
-    whole row gives them."""
+    block (``stats`` (T, 2) f32): (dx f32, dgate in the gate's dtype, dw
+    f32 of this block's columns), as :func:`fused_rmsnorm_bwd`'s gated form
+    over the whole row gives them."""
+    f32 = gate.dtype == torch.float32
     if x.device.type == "meta":
-        _build.meta_launch(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(*x.shape,
-                                                                          "gated_apply"))
+        _build.meta_launch(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(
+            *x.shape, "gated_apply", f32=f32))
         return (torch.empty_like(x), torch.empty(x.shape, dtype=gate.dtype, device=x.device),
                 torch.empty(x.shape[1], dtype=torch.float32, device=x.device))
     if not _on_card("gated_norm_bwd_apply", x):
@@ -410,10 +446,11 @@ def gated_norm_bwd_apply(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
         raise ValueError("gated_norm_bwd_apply: stats must be a contiguous float32 (T, 2)")
     if t == 0:
         return (torch.empty(0, d, dtype=torch.float32, device=x.device),
-                torch.empty(0, d, dtype=torch.bfloat16, device=x.device),
+                torch.empty(0, d, dtype=gate.dtype, device=x.device),
                 torch.zeros(d, dtype=torch.float32, device=x.device))
     out = _bwd_split(dh, x, gate, w, None, stats, t, d, dn, eps, vec)
-    _build.launched(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(t, d, "gated_apply"))
+    _build.launched(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(
+        t, d, "gated_apply", f32=f32), _build.kind(gate.dtype))
     return out
 
 

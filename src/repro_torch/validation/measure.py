@@ -202,20 +202,13 @@ def measure_wallclock(case: ValidationCase, repeats: int = DEFAULT_REPEATS,
 # --- every case --------------------------------------------------------------
 def card_refusal(case: ValidationCase) -> str | None:
     """Why the card's kernels do not take the twin's decode step (None if
-    they do): the attention kernels' head dims and the SSD kernel's P, N.
-    The kernels raise on such a shape rather than fall back."""
-    from ..kernels.decode_attention.ops import supports as decode_supports
-    from ..kernels.flash_attention.ops import supports as flash_supports
+    they do): the SSD kernel's P, N. (The attention kernels take every
+    head dim and group of the repo's configs.) The kernels raise on such a
+    shape rather than fall back."""
     from ..kernels.ssd.ops import MAX_N, MAX_P
 
     cfg = case.twin.cfg
-    if not cfg.attention_free:
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        if not (decode_supports(cfg.hd, n_rep) and flash_supports(cfg.hd, n_rep)):
-            return (f"head dim {cfg.hd}: the flash and decode kernels take "
-                    "hd in (32, 64, 128) and raise on others (ROADMAP.md "
-                    "queue 2: hd-16 instantiations for the moe twin)")
-    elif cfg.ssm_head_dim > MAX_P or cfg.ssm_state > MAX_N:
+    if cfg.attention_free and (cfg.ssm_head_dim > MAX_P or cfg.ssm_state > MAX_N):
         return f"the SSD kernel takes P, N <= {MAX_P}"
     return None
 

@@ -209,4 +209,4 @@ def test_a_captured_launch_counts_on_its_graphs_tally(monkeypatch):
         _build.launched(wrapper)
     finally:
         _build._tallies.pop()
-    assert wrapper.launches == 1 and tally == {wrapper: 2}
+    assert wrapper.launches == 1 and tally == {(wrapper, None): 2}

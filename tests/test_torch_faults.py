@@ -63,8 +63,8 @@ def test_group_tables_name_the_groups_that_were_refused():
     for n_rep in (3, 16, 5, 7, 12):
         assert decode_ops.supports(128, n_rep)
         assert flash_ops.supports(128, n_rep)
-    assert not decode_ops.supports(16, 3)      # the SMOKE configs' hd 16
-    assert not flash_ops.supports(16, 3)
+    assert decode_ops.supports(16, 3)          # the SMOKE configs' hd 16
+    assert flash_ops.supports(16, 3)
 
 
 def test_minitron_group3_decodes_like_the_reference():

@@ -24,7 +24,10 @@ another order), and two calls bit-identical.
 Cross-attention runs through the flash forward without the mask and
 through decode attention over the whole memory, held to the plain
 versions within 2e-2 of the largest value; the engine serves a memory
-through its captured graph. Without a card every
+through its captured graph. The kernels' contract: hd 16 in bf16 as the
+bf16 cases are held, float32 at the reference's 2e-5 (forward) and 2e-4
+(backward), decode over a float32 model's bf16 cache, RMSNorm and its
+backward in float32; float16 and hd 8 raise. Without a card every
 test here skips. Run them on a card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -200,7 +203,9 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
                       gate=z)
     with pytest.raises(TypeError, match="fused_rmsnorm"):
         fused_rmsnorm(torch.ones(4, 64, device=cuda), torch.ones(64, device=cuda),
-                      gate=z.float())
+                      gate=z.half())
+    with pytest.raises(ValueError, match="wider than the kernel takes"):   # f32 at 12296
+        fused_rmsnorm(torch.ones(2, 12296, device=cuda), torch.ones(12296, device=cuda))
     for d, kw in ((16392, {}), (4100, {}), (8200, {"gated": True})):
         x = torch.ones(2, d, dtype=torch.float32 if kw else bf, device=cuda)
         gate = dict(gate=torch.ones(2, d, dtype=bf, device=cuda)) if kw else {}
@@ -370,15 +375,20 @@ def test_engine_raises_when_the_step_cannot_be_captured(cuda, monkeypatch):
 
 
 def test_kernels_refuse_float32_on_the_card(cuda):
+    """What the kernels refuse on the card: float32 is taken since the
+    float32 kernels came (a bf16 q over an f32 cache is not), float16 and
+    other dtypes raise."""
     q = torch.zeros(2, 8, 64, device=cuda)
     k = torch.zeros(2, 2, 90, 64, device=cuda)
     with pytest.raises(TypeError, match="decode_attention"):
-        decode_attention(q, k, k, 77)
+        decode_attention(q.half(), k.half(), k.half(), 77)
     with pytest.raises(TypeError, match="decode_attention"):
-        decode_attention(q, k.bfloat16(), k.bfloat16(), 77)
+        decode_attention(q.bfloat16(), k, k, 77)
     with pytest.raises(TypeError, match="fused_rmsnorm"):
-        fused_rmsnorm(torch.zeros(4, 64, device=cuda),
+        fused_rmsnorm(torch.zeros(4, 64, device=cuda).half(),
                       torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match="hd 8"):
+        decode_attention(q[..., :8], k[..., :8], k[..., :8], 77)
 
 
 # the serving forward's shapes: its 128-row blocks and 128-key tiles end
@@ -731,7 +741,8 @@ def test_flash_attention_train_grads_match_plain(cuda, b, h, hkv, sq, sk, hd,
 
 
 def test_training_kernels_refuse_float32(cuda):
-    q = torch.zeros(1, 2, 64, 64, device=cuda)
+    """float32 is taken since the float32 kernels came; float16 raises."""
+    q = torch.zeros(1, 2, 64, 64, device=cuda).half()
     rows = torch.zeros(1, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="flash_attention_fwd_lse"):
         flash_attention_fwd_lse(q, q, q)
@@ -867,3 +878,134 @@ def test_split_row_norm_launches_match_plain(cuda, rows, d, dn, width):
     for a, b in zip(got, ref.gated_norm_bwd_apply_ref(dh, ys[0], zs[0], ws[0],
                                                       bst * 2, dn)):
         torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+# ------------------------- the contract: hd 16, float32 -----------------------
+F32 = dict(rtol=2e-5, atol=2e-5)          # the reference's float32 forward
+F32_BWD = dict(rtol=2e-4, atol=2e-4)      # and backward
+
+
+def _allclose(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,dtype", [
+    (2, 8, 2, 512, 512, 16, True, torch.bfloat16),     # qwen3_moe SMOKE heads
+    (1, 6, 2, 129, 129, 16, True, torch.bfloat16),     # group 3, a tile edge
+    (1, 8, 8, 70, 130, 16, False, torch.bfloat16),
+    (2, 8, 2, 300, 300, 16, True, torch.float32),
+    (1, 4, 1, 70, 130, 32, False, torch.float32),
+    (2, 4, 2, 130, 70, 64, True, torch.float32),
+    (2, 32, 8, 257, 257, 128, True, torch.float32)])
+def test_flash_kernel_takes_hd16_and_float32(cuda, b, h, hkv, sq, sk, hd, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    q, k, v = randn(b, sq, h, hd), randn(b, sk, hkv, hd), randn(b, sk, hkv, hd)
+    reset_launches()
+    o = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == dtype and flash_attention.launches == 1
+    kind = f"{'f32' if dtype == torch.float32 else 'bf16'}/hd{hd}"
+    assert flash_attention.by_kind == {kind: 1}
+    if dtype == torch.float32:
+        _allclose(o, want, F32)
+    else:
+        _close(o, want)
+        assert _row_scaled_err(o, want) <= 2e-2
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal,dtype", [
+    (2, 8, 2, 512, 512, 16, True, torch.bfloat16),
+    (1, 8, 2, 300, 129, 16, True, torch.bfloat16),
+    (2, 8, 2, 300, 300, 16, True, torch.float32),
+    (1, 8, 2, 70, 130, 32, False, torch.float32),
+    (2, 16, 16, 256, 256, 128, True, torch.float32)])
+def test_training_kernels_take_hd16_and_float32(cuda, b, h, hkv, sq, sk, hd, causal,
+                                                dtype):
+    g = torch.Generator(device=cuda).manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    q, k, v, do = (randn(b, sq, h, hd), randn(b, sk, hkv, hd), randn(b, sk, hkv, hd),
+                   randn(b, sq, h, hd))
+    o, lse = flash_attention_fwd_lse(q, k, v, causal)
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    dd = attention_delta(orf, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+    dkr, dvr = flash_attention_bwd_dkv_ref(q, k, v, do, lser, dd, causal)
+    dqr = flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal)
+    if dtype == torch.float32:
+        _allclose(o, orf, F32)
+        _allclose(lse, lser, F32)
+        for got, want in ((dq, dqr), (dk, dkr), (dv, dvr)):
+            _allclose(got, want, F32_BWD)
+    else:
+        _close(o, orf)
+        _close(lse, lser, 1e-3)
+        for got, want in ((dq, dqr), (dk, dkr), (dv, dvr)):
+            assert _row_scaled_err(got, want) <= 2e-2
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,hd,kv_len,dtype,cache", [
+    (4, 8, 2, 2081, 16, 2079, torch.bfloat16, torch.bfloat16),
+    (2, 6, 2, 50, 16, 33, torch.bfloat16, torch.bfloat16),      # group 3
+    (2, 64, 4, 600, 16, 577, torch.bfloat16, torch.bfloat16),   # group 16
+    (2, 8, 2, 50, 16, 0, torch.bfloat16, torch.bfloat16),
+    (2, 32, 8, 2081, 128, 2079, torch.float32, torch.bfloat16),  # a float32 model's
+    (2, 6, 2, 300, 16, 299, torch.float32, torch.float32),
+    (3, 8, 8, 90, 32, 1, torch.float32, torch.bfloat16),
+    (2, 64, 4, 200, 64, 177, torch.float32, torch.float32),
+    (2, 8, 2, 50, 128, 0, torch.float32, torch.float32)])
+def test_decode_kernel_takes_hd16_and_float32(cuda, b, h, hkv, s, hd, kv_len, dtype, cache):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(b, h, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, s, hkv, hd, generator=g, device=cuda).to(cache).transpose(1, 2)
+    v = torch.randn(b, s, hkv, hd, generator=g, device=cuda).to(cache).transpose(1, 2)
+    o, lse = decode_attention(q, k, v, kv_len)
+    assert o.dtype == dtype
+    if kv_len == 0:
+        assert bool((o == 0).all()) and bool((lse == -1e30).all())
+        return
+    orf, lser = decode_attention_ref(q, k, v, kv_len, return_lse=True)
+    if dtype == torch.float32:
+        _allclose(o, orf, F32)
+        _allclose(lse, lser, F32)
+    else:
+        assert _scaled_err(o, orf) <= 2.0 ** -6
+        _close(lse, lser, 1e-3)
+
+
+@pytest.mark.parametrize("rows,d,kind", [(2, 5120, "residual"), (4096, 5120, "residual"),
+                                         (300, 12288, "residual"), (7, 100, "residual"),
+                                         (8, 1536, "gated"), (16384, 1536, "gated"),
+                                         (3, 770, "gated"), (4, 5120, "plain")])
+def test_rmsnorm_kernels_take_float32(cuda, rows, d, kind):
+    """Row 1 and its backward in float32 (the gated form with a float32
+    gate read through its row stride) against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(rows, d, generator=g, device=cuda)
+    w = torch.rand(d, generator=g, device=cuda) + 0.5
+    r = torch.randn(rows, d, generator=g, device=cuda) if kind == "residual" else None
+    z = (2 * torch.randn(rows, 2 * d + 280, generator=g, device=cuda))[:, :d] \
+        if kind == "gated" else None
+    reset_launches()
+    y, res = fused_rmsnorm(x, w, r, gate=z)
+    wy, wres = fused_rmsnorm_ref(x, w, r, gate=z)
+    assert y.dtype == torch.float32 and fused_rmsnorm.by_kind == {"f32": 1}
+    _allclose(y, wy, F32)
+    if res is not None:
+        _allclose(res, wres, F32)
+    if d > 8192:                        # the backward's widest row
+        return
+    dh = torch.randn(rows, d, generator=g, device=cuda)
+    dr = torch.randn(rows, d, generator=g, device=cuda) if kind == "residual" else None
+    got = fused_rmsnorm_bwd(dh, dr, x, w, r, 1e-6, z)
+    want = fused_rmsnorm_bwd_ref(dh, dr, x, w, r, 1e-6, z)
+    for a, b_ in zip(got, want):
+        if b_ is not None:
+            _allclose(a, b_, F32_BWD)

@@ -107,3 +107,41 @@ def test_launched_records_work_only_while_counting(monkeypatch):
         _build.launched(fake_kernel, work)
     assert tally == {"flops": 8.0, "bytes": 20.0, "launches": {"fake_kernel": 2}}
     assert fake_kernel.launches == 3 and len(calls) == 2 and not cost._active
+
+
+# ------------------------------ float32 launches ------------------------------
+def test_f32_attention_work_counts_4_bytes_at_the_cuda_core_rate():
+    args = (2, 32, 8, 2048, 2048, 128, True)
+    for fn in (cost.flash_attention, cost.flash_attention_fwd_lse,
+               cost.flash_attention_bwd_dkv, cost.flash_attention_bwd_dq):
+        bf, f32 = fn(*args), fn(*args, f32=True)
+        assert f32.flops == bf.flops and f32.rate == cost.F32_FLOP_PER_S
+        assert bf.rate == cost.BF16_FLOP_PER_S
+        # the row statistics (LSE, D) stay f32: the rest doubles
+        rows = {cost.flash_attention: 0, cost.flash_attention_fwd_lse: 1,
+                cost.flash_attention_bwd_dkv: 2, cost.flash_attention_bwd_dq: 2}[fn]
+        stat = 2 * 32 * 2048 * 4
+        assert f32.bytes - rows * stat == 2 * (bf.bytes - rows * stat)
+    ms, by = cost.flash_attention(*args, f32=True).bound_ms()
+    assert by == "operations" and round(ms, 3) == 1.026
+
+
+def test_f32_decode_work_reads_the_cache_in_its_own_dtype():
+    bf = cost.decode_attention(2, 32, 8, 128, 2079)
+    f32_bf16_cache = cost.decode_attention(2, 32, 8, 128, 2079, f32=True, cache_bytes=2)
+    f32_cache = cost.decode_attention(2, 32, 8, 128, 2079, f32=True)
+    q_o = 2 * 2 * 32 * 128
+    assert f32_bf16_cache.bytes - bf.bytes == 2 * q_o
+    assert f32_cache.bytes - f32_bf16_cache.bytes == 2 * 2 * 8 * 2079 * 128 * 2
+    assert f32_cache.rate == cost.F32_FLOP_PER_S and bf.rate == cost.BF16_FLOP_PER_S
+
+
+@pytest.mark.parametrize("kind,per_bf16,per_f32", [
+    ("residual", 8, 16), ("plain", 6, 12), ("gated", 8, 12)])
+def test_f32_rmsnorm_work_doubles_the_element_type_bytes(kind, per_bf16, per_f32):
+    rows, d = 4096, 5120
+    assert cost.rmsnorm(rows, d, kind).bytes == rows * d * per_bf16 + d * 4
+    assert cost.rmsnorm(rows, d, kind, f32=True).bytes == rows * d * per_f32 + d * 4
+    bwd = {"residual": (10, 20), "plain": (8, 16), "gated": (14, 20)}[kind]
+    assert cost.rmsnorm_bwd(rows, d, kind).bytes == rows * d * bwd[0] + d * 8
+    assert cost.rmsnorm_bwd(rows, d, kind, f32=True).bytes == rows * d * bwd[1] + d * 8

@@ -7,8 +7,9 @@ twin's execution and applies the declared error bands of
 
 * **dry-run channel (mandatory)** — FLOPs / bytes / collective link bytes
   of one decode step, counted by `repro_torch.validation.opcount`. With a
-  CUDA card the step is counted fresh on the kernels' route (a twin whose
-  shape the kernels do not take, on the plain route); without one the gate
+  CUDA card the step is counted fresh on the kernels' route (every twin's
+  shape, the moe twin's hd 16 among them, is one the kernels take);
+  without one the gate
   falls back to the *measured* numbers committed in
   `BENCH_validation_torch.json` and still re-derives the analytical
   predictions from scratch, so a model-side drift fails on a machine

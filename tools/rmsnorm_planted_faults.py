@@ -58,7 +58,7 @@ PARTIAL = "    if (lane == 0) red[buf][warp] = sq;\n"
 W_LOAD = "      load_f32<VW, true>(p.w + (int64_t)v * VW, wv[k]);\n"
 WAIT = '  asm volatile("griddepcontrol.wait;" ::: "memory");\n'
 FIRST_LOAD = "  if (prefetch) load_row<VW, PER, GATE>(p, row, first, xb, rb, yf);\n"
-SILU = "          const float sz = round_bf16(zf / (1.f + expf(-zf)));\n"
+SILU = "          const float sz = round_to<Elt>(zf / (1.f + expf(-zf)));\n"
 #: the launch as a programmatic dependent, the variants tool's edit
 PDL_ON = _variants.PDL_ON
 ANCHORS = (PARTIAL, W_LOAD, WAIT, FIRST_LOAD, PDL_ON[0], SILU)
@@ -71,7 +71,7 @@ FAULTS = {
                          "each thread reads the next vector of w"),
     "wait_after_x_loads": ([PDL_ON, (WAIT, ""), (FIRST_LOAD, FIRST_LOAD + WAIT)],
                            "a programmatic dependent that waits after its first x loads"),
-    "silu_not_rounded": ([(SILU, SILU.replace("round_bf16(zf / (1.f + expf(-zf)))",
+    "silu_not_rounded": ([(SILU, SILU.replace("round_to<Elt>(zf / (1.f + expf(-zf)))",
                                               "zf / (1.f + expf(-zf))"))],
                          "SiLU not rounded to bf16 before the product"),
 }
