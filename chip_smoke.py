@@ -87,7 +87,10 @@ Phases, each fatal on failure:
      training kernels, the backward bit-identical across two calls) and
      row 1 with its backward and split-row launches in float32, at the
      reference's float32 tolerances (2e-5 forward, 2e-4 backward), each
-     timed beside its bound, its plain version and SDPA or F.rms_norm;
+     timed beside its bound, its plain version and SDPA or F.rms_norm
+     (SDPA's default call beside its memory-efficient backend over K/V
+     expanded outside the call, the faster kept; float32 attention with
+     two bounds, the split TF32 tensor cores' and the CUDA cores');
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -2264,7 +2267,13 @@ def check_training_kernels(torch, timer) -> dict:
 # backward, with TF32 off (main sets it). Each is timed at the shape its
 # path gives it (hd 16: the SMOKE configs' heads at the serving length; f32
 # hd 128: mistral_nemo_12b's float32 serving and olmo_1b's float32 training
-# shapes) beside its bound, its plain version and one library call.
+# shapes) beside its bound, its plain version and SDPA twice: its default
+# call (``enable_gqa``; the backend that answers is named by PyTorch's own
+# chooser) and its memory-efficient backend over K/V expanded outside the
+# call (where it runs), ``library_ms`` the faster. A float32 attention entry
+# carries two bounds: ``bound_ms`` at the split rate of the TF32 tensor
+# cores (the least time at float32 accuracy, as its kernel computes) and
+# ``core_bound_ms`` at the CUDA cores' 67 TFLOP/s.
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 F32_BWD_TOL = dict(rtol=2e-4, atol=2e-4)
 CONTRACT_HDS = (16, 32, 64, 128)
@@ -2336,11 +2345,53 @@ def contract_inputs(torch, g, b, heads, s, hd, dtype):
     return torch.randn((b, s, heads, hd), generator=g, device="cuda").to(dtype).transpose(1, 2)
 
 
+def sdpa_yardstick(torch, timer, q, k, v, causal: bool, do=None) -> dict:
+    """SDPA at a path's shape, two ways: the default call
+    (``enable_gqa``), its backend named by PyTorch's own chooser
+    (``torch._fused_sdp_choice``, what the call dispatches on), and the
+    memory-efficient backend with K/V expanded over the GQA group outside
+    the call (in float32 the split-TF32 kernel, where it runs). Forward times, or with
+    ``do`` the backward's (forward and backward through autograd less the
+    forward). Returns {"library_ms": the faster, "library_backend",
+    "library_times": {way: ms}}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n_rep = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(n_rep, 1) for t in (k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                 enable_gqa=True)).name.lower()
+
+    def efficient(*args):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*args, is_causal=causal)
+
+    ways = {f"default ({backend})":
+            (lambda *a: sdpa(F, *a, causal), (q, k, v)),
+            "efficient, K/V expanded": (efficient, (q, ke, ve))}
+    times = {}
+    for way, (fn, args) in ways.items():
+        try:
+            fwd = timer.ms(lambda: fn(*args), 10)
+            if do is None:
+                times[way] = fwd
+                continue
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+
+            def fwd_bwd():
+                for t in leaves:
+                    t.grad = None
+                fn(*leaves).backward(do)
+            times[way] = timer.eager_ms(fwd_bwd, 10) - fwd
+        except RuntimeError as err:      # the backend refuses these inputs
+            say(f"    SDPA {way}: {str(err).splitlines()[0][:120]}")
+    best = min(times, key=times.get)
+    return dict(library_ms=times[best], library_backend=best, library_times=times)
+
+
 def check_contract_flash(torch, timer, dtype: str, hd: int) -> dict:
     """The serving forward at ``hd`` in ``dtype`` against its plain version
     over :func:`contract_flash_cases`, timed at the first."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2364,13 +2415,15 @@ def check_contract_flash(torch, timer, dtype: str, hd: int) -> dict:
             main = (args, (b, h, hkv, sq, sk, causal))
         del o, want
     args, (b, h, hkv, sq, sk, causal) = main
-    b_ms, b_by = cost.flash_attention(b, h, hkv, sq, sk, hd, causal,
-                                      f32=dtype == "f32").bound_ms()
+    w = cost.flash_attention(b, h, hkv, sq, sk, hd, causal, f32=dtype == "f32")
+    b_ms, b_by = w.bound_ms()
+    lib = sdpa_yardstick(torch, timer, *args, causal)
+    if dtype == "f32":
+        lib["core_bound_ms"] = cost.f32_cores(w).bound_ms()[0]
     return dict(max_abs_err=max(errs), max_row_scaled_err=max(rows),
                 ms=timer.ms(lambda: flash_attention(*args, causal=causal), 10),
                 plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 3),
-                library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 10),
-                bound_ms=b_ms, bound_by=b_by, shape=[b, h, hkv, sq, sk, hd, causal])
+                **lib, bound_ms=b_ms, bound_by=b_by, shape=[b, h, hkv, sq, sk, hd, causal])
 
 
 def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
@@ -2379,8 +2432,6 @@ def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
     within TRAIN_ROW_REL, as phase 3's; f32: element-wise at F32_TOL and
     F32_BWD_TOL), the backward bit-identical across two calls; timed at the
     first case. Returns {wrapper: entry}."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
@@ -2438,23 +2489,22 @@ def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
              names[2]: (lambda: flash_attention_bwd_dq(q, k, v, do, lse, dd, causal),
                         lambda: flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, causal))}
     kernel_ms = {name: timer.ms(calls[name][0], 10) for name in names}
-    lib_fwd = timer.ms(lambda: sdpa(F, q, k, v, causal=causal), 10)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_fwd_bwd():
-        for t in leaves:
-            t.grad = None
-        sdpa(F, *leaves, causal=causal).backward(do)
-    lib_pair = timer.eager_ms(sdpa_fwd_bwd, 10) - lib_fwd
+    lib_fwd = sdpa_yardstick(torch, timer, q, k, v, causal)
+    bwd = sdpa_yardstick(torch, timer, q, k, v, causal, do)
+    lib_pair = dict(library_bwd_pair_ms=bwd["library_ms"],
+                    library_bwd_backend=bwd["library_backend"],
+                    library_bwd_times=bwd["library_times"])
     out = {}
     for name in names:
         w = getattr(cost, name)(b, h, hkv, sq, sk, hd, causal, f32=dtype == "f32")
         b_ms, b_by = w.bound_ms()
-        lib = (dict(library_ms=lib_fwd) if name == names[0] else
-               dict(library_ms=None, library_bwd_pair_ms=lib_pair,
+        lib = (lib_fwd if name == names[0] else
+               dict(library_ms=None, **lib_pair,
                     library_note="SDPA backward (forward + backward through "
                                  "autograd less the forward): the work of "
                                  "dK/dV and dQ together"))
+        if dtype == "f32":
+            lib = dict(lib, core_bound_ms=cost.f32_cores(w).bound_ms()[0])
         out[name] = dict(max_abs_err=errs[name], ms=kernel_ms[name],
                          plain_ms=timer.ms(calls[name][1], 3), **lib,
                          bound_ms=b_ms, bound_by=b_by,

@@ -13,8 +13,10 @@
                      the training forward with LSE
                      (``flash_attention_fwd_lse``) and the dK/dV and dQ
                      backward kernels (``flash_attention_bwd``), tied
-                     together by ``flash_attention_train``; float32 on the
-                     CUDA cores (``flash_attention_f32.cu``).
+                     together by ``flash_attention_train``; float32 at
+                     float32 accuracy (``flash_attention_f32.cu``: the
+                     forward and dK/dV on the TF32 tensor cores, each
+                     operand split in two TF32 terms; dQ on the CUDA cores).
   pricing          — the DSE price phase's elementwise column formulas, f64
                      bit-identical and f32 drift-banded (``run_columns``,
                      ``run_columns_f32``).

@@ -11,8 +11,11 @@ Bytes count each input read once and each output written once, in the
 dtypes the kernel reads and writes; operations count what the kernel
 executes, at the peak rate of the units it runs them on (H100 SXM data
 sheet, dense, at its 700 W limit). ``f32=True`` is a float32 launch: its
-tensors 4 bytes a value, and the attention kernels' products on the CUDA
-cores (F32_FLOP_PER_S), not the bf16 tensor cores.
+tensors 4 bytes a value, and the attention kernels' products at float32
+accuracy on the TF32 tensor cores, three TF32 products a float32 one
+(F32_SPLIT_FLOP_PER_S: the split of flash_attention_f32.cu), not the bf16
+tensor cores; :func:`f32_cores` reads the same work at the CUDA cores' rate,
+a second bound.
 """
 from __future__ import annotations
 
@@ -23,6 +26,10 @@ from typing import Callable
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12        # tensor cores
 F32_FLOP_PER_S = 67e12          # CUDA cores
+TF32_FLOP_PER_S = 495e12        # tensor cores, TF32
+#: float32 products at float32 accuracy on the tensor cores: each a = hi +
+#: lo in TF32, a b = hi hi + hi lo + lo hi, three TF32 products
+F32_SPLIT_FLOP_PER_S = TF32_FLOP_PER_S / 3
 F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
 
 #: Arithmetic operations per row of each pricing formula (additions,
@@ -103,11 +110,11 @@ def decode_attention(b: int, h: int, hkv: int, hd: int, kv_len: int,
     o in bf16 (or f32), the K and V rows read (``cache_bytes`` a value: q's
     size unless given; a float32 model keeps a bf16 cache), the f32 lse
     written; two products of 2 hd operations per (head, position) on the
-    tensor cores (f32: the CUDA cores)."""
+    tensor cores (f32: at the split rate, :func:`_rate`)."""
     e = 4 if f32 else 2
     c = e if cache_bytes is None else cache_bytes
     nb = 2 * b * h * hd * e + 2 * b * hkv * kv_len * hd * c + b * h * 4
-    return Work(nb, 4.0 * b * h * kv_len * hd, F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    return Work(nb, 4.0 * b * h * kv_len * hd, _rate(f32))
 
 
 # ------------------------------ rows 3, 5, 6, 7 ------------------------------
@@ -120,8 +127,15 @@ def _attention_bytes(b, h, hkv, sq, sk, hd, f32=False):
 
 def _rate(f32: bool) -> float:
     """The peak rate of the attention kernels' products: bf16 on the tensor
-    cores, f32 on the CUDA cores."""
-    return F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    cores; f32 at f32 accuracy, the split rate of the TF32 tensor cores
+    (the least time the card can take at that accuracy)."""
+    return F32_SPLIT_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+
+
+def f32_cores(w: Work) -> Work:
+    """A float32 attention launch's work at the CUDA cores' rate: a second
+    bound, what FMA tiles on the CUDA cores could reach at best."""
+    return dataclasses.replace(w, rate=F32_FLOP_PER_S)
 
 
 def flash_attention(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:

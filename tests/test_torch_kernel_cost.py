@@ -111,11 +111,15 @@ def test_launched_records_work_only_while_counting(monkeypatch):
 
 # ------------------------------ float32 launches ------------------------------
 def test_f32_attention_work_counts_4_bytes_at_the_cuda_core_rate():
+    """Float32 attention counts 4-byte values and the same operations as
+    bf16, at the split TF32 rate (three TF32 products a float32 one); the
+    CUDA cores' rate is the second bound (:func:`cost.f32_cores`)."""
     args = (2, 32, 8, 2048, 2048, 128, True)
+    assert cost.F32_SPLIT_FLOP_PER_S == cost.TF32_FLOP_PER_S / 3 == 165e12
     for fn in (cost.flash_attention, cost.flash_attention_fwd_lse,
                cost.flash_attention_bwd_dkv, cost.flash_attention_bwd_dq):
         bf, f32 = fn(*args), fn(*args, f32=True)
-        assert f32.flops == bf.flops and f32.rate == cost.F32_FLOP_PER_S
+        assert f32.flops == bf.flops and f32.rate == cost.F32_SPLIT_FLOP_PER_S
         assert bf.rate == cost.BF16_FLOP_PER_S
         # the row statistics (LSE, D) stay f32: the rest doubles
         rows = {cost.flash_attention: 0, cost.flash_attention_fwd_lse: 1,
@@ -123,7 +127,31 @@ def test_f32_attention_work_counts_4_bytes_at_the_cuda_core_rate():
         stat = 2 * 32 * 2048 * 4
         assert f32.bytes - rows * stat == 2 * (bf.bytes - rows * stat)
     ms, by = cost.flash_attention(*args, f32=True).bound_ms()
-    assert by == "operations" and round(ms, 3) == 1.026
+    assert by == "operations" and round(ms, 4) == 0.4167
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_fwd_lse",
+                                "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                "decode_attention"])
+def test_f32_attention_second_bound_reads_the_cuda_cores(fn):
+    """The second bound: the same bytes and operations at the CUDA cores'
+    67 TFLOP/s, what FMA tiles could reach at best (1.026 ms for the
+    serving forward at (2, 32/8, 2048, 128), 2.052 ms for dK/dV at
+    olmo_1b's (4, 16/16, 2048, 128)); the split bound is that over 165 /
+    67."""
+    args = ((2, 32, 8, 128, 2079) if fn == "decode_attention"
+            else (2, 32, 8, 2048, 2048, 128, True))
+    w = getattr(cost, fn)(*args, f32=True)
+    cores = cost.f32_cores(w)
+    assert (cores.bytes, cores.flops, cores.rate) == (w.bytes, w.flops, cost.F32_FLOP_PER_S)
+    assert cores.bound_ms()[0] >= w.bound_ms()[0]
+    if fn != "decode_attention":    # decode is bytes-bound either way
+        assert cores.bound_ms()[0] / w.bound_ms()[0] == pytest.approx(165 / 67)
+    if fn == "flash_attention":
+        assert round(cores.bound_ms()[0], 3) == 1.026
+    dkv = cost.f32_cores(cost.flash_attention_bwd_dkv(4, 16, 16, 2048, 2048, 128, True,
+                                                      f32=True))
+    assert round(dkv.bound_ms()[0], 3) == 2.052
 
 
 def test_f32_decode_work_reads_the_cache_in_its_own_dtype():
@@ -133,7 +161,7 @@ def test_f32_decode_work_reads_the_cache_in_its_own_dtype():
     q_o = 2 * 2 * 32 * 128
     assert f32_bf16_cache.bytes - bf.bytes == 2 * q_o
     assert f32_cache.bytes - f32_bf16_cache.bytes == 2 * 2 * 8 * 2079 * 128 * 2
-    assert f32_cache.rate == cost.F32_FLOP_PER_S and bf.rate == cost.BF16_FLOP_PER_S
+    assert f32_cache.rate == cost.F32_SPLIT_FLOP_PER_S and bf.rate == cost.BF16_FLOP_PER_S
 
 
 @pytest.mark.parametrize("kind,per_bf16,per_f32", [
