@@ -658,10 +658,11 @@ DECODE_ENTRY = r"decode_attention_kernelILi(\d+)ELi(\d+)E"
 DECODE_BUILDS = 20
 #: the serving forward, the forward with LSE, dK/dV and dQ at hd 16, 32, 64, 128
 FLASH_BUILDS = 16
-#: the float32 decode kernel, decode_f32_kernel<HD, KV> (a float32 or a
-#: bf16 cache), and the float32 flash kernels
-DECODE_F32_ENTRY = r"decode_f32_kernelILi(\d+)E(f|13__nv_bfloat16)E"
-DECODE_F32_BUILDS = 8
+#: the float32 decode kernel, decode_f32_kernel<HD, NREP, KV> (hd 16, 32,
+#: 64, 128; NREP 1, 2, 3, 4, 8; a float32 or a bf16 cache), and the float32
+#: flash kernels
+DECODE_F32_ENTRY = r"decode_f32_kernelILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E"
+DECODE_F32_BUILDS = 40
 FLASH_F32_KERNELS = {"flash_fwd_f32_kernel": 0, "flash_bwd_dkv_f32_kernel": 1,
                      "flash_bwd_dq_f32_kernel": 2}
 FLASH_F32_BUILDS = 16
@@ -679,7 +680,19 @@ def decode_build_report(log: str) -> dict:
 
 
 def decode_f32_label(m) -> str:
-    return f"decode_f32<{m.group(1)}, {elt_label(m.group(2))} cache>"
+    return f"decode_f32<{m.group(1)}, {m.group(2)}, {elt_label(m.group(3))} cache>"
+
+
+def decode_f32_build_report(log: str) -> dict:
+    """Per float32 decode kernel instantiation (``decode_f32<hd, nrep,
+    cache>``): :func:`ptxas_report` and the dynamic shared memory of a
+    block."""
+    import torch
+
+    return ptxas_report(log, DECODE_F32_ENTRY, decode_f32_label, lambda m: {
+        "smem_bytes": decode_plan(1, int(m.group(2)), 1, int(m.group(1)),
+                                  torch.float32 if m.group(3) == "f"
+                                  else torch.bfloat16)["smem_bytes"]})
 
 
 def flash_f32_build_report(log: str) -> dict:
@@ -738,7 +751,7 @@ BUILD_COLUMNS = {
     "flash_attention": "registers at entry, spilled bytes, dynamic shared memory",
     "decode_attention": "registers, spilled bytes, dynamic shared memory",
     "flash_attention_f32": "registers, spilled bytes, shared memory",
-    "decode_attention_f32": "registers, spilled bytes, shared memory",
+    "decode_attention_f32": "registers, spilled bytes, dynamic shared memory",
     "ssd": "registers, spilled bytes, dynamic shared memory at P = 64"}
 BUILD_COUNTS = {"rmsnorm": RMSNORM_BUILDS, "rmsnorm_bwd": RMSNORM_BWD_BUILDS,
                 "flash_attention": FLASH_BUILDS, "decode_attention": DECODE_BUILDS,
@@ -756,8 +769,7 @@ def build_reports(logs: dict[str, str]) -> tuple[dict[str, dict], list[str]]:
         "flash_attention": flash_build_report(logs["flash_attention"]),
         "decode_attention": decode_build_report(logs["decode_attention"]),
         "flash_attention_f32": flash_f32_build_report(logs["flash_attention_f32"]),
-        "decode_attention_f32": ptxas_report(logs["decode_attention_f32"],
-                                             DECODE_F32_ENTRY, decode_f32_label),
+        "decode_attention_f32": decode_f32_build_report(logs["decode_attention_f32"]),
         "ssd": ssd_build_report(logs["ssd"])}
     faults = []
     for name, report in reports.items():
@@ -931,9 +943,9 @@ def decode_replay_check(torch, fn, q, k, v, lens, label: str,
     return out
 
 
-def decode_plan(b: int, h: int, hkv: int, hd: int) -> dict:
+def decode_plan(b: int, h: int, hkv: int, hd: int, cache=None) -> dict:
     from repro_torch.kernels.decode_attention.ops import plan
-    return plan(b, h, hkv, hd)
+    return plan(b, h, hkv, hd, cache)
 
 
 def check_kernels(torch, timer) -> dict:

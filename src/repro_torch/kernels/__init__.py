@@ -7,7 +7,8 @@
                      and an apply launch each way (``gated_norm_*``).
   decode_attention — split-KV decode attention with exported LSE, reading
                      the cache in its model layout (``decode_attention_fwd``);
-                     float32 on the CUDA cores (``decode_attention_f32.cu``).
+                     float32 on the CUDA cores (``decode_attention_f32.cu``,
+                     the same split over the keys and cluster merge).
   flash_attention  — FlashAttention-2 on bf16 tensor cores, GQA, causal
                      or full: the serving forward (``flash_attention_fwd``),
                      the training forward with LSE
@@ -15,8 +16,8 @@
                      backward kernels (``flash_attention_bwd``), tied
                      together by ``flash_attention_train``; float32 at
                      float32 accuracy (``flash_attention_f32.cu``: the
-                     forward and dK/dV on the TF32 tensor cores, each
-                     operand split in two TF32 terms; dQ on the CUDA cores).
+                     forward, dK/dV and dQ on the TF32 tensor cores, each
+                     operand split in two TF32 terms).
   pricing          — the DSE price phase's elementwise column formulas, f64
                      bit-identical and f32 drift-banded (``run_columns``,
                      ``run_columns_f32``).

@@ -6,9 +6,10 @@ accuracy), each at head dims 16, 32, 64 and 128; any other dtype or head
 dim raises. A CPU tensor goes to the plain version in :mod:`.ref`. Each
 kernel is one launch per call that reads ``kv_len`` from device memory,
 so a call captured into a CUDA graph stays right while the position
-advances between replays; in the bfloat16 kernel the blocks of a head
-group split ``[0, kv_len)`` among themselves and merge their partials in
-the same launch, in the float32 one a block serves one query head.
+advances between replays; in both, a block serves every query head of a
+kv head (one read of K/V a group), the blocks of a head group split
+``[0, kv_len)`` among themselves and merge their partials in the same
+launch through a thread-block cluster.
 ``decode_attention.launches`` counts the kernels' executions
 (``.by_kind`` by dtype and head dim): one per eager call; a call made
 while a stream is captured adds to the graph's tally instead, which each
@@ -30,15 +31,15 @@ from .ref import decode_attention_ref
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
-_plans: dict[tuple, dict] = {}       # (B, H, Hkv, hd) -> the kernel's launch plan
+_plans: dict[tuple, dict] = {}       # (B, H, Hkv, hd, cache) -> the kernel's launch plan
 _scratch: dict[tuple, torch.Tensor] = {}  # (device, bytes) -> zeroed scratch
 
 
 def supports(hd: int, n_rep: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the kernels take head dim ``hd``, GQA group ``n_rep`` (H /
-    Hkv) and ``dtype``: in bfloat16 groups 1, 2, 3, 4 and 8 are compiled as
-    they are, any other runs in chunks of 8 query heads per head group; in
-    float32 a block serves one query head, so any group."""
+    Hkv) and ``dtype``: in both dtypes groups 1, 2, 3, 4 and 8 are compiled
+    as they are, any other runs in chunks of 8 query heads per head group,
+    so any group."""
     return hd in _HEAD_DIMS and n_rep >= 1 and dtype in _DTYPES
 
 
@@ -53,13 +54,23 @@ def check_kv_len(kv_len: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"decode_attention: kv_len on {kv_len.device}, q on {device}")
 
 
-def plan(b: int, h: int, hkv: int, hd: int) -> dict:
+def plan(b: int, h: int, hkv: int, hd: int, cache: torch.dtype | None = None) -> dict:
     """The launch a call at this shape makes on the card, whatever kv_len:
     ``n_split`` blocks per head group (the cluster size), ``groups`` head
     groups, ``smem_bytes`` per block, ``cluster`` (the merge), the
     ``scratch_bytes`` the counter merge needs (0 for the cluster) and the
-    ``clusters`` of that size the card runs at once. Cached per shape."""
-    key = (b, h, hkv, hd)
+    ``clusters`` of that size the card runs at once. ``cache`` None: the
+    bfloat16 kernel; a dtype: the float32 kernel over a cache of that dtype
+    (float32 or bfloat16). Cached per shape."""
+    key = (b, h, hkv, hd, cache)
+    if cache is not None and key not in _plans:
+        info = (ctypes.c_int64 * 4)()
+        fn = _build.bind("decode_attention_f32", "decode_attention_f32_plan",
+                         [*[ctypes.c_int] * 5, ctypes.POINTER(ctypes.c_int64)])
+        _build.check("decode_attention_f32",
+                     fn(b, h, hkv, hd, int(cache == torch.bfloat16), info))
+        _plans[key] = dict(n_split=info[0], groups=info[1], smem_bytes=info[2],
+                           cluster=True, scratch_bytes=0, clusters=info[3])
     if key not in _plans:
         info = (ctypes.c_int64 * 6)()
         fn = _build.bind("decode_attention", "decode_attention_plan",

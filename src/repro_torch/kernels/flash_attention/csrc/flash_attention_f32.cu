@@ -35,12 +35,12 @@
 // Bound on this card: operations, at the split rate of the TF32 tensor
 // cores (495 / 3 = 165 TFLOP/s of f32 products): a causal (4, 16, 2048,
 // 128) forward with LSE is 68.7 GFLOP, 0.42 ms (kernels/cost.py), against
-// 1.03 ms at the 67 TFLOP/s of the CUDA cores (FMA tiles, as dQ's below).
+// 1.03 ms at the 67 TFLOP/s of the CUDA cores.
 // Besides the three mma a product, every operand fragment is split in
 // registers (five integer or f32 instructions an element), so the issue
 // slots, not the tensor cores alone, set the pace.
 //
-// Design of the forward and dK/dV (dQ keeps the CUDA-core design below):
+// Design of the three kernels:
 // * mma.sync m16n8k8, not wgmma: wgmma's TF32 form takes both operands
 //   K-major from shared memory (A may come from registers), so P V and the
 //   backward's products would want V, dO and Q transposed, and pre-split
@@ -63,6 +63,13 @@
 //   log2 domain (exp2f), each row's max and sum over the 4 lanes that hold
 //   it; a warp skips a tile wholly right of its rows. Grid (B H, query
 //   tiles), the longest rows first over all heads.
+// * dQ: the forward's layout, 16 query rows a warp; Q and dO resident, each
+//   row's LSE and D in registers; K and V tiles through the ring (32 keys a
+//   tile at hd 128, 64 below: two stages of 64 would not fit beside Q and dO);
+//   S, P, dP and dS stay in registers; dQ += dS K reads K's rows in load_b's
+//   order from the tile S = Q K^T read by load_bt, so K is loaded once; dQ
+//   summed in a fixed order, no atomics, and written once, times scale. Grid
+//   (B H, query tiles), the queries with the most keys first over all heads.
 // * dK/dV: one block of 8 warps per 128 keys of one (batch, kv head), 16
 //   keys a warp; K and V resident; Q, dO and the tile's LSE and D through
 //   the ring, tile after tile over every query head of the group (32
@@ -75,20 +82,19 @@
 //   query of a GQA-4 group at 2048 nears the 2e-4 tolerance
 //   (tools/flash_f32_compare.py, variant one-chain). Each tile's products
 //   are summed in fresh accumulators and added by f32 FMAs (tile_product)
-//   to O, with the softmax's rescale, or to dK and dV, 4 column blocks of
-//   8 at a time (2 or 8 spill: variants dkv-cw2 and dkv-cw8).
+//   to O, with the softmax's rescale, or to dQ, all column blocks at once,
+//   or to dK and dV, 4 column blocks of 8 at a time (2 or 8 spill: variants
+//   dkv-cw2 and dkv-cw8).
 // * The rounding is the integer form: cvt.rna.tf32.f32 gives the same bits
 //   and takes longer (variant cvt).
 // * ptxas (sm_90a; registers, no spill; dynamic shared memory): forward
 //   250 / 186 / 155 / 151 registers with the LSE at hd 128 / 64 / 32 / 16
 //   (250 / 184 / 153 / 128 without), 202,752 / 104,448 / 55,296 / 30,720
 //   bytes; dK/dV 255 / 255 / 208 / 168, 203,264 / 140,288 / 74,752 /
-//   41,984 bytes: one block of 8 warps an SM at hd 128.
-//
-// dQ (flash_bwd_dq_f32_kernel) keeps a simple CUDA-core design: FMA
-// tiles, FA-2 loops, 64 x 64 tiles, 256 threads each holding 4 x 4 scores,
-// the operands of A B^T transposed in shared memory; the dQ kernel walks the
-// keys of its 64 queries. Its split-TF32 redesign is later work.
+//   41,984 bytes; dQ 223 / 213 / 192 / 186, 202,752 / 139,264 / 73,728 /
+//   40,960 bytes: one block of 8 warps an SM at hd 128. dQ's fresh
+//   accumulators over all column blocks at once read 1 % faster than 4 or 8
+//   at a time (variants dq-cw4, dq-cw8; H100 80GB HBM3, 700 W).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -97,9 +103,7 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int THREADS = 256;  // every kernel: 8 warps (dQ: a 16 x 16 grid of threads)
-constexpr int BT = 64;        // dQ: rows of every tile, 64 queries or 64 keys
-constexpr int LDT = BT + 4;   // dQ: floats a row of a transposed tile (rows on 16 bytes)
+constexpr int THREADS = 256;  // every kernel: 8 warps
 
 struct Str3 {  // element strides of a (B, heads, S, hd) tensor
   int64_t b, h, s;
@@ -513,127 +517,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// --------------------------- dQ, on the CUDA cores ----------------------------
+// --------------------------------- dQ ----------------------------------------
 template <int HD>
-struct Tiles {
+struct Dq {
   static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "hd in {16, 32, 64, 128}");
-  static constexpr int CPT = HD / 16;        // output columns a thread
-  static constexpr int T_FLOATS = HD * LDT;  // a transposed (hd x 64) tile
-  static constexpr int M_FLOATS = BT * HD;   // a row-major (64 x hd) tile
-  static constexpr int P_FLOATS = BT * LDT;  // a 64 x 64 tile, transposed
-  static constexpr int DQ = 4 * (4 * T_FLOATS + M_FLOATS + P_FLOATS);  // bytes
+  static constexpr int BM = 128;                   // query rows a block, 16 a warp
+  static constexpr int BN = HD == 128 ? 32 : 64;   // keys a tile (shared memory at hd 128)
+  static constexpr int LD = HD + 4;                // floats a tile row
+  static constexpr int CW = HD / 8;                // 8-column blocks of dQ a chunk: all
+  static constexpr int KV = BN * LD;               // floats of a K or V tile
+  static constexpr int SMEM = 4 * (2 * BM * LD + 2 * 2 * KV);  // Q, dO, two stages of K and V
 };
 
-// Rows [r0, r0 + 64) of one head (base: its row 0, ss its row stride) of
-// a view with n rows, rows past n as zeros, into shared memory: transposed
-// (t[d * LDT + r]; consecutive threads take consecutive rows, so the
-// stores meet distinct banks) and/or row-major (m[r * HD + d]).
-template <int HD>
-__device__ __forceinline__ void load_tile(const float* __restrict__ base, int64_t ss, int r0,
-                                          int n, float* t, float* m) {
-  constexpr int C4 = HD / 4;  // 16-byte vectors a row
-  for (int i = threadIdx.x; t && i < BT * C4; i += THREADS) {
-    const int r = i % BT, c = i / BT * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = *reinterpret_cast<const float4*>(base + (int64_t)(r0 + r) * ss + c);
-    t[(c + 0) * LDT + r] = x.x;
-    t[(c + 1) * LDT + r] = x.y;
-    t[(c + 2) * LDT + r] = x.z;
-    t[(c + 3) * LDT + r] = x.w;
-  }
-  for (int i = threadIdx.x; m && i < BT * C4; i += THREADS) {
-    const int r = i / C4, c = i % C4 * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = *reinterpret_cast<const float4*>(base + (int64_t)(r0 + r) * ss + c);
-    *reinterpret_cast<float4*>(m + r * HD + c) = x;
-  }
-}
-
-__device__ __forceinline__ void unpack4(const float4& x, float (&a)[4]) {
-  a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
-}
-
-// acc[i][j] += sum_d a[d][ra + i] b[d][cb + j]: a and b transposed tiles.
-template <int HD>
-__device__ __forceinline__ void product_abt(float (&acc)[4][4], const float* a, const float* b,
-                                            int ra, int cb) {
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float x[4], y[4];
-    unpack4(*reinterpret_cast<const float4*>(a + d * LDT + ra), x);
-    unpack4(*reinterpret_cast<const float4*>(b + d * LDT + cb), y);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// CPT consecutive floats from shared memory (aligned to their size).
-template <int CPT>
-__device__ __forceinline__ void load_cols(const float* src, float (&y)[CPT]) {
-  if constexpr (CPT % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < CPT / 4; ++u) {
-      float x[4];
-      unpack4(reinterpret_cast<const float4*>(src)[u], x);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) y[4 * u + e] = x[e];
-    }
-  } else if constexpr (CPT == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    y[0] = x.x, y[1] = x.y;
-  } else {
-    y[0] = *src;
-  }
-}
-
-// acc[i][c] += sum_k p[k][rp + i] m[k][cm + c]: p a transposed 64 x 64
-// tile (p[k * LDT + row]), m a row-major (64 x hd) tile.
-template <int HD>
-__device__ __forceinline__ void product_pm(float (&acc)[4][HD / 16], const float* p,
-                                           const float* m, int rp, int cm) {
-  constexpr int CPT = HD / 16;
-#pragma unroll 4
-  for (int k = 0; k < BT; ++k) {
-    float x[4], y[CPT];
-    unpack4(*reinterpret_cast<const float4*>(p + k * LDT + rp), x);
-    load_cols<CPT>(m + k * HD + cm, y);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(x[i], y[c], acc[i][c]);
-  }
-}
-
-// Column j of a thread's 4 x 4 block, written as row 4 tx + j of the
-// transposed tile t (t[(4 tx + j) * LDT + 4 ty + i] = v[i][j]).
-__device__ __forceinline__ void store_transposed(float* t, const float (&v)[4][4], int r0,
-                                                 int c0) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(t + (c0 + j) * LDT + r0) =
-        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-}
-
-// Write rows row0 .. row0 + 3 of a thread's outputs (columns cc .. cc +
-// CPT - 1) times mul; rows at or past n are not written.
-template <int HD>
-__device__ __forceinline__ void store_rows(float* base, int64_t ss, const float (&acc)[4][HD / 16],
-                                           int row0, int n, int cc, float mul) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (row0 + i < n) {
-      float* out = base + (int64_t)(row0 + i) * ss + cc;
-#pragma unroll
-      for (int c = 0; c < HD / 16; ++c) out[c] = acc[i][c] * mul;
-    }
-  }
-}
-
-// dQ: 64 query rows of one (batch, head), Q and dO resident (transposed);
-// for each 64-key tile S = Q K^T, dP = dO V^T, P = exp2(S scale log2 e -
-// LSE log2 e) masked, dS = P (dP - D), dQ += dS K.
+// dQ: 128 query rows of one (batch, head), Q and dO resident, each row's LSE
+// and D in registers; for each key tile at or left of the diagonal S = Q
+// K^T, dP = dO V^T, P = exp2(S scale log2 e - LSE log2 e) masked, dS = P (dP
+// - D), dQ += dS K.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -641,59 +540,101 @@ __global__ void __launch_bounds__(THREADS, 1)
                             const float* __restrict__ lse, const float* __restrict__ dd,
                             float* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int causal,
                             float scale, Str3 qs, Str3 ks, Str3 vs, Str3 dos, Str3 dqs) {
-  using G = Tiles<HD>;
-  constexpr int CPT = G::CPT;
+  using G = Dq<HD>;
+  constexpr int LD = G::LD, NI = HD / 8, NJ = G::BN / 8;
   extern __shared__ float4 dq_smem[];
-  float* Qt = reinterpret_cast<float*>(dq_smem);
-  float* dOt = Qt + G::T_FLOATS;
-  float* Kt = dOt + G::T_FLOATS;
-  float* Vt = Kt + G::T_FLOATS;
-  float* Km = Vt + G::T_FLOATS;
-  float* dSt = Km + G::M_FLOATS;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;  // the most keys first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = 4 * ty, c0 = 4 * tx, cc = CPT * tx;
+  float* Qs = reinterpret_cast<float*>(dq_smem);
+  float* dOs = Qs + G::BM * LD;
+  float* ring = dOs + G::BM * LD;  // stage s: K at ring + 2 s KV, V after it
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / Hkv);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * G::BM;  // the most keys first
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  const int wr = 16 * warp;                       // the warp's first row in the tile
+  const int rows[2] = {m0 + wr + g, m0 + wr + g + 8};  // the thread's two rows
   const float scale_log2 = scale * LOG2E;
-  load_tile<HD>(q + b * qs.b + h * qs.h, qs.s, m0, Sq, Qt, nullptr);
-  load_tile<HD>(dout + b * dos.b + h * dos.h, dos.s, m0, Sq, dOt, nullptr);
   const float* kb = k + b * ks.b + kvh * ks.h;
   const float* vb = v + b * vs.b + kvh * vs.h;
-  float lse2[4], Dr[4], dqa[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // rows past Sq: zero Q and dO give dS = 0
-    const int row = m0 + r0 + i;
-    const bool ok = row < Sq;
-    lse2[i] = ok ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
-    Dr[i] = ok ? dd[(int64_t)bh * Sq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dqa[i][c] = 0.f;
+  const int n_end = causal ? min(Sk, m0 + G::BM) : Sk;
+  const int tiles = (n_end + G::BN - 1) / G::BN;
+  copy_rows<HD, G::BM>(Qs, q + b * qs.b + h * qs.h, qs.s, m0, Sq);
+  copy_rows<HD, G::BM>(dOs, dout + b * dos.b + h * dos.h, dos.s, m0, Sq);
+  if (tiles > 0) {
+    copy_rows<HD, G::BN>(ring, kb, ks.s, 0, Sk);
+    copy_rows<HD, G::BN>(ring + G::KV, vb, vs.s, 0, Sk);
   }
-  const int n_end = causal ? min(Sk, m0 + BT) : Sk;
-  for (int n0 = 0; n0 < n_end; n0 += BT) {
-    __syncthreads();  // the previous tile's dS K is done
-    load_tile<HD>(kb, ks.s, n0, Sk, Kt, Km);
-    load_tile<HD>(vb, vs.s, n0, Sk, Vt, nullptr);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    product_abt<HD>(s, Qt, Kt, r0, c0);
-    product_abt<HD>(dp, dOt, Vt, r0, c0);
+  cp_async_commit();
+  // rows past Sq: zero Q and dO give dS = 0
+  float lse2[2], drow[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + r0 + i;
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < Sq;
+    lse2[r] = ok ? lse[(int64_t)bh * Sq + rows[r]] * LOG2E : 0.f;
+    drow[r] = ok ? dd[(int64_t)bh * Sq + rows[r]] : 0.f;
+  }
+
+  float dqa[NI][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = n0 + c0 + j;
-        const bool vis = key < Sk && (!causal || key <= row);
-        const float p = vis ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.f;
-        dp[i][j] = p * (dp[i][j] - Dr[i]);
-      }
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+  for (int it = 0; it < tiles; ++it) {
+    const int n0 = it * G::BN;
+    if (it + 1 < tiles) {
+      float* next = ring + ((it + 1) & 1) * 2 * G::KV;
+      copy_rows<HD, G::BN>(next, kb, ks.s, n0 + G::BN, Sk);
+      copy_rows<HD, G::BN>(next + G::KV, vb, vs.s, n0 + G::BN, Sk);
     }
-    store_transposed(dSt, dp, r0, c0);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) arrived; the next one may be in flight
     __syncthreads();
-    product_pm<HD>(dqa, dSt, Km, r0, cc);
+    const float* Ks = ring + (it & 1) * 2 * G::KV;
+    const float* Vs = Ks + G::KV;
+    if (!causal || n0 <= m0 + wr + 15) {  // else every key of the tile is right of the warp's rows
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 8) {
+        const FragA aq = load_a(Qs, LD, wr, kk, g, c);
+        const FragA ad = load_a(dOs, LD, wr, kk, g, c);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma3(s[j], aq, load_bt(Ks, LD, 8 * j, kk, g, c));
+          mma3(dp[j], ad, load_bt(Vs, LD, 8 * j, kk, g, c));
+        }
+      }
+      // element e of a tile is row e / 2, key 2c + e % 2
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = n0 + 8 * j + 2 * c + (e & 1);
+          const bool vis = key < Sk && (!causal || key <= rows[e / 2]);
+          const float p = vis ? exp2f(fmaf(s[j][e], scale_log2, -lse2[e / 2])) : 0.f;
+          dp[j][e] = p * (dp[j][e] - drow[e / 2]);
+        }
+      // dQ += dS K, dS split once straight from the accumulators
+      const float one[2] = {1.f, 1.f};
+      FragA fa[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) fa[j] = acc_as_a(dp[j]);
+      tile_product<NI, NJ, G::CW, LD>(dqa, fa, Ks, g, c, one);
+    }
+    __syncthreads();  // this stage is free for the copy two tiles on
   }
-  store_rows<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, dqa, m0 + r0, Sq, cc, scale);
+  cp_async_wait<0>();
+  float* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Sq) continue;
+    float* out = dqb + (int64_t)rows[r] * dqs.s + 2 * c;
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      *reinterpret_cast<float2*>(out + 8 * i) =
+          make_float2(dqa[i][2 * r] * scale, dqa[i][2 * r + 1] * scale);
+  }
 }
 
 // Raise a kernel's dynamic shared memory limit, once per process (so never
@@ -736,7 +677,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       cudaStream_t stream) {
   static bool configured = false;
   auto kernel = flash_bwd_dq_f32_kernel<HD>;
-  cudaError_t err = allow_smem(kernel, Tiles<HD>::DQ, configured);
+  cudaError_t err = allow_smem(kernel, Dq<HD>::SMEM, configured);
   if (err != cudaSuccess) return err;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -747,8 +688,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
        dqs = str3(st + 12);
   void* args[] = {&qf, &kf, &vf, &df, &lse, &dd, &dqf, &H, &Hkv, &Sq, &Sk, &causal, &scale,
                   &qs, &ks, &vs, &dos, &dqs};
-  err = cudaLaunchKernel((const void*)kernel, dim3((Sq + BT - 1) / BT, B * H), dim3(THREADS),
-                         args, Tiles<HD>::DQ, stream);
+  const dim3 grid(B * H, (Sq + Dq<HD>::BM - 1) / Dq<HD>::BM);
+  err = cudaLaunchKernel((const void*)kernel, grid, dim3(THREADS), args, Dq<HD>::SMEM, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -846,7 +787,7 @@ int flash_attention_f32_bwd_dq(const void* q, const void* k, const void* v, cons
 // Dynamic shared memory a launch takes, in bytes: kernel 0 the forward
 // (with or without LSE), 1 dK/dV, 2 dQ; 0 for another hd.
 int flash_attention_f32_smem_bytes(int kernel, int hd) {
-#define CALL(HD) kernel == 0 ? Fwd<HD>::SMEM : kernel == 1 ? Dkv<HD>::SMEM : Tiles<HD>::DQ
+#define CALL(HD) kernel == 0 ? Fwd<HD>::SMEM : kernel == 1 ? Dkv<HD>::SMEM : Dq<HD>::SMEM
   switch (hd) {
     case 16: return CALL(16);
     case 32: return CALL(32);

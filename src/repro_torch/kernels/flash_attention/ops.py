@@ -4,9 +4,10 @@ LSE, and the two backward kernels, tied together for training by
 
 A CUDA tensor goes to the kernels: bfloat16 to ``csrc/flash_attention.cu``
 (tensor cores), float32 to ``csrc/flash_attention_f32.cu`` (at float32
-accuracy: the forward and dK/dV on the TF32 tensor cores with each operand
-split in two TF32 terms, dQ on the CUDA cores), each at head dims 16, 32, 64
-and 128; any other dtype or head dim raises. A CPU tensor goes to the plain versions in :mod:`.ref`.
+accuracy: the forward, dK/dV and dQ on the TF32 tensor cores with each
+operand split in two TF32 terms), each at head dims 16, 32, 64 and 128; any
+other dtype or head dim raises. A CPU tensor goes to the plain versions in
+:mod:`.ref`.
 Each kernel's wrapper counts its launches in ``<wrapper>.launches``, and by
 instantiation (``"bf16/hd128"``, ``"f32/hd16"``, ...) in
 ``<wrapper>.by_kind``.

@@ -1,17 +1,19 @@
 """The float32 attention kernels' arithmetic, split TF32, emulated on the CPU.
 
-``flash_attention_f32.cu`` computes the forward's and dK/dV's float32
+``flash_attention_f32.cu`` computes the forward's, dK/dV's and dQ's float32
 products on the tensor cores: each operand a = hi + lo, hi = a rounded to
 TF32 to nearest with ties away from zero (``cvt.rna.tf32.f32``, done on the
 bits), lo = a - hi rounded alike, and a b = hi hi + hi lo + lo hi, three
 TF32 products accumulated in f32 (lo lo dropped). No CUDA kernel runs here,
 so this file emulates that arithmetic in plain PyTorch: the rounding on the
-bits, the three-term product, and the forward with LSE and dK/dV computed
-through it in float32. It holds the emulation against the reference's
-Pallas kernels in interpret mode and against float64 at the reference's
-float32 tolerances (2e-5 forward, 2e-4 backward: tests/test_kernels.py,
-tests/test_flash_backward.py), and shows that plain TF32 (hi hi alone)
-misses 2e-5, so the check can see the split. Nothing on a path calls the
+bits, the three-term product, and the forward with LSE, dK/dV and dQ (tile
+by tile over the kernel's key tiles, each tile's product in a fresh
+accumulator) computed through it in float32. It holds the emulation against
+the reference's Pallas kernels in interpret mode and against float64 at the
+reference's float32 tolerances (2e-5 forward, 2e-4 backward:
+tests/test_kernels.py, tests/test_flash_backward.py), and shows that plain
+TF32 (hi hi alone) misses 2e-5 in the forward and 2e-4 in dQ, so the checks
+can see the split. Nothing on a path calls the
 emulation; the kernels themselves are held to their plain versions on the
 card (``chip_smoke.py`` phase 3).
 """
@@ -118,6 +120,35 @@ def bwd_dkv_split(q, k, v, do, lse, dd, causal: bool, terms: int = 3):
     return (dk.view(b, hkv, n_rep, -1, hd).sum(2), dv.view(b, hkv, n_rep, -1, hd).sum(2))
 
 
+def dq_key_tile(hd: int) -> int:
+    """Keys a tile of ``flash_bwd_dq_f32_kernel`` (``Dq<HD>::BN``): 32 at hd
+    128, where two stages of 64 would not fit beside Q and dO, else 64."""
+    return 32 if hd == 128 else 64
+
+
+def bwd_dq_split(q, k, v, do, lse, dd, causal: bool, terms: int = 3):
+    """dQ as the kernel computes it: S = Q Kᵀ and dP = dO Vᵀ through
+    :func:`mm`, P = exp2(S scale log2 e - lse log2 e) masked, dS = P (dP -
+    D); dQ summed over the kernel's key tiles in order, each tile's dS K
+    through :func:`mm` in a fresh accumulator and added in f32; times scale
+    once at the end."""
+    hd = q.shape[-1]
+    n_rep = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(n_rep, 1) for t in (k, v))
+    scale = 1.0 / math.sqrt(hd)
+    s = mm(q, kr.transpose(-1, -2), terms)
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    vis = _mask(q.shape[2], k.shape[2], causal)
+    if vis is not None:
+        p = torch.where(vis, p, torch.zeros_like(p))
+    ds = p * (mm(do, vr.transpose(-1, -2), terms) - dd[..., None])
+    bn = dq_key_tile(hd)
+    dq = torch.zeros_like(q)
+    for n0 in range(0, k.shape[2], bn):
+        dq = dq + mm(ds[..., n0:n0 + bn], kr[..., n0:n0 + bn, :], terms)
+    return dq * scale
+
+
 # ------------------------------ float64 ---------------------------------------
 def fwd_lse_f64(q, k, v, causal: bool):
     q, k, v = (t.double() for t in (q, k, v))
@@ -131,7 +162,8 @@ def fwd_lse_f64(q, k, v, causal: bool):
     return torch.exp(s - lse[..., None]) @ vr, lse
 
 
-def bwd_dkv_f64(q, k, v, do, causal: bool):
+def bwd_f64(q, k, v, do, causal: bool):
+    """(dq, dk, dv) in float64."""
     q, k, v, do = (t.double() for t in (q, k, v, do))
     o, lse = fwd_lse_f64(q, k, v, causal)
     b, h, sq, hd = q.shape
@@ -146,7 +178,8 @@ def bwd_dkv_f64(q, k, v, do, causal: bool):
     ds = p * (do @ vr.transpose(-1, -2) - (do * o).sum(-1, keepdim=True))
     dv = p.transpose(-1, -2) @ do
     dk = ds.transpose(-1, -2) @ q / math.sqrt(hd)
-    return (dk.view(b, hkv, n_rep, -1, hd).sum(2), dv.view(b, hkv, n_rep, -1, hd).sum(2))
+    return (ds @ kr / math.sqrt(hd), dk.view(b, hkv, n_rep, -1, hd).sum(2),
+            dv.view(b, hkv, n_rep, -1, hd).sum(2))
 
 
 def _inputs(b, h, hkv, sq, sk, hd, seed=28):
@@ -230,7 +263,7 @@ def test_split_dkv_matches_pallas_and_f64(b, h, hkv, sq, sk, causal, hd):
     dk, dv = bwd_dkv_split(*map(torch.from_numpy, (q, k, v, do)), lse, dd, causal)
     np.testing.assert_allclose(dk.numpy(), np.asarray(jdk), **BWD_TOL)
     np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), **BWD_TOL)
-    dk64, dv64 = bwd_dkv_f64(*map(torch.from_numpy, (q, k, v, do)), causal)
+    _, dk64, dv64 = bwd_f64(*map(torch.from_numpy, (q, k, v, do)), causal)
     np.testing.assert_allclose(dk.numpy(), dk64.numpy(), **BWD_TOL)
     np.testing.assert_allclose(dv.numpy(), dv64.numpy(), **BWD_TOL)
 
@@ -250,3 +283,42 @@ def test_plain_tf32_misses_the_forward_tolerance(hd):
     assert split_err <= 1.0 < 4.0 <= plain_err, (split_err, plain_err)
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(o1.numpy(), o64.numpy(), **FWD_TOL)
+
+
+def _dq_case(b, h, hkv, sq, sk, causal, hd):
+    """The inputs, the Pallas forward's o and LSE, D = rowsum(dO o), the
+    Pallas backward's dQ and the float64 dQ."""
+    q, k, v, do = _inputs(b, h, hkv, sq, sk, hd)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = pallas_fwd_lse(jq, jk, jv, causal=causal, interpret=True)
+    jdq, _, _ = pallas_bwd(jq, jk, jv, jo, jlse, jdo, causal=causal, interpret=True)
+    o, lse = torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jlse))
+    dd = (torch.from_numpy(do) * o).sum(-1)
+    dq64, _, _ = bwd_f64(*map(torch.from_numpy, (q, k, v, do)), causal)
+    return tuple(map(torch.from_numpy, (q, k, v, do))), lse, dd, np.asarray(jdq), dq64
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", CASES)
+def test_split_dq_matches_pallas_and_f64(b, h, hkv, sq, sk, causal, hd):
+    """dQ through the split, tile by tile over the kernel's key tiles in
+    fresh accumulators, from the Pallas forward's LSE, against the Pallas
+    backward in interpret mode and float64 at 2e-4."""
+    (q, k, v, do), lse, dd, jdq, dq64 = _dq_case(b, h, hkv, sq, sk, causal, hd)
+    dq = bwd_dq_split(q, k, v, do, lse, dd, causal)
+    np.testing.assert_allclose(dq.numpy(), jdq, **BWD_TOL)
+    np.testing.assert_allclose(dq.numpy(), dq64.numpy(), **BWD_TOL)
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+def test_plain_tf32_misses_the_dq_tolerance(hd):
+    """The control for dQ: with hi hi alone (plain TF32) in S, dP and dS K,
+    dQ is outside 2e-4 of float64, where the split is inside it."""
+    b, h, hkv, sq, sk, causal = CASES[1]
+    (q, k, v, do), lse, dd, _, dq64 = _dq_case(b, h, hkv, sq, sk, causal, hd)
+    split_err = _scaled_err(bwd_dq_split(q, k, v, do, lse, dd, causal), dq64, **BWD_TOL)
+    plain = bwd_dq_split(q, k, v, do, lse, dd, causal, terms=1)
+    plain_err = _scaled_err(plain, dq64, **BWD_TOL)
+    assert split_err <= 1.0 < plain_err, (split_err, plain_err)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(plain.numpy(), dq64.numpy(), **BWD_TOL)

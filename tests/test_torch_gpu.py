@@ -27,7 +27,10 @@ versions within 2e-2 of the largest value; the engine serves a memory
 through its captured graph. The kernels' contract: hd 16 in bf16 as the
 bf16 cases are held, float32 at the reference's 2e-5 (forward) and 2e-4
 (backward), decode over a float32 model's bf16 cache, RMSNorm and its
-backward in float32; float16 and hd 8 raise. Without a card every
+backward in float32; float16 and hd 8 raise. The float32 decode kernel is
+also replayed from one captured launch with kv_len changed on the card, and
+the float32 dQ, forward and dK/dV hold their tolerances with the backward's
+bits the same across two calls. Without a card every
 test here skips. Run them on a card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1009,3 +1012,79 @@ def test_rmsnorm_kernels_take_float32(cuda, rows, d, kind):
     for a, b_ in zip(got, want):
         if b_ is not None:
             _allclose(a, b_, F32_BWD)
+
+
+# --------------------- the float32 decode and dQ redesign ---------------------
+@pytest.mark.parametrize("b,h,hkv,s,hd,cache", [
+    (1, 32, 8, 2081, 128, torch.bfloat16),   # mistral_nemo_12b in float32
+    (1, 32, 8, 2081, 128, torch.float32),
+    (4, 8, 2, 2081, 16, torch.bfloat16),     # the hd-16 SMOKE configs' heads
+    (2, 10, 2, 300, 64, torch.float32),      # group 5: one chunk of 5 heads
+    (2, 24, 8, 90, 32, torch.bfloat16)])     # group 3
+def test_decode_f32_kernel_replayed_with_kv_len_changed_on_the_card(cuda, b, h, hkv, s, hd,
+                                                                    cache):
+    """The float32 decode kernel (a block per head group, the keys split
+    over a cluster) captured once with a device kv_len and replayed at 0, 1,
+    ragged, half, S and past S: each replay within 2e-5 of the plain
+    version (kv_len 0: o = 0, lse = -1e30), one launch counted a replay."""
+    from repro_torch.kernels._build import CountedGraph
+    g = torch.Generator(device=cuda).manual_seed(29)
+    q = torch.randn(b, h, hd, generator=g, device=cuda)
+    k = torch.randn(b, s, hkv, hd, generator=g, device=cuda).to(cache).transpose(1, 2)
+    v = torch.randn(b, s, hkv, hd, generator=g, device=cuda).to(cache).transpose(1, 2)
+    kl = torch.full((1,), 7, dtype=torch.int32, device=cuda)
+    o, lse = decode_attention(q, k, v, kl)      # eagerly first (builds the kernel)
+    orf, lser = decode_attention_ref(q, k, v, 7, return_lse=True)
+    _allclose(o, orf, F32)
+    _allclose(lse, lser, F32)
+    graph = CountedGraph()
+    with graph.capture():
+        o, lse = decode_attention(q, k, v, kl)
+    n = decode_attention.launches
+    for i, kv_len in enumerate((0, 1, 37, s // 2, s, s + 50)):
+        kl.fill_(kv_len)
+        graph.replay()
+        assert decode_attention.launches == n + i + 1
+        if kv_len == 0:
+            assert bool((o == 0).all()) and bool((lse == -1e30).all())
+            continue
+        orf, lser = decode_attention_ref(q, k, v, min(kv_len, s), return_lse=True)
+        _allclose(o, orf, F32)
+        _allclose(lse, lser, F32)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,hd,causal", [
+    (1, 16, 16, 1024, 1024, 128, True),   # olmo_1b's heads
+    (2, 8, 2, 300, 300, 64, True),        # GQA 4, ragged
+    (1, 6, 2, 129, 129, 16, True),        # group 3, a tile edge
+    (1, 8, 2, 70, 130, 32, False),        # Sq < Sk, no mask
+    (1, 4, 2, 300, 129, 128, True)])      # Sq > Sk, causal
+def test_f32_backward_and_forward_hold_with_the_same_bits(cuda, b, h, hkv, sq, sk, hd,
+                                                          causal):
+    """The float32 dQ (split TF32) within 2e-4 of its plain version, the
+    forward with LSE within 2e-5 and dK/dV within 2e-4, each counted once
+    by kind, and two calls of dQ and of dK/dV the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).transpose(1, 2)
+    q, k, v, do = randn(b, sq, h, hd), randn(b, sk, hkv, hd), randn(b, sk, hkv, hd), \
+        randn(b, sq, h, hd)
+    reset_launches()
+    o, lse = flash_attention_fwd_lse(q, k, v, causal)
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    _allclose(o, orf, F32)
+    _allclose(lse, lser, F32)
+    dd = attention_delta(orf, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    kind = f"f32/hd{hd}"
+    assert flash_attention_bwd_dq.by_kind == {kind: 1} and dq.dtype == torch.float32
+    assert flash_attention_bwd_dkv.by_kind == {kind: 1}
+    _allclose(dq, flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal), F32_BWD)
+    dkr, dvr = flash_attention_bwd_dkv_ref(q, k, v, do, lser, dd, causal)
+    _allclose(dk, dkr, F32_BWD)
+    _allclose(dv, dvr, F32_BWD)
+    assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, lser, dd, causal))
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
