@@ -25,9 +25,9 @@ Phases, each fatal on failure:
      (sm_90a), one process per source (the float32 attention kernels'
      sources among them), and a small measurement helper (PROBE_SOURCE),
      all in parallel, printing ``-Xptxas -v``; every RMSNorm (bf16 and
-     float32), flash-attention and decode (hd 16, 32, 64, 128; bf16 and
-     float32) and SSD instantiation's registers, spills (none allowed) and
-     shared memory;
+     float32; the split-row launches' at each gate width), flash-attention
+     and decode (hd 16, 32, 64, 128; bf16 and float32) and SSD
+     instantiation's registers, spills (none allowed) and shared memory;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at ragged ones, with its time, the plain
      version's, one PyTorch library call's (where one exists) and the least
@@ -76,7 +76,8 @@ Phases, each fatal on failure:
      cache halved, the block full, empty and ragged), its LSE also held
      against the plain version's; the gated norm over rows split across
      ranks (RMSNORM_SPLIT_SHAPES: Mamba2's and Jamba's rank blocks at
-     their serving shapes, ragged and odd widths): each statistic and
+     their serving shapes, ragged and odd widths, gates on 2, 4, 8 and 16
+     bytes): each statistic and
      apply launch, forward and backward, against its plain version, and
      the blocks put together against the one-launch norm and its
      backward, each timed beside its bound; then the contract's further
@@ -652,6 +653,24 @@ def rmsnorm_bwd_label(m) -> str:
             f"{', gated' if m.group(5) == '1' else ''}>")
 
 
+#: Mangled entry names of the split-row norm's kernels (rmsnorm_split.cu):
+#: split_{stat,apply,bwd_stat,bwd_apply}_kernel<Elt, VE, ZB> and
+#: split_dw_kernel, which sums dw's per-block shares.
+RMSNORM_SPLIT_ENTRY = (r"split_(?:(bwd_)?(stat|apply)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E"
+                       r"|dw_kernel)")
+#: its instantiations: each of the four kernels on 16-byte vectors with the
+#: gate in 16-, 8-, 4- and (bf16) 2-byte loads, and on the scalar path, in
+#: bf16 and float32 (4 x (5 + 4)), and the dw kernel
+RMSNORM_SPLIT_BUILDS = 37
+
+
+def rmsnorm_split_label(m) -> str:
+    if m.group(2) is None:
+        return "split_dw"
+    return (f"split_{m.group(1) or ''}{m.group(2)}<{elt_label(m.group(3))}, "
+            f"ve {m.group(4)}, gate {m.group(5)} B>")
+
+
 #: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
 DECODE_ENTRY = r"decode_attention_kernelILi(\d+)ELi(\d+)E"
 #: its instantiations: hd 16, 32, 64, 128, each at NREP 1, 2, 3, 4, 8
@@ -748,12 +767,14 @@ def ssd_build_report(log: str) -> dict:
 BUILD_COLUMNS = {
     "rmsnorm": "registers, spilled bytes, static shared memory",
     "rmsnorm_bwd": "registers, spilled bytes, static shared memory",
+    "rmsnorm_split": "registers, spilled bytes, static shared memory",
     "flash_attention": "registers at entry, spilled bytes, dynamic shared memory",
     "decode_attention": "registers, spilled bytes, dynamic shared memory",
     "flash_attention_f32": "registers, spilled bytes, shared memory",
     "decode_attention_f32": "registers, spilled bytes, dynamic shared memory",
     "ssd": "registers, spilled bytes, dynamic shared memory at P = 64"}
 BUILD_COUNTS = {"rmsnorm": RMSNORM_BUILDS, "rmsnorm_bwd": RMSNORM_BWD_BUILDS,
+                "rmsnorm_split": RMSNORM_SPLIT_BUILDS,
                 "flash_attention": FLASH_BUILDS, "decode_attention": DECODE_BUILDS,
                 "flash_attention_f32": FLASH_F32_BUILDS,
                 "decode_attention_f32": DECODE_F32_BUILDS, "ssd": 4}
@@ -766,6 +787,8 @@ def build_reports(logs: dict[str, str]) -> tuple[dict[str, dict], list[str]]:
     reports = {
         "rmsnorm": ptxas_report(logs["rmsnorm"], RMSNORM_ENTRY, rmsnorm_label),
         "rmsnorm_bwd": ptxas_report(logs["rmsnorm"], RMSNORM_BWD_ENTRY, rmsnorm_bwd_label),
+        "rmsnorm_split": ptxas_report(logs["rmsnorm_split"], RMSNORM_SPLIT_ENTRY,
+                                      rmsnorm_split_label),
         "flash_attention": flash_build_report(logs["flash_attention"]),
         "decode_attention": decode_build_report(logs["decode_attention"]),
         "flash_attention_f32": flash_f32_build_report(logs["flash_attention_f32"]),
@@ -1677,13 +1700,17 @@ def check_rmsnorm_bwd(torch, timer) -> dict:
 #: rows), Jamba's 8192 on two at Part C's (4 x 2048, 4), and ragged rows.
 #: Each rank's gate is a column slice of its own in_proj output, whose row
 #: is 2 d + 2 N + H / ranks wide (mamba2: 1804 elements, rows on 8 bytes,
-#: so the scalar path; jamba: 8288, the 16-byte path).
+#: the gate in 8-byte loads; jamba: 8288, 16-byte ones); the other tensors
+#: take 16-byte vectors. The further cases put the gate's rows on 2 and 4
+#: bytes (strides 1801, 1802) and take the scalar path (width 100).
 RMSNORM_SPLIT_SHAPES = (("mamba2 prefill", 8 * 2048, 768, 1536, 2, 1804),
                         ("mamba2 decode", 8, 768, 1536, 2, 1804),
                         ("jamba prefill", 4 * 2048, 4096, 8192, 2, 8288),
                         ("jamba decode", 4, 4096, 8192, 2, 8288))
 RMSNORM_SPLIT_EXTRA = (("ragged", 100, 768, 3072, 4, 1600), ("one row", 1, 4096, 8192, 2, 8288),
-                       ("odd width", 37, 100, 200, 2, 212))
+                       ("odd width", 37, 100, 200, 2, 212),
+                       ("gate on 2 bytes", 300, 768, 1536, 2, 1801),
+                       ("gate on 4 bytes", 300, 768, 1536, 2, 1802))
 #: the statistic launches' f32 row sums against their plain versions,
 #: relative to the sum of the terms' magnitudes (another summation order)
 SPLIT_SUM_REL = 1e-5
@@ -1780,9 +1807,10 @@ def check_rmsnorm_split(torch, timer) -> dict:
     RMSNORM_SPLIT_EXTRA held by :func:`split_rows_check`; at the serving
     shapes each of the four launches timed on rank 0's block (a graph
     replay, the L2 flushed by a write) beside its bound and its plain
-    version, the plan it takes (the one-launch norm's instantiation: the
-    registers and spills phase 2 reports). Returns the four launches'
-    rows for the kernels line, keyed as ``kernels.WRAPPERS``."""
+    version, each tensor's load (``ops.split_widths``) and the plan it
+    takes (its instantiation's registers and spills are phase 2's).
+    Returns the four launches' rows for the kernels line, keyed as
+    ``kernels.WRAPPERS``."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.rmsnorm import ops
     from repro_torch.kernels.rmsnorm import ref
@@ -1813,7 +1841,7 @@ def check_rmsnorm_split(torch, timer) -> dict:
                 lambda: ops.gated_norm_bwd_apply(dh, y, z, w, bst, dn),
                 lambda: ref.gated_norm_bwd_apply_ref(dh, y, z, w, bst, dn),
                 cost.rmsnorm_bwd(rows, d, "gated_apply"), True)}
-        vec = d % 8 == 0 and z.stride(0) % 8 == 0
+        widths = ops.split_widths(y, z, w, dh)
         for name, (fn, plain, work, bwd) in calls.items():
             b_ms, b_by = work.bound_ms()
             got, want = fn(), plain()
@@ -1821,7 +1849,9 @@ def check_rmsnorm_split(torch, timer) -> dict:
             t = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
                                     for a, b in pairs),
                  "shape": [rows, d], "full_width": dn, "gate_row_stride": z.stride(0),
-                 "plan": (ops.plan_bwd if bwd else ops.plan)(rows, d, gated=True, vec=vec),
+                 "load_bytes": widths,
+                 "plan": ops.plan_split(name.replace("rmsnorm_", "").replace("split_", ""),
+                                        rows, d, widths["y"] == 16, widths["gate"]),
                  "ms": timer.ms(fn, 30), "plain_ms": timer.ms(plain, 10),
                  "bound_ms": b_ms, "bound_by": b_by}
             t["bound_share"] = b_ms / t["ms"]
@@ -6214,6 +6244,11 @@ def main() -> int:
     numbers["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, timer) | {
         "build": builds["rmsnorm_bwd"]}
     numbers.update(check_rmsnorm_split(torch, timer))
+    for name in ("rmsnorm_split_stat", "rmsnorm_split_apply", "rmsnorm_bwd_split_stat",
+                 "rmsnorm_bwd_split_apply"):
+        label = "split_" + name.replace("rmsnorm_", "").replace("split_", "") + "<"
+        numbers[name]["build"] = {k: v for k, v in builds["rmsnorm_split"].items()
+                                  if k.startswith(label) or (k == "split_dw" and "bwd_apply" in name)}
     numbers.update(check_kernels(torch, timer))
     numbers["decode_attention"]["build"] = builds["decode_attention"]
     numbers["ssd"] = check_ssd(torch, timer) | {"build": builds["ssd"]}
@@ -6407,9 +6442,10 @@ def main() -> int:
              "rmsnorm_split_apply": "gated_norm_apply",
              "rmsnorm_bwd_split_stat": "gated_norm_bwd_stat",
              "rmsnorm_bwd_split_apply": "gated_norm_bwd_apply"}
-    sources = {"rmsnorm_bwd": "rmsnorm", "rmsnorm_split_stat": "rmsnorm",
-               "rmsnorm_split_apply": "rmsnorm", "rmsnorm_bwd_split_stat": "rmsnorm",
-               "rmsnorm_bwd_split_apply": "rmsnorm", "flash_attention_fwd_lse": "flash_attention",
+    split = "rmsnorm/csrc/rmsnorm_split"
+    sources = {"rmsnorm_bwd": "rmsnorm", "rmsnorm_split_stat": split,
+               "rmsnorm_split_apply": split, "rmsnorm_bwd_split_stat": split,
+               "rmsnorm_bwd_split_apply": split, "flash_attention_fwd_lse": "flash_attention",
                "flash_attention_bwd_dkv": "flash_attention",
                "flash_attention_bwd_dq": "flash_attention",
                "pricing_f32": "pricing"}
@@ -6422,7 +6458,7 @@ def main() -> int:
         # for attention, a head dim), its float32 attention in <source>_f32.cu
         base, _, kind = name.rstrip("]").partition("[")
         src = sources.get(base, base)
-        path = f"{src}/csrc/{src}"
+        path = src if "/" in src else f"{src}/csrc/{src}"
         if kind.startswith("f32") and "attention" in src:
             path += "_f32"
         line.append({"name": shown.get(base, base) + (f"[{kind}]" if kind else ""),

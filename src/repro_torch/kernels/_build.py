@@ -2,8 +2,9 @@
 
 Each kernel directory holds ``csrc/<name>.cu`` with a plain C interface
 (no PyTorch headers), so a build takes seconds; the attention kernels'
-float32 versions are libraries of their own beside them
-(``csrc/<name>_f32.cu``), so that they build in parallel with the rest.
+float32 versions (``csrc/<name>_f32.cu``) and the RMSNorm's split-row
+launches (``rmsnorm/csrc/rmsnorm_split.cu``) are libraries of their own
+beside them, so that they build in parallel with the rest.
 The shared library goes to
 ``build/kernels/<name>-<hash>/lib<name>.so`` at the root of the checkout,
 keyed by a hash of the source and the flags, so an edited source rebuilds
@@ -37,9 +38,10 @@ _ROOT = _KERNELS_DIR.parents[2]
 BUILD_DIR = _ROOT / "build" / "kernels"
 
 #: Every kernel library of the port, by the name of its source; a name
-#: ending in ``_f32`` is the float32 source in its kernel's directory.
+#: ending in ``_f32`` or ``_split`` is a further source in its kernel's
+#: directory.
 NAMES = ("rmsnorm", "decode_attention", "flash_attention", "pricing", "ssd",
-         "decode_attention_f32", "flash_attention_f32")
+         "decode_attention_f32", "flash_attention_f32", "rmsnorm_split")
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -51,7 +53,7 @@ _lock = threading.Lock()
 
 
 def source(name: str) -> Path:
-    directory = name[:-len("_f32")] if name.endswith("_f32") else name
+    directory = name.removesuffix("_f32").removesuffix("_split")
     return _KERNELS_DIR / directory / "csrc" / f"{name}.cu"
 
 

@@ -75,16 +75,8 @@
 // to 16384 wide (8192 gated, 4096 on the scalar path): every configuration
 // of the repo is at most 12288 wide, 8192 gated.
 //
-// Split rows (rmsnorm_fwd_split, the gated form only). Under a model axis
-// each rank holds a block of the gated norm's row (its SSM heads' columns
-// of d_inner), and the mean is over the whole row. The same kernel then
-// runs twice, with the same loads, the same rounding of g and the same
-// order of the block's sum: the statistic launch (stat_out set) writes
-// each row's f32 sum of g^2 over the block and nothing else; the caller
-// sums those (rows,) floats over the ranks (4 bytes a row where gathering
-// the row would move all of it); the apply launch (stats set) normalises
-// with the summed statistic over the full width dn and writes the output.
-// With neither set the launch is the one-launch norm above (dn = d).
+// The gated norm over rows split across ranks (a statistic and an apply
+// launch each way) has kernels of its own, in rmsnorm_split.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -210,9 +202,6 @@ struct Params {
   int rows, d;
   int64_t zs;
   float eps;
-  float* stat_out;     // split rows, statistic launch: (rows,) sums, or null
-  const float* stats;  // split rows, apply launch: the summed (rows,), or null
-  int dn;              // the full row's width, which the mean divides by
 };
 
 // The loads of one row, every one issued before any of them is used: x and
@@ -311,12 +300,7 @@ __global__ void __launch_bounds__(kernel_threads<Elt, VW, PER>()) rmsnorm_kernel
     __syncthreads();
     float tot = 0.f;
     for (int u = 0; u < nw; ++u) tot += red[buf][u];
-    if (p.stat_out) {  // split rows: the block's sum is the launch's output
-      if (tid == 0) p.stat_out[row] = tot;
-      continue;
-    }
-    if (p.stats) tot = __ldcg(p.stats + row);  // every rank's block summed
-    const float inv = rsqrtf(tot / (float)p.dn + p.eps);
+    const float inv = rsqrtf(tot / (float)p.d + p.eps);
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int v = first + k * T;
@@ -478,9 +462,6 @@ struct BwdParams {
   int rows, d;
   int64_t zs;
   float eps;
-  float* stat_out;     // split rows, statistic launch: (rows, 2) sums, or null
-  const float* stats;  // split rows, apply launch: the summed (rows, 2), or null
-  int dn;              // the full row's width, which the means divide by
 };
 
 template <typename Elt, int VW, int PER, bool GATE>
@@ -543,13 +524,8 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
     __syncthreads();  // every warp's two sums of this row are in
     float ssq = 0.f, sdot = 0.f;
     for (int i = 0; i < nw; ++i) ssq += sums[half][0][i], sdot += sums[half][1][i];
-    if (p.stat_out) {  // split rows: the block's two sums are the output
-      if (tid == 0) p.stat_out[2 * row] = ssq, p.stat_out[2 * row + 1] = sdot;
-      continue;
-    }
-    if (p.stats) ssq = __ldcg(p.stats + 2 * row), sdot = __ldcg(p.stats + 2 * row + 1);
-    const float rstd = rsqrtf(ssq / (float)p.dn + p.eps);
-    const float mean = sdot * rstd / (float)p.dn;  // mean(w dh s^)
+    const float rstd = rsqrtf(ssq / (float)p.d + p.eps);
+    const float mean = sdot * rstd / (float)p.d;  // mean(w dh s^)
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int v = tid + k * T;
@@ -585,7 +561,6 @@ __global__ void __launch_bounds__(bwd_max_threads(VW)) rmsnorm_bwd_kernel(const 
       }
     }
   }
-  if (p.stat_out) return;
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int v = tid + k * T;
@@ -662,7 +637,7 @@ cudaError_t launch_bwd(BwdParams p, float* dw, bool vec, cudaStream_t stream, Pl
   }
   void* args[] = {&p};
   e = cudaLaunchKernel(kernel, dim3(pl.grid), dim3(pl.threads), args, 0, stream);
-  if (e != cudaSuccess || p.stat_out) return e;
+  if (e != cudaSuccess) return e;
   int blocks = pl.grid, d = p.d;
   const float* part = p.part;
   void* dw_args[] = {&part, &dw, &blocks, &d};
@@ -686,17 +661,7 @@ cudaError_t bwd(const BwdParams& p, float* dw, bool vec, bool f32, cudaStream_t 
 
 int fwd_entry(const void* x, const void* r, const void* z, const void* w, void* y, void* rout,
               int rows, int d, long long zs, float eps, int vec, bool f32, void* stream) {
-  const Params p{x, r, z, static_cast<const float*>(w), y, rout, rows, d, (int64_t)zs, eps,
-                 nullptr, nullptr, d};
-  return (int)fwd(p, vec != 0, f32, static_cast<cudaStream_t>(stream), nullptr);
-}
-
-int fwd_split_entry(const void* x, const void* z, const void* w, void* y, void* stat_out,
-                    const void* stats, int rows, int d, int dn, long long zs, float eps, int vec,
-                    bool f32, void* stream) {
-  const Params p{x, nullptr, z, static_cast<const float*>(w), y, nullptr, rows, d,
-                 (int64_t)zs, eps, static_cast<float*>(stat_out),
-                 static_cast<const float*>(stats), dn};
+  const Params p{x, r, z, static_cast<const float*>(w), y, rout, rows, d, (int64_t)zs, eps};
   return (int)fwd(p, vec != 0, f32, static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -714,17 +679,7 @@ int bwd_entry(const void* dh, const void* dr, const void* x, const void* r, cons
               const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
               long long zs, float eps, int vec, bool f32, void* stream) {
   const BwdParams p{dh, dr, x, r, z, static_cast<const float*>(w), dx, dz,
-                    static_cast<float*>(part), rows, d, (int64_t)zs, eps, nullptr, nullptr, d};
-  return (int)bwd(p, static_cast<float*>(dw), vec != 0, f32, static_cast<cudaStream_t>(stream),
-                  nullptr);
-}
-
-int bwd_split_entry(const void* dh, const void* x, const void* z, const void* w, void* dx,
-                    void* dz, void* part, void* dw, void* stat_out, const void* stats, int rows,
-                    int d, int dn, long long zs, float eps, int vec, bool f32, void* stream) {
-  const BwdParams p{dh, nullptr, x, nullptr, z, static_cast<const float*>(w), dx, dz,
-                    static_cast<float*>(part), rows, d, (int64_t)zs, eps,
-                    static_cast<float*>(stat_out), static_cast<const float*>(stats), dn};
+                    static_cast<float*>(part), rows, d, (int64_t)zs, eps};
   return (int)bwd(p, static_cast<float*>(dw), vec != 0, f32, static_cast<cudaStream_t>(stream),
                   nullptr);
 }
@@ -760,25 +715,6 @@ int rmsnorm_fwd_f32(const void* x, const void* r, const void* z, const void* w, 
   return fwd_entry(x, r, z, w, y, rout, rows, d, zs, eps, vec, true, stream);
 }
 
-// The gated norm over split rows: x the f32 y and z the bf16 gate (row
-// stride zs) of this rank's block of d columns, w its block of the weight,
-// dn the full row's width. Statistic launch (stat_out not null): writes
-// stat_out[row], the f32 sum of g^2 over the block, and nothing else.
-// Apply launch (stat_out null): stats[row] the sum over every block;
-// writes y. Returns cudaGetLastError() after the launch.
-int rmsnorm_fwd_split(const void* x, const void* z, const void* w, void* y, void* stat_out,
-                      const void* stats, int rows, int d, int dn, long long zs, float eps,
-                      int vec, void* stream) {
-  return fwd_split_entry(x, z, w, y, stat_out, stats, rows, d, dn, zs, eps, vec, false, stream);
-}
-
-// As rmsnorm_fwd_split with a float32 gate and y.
-int rmsnorm_fwd_split_f32(const void* x, const void* z, const void* w, void* y, void* stat_out,
-                          const void* stats, int rows, int d, int dn, long long zs, float eps,
-                          int vec, void* stream) {
-  return fwd_split_entry(x, z, w, y, stat_out, stats, rows, d, dn, zs, eps, vec, true, stream);
-}
-
 // The launch a call of these shapes makes, launching nothing: out[0..3] =
 // blocks, threads a block, vectors a thread and row, elements a vector.
 // Returns a CUDA error code (cudaErrorInvalidValue for a width the kernel
@@ -810,29 +746,6 @@ int rmsnorm_bwd_f32(const void* dh, const void* dr, const void* x, const void* r
                     const void* w, void* dx, void* dz, void* part, void* dw, int rows, int d,
                     long long zs, float eps, int vec, void* stream) {
   return bwd_entry(dh, dr, x, r, z, w, dx, dz, part, dw, rows, d, zs, eps, vec, true, stream);
-}
-
-// The gated backward over split rows (rmsnorm_fwd_split's): dh, x (the f32
-// y), z, w this rank's block of d columns, dn the full width. Statistic
-// launch (stat_out not null): writes stat_out[2 row], stat_out[2 row + 1],
-// the block's f32 sums of g^2 and of w dh g, and nothing else (one launch).
-// Apply launch: stats the sums over every block; writes dx (the f32 dy),
-// dz and this block's dw as rmsnorm_bwd does (two launches).
-int rmsnorm_bwd_split(const void* dh, const void* x, const void* z, const void* w, void* dx,
-                      void* dz, void* part, void* dw, void* stat_out, const void* stats,
-                      int rows, int d, int dn, long long zs, float eps, int vec,
-                      void* stream) {
-  return bwd_split_entry(dh, x, z, w, dx, dz, part, dw, stat_out, stats, rows, d, dn, zs, eps,
-                         vec, false, stream);
-}
-
-// As rmsnorm_bwd_split with float32 dh, gate and dz.
-int rmsnorm_bwd_split_f32(const void* dh, const void* x, const void* z, const void* w, void* dx,
-                          void* dz, void* part, void* dw, void* stat_out, const void* stats,
-                          int rows, int d, int dn, long long zs, float eps, int vec,
-                          void* stream) {
-  return bwd_split_entry(dh, x, z, w, dx, dz, part, dw, stat_out, stats, rows, d, dn, zs, eps,
-                         vec, true, stream);
 }
 
 // The backward's launch for these shapes, launching nothing: out[0..3] as

@@ -22,9 +22,12 @@ a call launches the forward alone, as serving does.
 (the Mamba2 layer under a model axis, each rank its heads' columns): a
 statistic launch (:func:`gated_norm_stat`, each row's sum of g² over the
 block), an all-reduce of those (T,) floats over the group, and an apply
-launch (:func:`gated_norm_apply`), each launch of the same kernel and
-counted on its own; its backward alike (:func:`gated_norm_bwd_stat`, an
-all-reduce of (T, 2), :func:`gated_norm_bwd_apply`).
+launch (:func:`gated_norm_apply`), each counted on its own; its backward
+alike (:func:`gated_norm_bwd_stat`, an all-reduce of (T, 2),
+:func:`gated_norm_bwd_apply`). Their kernels are in
+``csrc/rmsnorm_split.cu``; each tensor takes its own vector width
+(:func:`split_widths`: the gate, a strided slice, the widest its rows
+allow).
 """
 from __future__ import annotations
 
@@ -294,10 +297,45 @@ def plan_bwd(rows: int, d: int, gated: bool = False, vec: bool = True,
 
 
 # ------------------------- split rows (a rank's block) -----------------------
-def _split_checks(name: str, x, gate, w, tensors=()) -> tuple[int, int, bool]:
+#: The loads the split-row kernels take, in bytes, widest first: y, w, dh
+#: and the outputs 16 or one element; the gate any of these down to its
+#: element (a bf16 gate to 2, a float32 one to 4).
+VECTOR_BYTES = (16, 8, 4, 2)
+#: the split-row kernels' kinds, as ``rmsnorm_split_plan`` numbers them
+SPLIT_KINDS = ("stat", "apply", "bwd_stat", "bwd_apply")
+
+
+def vector_bytes(t: torch.Tensor) -> int:
+    """The widest load of :data:`VECTOR_BYTES` (at least ``t``'s element)
+    on which every row of ``t`` starts: its base address and every stride
+    but the last (a unit one) are multiples of it."""
+    size = t.element_size()
+    for b in VECTOR_BYTES:
+        if b >= size and t.data_ptr() % b == 0 and all(
+                s * size % b == 0 for s in t.stride()[:-1]):
+            return b
+    return size
+
+
+def split_widths(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                 dh: torch.Tensor | None = None) -> dict[str, int]:
+    """Each tensor's load in a split-row launch, in bytes: y (``x``), w,
+    dh and the outputs, contiguous, 16-byte vectors where d is a multiple of
+    8 and each of them starts on 16 bytes (the outputs the wrapper
+    allocates do), else one element; the gate the widest load its own base
+    and row stride allow (:func:`vector_bytes`: Mamba2's 1804-wide bf16
+    in_proj rows take 8), or one element where the others do."""
+    rows = {"y": x, "w": w} | ({} if dh is None else {"dh": dh})
+    vec = x.shape[-1] % 8 == 0 and all(vector_bytes(t) == 16 for t in rows.values())
+    widths = {k: 16 if vec else t.element_size() for k, t in rows.items()}
+    widths["gate"] = vector_bytes(gate) if vec else gate.element_size()
+    return widths
+
+
+def _split_checks(name: str, x, gate, w, dh=None) -> tuple[int, int, dict]:
     """The card's checks of a split-row launch: f32 x and a bf16 or f32
     gate of one (T, d) block (the gate read through its row stride), f32 w
-    of d. Returns (T, d, vec)."""
+    of d. Returns (T, d, :func:`split_widths`)."""
     _check_gate(x, gate, None)
     if x.dtype != torch.float32 or gate.dtype not in _DTYPES:
         raise TypeError(f"{name}: x {x.dtype} with a {gate.dtype} gate not supported")
@@ -306,13 +344,13 @@ def _split_checks(name: str, x, gate, w, tensors=()) -> tuple[int, int, bool]:
     t, d = x.shape
     if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError(f"{name}: w must be a contiguous float32 (d,)")
-    if any(u.device != x.device for u in (gate, w, *tensors)):
+    if any(u.device != x.device for u in (gate, w, *([] if dh is None else [dh]))):
         raise ValueError(f"{name}: tensors on different devices")
-    vec = d % 8 == 0 and w.data_ptr() % 16 == 0 and all(
-        _build.rows_aligned(u) for u in (x, gate, *tensors))
-    if d > (MAX_D_GATED if vec else MAX_D_SCALAR):
-        raise ValueError(f"{name}: d {d} wider than the kernel takes here")
-    return t, d, vec
+    widths = split_widths(x, gate, w, dh)
+    if d > (MAX_D_GATED if widths["y"] == 16 else MAX_D_SCALAR):
+        raise ValueError(f"{name}: d {d} wider than the kernel takes here ({MAX_D_GATED} "
+                         f"with 16-byte rows, {MAX_D_SCALAR} otherwise)")
+    return t, d, widths
 
 
 def _on_card(name: str, x) -> bool:
@@ -323,14 +361,31 @@ def _on_card(name: str, x) -> bool:
     return True
 
 
-def _fwd_split(x, gate, w, y, stat_out, stats, t, d, dn, eps, vec):
-    fn = _build.bind("rmsnorm", _entry("rmsnorm_fwd_split", gate.dtype), [
+def _fwd_split(x, gate, w, y, stat_out, stats, t, d, dn, eps, widths):
+    fn = _build.bind("rmsnorm_split", _entry("rmsnorm_fwd_split", gate.dtype), [
         *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u) for u in (y, stat_out, stats)]
     err = fn(_build.ptr(x), _build.ptr(gate), _build.ptr(w), *opt, t, d, dn,
-             gate.stride(0), eps, int(vec), _build.stream_ptr(x.device))
-    _build.check("rmsnorm", err)
+             gate.stride(0), eps, int(widths["y"] == 16), widths["gate"],
+             _build.stream_ptr(x.device))
+    _build.check("rmsnorm_split", err)
+
+
+def plan_split(kind: str, rows: int, d: int, vec: bool = True, gate_bytes: int = 16,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch a split-row call of ``kind`` (:data:`SPLIT_KINDS`) makes
+    at these shapes and widths on the current card (``vec`` the contiguous
+    tensors' 16-byte vectors, ``gate_bytes`` the gate's load): blocks,
+    threads a block, threads a row, chunks a thread, elements a chunk, the
+    gate's load. Raises for a width the kernels do not take."""
+    fn = _build.bind("rmsnorm_split", "rmsnorm_split_plan", [
+        *[ctypes.c_int] * 6, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 6)()
+    _build.check("rmsnorm_split", fn(SPLIT_KINDS.index(kind), rows, d, int(vec), gate_bytes,
+                                     int(dtype == torch.float32), out))
+    return dict(zip(("grid", "threads", "threads_a_row", "chunks_a_thread", "chunk",
+                     "gate_bytes"), out))
 
 
 def gated_norm_stat(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -344,10 +399,10 @@ def gated_norm_stat(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor) -> tor
         return torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     if not _on_card("gated_norm_stat", x):
         return gated_norm_stat_ref(x, gate)
-    t, d, vec = _split_checks("gated_norm_stat", x, gate, w)
+    t, d, widths = _split_checks("gated_norm_stat", x, gate, w)
     out = torch.empty(t, dtype=torch.float32, device=x.device)
     if t:
-        _fwd_split(x, gate, w, None, out, None, t, d, d, 0.0, vec)
+        _fwd_split(x, gate, w, None, out, None, t, d, d, 0.0, widths)
         _build.launched(gated_norm_stat, lambda: cost.rmsnorm(t, d, "gated_stat", f32=f32),
                         _build.kind(gate.dtype))
     return out
@@ -366,18 +421,18 @@ def gated_norm_apply(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
         return torch.empty(x.shape, dtype=gate.dtype, device=x.device)
     if not _on_card("gated_norm_apply", x):
         return gated_norm_apply_ref(x, gate, w, stats, dn, eps)
-    t, d, vec = _split_checks("gated_norm_apply", x, gate, w)
+    t, d, widths = _split_checks("gated_norm_apply", x, gate, w)
     if stats.shape != (t,) or stats.dtype != torch.float32 or not stats.is_contiguous():
         raise ValueError("gated_norm_apply: stats must be a contiguous float32 (T,)")
     y = torch.empty(t, d, dtype=gate.dtype, device=x.device)
     if t:
-        _fwd_split(x, gate, w, y, None, stats, t, d, dn, eps, vec)
+        _fwd_split(x, gate, w, y, None, stats, t, d, dn, eps, widths)
         _build.launched(gated_norm_apply, lambda: cost.rmsnorm(t, d, "gated_apply", f32=f32),
                         _build.kind(gate.dtype))
     return y
 
 
-def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, vec):
+def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, widths):
     dx = dz = part = dw = None
     if stat_out is None:
         dx = torch.empty(t, d, dtype=torch.float32, device=x.device)
@@ -385,14 +440,15 @@ def _bwd_split(dh, x, gate, w, stat_out, stats, t, d, dn, eps, vec):
         part = torch.empty(min(t, BWD_MAX_BLOCKS), d, dtype=torch.float32,
                            device=x.device)
         dw = torch.empty(d, dtype=torch.float32, device=x.device)
-    fn = _build.bind("rmsnorm", _entry("rmsnorm_bwd_split", gate.dtype), [
+    fn = _build.bind("rmsnorm_split", _entry("rmsnorm_bwd_split", gate.dtype), [
         *[ctypes.c_void_p] * 10, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     opt = [None if u is None else _build.ptr(u)
            for u in (dx, dz, part, dw, stat_out, stats)]
     err = fn(_build.ptr(dh), _build.ptr(x), _build.ptr(gate), _build.ptr(w), *opt,
-             t, d, dn, gate.stride(0), eps, int(vec), _build.stream_ptr(x.device))
-    _build.check("rmsnorm", err)
+             t, d, dn, gate.stride(0), eps, int(widths["y"] == 16), widths["gate"],
+             _build.stream_ptr(x.device))
+    _build.check("rmsnorm_split", err)
     return dx, dz, dw
 
 
@@ -400,10 +456,10 @@ def _bwd_split_checks(name, dh, x, gate, w):
     if dh.shape != x.shape or dh.dtype != gate.dtype:
         raise ValueError(f"{name}: dh must be of x's shape in the gate's dtype")
     dh = dh.contiguous()
-    t, d, vec = _split_checks(name, x, gate, w, (dh,))
-    if d > (MAX_D_BWD if vec else MAX_D_SCALAR):
+    t, d, widths = _split_checks(name, x, gate, w, dh)
+    if d > (MAX_D_BWD if widths["y"] == 16 else MAX_D_SCALAR):
         raise ValueError(f"{name}: d {d} wider than the backward takes here")
-    return dh, t, d, vec
+    return dh, t, d, widths
 
 
 def gated_norm_bwd_stat(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
@@ -417,10 +473,10 @@ def gated_norm_bwd_stat(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
         return torch.empty(x.shape[0], 2, dtype=torch.float32, device=x.device)
     if not _on_card("gated_norm_bwd_stat", x):
         return gated_norm_bwd_stat_ref(dh, x, gate, w)
-    dh, t, d, vec = _bwd_split_checks("gated_norm_bwd_stat", dh, x, gate, w)
+    dh, t, d, widths = _bwd_split_checks("gated_norm_bwd_stat", dh, x, gate, w)
     out = torch.empty(t, 2, dtype=torch.float32, device=x.device)
     if t:
-        _bwd_split(dh, x, gate, w, out, None, t, d, d, 0.0, vec)
+        _bwd_split(dh, x, gate, w, out, None, t, d, d, 0.0, widths)
         _build.launched(gated_norm_bwd_stat, lambda: cost.rmsnorm_bwd(
             t, d, "gated_stat", f32=f32), _build.kind(gate.dtype))
     return out
@@ -441,14 +497,14 @@ def gated_norm_bwd_apply(dh: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
                 torch.empty(x.shape[1], dtype=torch.float32, device=x.device))
     if not _on_card("gated_norm_bwd_apply", x):
         return gated_norm_bwd_apply_ref(dh, x, gate, w, stats, dn, eps)
-    dh, t, d, vec = _bwd_split_checks("gated_norm_bwd_apply", dh, x, gate, w)
+    dh, t, d, widths = _bwd_split_checks("gated_norm_bwd_apply", dh, x, gate, w)
     if stats.shape != (t, 2) or stats.dtype != torch.float32 or not stats.is_contiguous():
         raise ValueError("gated_norm_bwd_apply: stats must be a contiguous float32 (T, 2)")
     if t == 0:
         return (torch.empty(0, d, dtype=torch.float32, device=x.device),
                 torch.empty(0, d, dtype=gate.dtype, device=x.device),
                 torch.zeros(d, dtype=torch.float32, device=x.device))
-    out = _bwd_split(dh, x, gate, w, None, stats, t, d, dn, eps, vec)
+    out = _bwd_split(dh, x, gate, w, None, stats, t, d, dn, eps, widths)
     _build.launched(gated_norm_bwd_apply, lambda: cost.rmsnorm_bwd(
         t, d, "gated_apply", f32=f32), _build.kind(gate.dtype))
     return out

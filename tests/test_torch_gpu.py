@@ -52,7 +52,8 @@ from repro_torch.kernels import (decode_attention, flash_attention,
                                  flash_attention_bwd_dq,
                                  flash_attention_fwd_lse,
                                  flash_attention_train, fused_rmsnorm,
-                                 fused_rmsnorm_bwd, launches, reset_launches,
+                                 fused_rmsnorm_bwd, launches, launches_by_kind,
+                                 reset_launches,
                                  ssd_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import (
@@ -881,6 +882,95 @@ def test_split_row_norm_launches_match_plain(cuda, rows, d, dn, width):
     for a, b in zip(got, ref.gated_norm_bwd_apply_ref(dh, ys[0], zs[0], ws[0],
                                                       bst * 2, dn)):
         torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+def _split_case(rows, d, width, dtype, seed):
+    """Two ranks' blocks of a split row: y (f32), each gate a column slice of
+    its own (rows, width) in_proj output, w, dh in the gate's dtype."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ys = [torch.randn(rows, d, generator=g, device="cuda") for _ in range(2)]
+    zs = [torch.randn(rows, width, generator=g, device="cuda").to(dtype)[:, :d] for _ in ys]
+    ws = [torch.rand(d, generator=g, device="cuda") + 0.5 for _ in ys]
+    dhs = [torch.randn(rows, d, generator=g, device="cuda").to(dtype) for _ in ys]
+    return ys, zs, ws, dhs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [1801, 1802, 1804, 1808])
+@pytest.mark.parametrize("rows", [1, 300])
+def test_split_row_norm_every_gate_alignment(cuda, dtype, width, rows):
+    """The four split-row launches at every gate alignment (a bf16 gate's
+    rows on 2, 4, 8 and 16 bytes, a float32 one's on 4, 8 and 16) and with a
+    row of 1: each through its kernel (the gate at the widest load its rows
+    allow, counted), against its plain version; dw's bits the same twice."""
+    from repro_torch.kernels.rmsnorm import ops, ref
+    d, dn = 768, 1536
+    ys, zs, ws, dhs = _split_case(rows, d, width, dtype, seed=width + rows)
+    widths = ops.split_widths(ys[0], zs[0], ws[0], dhs[0])
+    assert widths["gate"] == min(16, (width & -width) * dtype.itemsize)
+    reset_launches()
+    stats = sum(ops.gated_norm_stat(y, z, w) for y, z, w in zip(ys, zs, ws))
+    want = sum(ref.gated_norm_stat_ref(y, z) for y, z in zip(ys, zs))
+    scale = sum(ref.gated_norm_stat_ref(y.abs(), z) for y, z in zip(ys, zs))
+    assert float(((stats - want).abs() / scale).max()) <= 1e-5
+    bstats = sum(ops.gated_norm_bwd_stat(dh, y, z, w) for y, z, w, dh in zip(ys, zs, ws, dhs))
+    bwant = sum(ref.gated_norm_bwd_stat_ref(dh, y, z, w) for y, z, w, dh in zip(ys, zs, ws, dhs))
+    torch.testing.assert_close(bstats, bwant, rtol=1e-4, atol=1e-3)
+    tol = F32 if dtype == torch.float32 else {}
+    for y, z, w, dh in zip(ys, zs, ws, dhs):
+        _allclose(ops.gated_norm_apply(y, z, w, stats, dn),
+                  ref.gated_norm_apply_ref(y, z, w, stats, dn), tol or dict(rtol=2e-2, atol=2e-2))
+        got = ops.gated_norm_bwd_apply(dh, y, z, w, bstats, dn)
+        plain = ref.gated_norm_bwd_apply_ref(dh, y, z, w, bstats, dn)
+        for a, b in zip(got[:2], plain[:2]):
+            _allclose(a, b, F32_BWD if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2))
+        torch.testing.assert_close(got[2], plain[2], rtol=1e-4,
+                                   atol=1e-4 * float(plain[2].abs().max()))
+        assert torch.equal(ops.gated_norm_bwd_apply(dh, y, z, w, bstats, dn)[2], got[2])
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    for name, n in (("rmsnorm_split_stat", 2), ("rmsnorm_split_apply", 2),
+                    ("rmsnorm_bwd_split_stat", 2), ("rmsnorm_bwd_split_apply", 4)):
+        assert launches()[name] == n and launches_by_kind()[f"{name}[{kind}]"] == n
+
+
+def test_split_row_norm_refuses_widths_it_has_no_kernel_for(cuda):
+    """A gate load the kernels were not built for raises on the card (a
+    float32 gate in 2-byte loads, 32-byte loads, a 16-byte gate on the
+    scalar path); nothing falls back to the plain version."""
+    from repro_torch.kernels.rmsnorm import ops
+    for kind in ops.SPLIT_KINDS:
+        assert ops.plan_split(kind, 300, 768, True, 8)["gate_bytes"] == 8
+        for vec, zb, dtype in ((True, 2, torch.float32), (True, 32, torch.bfloat16),
+                               (False, 16, torch.bfloat16), (True, 6, torch.bfloat16)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                ops.plan_split(kind, 300, 768, vec, zb, dtype)
+
+
+def test_split_row_norm_apply_in_a_captured_graph(cuda):
+    """The split apply launches captured into a CUDA graph and replayed give
+    the eager launches' bits (Mamba2's decode rows, its 8-byte gate)."""
+    from repro_torch.kernels.rmsnorm import ops
+    ys, zs, ws, dhs = _split_case(8, 768, 1804, torch.bfloat16, seed=5)
+    y, z, w, dh = ys[0], zs[0], ws[0], dhs[0]
+    stats = ops.gated_norm_stat(y, z, w) * 2
+    bstats = ops.gated_norm_bwd_stat(dh, y, z, w) * 2
+    eager = (ops.gated_norm_apply(y, z, w, stats, 1536),
+             *ops.gated_norm_bwd_apply(dh, y, z, w, bstats, 1536))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.gated_norm_apply(y, z, w, stats, 1536)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (ops.gated_norm_apply(y, z, w, stats, 1536),
+               *ops.gated_norm_bwd_apply(dh, y, z, w, bstats, 1536))
+    for o in out:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
 
 
 # ------------------------- the contract: hd 16, float32 -----------------------

@@ -1,6 +1,6 @@
 """Run the parts of ``chip_smoke.py`` that the model axis of every layer
 kind reaches, alone on one card: the RMSNorm build report (registers and
-spills of every instantiation, which the split-row launches share), phase
+spills of every instantiation, the split-row launches' kernels too), phase
 3's RMSNorm checks (the one-launch norm, its backward, and the gated norm
 over split rows: each statistic and apply launch against its plain
 version, the blocks put together against the one-launch norm), then phase
@@ -42,9 +42,10 @@ def main() -> int:
     started = cs.probe_build_start()
     logs = _build.build_all(verbose=True)
     probe = cs.probe_build_finish(started)
-    for entry, label in ((cs.RMSNORM_ENTRY, cs.rmsnorm_label),
-                         (cs.RMSNORM_BWD_ENTRY, cs.rmsnorm_bwd_label)):
-        print(f"rmsnorm build: {json.dumps(cs.ptxas_report(logs['rmsnorm'], entry, label))}",
+    for lib, entry, label in (("rmsnorm", cs.RMSNORM_ENTRY, cs.rmsnorm_label),
+                              ("rmsnorm", cs.RMSNORM_BWD_ENTRY, cs.rmsnorm_bwd_label),
+                              ("rmsnorm_split", cs.RMSNORM_SPLIT_ENTRY, cs.rmsnorm_split_label)):
+        print(f"{lib} build: {json.dumps(cs.ptxas_report(logs[lib], entry, label))}",
               flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = cs.Timer(torch)
