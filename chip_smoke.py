@@ -91,7 +91,11 @@ Phases, each fatal on failure:
      timed beside its bound, its plain version and SDPA or F.rms_norm
      (SDPA's default call beside its memory-efficient backend over K/V
      expanded outside the call, the faster kept; float32 attention with
-     two bounds, the split TF32 tensor cores' and the CUDA cores');
+     two bounds, the split TF32 tensor cores' and the CUDA cores'; every
+     attention entry also with the softmax's exponentials as a second
+     bound, and bf16 decode at hd 16 also as GRAPH_LAUNCHES launches in a
+     graph beside an empty kernel and SDPA, a launch over DECODE_STUCK_MS
+     failing);
   4. the DSE path: ``DSEEngine.sweep`` on the seven smoke scenarios and a
      parallel sweep, then ``reprice_grid`` on the 100,224-cell dense grid,
      on the kernel backends, each against the numpy backend (rows and
@@ -591,7 +595,7 @@ def sdpa(F, q, k, v, causal: bool):
 
 # ------------------------------- phase 2 --------------------------------------
 FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_bwd_dkv_kernel": 1,
-                 "flash_bwd_dq_kernel": 2}
+                 "flash_bwd_dq_kernel": 2, "flash_bwd_dkv_cluster_kernel": 3}
 
 
 def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
@@ -671,11 +675,14 @@ def rmsnorm_split_label(m) -> str:
             f"ve {m.group(4)}, gate {m.group(5)} B>")
 
 
-#: Mangled entry names of the decode kernel: decode_attention_kernel<HD, NREP>.
-DECODE_ENTRY = r"decode_attention_kernelILi(\d+)ELi(\d+)E"
-#: its instantiations: hd 16, 32, 64, 128, each at NREP 1, 2, 3, 4, 8
+#: Mangled entry names of the decode kernels: decode_attention_kernel<HD,
+#: NREP> and, at hd 16, decode_attention_hd16_kernel<NREP> (group 1 None)
+DECODE_ENTRY = r"decode_attention_(?:kernelILi(\d+)E|hd16_kernelI)Li(\d+)E"
+#: their instantiations: hd 16 (its own kernel), 32, 64, 128, each at NREP
+#: 1, 2, 3, 4, 8
 DECODE_BUILDS = 20
-#: the serving forward, the forward with LSE, dK/dV and dQ at hd 16, 32, 64, 128
+#: the serving forward, the forward with LSE and dQ at hd 16, 32, 64, 128;
+#: dK/dV at hd 32, 64, 128 and its cluster kernel at hd 16
 FLASH_BUILDS = 16
 #: the float32 decode kernel, decode_f32_kernel<HD, NREP, KV> (hd 16, 32,
 #: 64, 128; NREP 1, 2, 3, 4, 8; a float32 or a bf16 cache), and the float32
@@ -688,6 +695,8 @@ FLASH_F32_BUILDS = 16
 
 
 def decode_label(m) -> str:
+    if m.group(1) is None:
+        return f"decode_hd16<{m.group(2)}>"
     return f"decode<{m.group(1)}, {m.group(2)}>"
 
 
@@ -695,7 +704,8 @@ def decode_build_report(log: str) -> dict:
     """Per decode kernel instantiation (``decode<hd, nrep>``):
     :func:`ptxas_report` and the dynamic shared memory of a block."""
     return ptxas_report(log, DECODE_ENTRY, decode_label, lambda m: {
-        "smem_bytes": decode_plan(1, int(m.group(2)), 1, int(m.group(1)))["smem_bytes"]})
+        "smem_bytes": decode_plan(1, int(m.group(2)), 1,
+                                  int(m.group(1) or 16))["smem_bytes"]})
 
 
 def decode_f32_label(m) -> str:
@@ -2462,6 +2472,8 @@ def check_contract_flash(torch, timer, dtype: str, hd: int) -> dict:
     lib = sdpa_yardstick(torch, timer, *args, causal)
     if dtype == "f32":
         lib["core_bound_ms"] = cost.f32_cores(w).bound_ms()[0]
+    lib["exp_bound_ms"] = cost.exponentials("flash_attention", b, h, hkv, sq, sk, hd, causal,
+                                            f32=dtype == "f32").bound_ms()[0]
     return dict(max_abs_err=max(errs), max_row_scaled_err=max(rows),
                 ms=timer.ms(lambda: flash_attention(*args, causal=causal), 10),
                 plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 3),
@@ -2547,6 +2559,8 @@ def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
                                  "dK/dV and dQ together"))
         if dtype == "f32":
             lib = dict(lib, core_bound_ms=cost.f32_cores(w).bound_ms()[0])
+        lib = dict(lib, exp_bound_ms=cost.exponentials(
+            name, b, h, hkv, sq, sk, hd, causal, f32=dtype == "f32").bound_ms()[0])
         out[name] = dict(max_abs_err=errs[name], ms=kernel_ms[name],
                          plain_ms=timer.ms(calls[name][1], 3), **lib,
                          bound_ms=b_ms, bound_by=b_by,
@@ -2573,13 +2587,63 @@ def f32_decode_check(torch, q, k, v, kv_len: int, o, lse, label: str,
     return {"o_err": compare(torch, o, orf, f"{label} o", F32_TOL)}
 
 
-def check_contract_decode(torch, timer, dtype: str, hd: int) -> dict:
+def decode_graph_times(torch, timer, probe, fn, b, h, hkv, s, hd, kv_len, dt) -> dict:
+    """Decode at one shape as GRAPH_LAUNCHES launches, each over its own
+    cache (~1 MB apiece at the hd-16 SMOKE shape, 86 MB in all: each launch
+    reads device memory), captured in one graph and replayed after a read
+    of the flush buffer, per launch; beside it the same graph of an empty
+    kernel with the decode launch's block count and threads (the floor
+    under a launch in a graph) and of SDPA over the valid prefix."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import plan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n = GRAPH_LAUNCHES
+    cases = [(torch.randn((b, h, hd), generator=g, device="cuda").to(dt),
+              contract_inputs(torch, g, b, hkv, s, hd, dt),
+              contract_inputs(torch, g, b, hkv, s, hd, dt)) for _ in range(n)]
+    kl = torch.full((1,), kv_len, dtype=torch.int32, device="cuda")
+    pl = plan(b, h, hkv, hd)
+    stream = lambda: _build.stream_ptr(torch.device("cuda"))  # noqa: E731
+
+    def graph(call):
+        return timer.ms(lambda: [call(c) for c in cases], 20, clean_l2=True) / n
+
+    def empty(_=None):
+        _build.check("decode_attention", probe.empty_launch(
+            pl["n_split"] * pl["groups"], DECODE_HD16_THREADS, stream()))
+    out = dict(graph_ms=graph(lambda c: fn(*c, kl)), empty_graph_ms=graph(empty),
+               library_graph_ms=graph(lambda c: sdpa(F, c[0][:, :, None], c[1][:, :, :kv_len],
+                                                     c[2][:, :, :kv_len], causal=False)),
+               empty_ms=timer.ms(empty, 50), graph_launches=n)
+    del cases
+    return out
+
+
+#: the hd-16 decode kernel's threads a block (decode_attention.cu,
+#: H16_THREADS): the empty launch beside it takes the same
+DECODE_HD16_THREADS = 160
+#: The times of the hd-16 kernels these replaced (the hd-128 designs
+#: instantiated at hd 16) at the same shapes, as PERF.md section 6 records
+#: them (chip_smoke.py on an H100 80GB HBM3, 700 W): printed beside this
+#: run's readings, never in the kernels line.
+RECORDED_HD16_MS = {"decode_attention": 0.01363, "flash_attention_bwd_dkv": 0.12171}
+#: a decode launch slower than this gave up a wait (its watchdog, ~2 s)
+DECODE_STUCK_MS = 1.0
+
+
+def check_contract_decode(torch, timer, dtype: str, hd: int, probe=None) -> dict:
     """Decode attention at ``hd`` in ``dtype`` against its plain version over
     :func:`contract_decode_cases`, each called eagerly with a device kv_len
     and, for the first case, through one captured launch replayed with
     kv_len changed on the device; bf16 held by :func:`decode_check`, f32
     at F32_TOL, over both a bf16 cache (a float32 model's) and an f32 one.
-    Timed at the first case with the cache the path reads."""
+    Timed at the first case with the cache the path reads; a launch over
+    DECODE_STUCK_MS fails (a wait that gave up leaves right outputs where it
+    is the producer's last). bf16 at hd 16 with ``probe``: also
+    :func:`decode_graph_times`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cost
@@ -2612,8 +2676,17 @@ def check_contract_decode(torch, timer, dtype: str, hd: int) -> dict:
     kc, vc = k[:, :, :kv_len].to(dt), v[:, :, :kv_len].to(dt)
     b_ms, b_by = cost.decode_attention(b, h, hkv, hd, kv_len, f32=dtype == "f32",
                                        cache_bytes=k.element_size()).bound_ms()
-    return dict(max_abs_err=max(errs),
-                ms=timer.ms(lambda: decode_attention(q, k, v, kl), 50),
+    ms = timer.ms(lambda: decode_attention(q, k, v, kl), 50)
+    if not ms < DECODE_STUCK_MS:
+        raise AssertionError(f"decode[{dtype}/hd{hd}]: {ms:.3f} ms a launch: a wait gave up")
+    extra = {}
+    if (dtype, hd) == ("bf16", 16) and probe is not None:
+        extra = decode_graph_times(torch, timer, probe, decode_attention, b, h, hkv, s, hd,
+                                   kv_len, dt)
+    return dict(max_abs_err=max(errs), ms=ms, **extra,
+                exp_bound_ms=cost.exponentials("decode_attention", b, h, hkv, hd, kv_len,
+                                               f32=dtype == "f32",
+                                               cache_bytes=k.element_size()).bound_ms()[0],
                 plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
                                                                return_lse=True), 10),
                 library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], kc, vc, causal=False), 50),
@@ -2740,23 +2813,32 @@ def check_contract_rmsnorm(torch, timer) -> dict:
     return {"rmsnorm": fwd, "rmsnorm_bwd": bwd}
 
 
-def check_contract(torch, timer) -> tuple[dict, dict]:
+def check_contract(torch, timer, probe=None) -> tuple[dict, dict]:
     """Phase 3's checks of the contract's further instantiations: hd 16 in bf16
     (decode, the serving forward and the three training kernels) and float32
-    at hd 16, 32, 64 and 128, and row 1 and its backward in float32.
-    Returns (entries keyed "<wrapper>[<kind>]" for the kinds a main path
-    runs, the float32 hd-64 entries, held but on no path)."""
+    at hd 16, 32, 64 and 128, and row 1 and its backward in float32. Each
+    attention entry has the exponentials' second bound (``exp_bound_ms``);
+    with ``probe`` (PROBE_SOURCE's library), bf16 decode at hd 16 is also
+    timed as GRAPH_LAUNCHES launches in one graph beside an empty kernel
+    (:func:`decode_graph_times`). Returns (entries keyed "<wrapper>[<kind>]"
+    for the kinds a main path runs, the float32 hd-64 entries, held but on
+    no path)."""
     out, off_path = {}, {}
     for dtype, hds in (("bf16", (16,)), ("f32", CONTRACT_HDS)):
         for hd in hds:
             kind = f"{dtype}/hd{hd}"
             got = {"flash_attention": check_contract_flash(torch, timer, dtype, hd),
-                   "decode_attention": check_contract_decode(torch, timer, dtype, hd),
+                   "decode_attention": check_contract_decode(torch, timer, dtype, hd,
+                                                             probe),
                    **check_contract_training(torch, timer, dtype, hd)}
             dest = out if dtype == "bf16" or hd in F32_PATH_HDS else off_path
             for name, entry in got.items():
                 dest[f"{name}[{kind}]"] = entry
                 say(f"  {name}[{kind}]: {json.dumps(entry)}")
+                if kind == "bf16/hd16" and name in RECORDED_HD16_MS:
+                    say(f"    beside the replaced kernel's {RECORDED_HD16_MS[name]} ms "
+                        f"(recorded, PERF.md section 6): {entry['ms']:.5f} ms now, "
+                        f"{RECORDED_HD16_MS[name] / entry['ms']:.2f}x")
             torch.cuda.empty_cache()
     for name, entry in check_contract_rmsnorm(torch, timer).items():
         out[f"{name}[f32]"] = entry
@@ -4750,8 +4832,9 @@ def leaf_names(tree, prefix: str = "") -> list[str]:
 
 
 #: phase 18 (b) trains mamba2_130m at full width with this many of its 24
-#: layers, cut to hold the run under RUN_LIMIT_S
-MAMBA2_TRAIN_LAYERS = 12
+#: layers, cut to hold the run under RUN_LIMIT_S (12 until the run's total
+#: read 653.1 s, over the limit)
+MAMBA2_TRAIN_LAYERS = 6
 
 
 def check_mamba2_training(torch, kernels) -> dict[str, int]:
@@ -5280,8 +5363,9 @@ MESH_SERVE_PROMPT, MESH_SERVE_TOKENS = 512, 8
 #: empty for all of its steps)
 CP_NEW_TOKENS, CP_SHORT_PROMPT = 16, 64
 #: (b) olmoe_1b_7b at full width, its depth cut from 16 to this many
-#: layers to hold the run under RUN_LIMIT_S
-CP_LAYERS = 4
+#: layers to hold the run under RUN_LIMIT_S (4 until the run's total read
+#: 653.1 s, over the limit)
+CP_LAYERS = 2
 #: (c) olmo_1b at full width with this many layers, 2 x 2048 a rank
 DP_LAYERS, DP_BATCH_PER_RANK = 2, 2
 #: a gradient through int8 and back moves by at most half its block's step,
@@ -6262,7 +6346,7 @@ def main() -> int:
     say("[3] the contract's further instantiations: hd 16 in bf16 (held as "
         f"above), float32 at hd {CONTRACT_HDS} and row 1 in float32 (forward "
         f"{F32_TOL}, backward {F32_BWD_TOL}, TF32 off)")
-    contract, off_path = check_contract(torch, timer)
+    contract, off_path = check_contract(torch, timer, probe)
     for name, entry in contract.items():
         base, kind = name[:-1].split("[")
         hd = kind.split("/hd")[1] if "/hd" in kind else None

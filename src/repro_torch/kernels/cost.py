@@ -31,6 +31,10 @@ TF32_FLOP_PER_S = 495e12        # tensor cores, TF32
 #: lo in TF32, a b = hi hi + hi lo + lo hi, three TF32 products
 F32_SPLIT_FLOP_PER_S = TF32_FLOP_PER_S / 3
 F64_FLOP_PER_S = 34e12          # CUDA cores (FP64, outside the tensor cores)
+#: exponentials a second on the special function units of an H100 SXM5
+#: (FlashAttention-3, Shah et al. 2024, section 3: 3.9 TFLOPS of
+#: exponential against 989 of bf16 matrix products)
+EXP_PER_S = 3.9e12
 
 #: Arithmetic operations per row of each pricing formula (additions,
 #: subtractions, multiplications, divisions; comparisons and selects not
@@ -167,6 +171,24 @@ def flash_attention_bwd_dq(b, h, hkv, sq, sk, hd, causal, f32=False) -> Work:
     qb, kb, rows = _attention_bytes(b, h, hkv, sq, sk, hd, f32)
     mm = 2.0 * b * h * hd * attention_pairs(sq, sk, causal)
     return Work(3 * qb + 2 * kb + 2 * rows, 3 * mm, _rate(f32))
+
+
+def exponentials(name: str, *shape, **kw) -> Work:
+    """The softmax's exponentials of attention kernel ``name`` (a function
+    of this module: ``decode_attention`` or a flash kernel, called with the
+    same shape arguments) at the special function units' rate: a second
+    bound beside the kernel's :class:`Work`, as :func:`f32_cores` is, its
+    ``flops`` the exponentials. One a (head, query, key) pair in the
+    forward, the forward with LSE, dK/dV and dQ (each recomputes P); one a
+    (head, position) in decode."""
+    w = globals()[name](*shape, **kw)
+    if name == "decode_attention":
+        b, h, _, _, kv_len = shape[:5]
+        n = b * h * kv_len
+    else:
+        b, h, _, sq, sk, _, causal = shape[:7]
+        n = b * h * attention_pairs(sq, sk, causal)
+    return dataclasses.replace(w, flops=float(n), rate=EXP_PER_S)
 
 
 # ------------------------------ row 4 ----------------------------------------

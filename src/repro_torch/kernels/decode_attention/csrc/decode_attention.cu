@@ -37,7 +37,7 @@
 //   fence, no atomic and no serial merge in a last block.
 // * Bytes in flight: one producer thread streams K and V with TMA through
 //   two 4-D tensor maps over the cache's (hd, Hkv, S, B) layout, one box of
-//   16 keys x 64 columns (128 bytes, swizzled; 32 columns at hd 32, 16 at hd 16) per
+//   16 keys x 64 columns (128 bytes, swizzled; 32 columns at hd 32) per
 //   copy, into a ring of ST stages; each stage completes on a "full"
 //   mbarrier with expect_tx bytes, and the consumer warp that used it
 //   releases it on its "empty" mbarrier. ST = 4 stages of 16 keys, one a
@@ -62,9 +62,9 @@
 // * P V in f32 on the CUDA cores, never rounded to bf16 (the reference keeps
 //   this product in f32: one bf16 rounding of P makes greedy decode disagree
 //   on near-ties). Each lane owns hd / 32 columns of every head's
-//   accumulator (hd 16: 16 lanes a row, the warp's two halves taking the
-//   even and the odd keys, added at the end); a tile's P and rescale
-//   factors pass through a 544-byte buffer per warp.
+//   accumulator; a tile's P and rescale factors pass through a 544-byte
+//   buffer per warp.
+// * hd 16 runs a kernel of its own (decode_attention_hd16_kernel, below).
 // * Consumer warp w takes its block's tiles w, w + NCW, ...; each warp keeps
 //   its own (m, l, acc) and the warps merge in shared memory (reusing the
 //   ring) before the blocks merge.
@@ -202,14 +202,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, volati
   }
 }
 
-// Until the last min(count, ST) loads issued into the ring have landed, so
-// that no bulk copy into shared memory is in flight when the block exits;
-// bounded by the watchdog.
+// Until the last min(count, STAGES) loads issued into a ring of STAGES
+// stages have landed, so that no bulk copy into shared memory is in flight
+// when the block exits; bounded by the watchdog.
+template <int STAGES = ST>
 __device__ __forceinline__ void drain_ring(uint64_t* full, int count) {
-  for (int n = count > ST ? count - ST : 0; n < count; ++n) {
-    const uint32_t a = smem_addr(full + n % ST);
+  for (int n = count > STAGES ? count - STAGES : 0; n < count; ++n) {
+    const uint32_t a = smem_addr(full + n % STAGES);
     const long long t0 = clock64();
-    while (!mbar_try_wait(a, (n / ST) & 1) && clock64() - t0 <= WATCHDOG_CYCLES) {
+    while (!mbar_try_wait(a, (n / STAGES) & 1) && clock64() - t0 <= WATCHDOG_CYCLES) {
     }
   }
 }
@@ -543,6 +544,310 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------- head dim 16 ------------------------------------
+//
+// decode_attention_hd16_kernel<NREP>: the same contract at hd 16, a design of
+// its own. The kernel above, instantiated at hd 16, moved 512 bytes of K and
+// 512 of V a TMA round trip (16-key tiles, 4 in flight a block, ~4 tiles one
+// after another a warp) and spent a 3-round shuffle and a pass through the P
+// buffer on each: at (4, 8/2, cache 2081, 16) it read 0.01363 ms, 43x its
+// bytes bound and 1.09x SDPA (PERF.md section 6, row "2, hd 16"). Here:
+// * Tiles of H16_TK = 64 keys, one 2 KB TMA box of K and one of V each, and
+//   H16_ST = 8 ring stages, all issued before kv_len arrives: a block of the
+//   (4, 8/2, 2081) plan holds its whole share of the cache (4-5 tiles) in
+//   flight at once, one round trip. Rows are 32 bytes, read as 16-byte
+//   halves, so no swizzle is needed: a warp's 32 lanes read 512 contiguous
+//   bytes.
+// * Up to H16_MAX_SPLIT = 8 blocks a head group (the portable cluster):
+//   16 blocks (a non-portable cluster) read 0.0064 against 0.0059 ms a
+//   launch in a graph of 81, 4 blocks 0.0065 (tools/hd16_compare.py, H100
+//   80GB HBM3, 700 W).
+// * Q K^T and P V in f32 on the CUDA cores, a key per lane pair: lane
+//   (j, u) holds columns 8u .. 8u + 7 of q (every head of the chunk) and of
+//   its keys j, j + 16, j + 32, j + 48 of a tile, so a score is 8 FMAs and
+//   one shuffle, and P never leaves the lane that computed it: no P buffer,
+//   no bf16 rounding of P. Each lane keeps its own online softmax (m, l,
+//   acc) over its keys; a key at or past kv_len scores -inf; the lanes of a
+//   warp merge by shuffles at the end, then the warps in shared memory. At
+//   hd 16 the products are ~33 K FMAs a group and a tile: the tensor cores
+//   would save nothing the memory latency does not hide.
+// * The blocks of a cluster merge by pushing: each stores its partial into
+//   block 0's shared memory (distributed shared memory) once every block
+//   has started (a cluster barrier's first phase, arrived at the start),
+//   and after one cluster barrier block 0 merges them from its own shared
+//   memory and writes; each block pulling every peer's partial (the
+//   kernel above's merge) read 0.0077 ms a launch in a graph, pushing
+//   0.0065, at 16 blocks a group (two calls of tools/hd16_compare.py).
+// * The contract is the kernel above's: one graph-safe launch (kv_len read
+//   on the device, the grid from the shapes and the occupancy only), any
+//   GQA group through the NREP chunks, strided q/K/V, o in bf16 and the f32
+//   LSE, the l == 0 guard, and the watchdog's NaN on a stuck wait.
+constexpr int H16_TK = 64;         // keys a tile: one TMA box of K, one of V
+constexpr int H16_W = 4;           // consumer warps
+constexpr int H16_THREADS = (H16_W + 1) * 32;
+constexpr int H16_ST = 8;          // ring stages
+constexpr int H16_EARLY = H16_ST;  // tiles a block issues before kv_len is known
+constexpr int H16_MAX_SPLIT = 8;   // blocks a head group (the portable cluster)
+static_assert(H16_ST % H16_W == 0, "every ring stage is used by one consumer warp");
+static_assert(H16_EARLY <= H16_ST, "the early tiles fit the ring");
+
+struct Smem16 {
+  static constexpr int TILE = H16_TK * 32;             // a tile's K (or V) bytes
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int RING = H16_ST * STAGE;
+  static constexpr int PART = (16 + 8 * 16) * 4;        // (m[8], l[8], acc[8][16])
+  static constexpr int GATHER = H16_MAX_SPLIT * PART;    // rank 0: every block's partial
+  static constexpr int BARS = 2 * H16_ST * 8 + 16;      // full, empty, the stuck flag
+  static constexpr int TOTAL = 1024 + RING + GATHER + BARS;
+  static_assert(H16_W * PART <= RING, "the warps' partials fit in the ring");
+};
+
+// 16 bytes of a bf16 row as 8 floats (element 0 in the low half of a word).
+__device__ __forceinline__ void bf16x8(const uint4& w, float (&x)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// Merge (m, l, acc) of another part into this one (base-2 scores; an empty
+// part holds m = -inf, l = 0, acc = 0).
+__device__ __forceinline__ void merge_part(float& m, float& l, float (&acc)[8], float mo,
+                                           float lo, const float (&ao)[8]) {
+  const float mn = fmaxf(m, mo);
+  const float ca = m == -INFINITY ? 0.f : exp2f(m - mn);
+  const float cb = mo == -INFINITY ? 0.f : exp2f(mo - mn);
+  l = l * ca + lo * cb;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = acc[c] * ca + ao[c] * cb;
+  m = mn;
+}
+
+// Scores are kept in base 2: s = (q . k) * scale * log2(e).
+template <int NREP>
+__global__ void __launch_bounds__(H16_THREADS)
+    decode_attention_hd16_kernel(const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using G = Smem16;
+  constexpr int TK = H16_TK, ST = H16_ST, W = H16_W;
+  extern __shared__ __align__(16) uint8_t smem16_raw[];
+  uint8_t* smem = smem16_raw + ((1024 - (smem_addr(smem16_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  float* gather = reinterpret_cast<float*>(smem + G::RING);  // [split][16 + 8 x 16], rank 0's
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::RING + G::GATHER);
+  uint64_t* empty = full + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(empty + ST);
+
+  // blockIdx.y = (b * Hkv + kvh) * n_chunks + chunk, as the kernel above
+  constexpr bool CHUNKED = NREP == 8;
+  const int split = blockIdx.x, n_split = gridDim.x, gi = blockIdx.y;
+  const int n_chunks = CHUNKED ? (p.group + NREP - 1) / NREP : 1;
+  const int chunk = CHUNKED ? gi % n_chunks : 0;
+  const int bkv = CHUNKED ? gi / n_chunks : gi;
+  const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
+  const int h0 = kvh * p.group + chunk * NREP;
+  const int valid = CHUNKED ? min(NREP, p.group - chunk * NREP) : NREP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int kv_in = __ldg(p.kv_len);  // waited for where first used
+  auto tile_key = [&](int i) { return (split + i * n_split) * TK; };  // tile i's first key
+  int kv_len = 0;
+  auto count_tiles = [&]() {  // kv_len clamped to [0, S], and this split's tiles
+    kv_len = max(0, min(kv_in, p.S));
+    const int tiles = (kv_len + TK - 1) / TK;
+    return split >= tiles ? 0 : (tiles - split + n_split - 1) / n_split;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
+    }
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // this block has started: the cluster barrier's first phase, waited for
+  // before the first write into block 0's shared memory
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+
+  // lane (j, u): keys j + 16 x of a tile, columns 8u .. 8u + 7
+  const int j = lane >> 1, u = lane & 1;
+  float m[NREP], l[NREP], acc[NREP][8];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    m[r] = -INFINITY, l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+
+  if (warp == W) {
+    // producer: lane 0 loads each tile's K and V box; the first H16_EARLY
+    // tiles of the split that lie in the cache before kv_len is known
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&kmap)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&vmap)) : "memory");
+      auto issue = [&](int i) {
+        const int s = i % ST;
+        uint8_t* kt = ring + s * G::STAGE;
+        mbar_expect_tx(full + s, G::STAGE);
+        tma_load_4d(kt, &kmap, full + s, 0, kvh, tile_key(i), b);
+        tma_load_4d(kt + G::TILE, &vmap, full + s, 0, kvh, tile_key(i), b);
+      };
+      int i = 0;
+      for (; i < H16_EARLY && tile_key(i) < p.S; ++i) issue(i);
+      const int ntiles = count_tiles();
+      for (; i < ntiles; ++i) {
+        if (i >= ST) {  // the stage's previous tile released by its warp
+          mbar_wait(empty + i % ST, ((i / ST) & 1) ^ 1, stuck);
+          if (*stuck) break;
+        }
+        issue(i);
+      }
+      drain_ring<ST>(full, i);
+    }
+  } else {
+    // q of the chunk's heads, this lane's 8 columns, f32
+    float qf[NREP][8];
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      const bf16* qh = p.q + b * p.q_sb + (int64_t)(h0 + min(r, valid - 1)) * p.q_sh + 8 * u;
+      bf16x8(*reinterpret_cast<const uint4*>(qh), qf[r]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) qf[r][c] = r < valid ? qf[r][c] : 0.f;
+    }
+    const int ntiles = count_tiles();
+    for (int i = warp; i < ntiles; i += W) {
+      const int s = i % ST;
+      mbar_wait(full + s, (i / ST) & 1, stuck);
+      if (__any_sync(0xffffffffu, *stuck)) break;  // warp-uniform: shuffles follow
+      const int rows = min(TK, kv_len - tile_key(i));
+      const uint8_t* kt = ring + s * G::STAGE;
+      const uint8_t* vt = kt + G::TILE;
+      float sc[TK / 16][NREP];
+#pragma unroll
+      for (int x = 0; x < TK / 16; ++x) {
+        float kx[8];
+        bf16x8(*reinterpret_cast<const uint4*>(kt + (x * 16 + j) * 32 + 16 * u), kx);
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) {
+          float d = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) d = fmaf(qf[r][c], kx[c], d);
+          sc[x][r] = d;
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < TK / 16; ++x)
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) {
+          const float d = sc[x][r] + __shfl_xor_sync(0xffffffffu, sc[x][r], 1);
+          sc[x][r] = x * 16 + j < rows ? d * p.scale_log2 : -INFINITY;
+        }
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        float mx = sc[0][r];
+#pragma unroll
+        for (int x = 1; x < TK / 16; ++x) mx = fmaxf(mx, sc[x][r]);
+        const float mn = fmaxf(m[r], mx);
+        const float base = mn == -INFINITY ? 0.f : mn;  // no valid key of the lane yet
+        const float alpha = exp2f(m[r] - base);         // m = -inf: 0
+        float sum = 0.f;
+#pragma unroll
+        for (int x = 0; x < TK / 16; ++x) {
+          sc[x][r] = exp2f(sc[x][r] - base);
+          sum += sc[x][r];
+        }
+        l[r] = l[r] * alpha + sum;
+        m[r] = mn;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
+      }
+#pragma unroll
+      for (int x = 0; x < TK / 16; ++x) {
+        float vx[8];
+        bf16x8(*reinterpret_cast<const uint4*>(vt + (x * 16 + j) * 32 + 16 * u), vx);
+#pragma unroll
+        for (int r = 0; r < NREP; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(sc[x][r], vx[c], acc[r][c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    // the warp's 16 key lanes of each column half merge by shuffles
+#pragma unroll
+    for (int o = 2; o < 32; o <<= 1)
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        float ao[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) ao[c] = __shfl_xor_sync(0xffffffffu, acc[r][c], o);
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+        merge_part(m[r], l[r], acc[r], mo, lo, ao);
+      }
+  }
+  __syncthreads();  // the ring is idle: the warps' partials go there
+
+  float* wm = reinterpret_cast<float*>(ring);  // [W][8]
+  float* wl = wm + W * 8;                      // [W][8]
+  float* wacc = wl + W * 8;                    // [W][8][16]
+  if (warp < W && j == 0) {
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      if (u == 0) wm[warp * 8 + r] = m[r], wl[warp * 8 + r] = l[r];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) wacc[(warp * 8 + r) * 16 + 8 * u + c] = acc[r][c];
+    }
+  }
+  __syncthreads();
+  // the block's partial, merged over its warps, goes to its slot in the
+  // shared memory of the cluster's block 0 (distributed shared memory),
+  // once every block of the cluster has started
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  float* slot = cluster.map_shared_rank(gather + split * (16 + 8 * 16), 0);
+  for (int i = threadIdx.x; i < valid * 16; i += H16_THREADS) {
+    const int r = i / 16;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < W; ++w) M = fmaxf(M, wm[w * 8 + r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      if (wm[w * 8 + r] != -INFINITY) {
+        const float c = exp2f(wm[w * 8 + r] - M);
+        L += wl[w * 8 + r] * c;
+        A += wacc[(w * 8 + r) * 16 + i % 16] * c;
+      }
+    }
+    slot[16 + i] = *stuck ? NAN : A;
+    if (i % 16 == 0) slot[r] = M, slot[8 + r] = L;
+  }
+  cluster.sync();  // every partial is in block 0's shared memory
+  if (split != 0) return;  // nothing reads the others' shared memory
+  // block 0 merges the (valid heads x 16) outputs from the n_split partials
+  for (int i = threadIdx.x; i < valid * 16; i += H16_THREADS) {
+    const int r = i / 16, d = i % 16;
+    float M = -INFINITY;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, gather[s * (16 + 8 * 16) + r]);
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float* part = gather + s * (16 + 8 * 16);
+      const float c = part[r] == -INFINITY ? 0.f : exp2f(part[r] - M);
+      L += part[8 + r] * c;
+      A += part[16 + i] * c;
+    }
+    const float safe = L == 0.f ? 1.f : L;
+    const int64_t row = (int64_t)b * p.H + h0 + r;
+    p.o[row * 16 + d] = __float2bfloat16(A / safe);
+    if (d == 0) p.lse[row] = M == -INFINITY ? -1e30f : (M + log2f(safe)) * LN2;
+  }
+}
+
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched through the
 // runtime, so the library links no libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -647,6 +952,72 @@ cudaError_t plan(int B, int H, int Hkv, Plan* out) {
   return cudaSuccess;
 }
 
+// The TMA map of a (B, Hkv, S, 16) bf16 view for the hd-16 kernel: boxes of
+// (16, 1, H16_TK, 1), one 32-byte row a key, not swizzled; rows past S read
+// as zeros.
+cudaError_t make_map16(CUtensorMap* map, const void* base, int B, int Hkv, int S,
+                       const int64_t* st) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {16, (cuuint64_t)Hkv, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)H16_TK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The hd-16 kernel's plan: as plan() with the cluster merge, up to
+// H16_MAX_SPLIT blocks a head group (a non-portable size, allowed on the
+// kernel), as many as fill the card in one wave with every cluster resident.
+template <int NREP>
+cudaError_t plan16(int B, int H, int Hkv, Plan* out) {
+  static int slots = 0, active[H16_MAX_SPLIT + 1] = {};
+  constexpr int smem = Smem16::TOTAL;
+  auto kernel = decode_attention_hd16_kernel<NREP>;
+  if (slots == 0) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess && H16_MAX_SPLIT > 8)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0, sms = 0, dev = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, H16_THREADS, smem);
+    if (e != cudaSuccess) return e;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    for (int n = 1; n <= H16_MAX_SPLIT; ++n) {
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = n;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(n, 1);
+      cfg.blockDim = dim3(H16_THREADS);
+      cfg.dynamicSmemBytes = smem;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      e = cudaOccupancyMaxActiveClusters(&active[n], kernel, &cfg);
+      if (e != cudaSuccess) return e;
+    }
+    slots = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int group = H / Hkv;
+  out->groups = B * Hkv * ((group + NREP - 1) / NREP);
+  int n = max(1, min(H16_MAX_SPLIT, slots / max(1, out->groups)));
+  while (n > 1 && active[n] < out->groups) --n;
+  out->n_split = n;
+  out->clusters = active[n];
+  out->smem = smem;
+  out->scratch = 0;
+  return cudaSuccess;
+}
+
 struct Args {
   const void *q, *k, *v, *kv_len;
   void *o, *lse, *scratch;
@@ -708,9 +1079,50 @@ cudaError_t dispatch_group(const Args& a) {
   }
 }
 
+template <int NREP>
+cudaError_t run16(const Args& a) {
+  Plan pl;
+  cudaError_t err = plan16<NREP>(a.B, a.H, a.Hkv, &pl);
+  if (err != cudaSuccess || a.plan_only) {
+    if (a.plan_only) *a.plan_only = pl;
+    return err;
+  }
+  const int64_t* st = a.strides;
+  CUtensorMap km, vm;
+  if ((err = make_map16(&km, a.k, a.B, a.Hkv, a.S, st + 2)) != cudaSuccess) return err;
+  if ((err = make_map16(&vm, a.v, a.B, a.Hkv, a.S, st + 5)) != cudaSuccess) return err;
+  Params p{static_cast<const bf16*>(a.q), static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
+           static_cast<const int*>(a.kv_len), nullptr, nullptr, a.S, a.H, a.Hkv, a.H / a.Hkv,
+           st[0], st[1], a.scale_log2};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.n_split, pl.groups);
+  cfg.blockDim = dim3(H16_THREADS);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_attention_hd16_kernel<NREP>, km, vm, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t dispatch_group16(const Args& a) {
+  switch (a.H / a.Hkv) {
+    case 1: return run16<1>(a);
+    case 2: return run16<2>(a);
+    case 3: return run16<3>(a);
+    case 4: return run16<4>(a);
+    default: return run16<8>(a);  // 8, or chunks of 8 heads
+  }
+}
+
 cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 16: return dispatch_group<16>(a);
+    case 16: return dispatch_group16(a);
     case 32: return dispatch_group<32>(a);
     case 64: return dispatch_group<64>(a);
     case 128: return dispatch_group<128>(a);
@@ -753,7 +1165,8 @@ int decode_attention_plan(int B, int H, int Hkv, int hd, int64_t* info) {
                nullptr, 0.f, nullptr, &pl};
   const cudaError_t err = dispatch_hd(hd, a);
   info[0] = pl.n_split, info[1] = pl.groups, info[2] = pl.smem;
-  info[3] = CLUSTER_MERGE ? 1 : 0, info[4] = (int64_t)pl.scratch, info[5] = pl.clusters;
+  info[3] = CLUSTER_MERGE || hd == 16 ? 1 : 0, info[4] = (int64_t)pl.scratch,
+  info[5] = pl.clusters;
   return (int)err;
 }
 

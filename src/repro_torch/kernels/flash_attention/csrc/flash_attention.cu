@@ -70,6 +70,7 @@
 //   stages whose phases have not completed, and the launch fails with
 //   "unspecified launch failure", a drain or not: measured with the
 //   planted faults of tools/flash_planted_faults.py.)
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1250,6 +1251,343 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---- dK/dV at hd 16: flash_bwd_dkv_cluster_kernel<16>
+//
+// The kernel above, instantiated at hd 16, read 0.12171 ms at (4, 8/2,
+// 2048, 16) causal, 7 % of its tensor bound (PERF.md section 6, row "3/5-7,
+// hd 16"): an item of 128 keys walked its n_rep query heads' tiles one after
+// another (the first keys' item 4 x 32 = 128 tiles, the last one's 8, one
+// wave of 128 items on 132 SMs), and at hd 16 a tile is little work (S and
+// dP one k-step each, ~32 exponentials a thread) behind four mbarrier
+// handshakes and two ping-pong turns. The exponentials set the floor: one a
+// (head, query, key) pair, 67.1 M at that shape, 0.0172 ms at the special
+// function units' 3.9e12 a second. This design shortens and balances the
+// chain and trims each tile's work:
+// * An item is 64 keys of one (batch, kv head), and its (query head, query
+//   tile) list is split across the DKV16_CL = 4 blocks of a thread-block
+//   cluster, block r taking tiles r, r + CL, ...: the first keys' item is
+//   four chains of 32 tiles. Items go heaviest first (blockIdx order).
+//   Clusters of 2 and 8 read 0.078 and 0.069-0.077 ms against 0.063-0.072
+//   for 4 (tools/hd16_compare.py, H100 80GB HBM3, 700 W).
+// * A block is one warpgroup that also loads: warp 0 issues tile i - 1 + ST's
+//   TMA loads (Q, dO) and cp.async copies (LSE, D, arriving on the stage's
+//   barrier when they land; laid out for 16-byte reads) into tile i - 1's
+//   stage while tile i's first products run. No producer warp, no empty
+//   barriers: tile i - 1's dV/dK, a warpgroup product that completes only
+//   once every warp has issued it, frees the stage. A block barrier a tile
+//   makes a wait that gave up end the loop for every warp at once. 128
+//   threads of at most 128 registers, DKV16_MINB = 4 blocks an SM (2 read
+//   the same).
+// * Only a tile on the diagonal or past Sq is masked: the compares and
+//   selects on every tile cost 13-18 % (variant mask-always). Without the
+//   exponentials (no-exp) or without dV/dK's products (no-dvdk) the kernel
+//   reads only ~7 % faster, and tile i + 1's scores in flight during tile
+//   i's elementwise work (two score sets, 202 registers, two blocks an SM)
+//   read 0.107 ms: the time is spread over the tile's steps, not one unit.
+// * The products' shared-memory descriptors are made once; a stage or a
+//   k-step adds to the address field.
+// * Each block keeps its f32 dK/dV partial (64 keys x 16, 8 registers a
+//   thread for each) in registers; rank r owns a quarter of the item's
+//   outputs, every block stores that quarter of its partial into rank r's
+//   shared memory (distributed shared memory), and after one cluster
+//   barrier rank r sums the four in rank order and writes: two calls give
+//   the same bits, and no atomics are used.
+// * The rest is the kernel above: the swizzled TMA maps, the watchdog (a
+//   block whose wait gave up writes NaN into its partial, so the item's
+//   outputs are NaN), top-left causal masking, ragged edges, any GQA group.
+constexpr int DKV16_CL = 4;          // blocks a cluster: an item's tiles split four ways
+constexpr int DKV16_MINB = 4;        // blocks an SM (__launch_bounds__)
+constexpr int DKV16_THREADS = 128;   // one warpgroup
+
+// 4 bytes from global to shared memory by cp.async, zeros where !ok.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's cp.async copies so far have landed
+// (counted among the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+template <bool V>
+struct Flag {  // a compile-time choice passed to a generic lambda
+  static constexpr bool value = V;
+};
+
+template <int HD>
+struct Dkv16 : Geo<HD> {
+  using G = Geo<HD>;
+  static_assert(HD == 16, "the cluster dK/dV design is for hd 16");
+  static constexpr int BK = 64;  // keys an item
+  static constexpr int BQ = 64;  // queries a Q/dO tile
+  static constexpr int ST = 4;   // ring stages (Q, dO and row statistics)
+  static constexpr int KV_BYTES = BK * G::SW;  // K, and V after it
+  static constexpr int Q_BYTES = BQ * G::SW;   // a Q tile, and the dO tile after it
+  static constexpr int ROWS = 2 * BQ;          // floats: the LSE, then D, of a tile
+  static constexpr int PART = 2 * BK * HD * 4; // the f32 dK and dV partials of the item
+  // K, V, the ring, its row statistics, every rank's slice of the partials
+  // (the rank's own outputs), 1 + ST mbarriers and the stuck flag
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + ST * 2 * Q_BYTES + ST * ROWS * 4 + PART + 8 * (1 + ST) + 16;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(DKV16_THREADS, DKV16_MINB)
+flash_bwd_dkv_cluster_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap,
+                             const float* __restrict__ lse, const float* __restrict__ dd,
+                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                             int B, int H, int Hkv, int Sq, int Sk, int causal, float scale,
+                             Str3 dks, Str3 dvs) {
+  using C = Dkv16<HD>;
+  constexpr int ST = C::ST, BQ = C::BQ, CL = DKV16_CL;
+  constexpr int NT = BQ / 8;  // 8-query column tiles of S^T
+  extern __shared__ uint8_t dkv16_smem[];
+  uint8_t* KVs = align_1024(dkv16_smem);      // K, then V at KVs + KV_BYTES
+  uint8_t* Qs = KVs + 2 * C::KV_BYTES;        // stage s: Q at Qs + 2 s Q_BYTES, dO after it
+  float* rows = reinterpret_cast<float*>(Qs + ST * 2 * C::Q_BYTES);  // stage s at s ROWS
+  float* inbox = rows + ST * C::ROWS;  // [rank][slice]: the cluster's partials of my slice
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(inbox + C::PART / 4);
+  uint64_t* full = full_kv + 1;
+  volatile int* stuck = reinterpret_cast<volatile int*>(full + ST);
+
+  // item blockIdx.x / CL: the first keys, the most query tiles, first
+  const int rank = (int)blockIdx.x % CL, item = (int)blockIdx.x / CL;
+  const int bkv_all = B * Hkv;
+  const int n0 = (item / bkv_all) * C::BK;
+  const int bkv = item % bkv_all, b = bkv / Hkv, kvh = bkv % Hkv;
+  const int n_rep = H / Hkv;
+  // query tiles wholly above the diagonal see no key of this item
+  const int m_begin = causal ? (n0 / BQ) * BQ : 0;
+  const int nqt = m_begin < Sq ? (Sq - m_begin + BQ - 1) / BQ : 0;
+  const int all = n_rep * nqt;  // the item's (query head, query tile) pairs
+  const int mine = all > rank ? (all - rank + CL - 1) / CL : 0;  // tiles rank + CL x
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+  const int r0 = warp * 16 + g;           // this thread's keys r0 and r0 + 8 of the item's 64
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) mbar_init(full + s, 1 + 32);  // the TMA bytes, warp 0's rows
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // this block has started: the cluster barrier's first phase, waited for
+  // before the first write into a peer's shared memory
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+
+  // Warp 0: this block's tile i into stage i % ST; lane 0 the Q and dO
+  // boxes, each lane two rows' LSE and D (zeros past Sq, where the rows are
+  // masked), all completing on the stage's barrier. Query c of the tile is
+  // stored at (c % 8 / 2) 16 + (c / 8) 2 + c % 2, so that the 16 a thread
+  // reads (columns 8 j + 2t, 8 j + 2t + 1) lie together: four 16-byte loads.
+  auto col_at = [](int c) { return (c % 8 / 2) * 16 + (c / 8) * 2 + c % 2; };
+  int issued = 0;
+  auto issue = [&](int i) {
+    const int s = i % ST, x = rank + i * CL;
+    const int h = kvh * n_rep + x / nqt, m0 = m_begin + (x % nqt) * BQ;
+    if (lane == 0) {
+      uint8_t* qd = Qs + s * 2 * C::Q_BYTES;
+      load_pair<HD, BQ>(&qmap, &domap, qd, qd + C::Q_BYTES, full + s, m0, h, b);
+    }
+    float* rv = rows + s * C::ROWS;
+    const int64_t base = (int64_t)(b * H + h) * Sq;
+#pragma unroll
+    for (int r = lane; r < BQ; r += 32) {
+      const bool ok = m0 + r < Sq;
+      cp_async4(rv + col_at(r), lse + (ok ? base + m0 + r : 0), ok);
+      cp_async4(rv + BQ + col_at(r), dd + (ok ? base + m0 + r : 0), ok);
+    }
+    cp_async_arrive(full + s);
+    ++issued;
+  };
+  if (warp == 0) {
+    if (lane == 0) load_pair<HD, C::BK>(&kmap, &vmap, KVs, KVs + C::KV_BYTES, full_kv, n0, kvh, b);
+    for (int i = 0; i < ST && i < mine; ++i) issue(i);
+  }
+
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  const int key[2] = {n0 + r0, n0 + r0 + 8};
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_base = smem_addr(KVs), v_base = k_base + C::KV_BYTES;
+  float sa[BQ / 2], pd[BQ / 2];             // S^T and dP^T of a tile, then P^T and dS^T
+  uint32_t pf[BQ / 16][4], df[BQ / 16][4];  // P^T and dS^T as A fragments
+  // The products' shared-memory descriptors (kmajor_product's and
+  // mn_product's at hd 16: one k-step, the 32-byte swizzle), made once: a
+  // stage or a k-step moves only the address field (bytes / 16, no carry
+  // within shared memory's 228 KB), one 64-bit add a product.
+  const uint64_t k_desc = smem_desc(k_base, 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t v_desc = smem_desc(v_base, 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t q_kmaj = smem_desc(smem_addr(Qs), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t q_mnmaj = smem_desc(smem_addr(Qs), C::Q_BYTES, 8 * C::SW, C::LAYOUT);
+
+  mbar_wait(full_kv, 0, stuck);  // the item's K and V
+  for (int i = 0; i < mine; ++i) {
+    const int st = i % ST;
+    const uint64_t off = st * 2 * C::Q_BYTES >> 4, do_off = C::Q_BYTES >> 4;
+    mbar_wait(full + i % ST, (i / ST) & 1, stuck);
+    // S^T = K Q^T and dP^T = V dO^T: rows the item's 64 keys, columns BQ queries
+    wgmma_fence();
+    wgmma_ss<BQ>(sa, k_desc, q_kmaj + off, 0);
+    wgmma_ss<BQ>(pd, v_desc, q_kmaj + off + do_off, 0);
+    wgmma_commit();
+    // while the products run, warp 0 refills tile i - 1's stage: its dV/dK,
+    // a warpgroup product that could complete only once every warp had
+    // issued it (after reading the stage's rows), is done
+    if (warp == 0 && i >= 1 && i - 1 + ST < mine) issue(i - 1 + ST);
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(pd);
+    // P^T and dS^T = P^T (dP^T - D). Only a tile on the diagonal or past Sq
+    // is masked: visible columns c (queries m0 + c) of key row rh are c - 2t
+    // in [lo[rh], hi). The mask's compares and selects on every tile cost
+    // 18 % of the time (tools/hd16_compare.py, variant no-mask).
+    {
+      const int m0 = m_begin + ((rank + i * CL) % nqt) * BQ;
+      const float* l2s = rows + st * C::ROWS;  // the LSE, natural log
+      const float* dcol = l2s + BQ;
+      auto probs = [&](auto masked) {
+        int lo[2] = {-BQ, -BQ}, hi = BQ;
+        if constexpr (decltype(masked)::value) {
+          hi = Sq - m0 - 2 * t;
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) lo[rh] = causal ? key[rh] - m0 - 2 * t : -BQ;
+        }
+        float lsev[2 * NT], dv2[2 * NT];  // columns 8 j + 2t (+ 1), j = 0 .. NT - 1
+#pragma unroll
+        for (int v = 0; v < 2 * NT / 4; ++v) {
+          const float4 a = reinterpret_cast<const float4*>(l2s + 16 * t)[v];
+          const float4 d = reinterpret_cast<const float4*>(dcol + 16 * t)[v];
+          lsev[4 * v] = a.x, lsev[4 * v + 1] = a.y, lsev[4 * v + 2] = a.z, lsev[4 * v + 3] = a.w;
+          dv2[4 * v] = d.x, dv2[4 * v + 1] = d.y, dv2[4 * v + 2] = d.z, dv2[4 * v + 3] = d.w;
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e, c = 8 * j + (e & 1);
+            float pm = ex2_ftz(fmaf(sa[x], scale_log2, -lsev[2 * j + (e & 1)] * LOG2E));
+            if constexpr (decltype(masked)::value) pm = c >= lo[e >> 1] && c < hi ? pm : 0.f;
+            sa[x] = pm;
+            pd[x] = pm * (pd[x] - dv2[2 * j + (e & 1)]);
+          }
+        }
+      };
+      if ((m0 + BQ > Sq) || (causal && m0 < n0 + C::BK - 1))
+        probs(Flag<true>{});
+      else
+        probs(Flag<false>{});
+    }
+    pack_a<BQ>(pf, sa);
+    pack_a<BQ>(df, pd);
+    // dV += P^T dO, dK += dS^T Q (the k dimension is the query)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {  // 16 queries a k-step: 16 rows of 32 bytes
+      wgmma_rs<HD>(dva, pf[kk], q_mnmaj + off + do_off + kk * (16 * C::SW >> 4));
+      wgmma_rs<HD>(dka, df[kk], q_mnmaj + off + kk * (16 * C::SW >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pf);
+    fence_regs(df);
+    if (__syncthreads_or(*stuck)) break;  // a wait of the block gave up: every warp stops
+  }
+  if (warp == 0 && lane == 0) {  // nothing in flight into the ring from here on
+    drain_ring(full_kv, 1, 1);
+    drain_ring(full, ST, issued);
+  }
+
+  // Rank r owns slice r of the item's [dK | dV][key][column] outputs: every
+  // block stores its f32 partial of slice r into rank r's inbox (distributed
+  // shared memory), once every block of the cluster has started; after the
+  // cluster barrier each rank sums its inbox in rank order and writes. NaN
+  // where a wait gave up.
+  constexpr int N = 2 * C::BK * HD, PER = N / CL;
+  static_assert(N % (CL * 2) == 0, "slices of whole column pairs");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const float bad = *stuck ? NAN : 1.f;
+#pragma unroll
+  for (int which = 0; which < 2; ++which)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d) {
+        const int idx = which * C::BK * HD + (r0 + 8 * rh) * HD + d * 8 + 2 * t;
+        const float* acc = which == 0 ? dka : dva;
+        float* dst = cluster.map_shared_rank(inbox + rank * PER + idx % PER, idx / PER);
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[4 * d + 2 * rh] * bad, acc[4 * d + 2 * rh + 1] * bad);
+      }
+  cluster.sync();  // every partial is in its owner's inbox
+#pragma unroll
+  for (int x = 0; x < (PER + DKV16_THREADS - 1) / DKV16_THREADS; ++x) {
+    const int j = x * DKV16_THREADS + threadIdx.x;
+    if (j < PER) {
+      float sum = 0.f;
+#pragma unroll
+      for (int s = 0; s < CL; ++s) sum += inbox[s * PER + j];
+      const int idx = rank * PER + j;
+      const int which = idx / (C::BK * HD), row = idx / HD % C::BK, col = idx % HD;
+      if (n0 + row < Sk) {
+        if (which == 0)
+          dk[b * dks.b + kvh * dks.h + (int64_t)(n0 + row) * dks.s + col] =
+              __float2bfloat16(sum * scale);
+        else
+          dv[b * dvs.b + kvh * dvs.h + (int64_t)(n0 + row) * dvs.s + col] =
+              __float2bfloat16(sum);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_dkv_cluster(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* dd, void* dk, void* dv, int B,
+                               int H, int Hkv, int Sq, int Sk, int causal, float scale,
+                               const int64_t* st, cudaStream_t stream) {
+  using C = Dkv16<HD>;
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_bwd_dkv_cluster_kernel<HD>, C::SMEM, configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dom;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, C::BQ)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, C::BK)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, C::BK)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&dom, dout, B, H, Sq, st + 9, C::BQ)) != cudaSuccess) return err;
+  const int items = (Sk + C::BK - 1) / C::BK * B * Hkv;
+  if (items == 0) return cudaSuccess;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DKV16_CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(items * DKV16_CL);
+  cfg.blockDim = dim3(DKV16_THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_cluster_kernel<HD>, qm, km, vm, dom, lse, dd,
+                           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B,
+                           H, Hkv, Sq, Sk, causal, scale, Str3{st[12], st[13], st[14]},
+                           Str3{st[15], st[16], st[17]});
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* dd, void* dk, void* dv, int B, int H,
@@ -1341,7 +1679,7 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
+    case 16: return launch_dkv_cluster<16>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 32: return launch_dkv<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
@@ -1367,8 +1705,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 }
 
 // Dynamic shared memory a launch takes, in bytes: kernel 0 the forward
-// (with or without LSE), 1 dK/dV, 2 dQ; 0 for another hd.
+// (with or without LSE), 1 dK/dV, 2 dQ, 3 the cluster dK/dV (hd 16; dK/dV
+// launches it at hd 16); 0 for another hd.
 int flash_attention_smem_bytes(int kernel, int hd) {
+  if (kernel == 3) return hd == 16 ? Dkv16<16>::SMEM : 0;
   switch (hd) {
     case 16: return kernel == 0 ? Fwd<16>::SMEM : kernel == 1 ? Dkv<16>::SMEM : Dq<16>::SMEM;
     case 32: return kernel == 0 ? Fwd<32>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;

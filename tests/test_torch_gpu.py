@@ -39,6 +39,8 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1178,3 +1180,112 @@ def test_f32_backward_and_forward_hold_with_the_same_bits(cuda, b, h, hkv, sq, s
     assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, lser, dd, causal))
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+# ------------------- the hd-16 decode and dK/dV redesign ----------------------
+@pytest.mark.parametrize("b,h,hkv,s", [
+    (4, 8, 2, 2081),       # the hd-16 SMOKE configs' heads over the serving cache
+    (2, 6, 2, 300),        # group 3 (minitron_4b SMOKE)
+    (2, 32, 2, 600),       # group 16, in chunks of 8 heads
+    (1, 8, 2, 8192)])      # a block takes more tiles than its ring holds
+def test_hd16_decode_replayed_across_tile_edges(cuda, b, h, hkv, s):
+    """The hd-16 decode kernel (64-key tiles) captured once with a device
+    kv_len and replayed while kv_len advances across the tiles' edges, to
+    S and past it: each replay within 2^-6 of the largest plain output and
+    lse within 1e-3 (kv_len 0: o = 0, lse = -1e30), one launch counted a
+    replay."""
+    from repro_torch.kernels._build import CountedGraph
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn(b, h, 16, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, s, hkv, 16, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, s, hkv, 16, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    kl = torch.full((1,), 3, dtype=torch.int32, device=cuda)
+    decode_attention(q, k, v, kl)           # warm: builds the kernel
+    graph = CountedGraph()
+    with graph.capture():
+        o, lse = decode_attention(q, k, v, kl)
+    n = decode_attention.launches
+    lens = (0, 1, 63, 64, 65, 127, 128, 129, 1000, s - 1, s, s + 50)
+    for i, kv_len in enumerate(lens):
+        kl.fill_(kv_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        # a wait of the kernel that gives up takes ~2 s (its watchdog), and
+        # one in the producer's drain leaves the outputs right: time it
+        assert time.perf_counter() - t0 < 0.5
+        assert decode_attention.launches == n + i + 1
+        if kv_len == 0:
+            assert bool((o == 0).all()) and bool((lse == -1e30).all())
+            continue
+        orf, lser = decode_attention_ref(q, k, v, min(kv_len, s), return_lse=True)
+        assert bool(torch.isfinite(o.float()).all())
+        assert _scaled_err(o, orf) <= 2.0 ** -6
+        _close(lse, lser, 1e-3)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", [
+    (4, 8, 2, 2048, 2048, True),   # the hd-16 SMOKE configs' training heads
+    (2, 6, 2, 191, 191, True),     # group 3, Sk not a multiple of 64
+    (1, 4, 1, 77, 65, False),      # full attention, one key past a tile
+    (1, 4, 2, 300, 129, True),     # Sq > Sk
+    (1, 4, 4, 129, 300, True)])    # Sq < Sk: keys past Sq see no query
+def test_hd16_dkv_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, causal):
+    """The hd-16 dK/dV kernel (64-key items split over a cluster, the
+    partials summed in rank order) against its plain version, each key row
+    within 2e-2 of that row's largest plain value, and two calls the same
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    q, k, v, do = randn(b, sq, h, 16), randn(b, sk, hkv, 16), randn(b, sk, hkv, 16), \
+        randn(b, sq, h, 16)
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    dd = attention_delta(orf, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    dkr, dvr = flash_attention_bwd_dkv_ref(q, k, v, do, lser, dd, causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dk.float()).all() and torch.isfinite(dv.float()).all())
+    assert _row_scaled_err(dk, dkr) <= 2e-2 and _row_scaled_err(dv, dvr) <= 2e-2
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lser, dd, causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_other_head_dims_keep_their_instantiations(cuda):
+    """hd 32, 64 and 128 keep the kernels they had before the hd-16 design:
+    decode's plan a cluster of at most 8 blocks a group, dK/dV's shared
+    memory (the hd-16 cluster kernel's is its own), and each held against
+    its plain version (their bits against the previous source are held by
+    tools/hd16_compare.py)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import plan
+    smem = _build.bind("flash_attention", "flash_attention_smem_bytes",
+                       [ctypes.c_int, ctypes.c_int])
+    for hd in (32, 64, 128):
+        pl = plan(4, 8, 2, hd)
+        assert pl["cluster"] and pl["n_split"] <= 8
+        # K, V of 128 keys, the ring of Q/dO tiles and row statistics, as before
+        st = 3 if hd == 128 else 4
+        assert smem(1, hd) == (1024 + 2 * 128 * hd * 2 + st * 2 * 64 * hd * 2 + st * 128 * 4
+                               + 8 * (1 + 2 * st) + 16)
+    assert smem(3, 16) > 0 and smem(3, 32) == 0
+    g = torch.Generator(device=cuda).manual_seed(33)
+    for hd in (32, 64, 128):
+        q = torch.randn(4, 8, hd, generator=g, device=cuda).bfloat16()
+        k = torch.randn(4, 300, 2, hd, generator=g, device=cuda).bfloat16().transpose(1, 2)
+        v = torch.randn(4, 300, 2, hd, generator=g, device=cuda).bfloat16().transpose(1, 2)
+        o, lse = decode_attention(q, k, v, 277)
+        orf, lser = decode_attention_ref(q, k, v, 277, return_lse=True)
+        assert _scaled_err(o, orf) <= 2.0 ** -6
+        _close(lse, lser, 1e-3)
+        qt, kt, vt, do = (torch.randn(2, s, n, hd, generator=g, device=cuda).bfloat16()
+                          .transpose(1, 2) for s, n in ((200, 8), (200, 2), (200, 2), (200, 8)))
+        orf, lser = flash_attention_fwd_lse_ref(qt, kt, vt, True)
+        dd = attention_delta(orf, do)
+        dk, dv = flash_attention_bwd_dkv(qt, kt, vt, do, lser, dd, True)
+        dkr, dvr = flash_attention_bwd_dkv_ref(qt, kt, vt, do, lser, dd, True)
+        assert _row_scaled_err(dk, dkr) <= 2e-2 and _row_scaled_err(dv, dvr) <= 2e-2

@@ -173,3 +173,49 @@ def test_f32_rmsnorm_work_doubles_the_element_type_bytes(kind, per_bf16, per_f32
     bwd = {"residual": (10, 20), "plain": (8, 16), "gated": (14, 20)}[kind]
     assert cost.rmsnorm_bwd(rows, d, kind).bytes == rows * d * bwd[0] + d * 8
     assert cost.rmsnorm_bwd(rows, d, kind, f32=True).bytes == rows * d * bwd[1] + d * 8
+
+
+# ------------------------------ the exponentials ------------------------------
+def test_hd16_dkv_exponential_bound_exceeds_its_tensor_bound():
+    """At hd 16 the softmax's exponentials, one a (head, query, key) pair at
+    the special function units' 3.9e12 a second, bound dK/dV above its
+    tensor-core term: 67.1 M pairs at (4, 8/2, 2048, 16) causal, 0.0172 ms
+    against 0.00869 ms."""
+    args = (4, 8, 2, 2048, 2048, 16, True)
+    tensor = cost.flash_attention_bwd_dkv(*args)
+    exps = cost.exponentials("flash_attention_bwd_dkv", *args)
+    assert cost.EXP_PER_S == 3.9e12
+    assert exps.flops == 4 * 8 * cost.attention_pairs(2048, 2048, True) == 67_141_632
+    assert exps.bytes == tensor.bytes and exps.rate == cost.EXP_PER_S
+    assert (round(exps.bound_ms()[0], 4), exps.bound_ms()[1]) == (0.0172, "operations")
+    assert round(tensor.bound_ms()[0], 5) == 0.00869
+    assert exps.bound_ms()[0] > tensor.bound_ms()[0]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_fwd_lse",
+                                  "flash_attention_bwd_dkv", "flash_attention_bwd_dq"])
+def test_exponentials_leave_the_existing_bounds_alone(name):
+    """The second bound is reported beside the kernel's, never folded in:
+    at hd 128 every flash kernel keeps its tensor-core figure (the serving
+    forward at (4, 32/8, 2048, 128) still 0.139 ms "operations"), which its
+    exponentials (one a pair, 0.0689 ms there) stay under."""
+    args = (4, 32, 8, 2048, 2048, 128, True)
+    w = getattr(cost, name)(*args)
+    exps = cost.exponentials(name, *args)
+    assert exps.flops == 4 * 32 * cost.attention_pairs(2048, 2048, True)
+    assert exps.bound_ms()[0] < w.bound_ms()[0]
+    if name == "flash_attention":
+        assert (round(w.bound_ms()[0], 3), w.bound_ms()[1]) == (0.139, "operations")
+        assert round(exps.bound_ms()[0], 4) == 0.0689
+
+
+@pytest.mark.parametrize("hd, h, hkv", [(16, 8, 2), (128, 32, 8)])
+def test_decode_exponentials_are_negligible(hd, h, hkv):
+    """Decode takes one exponential a (head, position): 66.5 K at the hd-16
+    SMOKE shape (4, 8/2, 2079 positions), 17 ns, far under the bytes it
+    reads, so its second bound is its bytes bound."""
+    w = cost.decode_attention(4, h, hkv, hd, 2079)
+    exps = cost.exponentials("decode_attention", 4, h, hkv, hd, 2079)
+    assert exps.flops == 4 * h * 2079
+    assert exps.flops / cost.EXP_PER_S * 1e3 < w.bound_ms()[0] / 10
+    assert exps.bound_ms() == w.bound_ms() and w.bound_ms()[1] == "bytes"

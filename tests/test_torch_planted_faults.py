@@ -256,3 +256,23 @@ def test_rmsnorm_launch_variants_plant_their_attribute(name, attribute):
     assert "<<<" not in planted and planted.count("cudaLaunchKernelEx(") == 1
     key = f"cudaLaunchAttribute{attribute};"
     assert planted.count(key) == 1 and key not in text
+
+
+# ------------------------------- the hd-16 kernels ----------------------------
+HD16_COMPARE = _tool("hd16_compare")
+
+
+def test_hd16_compare_names_the_sources():
+    assert HD16_COMPARE.SOURCES == {"decode_attention": DECODE_SOURCE,
+                                    "flash_attention": SOURCE}
+
+
+@pytest.mark.parametrize("name", sorted(HD16_COMPARE.VARIANTS))
+def test_hd16_variant_finds_its_text_once(name):
+    lib, edits, what = HD16_COMPARE.VARIANTS[name]
+    text = HD16_COMPARE.SOURCES[lib].read_text()
+    assert what and edits and all(text.count(old) == 1 and new != old for old, new in edits)
+    edited = HD16_COMPARE.variant_sources(name)
+    assert edited[lib] != text
+    assert all(edited[other] == HD16_COMPARE.SOURCES[other].read_text()
+               for other in edited if other != lib)
