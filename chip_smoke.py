@@ -593,9 +593,34 @@ def sdpa(F, q, k, v, causal: bool):
                                           enable_gqa=True)
 
 
+def sdpa_lse(torch, q, k, v, causal: bool):
+    """The library yardstick for the forward with LSE: one aten call that
+    returns O and the logsumexp, over K/V expanded across the GQA group
+    outside the call (never called by the port): the flash backend's
+    ``_scaled_dot_product_flash_attention`` or, where it refuses the inputs,
+    the memory-efficient backend with ``compute_log_sumexp``. Returns (a
+    callable giving (o, lse), the call's name)."""
+    n_rep = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(n_rep, 1) for t in (k, v))
+    aten = torch.ops.aten
+    calls = (("_scaled_dot_product_flash_attention",
+              lambda: aten._scaled_dot_product_flash_attention(q, ke, ve, 0.0, causal)[:2]),
+             ("_scaled_dot_product_efficient_attention",
+              lambda: aten._scaled_dot_product_efficient_attention(
+                  q, ke, ve, None, True, 0.0, causal)[:2]))
+    for name, call in calls:
+        try:
+            call()
+            return call, name
+        except RuntimeError as err:      # the backend refuses these inputs
+            say(f"    {name}: {str(err).splitlines()[0][:120]}")
+    raise AssertionError("no aten attention call returns the logsumexp for these inputs")
+
+
 # ------------------------------- phase 2 --------------------------------------
 FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_bwd_dkv_kernel": 1,
-                 "flash_bwd_dq_kernel": 2, "flash_bwd_dkv_cluster_kernel": 3}
+                 "flash_bwd_dq_kernel": 2, "flash_bwd_dkv_cluster_kernel": 3,
+                 "flash_fwd_group_kernel": 4, "flash_bwd_dq_group_kernel": 5}
 
 
 def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
@@ -681,8 +706,9 @@ DECODE_ENTRY = r"decode_attention_(?:kernelILi(\d+)E|hd16_kernelI)Li(\d+)E"
 #: their instantiations: hd 16 (its own kernel), 32, 64, 128, each at NREP
 #: 1, 2, 3, 4, 8
 DECODE_BUILDS = 20
-#: the serving forward, the forward with LSE and dQ at hd 16, 32, 64, 128;
-#: dK/dV at hd 32, 64, 128 and its cluster kernel at hd 16
+#: the serving forward, the forward with LSE, dK/dV and dQ at hd 32, 64,
+#: 128, and at hd 16 kernels of their own: the grouped forward (with and
+#: without LSE), the cluster dK/dV and the grouped dQ
 FLASH_BUILDS = 16
 #: the float32 decode kernel, decode_f32_kernel<HD, NREP, KV> (hd 16, 32,
 #: 64, 128; NREP 1, 2, 3, 4, 8; a float32 or a bf16 cache), and the float32
@@ -2485,7 +2511,9 @@ def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
     their plain versions over :func:`contract_train_cases` (bf16: each row
     within TRAIN_ROW_REL, as phase 3's; f32: element-wise at F32_TOL and
     F32_BWD_TOL), the backward bit-identical across two calls; timed at the
-    first case. Returns {wrapper: entry}."""
+    first case. In bf16 the forward with LSE's ``library_ms`` is the aten call
+    that returns O and the logsumexp (:func:`sdpa_lse`), SDPA's forward
+    beside it. Returns {wrapper: entry}."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
@@ -2544,6 +2572,14 @@ def check_contract_training(torch, timer, dtype: str, hd: int) -> dict:
                         lambda: flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, causal))}
     kernel_ms = {name: timer.ms(calls[name][0], 10) for name in names}
     lib_fwd = sdpa_yardstick(torch, timer, q, k, v, causal)
+    if dtype == "bf16":
+        # the one aten call that returns O and the logsumexp, as the kernel
+        call, lse_call = sdpa_lse(torch, q, k, v, causal)
+        lib_fwd = dict(library_ms=timer.ms(call, 10),
+                       library_backend=f"aten.{lse_call} (K/V expanded outside the call)",
+                       library_lse_err=(call()[1] - lse).abs().max().item(),
+                       library_sdpa_fwd_ms=lib_fwd["library_ms"],
+                       library_sdpa_fwd_backend=lib_fwd["library_backend"])
     bwd = sdpa_yardstick(torch, timer, q, k, v, causal, do)
     lib_pair = dict(library_bwd_pair_ms=bwd["library_ms"],
                     library_bwd_backend=bwd["library_backend"],
@@ -2629,7 +2665,9 @@ DECODE_HD16_THREADS = 160
 #: instantiated at hd 16) at the same shapes, as PERF.md section 6 records
 #: them (chip_smoke.py on an H100 80GB HBM3, 700 W): printed beside this
 #: run's readings, never in the kernels line.
-RECORDED_HD16_MS = {"decode_attention": 0.01363, "flash_attention_bwd_dkv": 0.12171}
+RECORDED_HD16_MS = {"decode_attention": 0.01363, "flash_attention_bwd_dkv": 0.12171,
+                    "flash_attention": 0.04921, "flash_attention_fwd_lse": 0.04947,
+                    "flash_attention_bwd_dq": 0.05184}
 #: a decode launch slower than this gave up a wait (its watchdog, ~2 s)
 DECODE_STUCK_MS = 1.0
 
@@ -2836,9 +2874,16 @@ def check_contract(torch, timer, probe=None) -> tuple[dict, dict]:
                 dest[f"{name}[{kind}]"] = entry
                 say(f"  {name}[{kind}]: {json.dumps(entry)}")
                 if kind == "bf16/hd16" and name in RECORDED_HD16_MS:
+                    lib = entry.get("library_ms")
                     say(f"    beside the replaced kernel's {RECORDED_HD16_MS[name]} ms "
                         f"(recorded, PERF.md section 6): {entry['ms']:.5f} ms now, "
-                        f"{RECORDED_HD16_MS[name] / entry['ms']:.2f}x")
+                        f"{RECORDED_HD16_MS[name] / entry['ms']:.2f}x; library "
+                        + (f"{lib:.5f} ms" if lib is not None else
+                           f"none alone (SDPA's backward pair "
+                           f"{entry['library_bwd_pair_ms']:.5f} ms)")
+                        + f"; bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}), "
+                        f"exponentials {entry['exp_bound_ms']:.5f} ms "
+                        f"({entry['exp_bound_ms'] / entry['ms']:.1%} of it)")
             torch.cuda.empty_cache()
     for name, entry in check_contract_rmsnorm(torch, timer).items():
         out[f"{name}[f32]"] = entry

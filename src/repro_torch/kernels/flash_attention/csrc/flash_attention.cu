@@ -769,11 +769,12 @@ EncodeTiled tensor_map_encoder() {
 
 // The TMA map of a (B, heads, S, hd) bf16 view with element strides
 // st = (sb, sh, ss) and a unit last stride: dims (hd, heads, S, B), boxes
-// of (CW, 1, rows, 1), swizzled as the products read them; rows past S
-// read as zeros.
+// of (CW, box_heads, rows, 1), swizzled as the products read them; rows
+// past S and heads past `heads` read as zeros. A box of several heads lands
+// position-major: row p box_heads + j of the tile is head j at position p.
 template <int HD>
 cudaError_t make_map(CUtensorMap* map, const void* base, int B, int heads, int S,
-                     const int64_t* st, int rows) {
+                     const int64_t* st, int rows, int box_heads = 1) {
   using C = Geo<HD>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -781,7 +782,7 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int heads, int S
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)C::CW, (cuuint32_t)box_heads, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
@@ -1553,6 +1554,529 @@ flash_bwd_dkv_cluster_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---- the forward and dQ at hd 16: flash_fwd_group_kernel<16, LSE> and
+// flash_bwd_dq_group_kernel<16>
+//
+// The kernels above, instantiated at hd 16, read 0.04921 ms (the forward),
+// 0.04947 (with the LSE) and 0.05184 (dQ) at (4, 8/2, 2048, 16) causal
+// (PERF.md section 6, rows "3/5, hd 16" and "7, hd 16"), 33-35 % of the bound the
+// softmax's exponentials set (one a (head, query, key) pair, 67.1 M at that
+// shape, 0.0172 ms at the special function units' 3.9e12 a second). At hd
+// 16 the products are small (S one k-step; P V and dS K one m64n16k16 step
+// a 16 keys), so the exponentials and their row bookkeeping are the work,
+// and their latency was left bare: the forward ran one block an SM of two
+// consumer warpgroups taking turns (8 warps, two a scheduler), dQ one block
+// of 128 rows an item, one chain of products and exponentials a tile. Both
+// designs here:
+// * Pack the query heads of one GQA group into an item's 64 rows: row
+//   p hpi + j is head j of the group at position p0 + p, with hpi =
+//   min(n_rep, 64) heads and 64 / hpi positions an item (a group of more
+//   than 64 heads in chunks of 64; rows hpi (64 / hpi) .. 63 are zeros and
+//   are not written). One TMA box over (hd, hpi heads, positions) loads Q
+//   (and dO) so; each K/V tile is loaded once for the group's heads, and an
+//   item's causal key range is its few positions'.
+// * A block is one warpgroup of at most 128 registers a thread, four blocks
+//   an SM (16 warps); no producer warp and no ping-pong. The grid is
+//   persistent, a whole number of blocks an SM, all resident: block b takes
+//   item b, then items in zigzag rounds (2P - 1 - b, 2P + b, ...), so one
+//   that took a heavy item (the last positions, the most key tiles) takes a
+//   light one next, and every block, so every SM, has about the same work.
+//   (One block an item in one wave left the busiest SM a quarter more
+//   tiles than the mean: tools/hd16_compare.py, variant fwd-trace.) The grid
+//   depends on the shapes and the card only.
+// * Thread 0 loads the block's stream of tiles, item after item, each
+//   item's Q (and dO) into the buffer of its place in the stream before its
+//   first K/V tile, and refills tile f - 1's stage with tile f - 1 + ST
+//   while tile f's first products run: a block barrier a tile follows tile
+//   f - 1's last product in every warp, and makes a wait that gave up end
+//   the block's work for every warp at once (its items' rows are NaN).
+//   A tile's products and elementwise work run one after another in the
+//   warpgroup; the SM's other blocks fill the gaps.
+// * Only a tile on the causal diagonal or past Sk is masked; every
+//   exponential is one ex2.approx on the special function unit; the
+//   shared-memory descriptors are made once (a stage, a buffer or a k-step
+//   adds to the address).
+// * The forward: K/V tiles of 128 keys; S = Q K^T (m64n128k16, both operands
+//   in shared memory), the online softmax in registers in the log2 domain,
+//   O rescaled, P rounded to bf16 A fragments, O += P V (V read MN-major);
+//   the epilogue as the kernel above (O / l in bf16, the natural-log LSE,
+//   rows past Sq not written, NaN where a wait gave up).
+// * dQ: K/V tiles of 64 keys; S = Q K^T and dP = dO V^T, P = exp2(S scale
+//   log2 e - LSE log2 e) with each row's LSE and D in registers, dS = P
+//   (dP - D) rounded to bf16, dQ += dS K (K read MN-major); each item's f32
+//   dQ lives in registers and is written once, scaled: no atomics, and two
+//   calls give the same bits. (Splitting an item's key tiles over a
+//   cluster, the partials summed through distributed shared memory, read
+//   slower: each block's loads and merge cost more than the shorter chain
+//   saved.)
+// * Measured and left out (tools/hd16_compare.py, H100 80GB HBM3, 700 W):
+//   one block an item in one wave (the busiest SM a quarter over the mean);
+//   64-key forward tiles (slower by ~5 %); the next tile's S issued before
+//   this tile's softmax into a second score buffer, or right after P is
+//   packed (both slower: the issuing warp waits on the in-flight P V). What
+//   bounds both kernels is stated in PERF.md section 6: the
+//   exponentials keep the special function units ~55 % busy, the products,
+//   waits and barrier of each tile leave the rest idle.
+constexpr int HD16_THREADS = 128;  // one warpgroup a block
+constexpr int GROUP_ROWS = 64;     // rows of an item: (position, head) pairs
+constexpr int FWD16_MINB = 4;      // forward blocks an SM (__launch_bounds__)
+constexpr int DQ16_MINB = 4;       // dQ blocks an SM (__launch_bounds__)
+constexpr int HD16_ROUNDS = 2;     // items a block takes, where there are enough
+
+// The rows of an item: hpi heads of a GQA group (a chunk of the group when
+// it has more than GROUP_ROWS heads) at pos positions.
+struct GroupRows {
+  int hpi, pos, chunks;
+  __host__ __device__ explicit GroupRows(int n_rep)
+      : hpi(n_rep < GROUP_ROWS ? n_rep : GROUP_ROWS),
+        pos(GROUP_ROWS / hpi),
+        chunks((n_rep + hpi - 1) / hpi) {}
+};
+
+// Item `item` of the B Hkv chunks ceil(Sq / pos) items, the last positions
+// first: its batch, kv head, chunk, first query head and first position.
+struct GroupItem {
+  int b, kvh, chunk, head0, p0;
+};
+
+__device__ __forceinline__ GroupItem group_item(int item, const GroupRows& gr, int B, int Hkv,
+                                                int n_rep, int Sq) {
+  const int groups = B * Hkv * gr.chunks, npb = (Sq + gr.pos - 1) / gr.pos;
+  const int grp = item % groups;
+  GroupItem it;
+  it.b = grp / (Hkv * gr.chunks);
+  it.kvh = grp / gr.chunks % Hkv;
+  it.chunk = grp % gr.chunks;
+  it.head0 = it.kvh * n_rep + it.chunk * gr.hpi;
+  it.p0 = (npb - 1 - item / groups) * gr.pos;
+  return it;
+}
+
+// Row r of an item: its query head and position; whether it is an output
+// row (inside the chunk's heads of the group, before Sq, not a tail row).
+__device__ __forceinline__ bool group_row(int r, const GroupRows& gr, const GroupItem& it,
+                                          int n_rep, int Sq, int& head, int& qpos) {
+  const int j = r % gr.hpi;
+  head = it.head0 + j;
+  qpos = it.p0 + r / gr.hpi;
+  return r < gr.hpi * gr.pos && it.chunk * gr.hpi + j < n_rep && qpos < Sq;
+}
+
+// An item's key tiles of `bn` keys: up to its last position's (causal).
+__device__ __forceinline__ int group_tiles(const GroupItem& it, const GroupRows& gr, int Sk,
+                                           int causal, int bn) {
+  const int n_end = causal ? min(Sk, it.p0 + gr.pos) : Sk;
+  return (n_end + bn - 1) / bn;
+}
+
+// The item after `item` in this block's share of a persistent grid: zigzag
+// rounds of gridDim.x items, block b taking b, 2P - 1 - b, 2P + b, ...
+__device__ __forceinline__ int next_group_item(int item) {
+  const int P = gridDim.x;
+  const int k = (item / P) % 2 == 0 ? (int)blockIdx.x : P - 1 - (int)blockIdx.x;
+  return item - k + P + (P - 1 - k);
+}
+
+// Zero the rows a 64-row tile's box leaves unwritten (rows `rows` .. 63,
+// where the group's heads do not divide 64), before a product reads them:
+// generic stores, made visible to the tensor cores' (async) proxy. Every
+// thread of the block calls it before the block barrier.
+__device__ __forceinline__ void zero_tail(uint8_t* tile, int rows, int sw) {
+  for (int i = rows * sw / 16 + (int)threadIdx.x; i < GROUP_ROWS * sw / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int HD>
+struct Fwd16 : Geo<HD> {
+  using G = Geo<HD>;
+  static_assert(HD == 16, "the grouped forward is for hd 16");
+  static constexpr int BN = 128;                      // keys a K/V tile
+  static constexpr int ST = 4;                        // ring stages, and Q buffers
+  static constexpr int Q_BYTES = GROUP_ROWS * G::SW;  // an item's Q rows
+  static constexpr int TILE = BN * G::SW;             // a K or a V tile
+  static constexpr int STAGE = 2 * TILE;              // K, and V after it
+  // the Q buffers, the ring; 2 ST mbarriers and the stuck flag; alignment slack
+  static constexpr int SMEM = 1024 + ST * Q_BYTES + ST * STAGE + 8 * 2 * ST + 16;
+};
+
+template <int HD, bool LSE>
+__global__ void __launch_bounds__(HD16_THREADS, FWD16_MINB)
+flash_fwd_group_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk,
+                       int causal, float scale_log2, int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+  using C = Fwd16<HD>;
+  constexpr int ST = C::ST, BN = C::BN;
+  constexpr int NT = BN / 8;  // 8-key column tiles of S
+  extern __shared__ uint8_t fwd16_smem[];
+  uint8_t* Qs = align_1024(fwd16_smem);  // the n-th item's Q in buffer n % ST
+  uint8_t* ring = Qs + ST * C::Q_BYTES;  // stage s: K at ring + s STAGE, V after it
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(ring + ST * C::STAGE);
+  uint64_t* full = full_q + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(full + ST);
+
+  const int n_rep = H / Hkv;
+  const GroupRows gr(n_rep);
+  const int rows = gr.hpi * gr.pos;
+  const int items = B * Hkv * gr.chunks * ((Sq + gr.pos - 1) / gr.pos);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_q + s, 1);
+      mbar_init(full + s, 1);
+    }
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (rows < GROUP_ROWS)
+    for (int s = 0; s < ST; ++s) zero_tail(Qs + s * C::Q_BYTES, rows, C::SW);
+  __syncthreads();
+
+  // Thread 0 loads the block's stream: item after item, the item's Q (into
+  // buffer n % ST for the block's n-th item) before its first K/V tile, the
+  // stream's tile f into stage f % ST. With Sk > 0 every item has a tile.
+  int ld_item = blockIdx.x, ld_nth = 0, ld_tile = 0, ld_tiles = 0, issued = 0, q_issued = 0;
+  GroupItem ld;
+  auto load_next = [&]() {
+    if (ld_item >= items) return;
+    if (ld_tile == 0) {
+      ld = group_item(ld_item, gr, B, Hkv, n_rep, Sq);
+      ld_tiles = group_tiles(ld, gr, Sk, causal, BN);
+      const int qb = ld_nth % ST;
+      mbar_expect_tx(full_q + qb, rows * C::SW);
+      tma_load_4d(Qs + qb * C::Q_BYTES, &qmap, full_q + qb, 0, ld.head0, ld.p0, ld.b);
+      ++q_issued;
+    }
+    uint8_t* kv = ring + (issued % ST) * C::STAGE;
+    load_pair<HD, BN>(&kmap, &vmap, kv, kv + C::TILE, full + issued % ST, ld_tile * BN, ld.kvh,
+                      ld.b);
+    ++issued;
+    if (++ld_tile == ld_tiles) {
+      ld_tile = 0;
+      ld_item = next_group_item(ld_item);
+      ++ld_nth;
+    }
+  };
+  if (threadIdx.x == 0 && Sk > 0)
+    while (issued < ST && ld_item < items) load_next();
+
+  float oacc[HD / 2];
+  float mrow[2], lrow[2];   // log2-domain row max, row sum
+  float s[BN / 2];          // scores of a tile, then probabilities
+  uint32_t pa[BN / 16][4];  // P as bf16 A fragments
+  int head[2], qpos[2];     // this thread's rows warp 16 + g (+ 8) of the item
+  const uint64_t q_desc0 = smem_desc(smem_addr(Qs), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t k_desc = smem_desc(smem_addr(ring), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t v_desc = smem_desc(smem_addr(ring + C::TILE), C::TILE, 8 * C::SW, C::LAYOUT);
+
+  // The scores of the tile at keys n0 -> probabilities in s; the online max
+  // and sum updated and O rescaled. Masked: column c of row rh is a key
+  // the row sees if c - 2t < its limit.
+  auto online_softmax = [&](int n0, auto masked) {
+    float mx[2][4], ls[2][4];  // 4 interleaved partial chains a row
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[rh][c] = -INFINITY, ls[rh][c] = 0.f;
+    if constexpr (decltype(masked)::value) {
+      int sees[2];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        sees[rh] = (causal ? min(Sk, qpos[rh] + 1) : Sk) - n0 - 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + (e & 1) >= sees[e >> 1]) s[4 * j + e] = -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1][j & 3] = fmaxf(mx[e >> 1][j & 3], s[4 * j + e]);
+    float base[2], alpha[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float m = fmaxf(fmaxf(mx[rh][0], mx[rh][1]), fmaxf(mx[rh][2], mx[rh][3]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(mrow[rh], m * scale_log2);
+      base[rh] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+      alpha[rh] = ex2_ftz(mrow[rh] - base[rh]);
+      mrow[rh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      s[i] = ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));
+      ls[(i >> 1) & 1][(i >> 2) & 3] += s[i];
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+      lrow[rh] = lrow[rh] * alpha[rh] + ((ls[rh][0] + ls[rh][1]) + (ls[rh][2] + ls[rh][3]));
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      oacc[4 * d + 0] *= alpha[0];
+      oacc[4 * d + 1] *= alpha[0];
+      oacc[4 * d + 2] *= alpha[1];
+      oacc[4 * d + 3] *= alpha[1];
+    }
+  };
+
+  bool bad = false;  // a wait of the block gave up (the same in every thread)
+  int f = 0;         // tiles of the block's stream taken
+  for (int item = blockIdx.x, nth = 0; item < items; item = next_group_item(item), ++nth) {
+    const GroupItem it = group_item(item, gr, B, Hkv, n_rep, Sq);
+    const int n_tiles = Sk > 0 ? group_tiles(it, gr, Sk, causal, BN) : 0;
+    bool out_row[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+      out_row[rh] = group_row(warp * 16 + g + 8 * rh, gr, it, n_rep, Sq, head[rh], qpos[rh]);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    mrow[0] = mrow[1] = -INFINITY;
+    lrow[0] = lrow[1] = 0.f;
+    const uint64_t q_desc = q_desc0 + (uint64_t)((nth % ST) * C::Q_BYTES >> 4);
+    if (!bad && n_tiles > 0) mbar_wait(full_q + nth % ST, (uint32_t)(nth / ST) & 1u, stuck);
+    for (int j = 0; j < n_tiles && !bad; ++j, ++f) {
+      const int st = f % ST;
+      const uint64_t off = (uint64_t)(st * C::STAGE) >> 4;
+      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);
+      wgmma_fence();
+      wgmma_ss<BN>(s, q_desc, k_desc + off, 0);
+      wgmma_commit();
+      // tile f - 1's stage is free: its P V ended in every warp before the
+      // barrier that closed tile f - 1
+      if (threadIdx.x == 0 && f >= 1) load_next();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const int n0 = j * BN;
+      if ((n0 + BN > Sk) || (causal && n0 + BN - 1 > it.p0))
+        online_softmax(n0, Flag<true>{});
+      else
+        online_softmax(n0, Flag<false>{});
+      pack_a<BN>(pa, s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys a k-step: 16 rows of 32 bytes
+        wgmma_rs<HD>(oacc, pa[kk], v_desc + off + kk * (16 * C::SW >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(pa);
+      bad = __syncthreads_or(*stuck) != 0;
+    }
+
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float l = lrow[rh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = bad ? NAN : (l == 0.f) ? 1.f : 1.f / l;  // fully masked rows -> 0
+      if (!out_row[rh]) continue;
+      if (LSE && t == 0)
+        lse[(int64_t)(it.b * H + head[rh]) * Sq + qpos[rh]] =
+            (l == 0.f ? mrow[rh] : mrow[rh] + log2f(l)) * LN2 * (bad ? NAN : 1.f);
+      __nv_bfloat16* orow = o + it.b * o_sb + head[rh] * o_sh + (int64_t)qpos[rh] * o_ss + 2 * t;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) = __floats2bfloat162_rn(
+            oacc[4 * d + 2 * rh] * inv, oacc[4 * d + 2 * rh + 1] * inv);
+    }
+  }
+  if (threadIdx.x == 0) {  // nothing in flight into shared memory from here on
+    drain_ring(full_q, ST, q_issued);
+    drain_ring(full, ST, issued);
+  }
+}
+
+template <int HD>
+struct Dq16 : Geo<HD> {
+  using G = Geo<HD>;
+  static_assert(HD == 16, "the grouped dQ is for hd 16");
+  static constexpr int BN = 64;                       // keys a K/V tile
+  static constexpr int ST = 4;                        // ring stages, and Q/dO buffers
+  static constexpr int Q_BYTES = GROUP_ROWS * G::SW;  // an item's Q rows
+  static constexpr int QD_BYTES = 2 * Q_BYTES;        // its Q, and its dO after them
+  static constexpr int TILE = BN * G::SW;             // a K or a V tile
+  static constexpr int STAGE = 2 * TILE;              // K, and V after it
+  // the Q/dO buffers, the ring; 2 ST mbarriers and the stuck flag; alignment slack
+  static constexpr int SMEM = 1024 + ST * QD_BYTES + ST * STAGE + 8 * 2 * ST + 16;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(HD16_THREADS, DQ16_MINB)
+flash_bwd_dq_group_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse, const float* __restrict__ dd,
+                          __nv_bfloat16* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk,
+                          int causal, float scale, Str3 dqs) {
+  using C = Dq16<HD>;
+  constexpr int ST = C::ST, BN = C::BN;
+  constexpr int NT = BN / 8;  // 8-key column tiles of S
+  extern __shared__ uint8_t dq16_smem[];
+  uint8_t* Qs = align_1024(dq16_smem);    // the n-th item's Q, dO in buffer n % ST
+  uint8_t* ring = Qs + ST * C::QD_BYTES;  // stage s: K at ring + s STAGE, V after it
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(ring + ST * C::STAGE);
+  uint64_t* full = full_q + ST;
+  volatile int* stuck = reinterpret_cast<volatile int*>(full + ST);
+
+  const int n_rep = H / Hkv;
+  const GroupRows gr(n_rep);
+  const int rows = gr.hpi * gr.pos;
+  const int items = B * Hkv * gr.chunks * ((Sq + gr.pos - 1) / gr.pos);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_q + s, 1);
+      mbar_init(full + s, 1);
+    }
+    *stuck = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (rows < GROUP_ROWS)
+    for (int s = 0; s < 2 * ST; ++s) zero_tail(Qs + s * C::Q_BYTES, rows, C::SW);
+  __syncthreads();
+
+  // Thread 0 loads the block's stream: item after item, the item's Q and dO
+  // (into buffer n % ST for the block's n-th item) before its first K/V
+  // tile, the stream's tile f into stage f % ST. The wrapper launches no
+  // kernel when Sk is 0, so every item has a tile.
+  int ld_item = blockIdx.x, ld_nth = 0, ld_tile = 0, ld_tiles = 0, issued = 0, q_issued = 0;
+  GroupItem ld;
+  auto load_next = [&]() {
+    if (ld_item >= items) return;
+    if (ld_tile == 0) {
+      ld = group_item(ld_item, gr, B, Hkv, n_rep, Sq);
+      ld_tiles = group_tiles(ld, gr, Sk, causal, BN);
+      const int qb = ld_nth % ST;
+      uint8_t* qd = Qs + qb * C::QD_BYTES;
+      mbar_expect_tx(full_q + qb, 2 * rows * C::SW);
+      tma_load_4d(qd, &qmap, full_q + qb, 0, ld.head0, ld.p0, ld.b);
+      tma_load_4d(qd + C::Q_BYTES, &domap, full_q + qb, 0, ld.head0, ld.p0, ld.b);
+      ++q_issued;
+    }
+    uint8_t* kv = ring + (issued % ST) * C::STAGE;
+    load_pair<HD, BN>(&kmap, &vmap, kv, kv + C::TILE, full + issued % ST, ld_tile * BN, ld.kvh,
+                      ld.b);
+    ++issued;
+    if (++ld_tile == ld_tiles) {
+      ld_tile = 0;
+      ld_item = next_group_item(ld_item);
+      ++ld_nth;
+    }
+  };
+  if (threadIdx.x == 0)
+    while (issued < ST && ld_item < items) load_next();
+
+  const float scale_log2 = scale * LOG2E;
+  float dqa[HD / 2];
+  float s[BN / 2], dp[BN / 2];  // S and dP of a tile, then dS in dp
+  uint32_t da[BN / 16][4];      // dS as bf16 A fragments
+  int head[2], qpos[2];         // this thread's rows warp 16 + g (+ 8) of the item
+  float lse2[2], drow[2];       // their LSE log2 e and D; 0 off the output rows
+  const uint64_t q_desc0 = smem_desc(smem_addr(Qs), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t k_kmaj = smem_desc(smem_addr(ring), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t v_kmaj = k_kmaj + (C::TILE >> 4);
+  const uint64_t k_mnmaj = smem_desc(smem_addr(ring), C::TILE, 8 * C::SW, C::LAYOUT);
+
+  // dS = P (dP - D) of the tile at keys n0 into dp. Masked: column c of row
+  // rh is a key the row sees if c - 2t < its limit; the others give 0.
+  auto grad_scores = [&](int n0, auto masked) {
+    int sees[2] = {BN, BN};
+    if constexpr (decltype(masked)::value) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        sees[rh] = (causal ? min(Sk, qpos[rh] + 1) : Sk) - n0 - 2 * t;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e, rh = e >> 1;
+        float p = ex2_ftz(fmaf(s[x], scale_log2, -lse2[rh]));
+        if constexpr (decltype(masked)::value) p = j * 8 + (e & 1) < sees[rh] ? p : 0.f;
+        dp[x] = p * (dp[x] - drow[rh]);
+      }
+  };
+
+  bool bad = false;  // a wait of the block gave up (the same in every thread)
+  int f = 0;         // tiles of the block's stream taken
+  for (int item = blockIdx.x, nth = 0; item < items; item = next_group_item(item), ++nth) {
+    const GroupItem it = group_item(item, gr, B, Hkv, n_rep, Sq);
+    const int n_tiles = group_tiles(it, gr, Sk, causal, BN);
+    bool out_row[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      lse2[rh] = drow[rh] = 0.f;
+      out_row[rh] = group_row(warp * 16 + g + 8 * rh, gr, it, n_rep, Sq, head[rh], qpos[rh]);
+      if (out_row[rh]) {
+        const int64_t at = (int64_t)(it.b * H + head[rh]) * Sq + qpos[rh];
+        lse2[rh] = lse[at] * LOG2E;
+        drow[rh] = dd[at];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+    const uint64_t q_desc = q_desc0 + (uint64_t)((nth % ST) * C::QD_BYTES >> 4);
+    const uint64_t do_desc = q_desc + (C::Q_BYTES >> 4);
+    if (!bad) mbar_wait(full_q + nth % ST, (uint32_t)(nth / ST) & 1u, stuck);
+    for (int j = 0; j < n_tiles && !bad; ++j, ++f) {
+      const int st = f % ST;
+      const uint64_t off = (uint64_t)(st * C::STAGE) >> 4;
+      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);
+      // S = Q K^T and dP = dO V^T: rows the item's 64, columns the tile's keys
+      wgmma_fence();
+      wgmma_ss<BN>(s, q_desc, k_kmaj + off, 0);
+      wgmma_ss<BN>(dp, do_desc, v_kmaj + off, 0);
+      wgmma_commit();
+      // tile f - 1's stage is free: its dS K ended in every warp before the
+      // barrier that closed tile f - 1
+      if (threadIdx.x == 0 && f >= 1) load_next();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const int n0 = j * BN;
+      if ((n0 + BN > Sk) || (causal && n0 + BN - 1 > it.p0))
+        grad_scores(n0, Flag<true>{});
+      else
+        grad_scores(n0, Flag<false>{});
+      pack_a<BN>(da, dp);
+      // dQ += dS K (the k dimension is the key)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys a k-step: 16 rows of 32 bytes
+        wgmma_rs<HD>(dqa, da[kk], k_mnmaj + off + kk * (16 * C::SW >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_regs(da);
+      bad = __syncthreads_or(*stuck) != 0;
+    }
+
+    const float mul = bad ? NAN : scale;  // a wait of the block gave up: poison the rows
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      if (!out_row[rh]) continue;
+      __nv_bfloat16* out = dq + it.b * dqs.b + head[rh] * dqs.h + (int64_t)qpos[rh] * dqs.s + 2 * t;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(out + d * 8) = __floats2bfloat162_rn(
+            dqa[4 * d + 2 * rh] * mul, dqa[4 * d + 2 * rh + 1] * mul);
+    }
+  }
+  if (threadIdx.x == 0) {  // nothing in flight into shared memory from here on
+    drain_ring(full_q, ST, q_issued);
+    drain_ring(full, ST, issued);
+  }
+}
+
 template <int HD>
 cudaError_t launch_dkv_cluster(const void* q, const void* k, const void* v, const void* dout,
                                const float* lse, const float* dd, void* dk, void* dv, int B,
@@ -1630,6 +2154,85 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+// The persistent grid of a grouped hd-16 kernel: a whole number of blocks
+// an SM, as many as fit but no more than leave each block HD16_ROUNDS items
+// where there are enough, so that every block is resident at once; never
+// more blocks than items. The grid depends on the shapes and the card only.
+// `fit` caches the kernel's blocks an SM (0 until the first launch asks).
+template <typename Kernel>
+cudaError_t group_grid(Kernel kernel, int smem, int items, int& fit, int& grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (fit == 0 && (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &fit, kernel, HD16_THREADS, smem)) != cudaSuccess)
+    return err;
+  int per_sm = (items + HD16_ROUNDS * sms - 1) / (HD16_ROUNDS * sms);
+  per_sm = per_sm < 1 ? 1 : per_sm > fit ? (fit > 0 ? fit : 1) : per_sm;
+  grid = items < sms * per_sm ? items : sms * per_sm;
+  return cudaSuccess;
+}
+
+// The hd-16 forward (kernel<16, LSE>): a persistent grid over items of 64
+// packed (position, head) rows.
+template <int HD, bool LSE>
+cudaError_t launch_fwd_group(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int H, int Hkv, int Sq, int Sk, int causal,
+                             float scale_log2, const int64_t* st, cudaStream_t stream) {
+  using C = Fwd16<HD>;
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_fwd_group_kernel<HD, LSE>, C::SMEM, configured);
+  if (err != cudaSuccess) return err;
+  const GroupRows gr(H / Hkv);
+  CUtensorMap qm, km, vm;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, gr.pos, gr.hpi)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, C::BN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, C::BN)) != cudaSuccess) return err;
+  const int items = B * Hkv * gr.chunks * ((Sq + gr.pos - 1) / gr.pos);
+  if (items == 0) return cudaSuccess;
+  static int fit = 0;
+  int grid = 0;
+  if ((err = group_grid(flash_fwd_group_kernel<HD, LSE>, C::SMEM, items, fit, grid)) !=
+      cudaSuccess)
+    return err;
+  flash_fwd_group_kernel<HD, LSE><<<grid, HD16_THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, H, Hkv, Sq, Sk, causal, scale_log2,
+      st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+// The hd-16 dQ: a persistent grid over items of 64 packed rows. The wrapper
+// launches nothing when Sk is 0 (dQ is then zero).
+template <int HD>
+cudaError_t launch_dq_group(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* dd, void* dq, int B, int H, int Hkv,
+                            int Sq, int Sk, int causal, float scale, const int64_t* st,
+                            cudaStream_t stream) {
+  using C = Dq16<HD>;
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_bwd_dq_group_kernel<HD>, C::SMEM, configured);
+  if (err != cudaSuccess) return err;
+  const GroupRows gr(H / Hkv);
+  CUtensorMap qm, km, vm, dom;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, gr.pos, gr.hpi)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, C::BN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, C::BN)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&dom, dout, B, H, Sq, st + 9, gr.pos, gr.hpi)) != cudaSuccess)
+    return err;
+  const int items = B * Hkv * gr.chunks * ((Sq + gr.pos - 1) / gr.pos);
+  if (items == 0 || Sk == 0) return cudaSuccess;
+  static int fit = 0;
+  int grid = 0;
+  if ((err = group_grid(flash_bwd_dq_group_kernel<HD>, C::SMEM, items, fit, grid)) != cudaSuccess)
+    return err;
+  flash_bwd_dq_group_kernel<HD><<<grid, HD16_THREADS, C::SMEM, stream>>>(
+      qm, km, vm, dom, lse, dd, static_cast<__nv_bfloat16*>(dq), B, H, Hkv, Sq, Sk, causal,
+      scale, Str3{st[12], st[13], st[14]});
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1644,7 +2247,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
+    case 16: return launch_fwd_group<16, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 32: return launch<32, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 64: return launch<64, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 128: return launch<128, false>(q, k, v, o, nullptr, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
@@ -1660,7 +2263,7 @@ int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
+    case 16: return launch_fwd_group<16, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 32: return launch<32, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 64: return launch<64, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
     case 128: return launch<128, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, scale_log2, strides, s);
@@ -1696,7 +2299,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   if (H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
+    case 16: return launch_dq_group<16>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 32: return launch_dq<32>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 64: return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
     case 128: return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Hkv, Sq, Sk, causal, scale, strides, s);
@@ -1705,10 +2308,13 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 }
 
 // Dynamic shared memory a launch takes, in bytes: kernel 0 the forward
-// (with or without LSE), 1 dK/dV, 2 dQ, 3 the cluster dK/dV (hd 16; dK/dV
-// launches it at hd 16); 0 for another hd.
+// (with or without LSE), 1 dK/dV, 2 dQ, and the hd-16 kernels that those
+// launch at hd 16: 3 the cluster dK/dV, 4 the grouped forward, 5 the
+// grouped dQ; 0 for another hd.
 int flash_attention_smem_bytes(int kernel, int hd) {
   if (kernel == 3) return hd == 16 ? Dkv16<16>::SMEM : 0;
+  if (kernel == 4) return hd == 16 ? Fwd16<16>::SMEM : 0;
+  if (kernel == 5) return hd == 16 ? Dq16<16>::SMEM : 0;
   switch (hd) {
     case 16: return kernel == 0 ? Fwd<16>::SMEM : kernel == 1 ? Dkv<16>::SMEM : Dq<16>::SMEM;
     case 32: return kernel == 0 ? Fwd<32>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;

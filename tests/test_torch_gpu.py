@@ -1254,10 +1254,11 @@ def test_hd16_dkv_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, caus
 
 
 def test_other_head_dims_keep_their_instantiations(cuda):
-    """hd 32, 64 and 128 keep the kernels they had before the hd-16 design:
-    decode's plan a cluster of at most 8 blocks a group, dK/dV's shared
-    memory (the hd-16 cluster kernel's is its own), and each held against
-    its plain version (their bits against the previous source are held by
+    """hd 32, 64 and 128 keep the kernels they had before the hd-16 designs:
+    decode's plan a cluster of at most 8 blocks a group, the forward's, dK/dV's
+    and dQ's shared memory (the hd-16 grouped forward, cluster dK/dV and
+    cluster dQ have their own), and each held against its plain version
+    (their bits against the previous source are held by
     tools/hd16_compare.py)."""
     import ctypes
 
@@ -1272,7 +1273,13 @@ def test_other_head_dims_keep_their_instantiations(cuda):
         st = 3 if hd == 128 else 4
         assert smem(1, hd) == (1024 + 2 * 128 * hd * 2 + st * 2 * 64 * hd * 2 + st * 128 * 4
                                + 8 * (1 + 2 * st) + 16)
-    assert smem(3, 16) > 0 and smem(3, 32) == 0
+        # the forward: two Q buffers, K and V rings; dQ: Q, dO, a K/V ring
+        fst = 2 if hd == 128 else 4
+        assert smem(0, hd) == (1024 + 2 * 128 * hd * 2 + fst * 2 * 128 * hd * 2
+                               + 8 * (4 + 4 * fst) + 16)
+        assert smem(2, hd) == 1024 + 2 * 128 * hd * 2 + 4 * 2 * 64 * hd * 2 + 8 * 9 + 16
+    for kernel in (3, 4, 5):     # the hd-16 kernels: cluster dK/dV, forward, dQ
+        assert smem(kernel, 16) > 0 and smem(kernel, 32) == 0
     g = torch.Generator(device=cuda).manual_seed(33)
     for hd in (32, 64, 128):
         q = torch.randn(4, 8, hd, generator=g, device=cuda).bfloat16()
@@ -1289,3 +1296,81 @@ def test_other_head_dims_keep_their_instantiations(cuda):
         dk, dv = flash_attention_bwd_dkv(qt, kt, vt, do, lser, dd, True)
         dkr, dvr = flash_attention_bwd_dkv_ref(qt, kt, vt, do, lser, dd, True)
         assert _row_scaled_err(dk, dkr) <= 2e-2 and _row_scaled_err(dv, dvr) <= 2e-2
+        o, lse = flash_attention_fwd_lse(qt, kt, vt, True)
+        assert _row_scaled_err(o, orf) <= 2e-2
+        _close(lse, lser, 1e-3)
+        assert _row_scaled_err(flash_attention(qt, kt, vt, causal=True), orf) <= 2e-2
+        dq = flash_attention_bwd_dq(qt, kt, vt, do, lser, dd, True)
+        assert _row_scaled_err(dq, flash_attention_bwd_dq_ref(qt, kt, vt, do, lser, dd,
+                                                              True)) <= 2e-2
+
+
+# ---------------- the hd-16 forward and dQ redesign ----------------------------
+#: (B, H, Hkv, Sq, Sk, causal): the SMOKE heads at the training length and
+#: twice as long, every GQA group packing (1, 2, 3: a tail row, 4, 8, 16; 80:
+#: chunks of 64 heads), Sq and Sk off the key tiles (128 keys in the forward,
+#: 64 in dQ) and the items' positions, Sq != Sk both ways, full attention
+#: (the memory and the encoder's shapes)
+HD16_EDGES = [(4, 8, 2, 2048, 2048, True),
+              (2, 16, 4, 4096, 4096, True),   # four rounds of items a block
+              (2, 6, 2, 191, 191, True),      # group 3: 21 positions, a tail row
+              (1, 4, 1, 77, 65, False),       # group 4 full, one key past a tile
+              (1, 4, 4, 129, 300, True),      # group 1, Sq < Sk
+              (1, 4, 2, 300, 129, True),      # group 2, Sq > Sk
+              (2, 16, 2, 100, 100, True),     # group 8
+              (1, 64, 4, 200, 200, True),     # group 16
+              (1, 80, 1, 37, 90, False),      # group 80: two chunks, the second part-filled
+              (1, 8, 2, 70, 130, False)]      # unmasked, Sq != Sk
+
+
+def _hd16_inputs(cuda, seed, b, h, hkv, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    return randn(b, sq, h, 16), randn(b, sk, hkv, 16), randn(b, sk, hkv, 16), \
+        randn(b, sq, h, 16)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", HD16_EDGES)
+def test_hd16_forward_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, causal):
+    """The hd-16 forward, with and without the LSE (items of 64 rows packing
+    a GQA group's heads, one warpgroup a block, a persistent grid dealing
+    the items in zigzag rounds), against its plain version:
+    each query row within 2e-2 of that row's largest plain value, the LSE
+    within 1e-3, the two launches' o the same bits, two calls the same bits,
+    one launch each counted at bf16/hd16."""
+    q, k, v, _ = _hd16_inputs(cuda, 34, b, h, hkv, sq, sk)
+    reset_launches()
+    o = flash_attention(q, k, v, causal=causal)
+    o2, lse = flash_attention_fwd_lse(q, k, v, causal)
+    assert flash_attention.by_kind == {"bf16/hd16": 1}
+    assert flash_attention_fwd_lse.by_kind == {"bf16/hd16": 1}
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
+    assert _row_scaled_err(o, orf) <= 2e-2
+    _close(lse, lser, 1e-3)
+    assert torch.equal(o, o2)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal))
+    o3, lse3 = flash_attention_fwd_lse(q, k, v, causal)
+    assert torch.equal(o2, o3) and torch.equal(lse, lse3)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", HD16_EDGES)
+def test_hd16_dq_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, causal):
+    """The hd-16 dQ (items of 64 packed rows on a persistent grid, each
+    item's f32 dQ summed in registers) against its plain version, each
+    query row within 2e-2 of that row's largest plain value, and two calls
+    the same bits."""
+    q, k, v, do = _hd16_inputs(cuda, 35, b, h, hkv, sq, sk)
+    orf, lser = flash_attention_fwd_lse_ref(q, k, v, causal)
+    dd = attention_delta(orf, do)
+    reset_launches()
+    dq = flash_attention_bwd_dq(q, k, v, do, lser, dd, causal)
+    assert flash_attention_bwd_dq.by_kind == {"bf16/hd16": 1}
+    dqr = flash_attention_bwd_dq_ref(q, k, v, do, lser, dd, causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dq.float()).all())
+    assert _row_scaled_err(dq, dqr) <= 2e-2
+    assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, lser, dd, causal))

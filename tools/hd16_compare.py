@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Hold and time the bf16 head-dim-16 decode-attention and dK/dV kernels
-beside another source of the same kernels (a parent's), in one call on one
-card.
+"""Hold and time the bf16 head-dim-16 attention kernels (decode, the forward
+with and without the LSE, dK/dV and dQ) beside another source of the same
+kernels (a parent's), in one call on one card.
 
     python3 tools/hd16_compare.py --source parent=local/parent
-    python3 tools/hd16_compare.py --source parent=local/parent --quick split-16 cl-2
+    python3 tools/hd16_compare.py --source parent=local/parent --quick fwd-bn-64 fwd-trace
 
 ``--source NAME=DIR``: a directory holding ``decode_attention.cu`` and
 ``flash_attention.cu`` with the checkout's C interface, e.g. a parent's,
@@ -16,25 +16,39 @@ into ``build/hd16_compare/`` with ``-Xptxas -v`` (the checkout is never
 touched), and the registers and spills of its decode and flash kernels are
 printed. Further arguments name VARIANTS: the checkout's sources with a few
 lines edited, run as sources of their own (a variant that leaves work out
-fails the checks, and says so).
+fails the checks, and says so). Three kinds read where the time goes rather
+than time a design: ``fwd-trace`` and ``dq-trace`` write each block's SM,
+start and duration over its first output row (:func:`trace_report`: the
+span, each SM's tiles, the blocks' concurrency), ``fwd-phases``,
+``dq-phases`` and ``fwd-outside`` the SM clocks a tile each phase takes
+(:func:`phases_report`), and ``--rates`` alone runs RATES_SOURCE, the
+special function unit's exponential rate beside the softmax's other work.
+The whole summary goes to ``chiprun_out/hd16_compare.json``.
 
 Each source is held first: the hd-16 decode cases of ``chip_smoke.py``'s
 phase 3 (:func:`chip_smoke.decode_check`: within DECODE_REL of the plain
 version and one bf16 ulp + DECODE_ULP_FLOOR of the f64 value) with kv_len at
 the 64-key tile's edges, one captured launch replayed while kv_len crosses
-them; the hd-16 training cases and dK/dV at Sk not a multiple of 64
-(:func:`chip_smoke.training_case`: each key row within TRAIN_ROW_REL, two
-calls the same bits). Then every source is timed in turns, the sources in
-the order given and back (old, new, new, old): decode at the SMOKE serving
-shape (4, 8/2 heads, cache 2081, hd 16, kv_len 2079) as chip_smoke times a
-kernel (one launch a graph replay, the L2 flushed by a write) and as
-GRAPH_LAUNCHES launches on their own caches in one graph after a read of the
-flush buffer, each beside SDPA and, in the graph, an empty kernel with the
-decode launch's block count (the floor); dK/dV at (4, 8/2, 2048, 16)
-causal. Unless ``--quick``, the hd 32, 64 and 128 instantiations (which
-this design leaves alone) of both kernels give each source's bits, held
-against the first source's, and are timed in the same turns. Prints one
-line per reading, then a JSON summary with the card's name and power limit.
+them; the serving forward at phase 3's hd-16 cases and EDGES (each query row
+within TRAIN_ROW_REL, two calls the same bits); the hd-16 training cases,
+DKV_EXTRA and EDGES (:func:`chip_smoke.training_case`: o and dq per query
+row, dk and dv per key row within TRAIN_ROW_REL, the LSE within 1e-3, the
+backward's and the forward-with-LSE's bits the same in two calls). EDGES
+pack every GQA group (1, 2, 3, 4, 8, 16, 80) with Sq and Sk off the 64-key
+tiles and the items' positions. Then every source is timed in turns, the
+sources in the order given and back (old, new, new, old): decode at the
+SMOKE serving shape (4, 8/2 heads, cache 2081, hd 16, kv_len 2079) as
+chip_smoke times a kernel (one launch a graph replay, the L2 flushed by a
+write) and as GRAPH_LAUNCHES launches on their own caches in one graph
+after a read of the flush buffer, each beside SDPA and, in the graph, an
+empty kernel with the decode launch's block count (the floor); the forward,
+the forward with LSE, dK/dV and dQ at (4, 8/2, 2048, 16) causal, beside
+SDPA's forward and the aten call that returns O and the logsumexp
+(:func:`chip_smoke.sdpa_lse`). Unless ``--quick``, the hd 32, 64 and 128
+instantiations (which these designs leave alone) of decode and of the four
+flash kernels give each source's bits, held against the first source's, and
+are timed in the same turns. Prints one line per reading, then a JSON
+summary with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -62,6 +76,16 @@ OTHER_DECODE = ((4, 8, 2, 2081, 32, 2079), (4, 8, 2, 2081, 64, 2079),
                 (4, 32, 8, 2081, 128, 2079))
 OTHER_DKV = ((4, 8, 2, 2048, 2048, 32, True), (4, 8, 2, 2048, 2048, 64, True),
              (8, 16, 16, 2048, 2048, 128, True))
+#: the forward's and dQ's edges at hd 16 beyond phase 3's, (B, H, Hkv, Sq, Sk,
+#: causal): the GQA groups' packings (8, 16, 80 in chunks of 64, 1, 2), Sq
+#: and Sk off the 64-key tiles and the items' positions, Sq != Sk both ways
+EDGES = (("gqa8-100", (2, 16, 2, 100, 100, True)),
+         ("gqa16-200", (1, 64, 4, 200, 200, True)),
+         ("gqa80-full", (1, 80, 1, 37, 90, False)),
+         ("gqa1-sq<sk", (1, 4, 4, 129, 300, True)),
+         ("gqa2-sq>sk", (1, 4, 2, 300, 129, True)))
+#: the flash kernels timed and held at the other head dims (OTHER_DKV's shapes)
+OTHER_FLASH = ("fwd", "fwd_lse", "dkv", "dq")
 
 OUTSIDE = "expected to fail the checks"
 _SPLIT = "constexpr int H16_MAX_SPLIT = 8;"
@@ -107,6 +131,171 @@ _DVDK_NONE = """    {
       dva[0] += __uint_as_float(fold & 0x3f800000u);
     }
 """
+_FEXP = "\n      s[i] = ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));"
+_QEXP = "        float p = ex2_ftz(fmaf(s[x], scale_log2, -lse2[rh]));"
+_FPV = """#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys a k-step: 16 rows of 32 bytes
+        wgmma_rs<HD>(oacc, pa[kk], v_desc + off + kk * (16 * C::SW >> 4));
+"""
+_FSOFT = ("      if ((n0 + BN > Sk) || (causal && n0 + BN - 1 > it.p0))\n"
+          "        online_softmax(n0, Flag<true>{});\n      else\n"
+          "        online_softmax(n0, Flag<false>{});\n")
+_QDSK = """#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys a k-step: 16 rows of 32 bytes
+        wgmma_rs<HD>(dqa, da[kk], k_mnmaj + off + kk * (16 * C::SW >> 4));
+"""
+#: what a trace variant's records carry beside them, to be told from outputs
+TRACE_MARK = 0x600DF00D
+_NOW = '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(trace_{0}));\n'
+_TRACE_DECL = "  uint64_t trace_t0, trace_tq = 0, trace_t1;\n" + _NOW.format("t0")
+_FT0 = "  uint32_t pa[BN / 16][4];  // P as bf16 A fragments\n"
+_QT0 = "  uint32_t da[BN / 16][4];      // dS as bf16 A fragments\n"
+_FTQ = ("    if (!bad && n_tiles > 0) mbar_wait(full_q + nth % ST, (uint32_t)(nth / ST) & 1u, "
+        "stuck);\n")
+_QTQ = "    if (!bad) mbar_wait(full_q + nth % ST, (uint32_t)(nth / ST) & 1u, stuck);\n"
+_TQ = "    if (nth == 0) {\n  " + _NOW.format("tq") + "    }\n"
+_DRAIN = ("  if (threadIdx.x == 0) {  // nothing in flight into shared memory from here on\n"
+          "    drain_ring(full_q, ST, q_issued);\n    drain_ring(full, ST, issued);\n  }\n}\n")
+_FTEND = "            oacc[4 * d + 2 * rh] * inv, oacc[4 * d + 2 * rh + 1] * inv);\n    }\n  }\n"
+_QTEND = "            dqa[4 * d + 2 * rh] * mul, dqa[4 * d + 2 * rh + 1] * mul);\n    }\n  }\n"
+
+
+def _trace_store(out: str) -> str:
+    """Thread 0 writes its block's record over row 0 of its first item
+    (after the block's own stores): the SM, the start (globaltimer, ns), the
+    first Q load's and the whole block's nanoseconds from it, its tiles, its
+    block index and TRACE_MARK."""
+    return (_NOW.format("t1") + "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+            "    const GroupItem first = group_item(blockIdx.x, gr, B, Hkv, n_rep, Sq);\n"
+            "    uint32_t smid;\n    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
+            f"    uint32_t* rec = reinterpret_cast<uint32_t*>({out});\n"
+            "    rec[0] = smid;\n    rec[1] = (uint32_t)trace_t0;\n"
+            "    rec[2] = (uint32_t)(trace_t0 >> 32);\n"
+            "    rec[3] = (uint32_t)(trace_tq - trace_t0);\n"
+            "    rec[4] = (uint32_t)(trace_t1 - trace_t0);\n"
+            f"    rec[5] = (uint32_t)f;\n    rec[6] = blockIdx.x;\n    rec[7] = {TRACE_MARK}u;\n  }}\n")
+
+
+TRACE_EDITS = {
+    "fwd": [(_FT0, _FT0 + _TRACE_DECL), (_FTQ, _FTQ + _TQ),
+            (_FTEND + _DRAIN, _FTEND + _trace_store(
+                "o + first.b * o_sb + first.head0 * o_sh + (int64_t)first.p0 * o_ss") + _DRAIN)],
+    "dq": [(_QT0, _QT0 + _TRACE_DECL), (_QTQ, _QTQ + _TQ),
+           (_QTEND + _DRAIN, _QTEND + _trace_store(
+               "dq + first.b * dqs.b + first.head0 * dqs.h + (int64_t)first.p0 * dqs.s")
+            + _DRAIN)]}
+
+
+_CLK = "      c1 = clock();\n      ph[{0}] += c1 - c0;\n      c0 = c1;\n"
+def _ph_store(out: str) -> str:
+    """The phase variants' records over rows head0 + k at position p0 of the
+    block's first item (``out`` with ``k`` in it): thread 64's clocks and
+    nanoseconds from the block's start (k = 2), threads 32 and 0's phase
+    sums (k = 1, 0)."""
+    row = lambda k: out.replace("k", k)  # noqa: E731
+    return f"""  __syncthreads();
+  if (threadIdx.x == 64) {{  // the block's clocks and nanoseconds from its start
+    const GroupItem first = group_item(blockIdx.x, gr, B, Hkv, n_rep, Sq);
+    uint64_t ns_end;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns_end));
+    uint32_t* rec = reinterpret_cast<uint32_t*>({row("2")});
+    rec[0] = (uint32_t)(clock64() - clk_start);
+    rec[1] = (uint32_t)(ns_end - ns_start);
+    rec[2] = (uint32_t)f;
+    rec[6] = blockIdx.x;
+    rec[7] = {TRACE_MARK}u;
+  }}
+  if (threadIdx.x == 0 || threadIdx.x == 32) {{
+    const GroupItem first = group_item(blockIdx.x, gr, B, Hkv, n_rep, Sq);
+    uint32_t* rec = reinterpret_cast<uint32_t*>({row("threadIdx.x / 32")});
+    for (int i = 0; i < 5; ++i) rec[i] = (uint32_t)ph[i];
+    rec[5] = (uint32_t)f;
+    rec[6] = blockIdx.x;
+    rec[7] = {TRACE_MARK}u;
+  }}
+"""
+
+
+_PH_DECL = ("  unsigned long long ph[5] = {0, 0, 0, 0, 0};\n  unsigned int c0 = 0, c1 = 0;\n"
+            "  const long long clk_start = clock64();\n  uint64_t ns_start;\n"
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(ns_start));\n")
+#: the forward's phases in SM clocks, summed over a block's tiles by thread 0
+#: (the loader) and thread 32: the data wait, S (issue to its wait; thread
+#: 0's loads inside), the softmax and pack, P V (issue to its wait), the
+#: block barrier
+PHASES = ("full_wait", "s_product", "softmax_pack", "pv_product", "barrier")
+DQ_PHASES = ("full_wait", "s_dp_products", "ds_pack", "dq_product", "barrier")
+PHASE_EDITS = [
+    (_FT0, _FT0 + _PH_DECL),
+    ("      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);\n      wgmma_fence();\n"
+     "      wgmma_ss<BN>(s, q_desc, k_desc + off, 0);\n",
+     "      c0 = clock();\n      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);\n"
+     + _CLK.format(0) + "      wgmma_fence();\n      wgmma_ss<BN>(s, q_desc, k_desc + off, 0);\n"),
+    ("      wgmma_wait<0>();\n      fence_regs(s);\n      const int n0 = j * BN;\n",
+     "      wgmma_wait<0>();\n      fence_regs(s);\n" + _CLK.format(1)
+     + "      const int n0 = j * BN;\n"),
+    ("      pack_a<BN>(pa, s);\n", "      pack_a<BN>(pa, s);\n" + _CLK.format(2)),
+    ("      fence_regs(oacc);\n      fence_regs(pa);\n      bad = __syncthreads_or(*stuck) != 0;\n",
+     "      fence_regs(oacc);\n      fence_regs(pa);\n" + _CLK.format(3)
+     + "      bad = __syncthreads_or(*stuck) != 0;\n" + _CLK.format(4)),
+    (_FTEND + _DRAIN, _FTEND + _ph_store(
+        "o + first.b * o_sb + (first.head0 + k) * o_sh + (int64_t)first.p0 * o_ss") + _DRAIN)]
+#: the forward's time outside its tile loop, in the same five records: the
+#: block's start to its first item, each item's set-up (its rows, the Q
+#: wait), each item's epilogue, the block's end (the drain)
+OUTSIDE_PHASES = ("block_start", "item_setup", "item_epilogue", "unused", "unused")
+_ITEM_TOP = ("    const GroupItem it = group_item(item, gr, B, Hkv, n_rep, Sq);\n"
+             "    const int n_tiles = Sk > 0 ? group_tiles(it, gr, Sk, causal, BN) : 0;\n"
+             "    bool out_row[2];\n")
+_LOOP_TOP = ("    for (int j = 0; j < n_tiles && !bad; ++j, ++f) {\n      const int st = f % ST;\n"
+             "      const uint64_t off = (uint64_t)(st * C::STAGE) >> 4;\n"
+             "      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);\n      wgmma_fence();\n"
+             "      wgmma_ss<BN>(s, q_desc, k_desc + off, 0);\n")
+_EPI_TOP = "#pragma unroll\n    for (int rh = 0; rh < 2; ++rh) {\n      float l = lrow[rh];\n"
+OUTSIDE_EDITS = [
+    (_FT0, _FT0 + _PH_DECL + "  c0 = clock();\n"),
+    (_ITEM_TOP, "    c1 = clock();\n    ph[nth == 0 ? 0 : 2] += c1 - c0;\n    c0 = c1;\n" + _ITEM_TOP),
+    (_LOOP_TOP, "    c1 = clock();\n    ph[1] += c1 - c0;\n    c0 = c1;\n" + _LOOP_TOP),
+    ("      fence_regs(oacc);\n      fence_regs(pa);\n      bad = __syncthreads_or(*stuck) != 0;\n    }\n\n"
+     + _EPI_TOP,
+     "      fence_regs(oacc);\n      fence_regs(pa);\n      bad = __syncthreads_or(*stuck) != 0;\n    }\n"
+     "    c0 = clock();\n\n" + _EPI_TOP),
+    (_FTEND + _DRAIN, _FTEND + "  c1 = clock();\n  ph[2] += c1 - c0;\n" + _ph_store(
+        "o + first.b * o_sb + (first.head0 + k) * o_sh + (int64_t)first.p0 * o_ss") + _DRAIN)]
+#: dQ's phases likewise: the data wait, S and dP (thread 0's loads inside),
+#: dS and its pack, dQ += dS K, the block barrier
+DQ_PHASE_EDITS = [
+    (_QT0, _QT0 + _PH_DECL),
+    ("      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);\n"
+     "      // S = Q K^T and dP = dO V^T",
+     "      c0 = clock();\n      mbar_wait(full + st, (uint32_t)(f / ST) & 1u, stuck);\n"
+     + _CLK.format(0) + "      // S = Q K^T and dP = dO V^T"),
+    ("      fence_regs(dp);\n      const int n0 = j * BN;\n",
+     "      fence_regs(dp);\n" + _CLK.format(1) + "      const int n0 = j * BN;\n"),
+    ("      pack_a<BN>(da, dp);\n      // dQ += dS K (the k dimension is the key)\n",
+     "      pack_a<BN>(da, dp);\n" + _CLK.format(2)
+     + "      // dQ += dS K (the k dimension is the key)\n"),
+    ("      fence_regs(dqa);\n      fence_regs(da);\n      bad = __syncthreads_or(*stuck) != 0;\n",
+     "      fence_regs(dqa);\n      fence_regs(da);\n" + _CLK.format(3)
+     + "      bad = __syncthreads_or(*stuck) != 0;\n" + _CLK.format(4)),
+    (_QTEND + _DRAIN, _QTEND + _ph_store(
+        "dq + first.b * dqs.b + (first.head0 + k) * dqs.h + (int64_t)first.p0 * dqs.s") + _DRAIN)]
+
+
+def _fold(frags: str, acc: str) -> str:
+    """A product's lines replaced by a fold of its A fragments into one
+    accumulator, so that no fragment is dropped as dead code."""
+    return f"""    {{
+      uint32_t fold = 0;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) fold ^= {frags}[kk][x];
+      {acc}[0] += __uint_as_float(fold & 0x3f800000u);
+    }}
+"""
+
+
 #: name -> (library, edits as (text, replacement), what it shows)
 VARIANTS = {
     "split-16": ("decode_attention", [(_SPLIT, _SPLIT.replace("= 8;", "= 16;"))],
@@ -148,6 +337,30 @@ VARIANTS = {
              "dK/dV: 8 ring stages, not 4"),
     "no-exp": ("flash_attention", [(_EXP, _EXP.replace("ex2_ftz(", "("))],
                f"dK/dV: P without its exponential (an FMA); {OUTSIDE}"),
+    "fwd-no-exp": ("flash_attention", [(_FEXP, _FEXP.replace("ex2_ftz(", "("))],
+                   f"forward: P without its exponential (an FMA); {OUTSIDE}"),
+    "fwd-no-pv": ("flash_attention", [(_FPV, _fold("pa", "oacc"))],
+                  f"forward: P packed but no P V product; {OUTSIDE}"),
+    "fwd-no-softmax": ("flash_attention", [(_FSOFT, "")],
+                       f"forward: S packed as P, no max, exponential or sum; {OUTSIDE}"),
+    "fwd-phases": ("flash_attention", PHASE_EDITS,
+                   f"forward: SM clocks a tile in each phase, over its first rows; {OUTSIDE}"),
+    "fwd-outside": ("flash_attention", OUTSIDE_EDITS,
+                    f"forward: SM clocks outside the tile loop, over its first rows; {OUTSIDE}"),
+    "dq-phases": ("flash_attention", DQ_PHASE_EDITS,
+                  f"dQ: SM clocks a tile in each phase, over its first rows; {OUTSIDE}"),
+    "fwd-bn-64": ("flash_attention", [(
+        "  static constexpr int BN = 128;                      // keys a K/V tile\n",
+        "  static constexpr int BN = 64;                       // keys a K/V tile\n")],
+        "forward: 64-key tiles"),
+    "dq-no-exp": ("flash_attention", [(_QEXP, _QEXP.replace("ex2_ftz(", "("))],
+                  f"dQ: P without its exponential (an FMA); {OUTSIDE}"),
+    "dq-no-dsk": ("flash_attention", [(_QDSK, _fold("da", "dqa"))],
+                  f"dQ: dS packed but no dS K product; {OUTSIDE}"),
+    "fwd-trace": ("flash_attention", TRACE_EDITS["fwd"],
+                  f"forward: each block's SM, start and durations over its first row; {OUTSIDE}"),
+    "dq-trace": ("flash_attention", TRACE_EDITS["dq"],
+                 f"dQ: each block's SM, start and durations over its first row; {OUTSIDE}"),
 }
 
 
@@ -211,6 +424,8 @@ def use(libs: dict) -> None:
 def hold(torch, chip_smoke, timer, failed: list) -> dict:
     """The hd-16 checks of one source; failures appended to ``failed``."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_fwd_lse
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 7 + 16)
     worst = {"o_err": 0.0, "ulp_excess": 0.0, "lse_err": 0.0}
@@ -251,21 +466,215 @@ def hold(torch, chip_smoke, timer, failed: list) -> dict:
             note(f"gqa{nrep} kv_len {kv_len}", chip_smoke.decode_check(
                 torch, q, k, v, kv_len, *decode_attention(q, k, v, kv_len),
                 f"gqa{nrep}", check=False))
+    fwd_err, fwd_bits = 0.0, True
+    for label, (b, h, hkv, sq, sk, causal) in (*chip_smoke.contract_flash_cases(16, "bf16"),
+                                               *EDGES, *DKV_EXTRA):
+        q, k, v, _ = chip_smoke.training_inputs(torch, (b, h, hkv, sq, sk, 16, causal))
+        o = flash_attention(q, k, v, causal=causal)
+        err = chip_smoke.row_scaled_errs(o, flash_attention_ref(q, k, v, causal=causal))[1]
+        fwd_err = max(fwd_err, err)
+        if not (err <= chip_smoke.TRAIN_ROW_REL and bool(torch.isfinite(o.float()).all())):
+            failed.append(f"forward {label}: a row's error {err:.3g}")
+        if not torch.equal(o, flash_attention(q, k, v, causal=causal)):
+            failed.append(f"forward {label}: two calls gave different bits")
+            fwd_bits = False
     bits = True
     cases = [(label, (b, h, hkv, sq, sk, 16, causal)) for label, (b, h, hkv, sq, sk, causal)
-             in chip_smoke.contract_train_cases(16, "bf16")] + [
-        (label, (b, h, hkv, sq, sk, 16, causal)) for label, (b, h, hkv, sq, sk, causal)
-        in DKV_EXTRA]
-    dkv_err = 0.0
+             in (*chip_smoke.contract_train_cases(16, "bf16"), *DKV_EXTRA, *EDGES)]
+    errs = dict.fromkeys(("o", "dq", "dk", "dv"), 0.0)
     for label, shape in cases:
         q, k, v, do = chip_smoke.training_inputs(torch, shape)
         try:
             r = chip_smoke.training_case(torch, q, k, v, do, shape[-1], label)
-            dkv_err = max(dkv_err, r["dk"]["row_scaled_err"], r["dv"]["row_scaled_err"])
+            for key in errs:
+                errs[key] = max(errs[key], r[key]["row_scaled_err"])
+            o, lse = flash_attention_fwd_lse(q, k, v, shape[-1])
+            o2, lse2 = flash_attention_fwd_lse(q, k, v, shape[-1])
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"{label}: two forward-with-LSE calls gave different bits")
         except AssertionError as e:
             failed.append(str(e)[:160])
             bits = False
-    return dict(decode=worst, dkv_row_scaled_err=dkv_err, dkv_checks_passed=bits)
+    return dict(decode=worst, fwd_row_scaled_err=fwd_err, fwd_bits_same=fwd_bits,
+                train_row_scaled_err=errs, train_checks_passed=bits)
+
+
+def trace_report(torch, out, shape, name: str) -> dict:
+    """The records a trace variant wrote over row 0 of each block's first
+    item (``out`` the forward's o or dQ, hd 16, at ``shape`` (B, H, Hkv, Sq,
+    Sk, hd, causal)), summarised: the launch's span, the blocks' start
+    ramp, a least-squares fit of a block's nanoseconds to its key tiles,
+    the first Q load's wait, each SM's blocks, tiles and mean concurrency
+    (its blocks' summed time over its busy span), and the blocks that end
+    last. The records are kept in chiprun_out/trace_<name>.npy."""
+    import numpy as np
+
+    b_all, h, hkv, sq = shape[:4]
+    n_rep = h // hkv
+    hpi = min(n_rep, 64)
+    pos, chunks = 64 // hpi, -(-n_rep // hpi)
+    npb, groups = -(-sq // pos), b_all * hkv * chunks
+    raw = out.view(torch.int32).cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    recs = []
+    for x in range(groups * npb):
+        grp = x % groups
+        b, kvh, chunk = grp // (hkv * chunks), grp // chunks % hkv, grp % chunks
+        r = raw[b, kvh * n_rep + chunk * hpi, (npb - 1 - x // groups) * pos]
+        if r[7] == TRACE_MARK and r[6] == x:
+            recs.append(r[:7])
+    rec = np.array(recs)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    np.save(out_dir / f"trace_{name}.npy", rec)
+    start = rec[:, 1] + (rec[:, 2] << 32)
+    start = start - start.min()
+    dur, tiles, sm = rec[:, 4], rec[:, 5], rec[:, 0]
+    end = start + dur
+    fit = np.polyfit(tiles, dur, 1) if len(set(tiles.tolist())) > 1 else [0.0, float(dur.mean())]
+    per_sm = []
+    for s in np.unique(sm):
+        m = sm == s
+        busy = end[m].max() - start[m].min()
+        per_sm.append((int(m.sum()), float(dur[m].sum() / busy), int(tiles[m].sum()),
+                       float(end[m].max())))
+    per_sm = np.array(per_sm)
+    last = np.argsort(end)[-6:]
+    return {"blocks": len(rec), "span_us": float(end.max() / 1e3),
+            "start_us_p50_p90_max": [float(np.percentile(start, q) / 1e3) for q in (50, 90, 100)],
+            "ns_per_tile_and_fixed": [float(fit[0]), float(fit[1])],
+            "q_wait_us_mean_max": [float(rec[:, 3].mean() / 1e3), float(rec[:, 3].max() / 1e3)],
+            "sms": len(per_sm), "blocks_per_sm_min_max": [int(per_sm[:, 0].min()),
+                                                          int(per_sm[:, 0].max())],
+            "tiles_per_sm_min_max": [int(per_sm[:, 2].min()), int(per_sm[:, 2].max())],
+            "sm_end_us_min_max": [float(per_sm[:, 3].min() / 1e3), float(per_sm[:, 3].max() / 1e3)],
+            "us_per_tile_per_sm_median": float(np.median(per_sm[:, 3] / per_sm[:, 2]) / 1e3),
+            "concurrency_mean_min_max": [float(per_sm[:, 1].mean()), float(per_sm[:, 1].min()),
+                                         float(per_sm[:, 1].max())],
+            "last_blocks_tiles_start_end_us": [[int(tiles[i]), float(start[i] / 1e3),
+                                                float(end[i] / 1e3)] for i in last]}
+
+
+#: A microbenchmark of the softmax's per-element work on the card's units,
+#: 8 independent elements a thread an iteration: mode 0 one ex2.approx
+#: (MUFU) an element; 1 the softmax's other work an element (a max, an FMA,
+#: a sum, half a bf16 pack), no ex2; 2 both, as the forward does.
+RATES_SOURCE = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+template <int MODE>
+__global__ void rates_kernel(float* out, int iters) {
+  float x[8], m = -1.f, l = 0.f;
+  uint32_t acc = 0;
+  for (int i = 0; i < 8; ++i) x[i] = -1e-3f * (threadIdx.x + i);
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (MODE == 0) {
+        x[i] = ex2(-x[i]);
+      } else {
+        m = fmaxf(m, x[i]);
+        const float y = fmaf(x[i], 0.25f, -m);
+        x[i] = MODE == 2 ? ex2(y) : y * 0.5f;
+        l += x[i];
+      }
+    }
+    if (MODE != 0) {
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        __nv_bfloat162 h = __floats2bfloat162_rn(x[i], x[i + 1]);
+        acc ^= *reinterpret_cast<uint32_t*>(&h);
+      }
+    }
+  }
+  float s = l + __uint_as_float(acc & 0x3f800000u);
+  for (int i = 0; i < 8; ++i) s += x[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int rates_run(int mode, int blocks, int threads, int iters, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) rates_kernel<0><<<blocks, threads, 0, s>>>(out, iters);
+  else if (mode == 1) rates_kernel<1><<<blocks, threads, 0, s>>>(out, iters);
+  else rates_kernel<2><<<blocks, threads, 0, s>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def rates(torch) -> dict:
+    """Run RATES_SOURCE's three modes at 4 and 8 warps a scheduler (16 and
+    32 warps an SM); elements a nanosecond an SM, to hold against MUFU's 16
+    a clock an SM (31.7 an ns at 1980 MHz)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out_dir = OUT / "rates"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "rates.cu").write_text(RATES_SOURCE)
+    subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(out_dir / "librates.so"),
+                    str(out_dir / "rates.cu")], check=True)
+    lib = ctypes.CDLL(str(out_dir / "librates.so"))
+    lib.rates_run.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = _build.stream_ptr(torch.device("cuda"))
+    result = {}
+    for warps in (16, 32):
+        blocks, threads, iters = sms * warps // 4, 128, 4096
+        buf = torch.empty(blocks * threads, device="cuda")
+        for mode, name in enumerate(("ex2", "softmax_without_ex2", "softmax_with_ex2")):
+            run = lambda: lib.rates_run(mode, blocks, threads, iters, buf.data_ptr(), stream)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            ns = start.elapsed_time(end) / 5 * 1e6
+            result[f"{name}, {warps} warps an SM"] = round(
+                blocks * threads * iters * 8 / ns / sms, 2)
+    return result
+
+
+def phases_report(torch, out, shape, phases) -> dict:
+    """The fwd-phases variant's records (thread 32's over row 0 of each
+    block's first item, thread 0's over row 1): SM clocks a tile in each of
+    PHASES, the mean over the blocks."""
+    import numpy as np
+
+    b_all, h, hkv, sq = shape[:4]
+    n_rep = h // hkv
+    hpi = min(n_rep, 64)
+    pos, chunks = 64 // hpi, -(-n_rep // hpi)
+    npb, groups = -(-sq // pos), b_all * hkv * chunks
+    raw = out.view(torch.int32).cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    got = {0: [], 1: []}
+    clocks = []
+    for x in range(groups * npb):
+        grp = x % groups
+        b, kvh, chunk = grp // (hkv * chunks), grp // chunks % hkv, grp % chunks
+        for row in (0, 1):
+            r = raw[b, kvh * n_rep + chunk * hpi + row, (npb - 1 - x // groups) * pos]
+            if r[7] == TRACE_MARK and r[6] == x and r[5] > 0:
+                got[row].append(r[:5] / r[5])
+        r = raw[b, kvh * n_rep + chunk * hpi + 2, (npb - 1 - x // groups) * pos]
+        if r[7] == TRACE_MARK and r[6] == x and r[1] > 0:
+            clocks.append((r[0], r[1], r[2]))
+    out = {who: dict(zip(phases, np.mean(got[row], 0).round(1).tolist()))
+           for who, row in (("thread 32", 0), ("thread 0 (loads)", 1)) if got[row]}
+    if clocks:
+        c = np.array(clocks, dtype=np.float64)
+        out["block"] = {"clocks_a_tile": round(float((c[:, 0] / c[:, 2]).mean()), 1),
+                        "sm_mhz": round(float((c[:, 0] / c[:, 1]).mean() * 1e3), 1),
+                        "us": round(float(c[:, 1].mean() / 1e3), 2)}
+    return out
 
 
 def main() -> int:
@@ -282,10 +691,15 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import _build, cost
     from repro_torch.kernels.decode_attention.ops import decode_attention, plan
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd_dkv
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
     from repro_torch.kernels.flash_attention.ref import attention_delta, flash_attention_fwd_lse_ref
 
     argv, sources, quick, variants = sys.argv[1:], {}, False, []
+    if argv == ["--rates"]:
+        print(f"elements a ns an SM: {json.dumps(rates(torch))}; card "
+              f"{chip_smoke.nvidia_smi('name,power.limit')}", flush=True)
+        return 0
     while argv:
         a = argv.pop(0)
         if a == "--source":
@@ -298,7 +712,7 @@ def main() -> int:
         else:
             raise SystemExit(f"unknown argument {a}")
     # print where a hung run sits, before an outer time limit kills it
-    faulthandler.dump_traceback_later(420 if quick else 1200, exit=True)
+    faulthandler.dump_traceback_later((420 if quick else 1200) + 60 * len(variants), exit=True)
     sources["new"] = {n: path.read_text() for n, path in SOURCES.items()}
     sources |= {n: variant_sources(n) for n in variants}
     libs = build(sources)
@@ -316,7 +730,7 @@ def main() -> int:
         use(libs[n])
         failed: list = []
         held[n] = hold(torch, chip_smoke, timer, failed) | {"failed": failed}
-        print(f"{n} held: {json.dumps(held[n])}", flush=True)
+        print(f"{n} held: {len(failed)} checks failed {failed[:2]}", flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     dshape = (4, 8, 2, 2081, 16, 2079)
@@ -342,7 +756,8 @@ def main() -> int:
         for shape in OTHER_DKV:
             x = chip_smoke.training_inputs(torch, shape)
             o, lse = flash_attention_fwd_lse_ref(*x[:3], shape[-1])
-            others.append(("dkv", shape, (*x, lse, attention_delta(o, x[3]))))
+            for kind in OTHER_FLASH:
+                others.append((kind, shape, (*x, lse, attention_delta(o, x[3]))))
             del o
 
     def run_other(kind, shape, args):
@@ -350,31 +765,47 @@ def main() -> int:
             kln = torch.full((1,), shape[-1], dtype=torch.int32, device="cuda")
             return lambda: decode_attention(*args, kln)
         q_, k_, v_, do_, lse_, dd_ = args
-        return lambda: flash_attention_bwd_dkv(q_, k_, v_, do_, lse_, dd_, shape[-1])
+        causal = shape[-1]
+        return {"fwd": lambda: flash_attention(q_, k_, v_, causal=causal),
+                "fwd_lse": lambda: flash_attention_fwd_lse(q_, k_, v_, causal),
+                "dkv": lambda: flash_attention_bwd_dkv(q_, k_, v_, do_, lse_, dd_, causal),
+                "dq": lambda: flash_attention_bwd_dq(q_, k_, v_, do_, lse_, dd_, causal)}[kind]
 
     first_out = {}
     turns = names + ([] if quick else names[::-1])
     times: dict = {n: {} for n in names}
     b_dec = cost.decode_attention(4, 8, 2, 16, kv_len)
-    b_dkv = cost.flash_attention_bwd_dkv(4, 8, 2, 2048, 2048, 16, True)
     bounds = {"decode": dict(zip(("bound_ms", "bound_by"), b_dec.bound_ms()),
                              exp_bound_ms=cost.exponentials(
-                                 "decode_attention", 4, 8, 2, 16, kv_len).bound_ms()[0]),
-              "dkv": dict(zip(("bound_ms", "bound_by"), b_dkv.bound_ms()),
-                          exp_bound_ms=cost.exponentials(
-                              "flash_attention_bwd_dkv", 4, 8, 2, 2048, 2048, 16,
-                              True).bound_ms()[0])}
+                                 "decode_attention", 4, 8, 2, 16, kv_len).bound_ms()[0])}
+    for key, name in (("fwd", "flash_attention"), ("fwd_lse", "flash_attention_fwd_lse"),
+                      ("dkv", "flash_attention_bwd_dkv"), ("dq", "flash_attention_bwd_dq")):
+        bounds[key] = dict(zip(("bound_ms", "bound_by"),
+                               getattr(cost, name)(*tshape[:-1], True).bound_ms()),
+                           exp_bound_ms=cost.exponentials(name, *tshape).bound_ms()[0])
     kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
     lib_c = [(cq[:, :, None], ck[:, :, :kv_len], cv[:, :, :kv_len]) for cq, ck, cv in caches]
     yard = dict(sdpa_ms=timer.ms(lambda: chip_smoke.sdpa(F, q[:, :, None], kc, vc, False), 50),
                 sdpa_graph_ms=timer.ms(lambda: [chip_smoke.sdpa(F, *c, False) for c in lib_c],
                                        20, clean_l2=True) / n_graph)
+    lse_call, yard["lse_call"] = chip_smoke.sdpa_lse(torch, tq, tk, tv, True)
+    yard["sdpa_fwd_ms"] = timer.ms(lambda: chip_smoke.sdpa(F, tq, tk, tv, True), 20)
+    yard["lse_call_ms"] = timer.ms(lse_call, 20)
+    yard["lse_call_lse_err"] = (lse_call()[1] - tlse).abs().max().item()
     print(f"SDPA decode {yard['sdpa_ms']:.5f} ms, in a graph {yard['sdpa_graph_ms']:.5f} ms a "
-          f"launch", flush=True)
+          f"launch; SDPA forward {yard['sdpa_fwd_ms']:.5f} ms, {yard['lse_call']} (O and "
+          f"the LSE, K/V expanded) {yard['lse_call_ms']:.5f} ms, its LSE within "
+          f"{yard['lse_call_lse_err']:.3g} of the plain one", flush=True)
     def empty(_=None):
         _build.check("decode_attention", probe.empty_launch(
             pl["n_split"] * pl["groups"], 160, stream()))
-    readings = (("dkv_ms", lambda: timer.ms(lambda: flash_attention_bwd_dkv(
+    readings = (("fwd_ms", lambda: timer.ms(lambda: flash_attention(tq, tk, tv, causal=True),
+                                             20)),
+                ("fwd_lse_ms", lambda: timer.ms(lambda: flash_attention_fwd_lse(
+                    tq, tk, tv, True), 20)),
+                ("dq_ms", lambda: timer.ms(lambda: flash_attention_bwd_dq(
+                    tq, tk, tv, tdo, tlse, tdd, True), 20)),
+                ("dkv_ms", lambda: timer.ms(lambda: flash_attention_bwd_dkv(
                     tq, tk, tv, tdo, tlse, tdd, True), 20)),
                 ("decode_graph_ms", lambda: in_graph(lambda c: decode_attention(*c, kl))),
                 ("decode_ms", lambda: timer.ms(lambda: decode_attention(q, k, v, kl), 50)),
@@ -406,9 +837,41 @@ def main() -> int:
             else:
                 first_out[key] = out if isinstance(out, tuple) else (out,)
             r[f"{key}_ms"] = timer.ms(fn, 20)
-        print(f"turn {turn} {n}: {json.dumps(r)}", flush=True)
-    print(json.dumps({"card": chip_smoke.nvidia_smi("name,power.limit"),
-                      "bounds": bounds, **yard, "held": held, "times": times}))
+        print(f"turn {turn} {n}: " + json.dumps({k: v for k, v in r.items() if k != "plan"}),
+              flush=True)
+    traces = {}
+    for n in ("fwd-trace", "dq-trace"):
+        if n not in names:
+            continue
+        use(libs[n])
+        call = ((lambda: flash_attention(tq, tk, tv, causal=True)) if n == "fwd-trace" else
+                (lambda: flash_attention_bwd_dq(tq, tk, tv, tdo, tlse, tdd, True)))
+        call()
+        timer.flush.zero_()
+        out = call()
+        torch.cuda.synchronize()
+        traces[n] = trace_report(torch, out, tshape, n)
+        print(f"{n}: {json.dumps(traces[n])}", flush=True)
+    for n in ("fwd-phases", "dq-phases", "fwd-outside"):
+        if n not in names:
+            continue
+        use(libs[n])
+        call = ((lambda: flash_attention_bwd_dq(tq, tk, tv, tdo, tlse, tdd, True))
+                if n == "dq-phases" else (lambda: flash_attention(tq, tk, tv, causal=True)))
+        call()
+        timer.flush.zero_()
+        out = call()
+        torch.cuda.synchronize()
+        traces[n] = phases_report(torch, out, tshape, {"fwd-phases": PHASES, "dq-phases": DQ_PHASES,
+                                                       "fwd-outside": OUTSIDE_PHASES}[n])
+        print(f"{n} (SM clocks a tile): {json.dumps(traces[n])}", flush=True)
+    summary = {"card": chip_smoke.nvidia_smi("name,power.limit"), "traces": traces,
+               "bounds": bounds, **yard, "held": held, "times": times}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "hd16_compare.json").write_text(json.dumps(summary, indent=1))
+    print(f"card {summary['card']}; bounds {json.dumps(bounds)}; the whole summary in "
+          f"chiprun_out/hd16_compare.json")
     return 0 if all(not h["failed"] for n, h in held.items()
                     if not VARIANTS.get(n, ("", "", ""))[2].endswith(OUTSIDE)) else 1
 
