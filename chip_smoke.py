@@ -15,7 +15,8 @@ Llama-3.2-Vision-11B and SeamlessM4T-medium served with every layer kind
 split over a model axis of two gloo ranks sharing the card; then the
 kernels' contract on the paths: the head-dim-16 SMOKE configs served and
 trained, every SMOKE config in float32 against the CPU, Mistral-NeMo-12B
-served and OLMo-1B trained in float32 at full size.
+served and OLMo-1B trained in float32 at full size; and Command-R-35B
+served whole (40 layers at full width, 60.3 GiB of bf16 weights).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -44,8 +45,8 @@ Phases, each fatal on failure:
      the reference's 2e-4, in the model's layout (B/C at head stride 0, or
      per head) and in the Pallas kernel's, at ragged lengths, P != N and a
      strong decay, two calls bit-identical; decode attention with a device
-     kv_len at the serving cache (also kv_len 0, 1 and S) and GQA groups 3
-     and 16, each output also within one bf16 ulp of its f64 value, and one
+     kv_len at the serving cache (also kv_len 0, 1 and S) and GQA groups 3,
+     8 and 16, each output also within one bf16 ulp of its f64 value, and one
      captured launch replayed with kv_len changed on the device; its time
      with the L2 flushed by a write and, beside SDPA, by a read;
      the serving forward at the mistral and minitron_4b prefill shapes,
@@ -59,7 +60,10 @@ Phases, each fatal on failure:
      shapes of cross-attention and the encoder (MEMORY_FLASH_CASES,
      MEMORY_DECODE_CASES: the flash forward without the mask over 1601
      image tokens and 1024 frames, the encoder's 1024², decode attention
-     over the whole memory), the SSD scan at Jamba's (4, 2048, 128, 64,
+     over the whole memory) and of command_r_35b's path
+     (COMMAND_R_FLASH_CASES, COMMAND_R_DECODE_CASES: GQA group 8 at hd 128,
+     the 4 x 2048 causal prefill and decode over its 2081-position cache at
+     kv_len 2079), the SSD scan at Jamba's (4, 2048, 128, 64,
      16) and the gated norm at d_inner 8192 (RMSNORM_JAMBA), each held and
      timed beside its bound and, for attention, SDPA; the RMSNorm's
      backward kernel at the training shapes (RMSNORM_BWD_SHAPES: mamba2 8
@@ -182,8 +186,10 @@ Phases, each fatal on failure:
      without a wall clock fails); the reference's bands gate every row,
      and BENCH_validation_torch.json is written;
  13. a reading: the paper's serving model (``serving_sweep`` on a one-chip
-     catalog H100) for mistral_nemo_12b and olmoe_1b_7b beside their
-     measured warm TTFT and steady TPOT;
+     catalog H100) for mistral_nemo_12b, olmoe_1b_7b and command_r_35b
+     beside their measured warm TTFT and steady TPOT, and the bytes each
+     keeps resident beside the catalog memory's capacity (the model checks
+     none);
  14. the VLM: llama32_vision_11b at full width and depth (40 layers, 8 of
      them cross-attending) through ``ServeEngine.generate(...,
      memory=...)`` with seeded (4, 1601, 4096) image embeddings, counters
@@ -277,6 +283,19 @@ Phases, each fatal on failure:
      2048, 3 steps (rows 5-7 in float32), counters zeroed just before and
      read just after, a loss that starts near ln V + 1/2 and falls, step
      time and peak memory;
+ 26. (run after phases 10-11, where the allocator holds least, so that
+     phase 13 reads it) command_r_35b whole: ``run_serve`` on the config as
+     the repository defines it (40 layers, d_model 8192, 64/8 heads at hd
+     128, d_ff 22528, vocabulary 256,000, LayerNorm), 4 x 2048 + 32, as
+     phase 5: counters zeroed just before and read just after (flash 40,
+     decode 1240, every other kernel 0), the memory ``run_serve`` leaves
+     allocated (at most RUN_SERVE_LEFT_BYTES: its weights must be gone
+     before they are drawn again), graph tokens against eager ones; the
+     card's free memory printed before;
+ 27. as phase 6 for it; the peak allocated over both phases below the
+     card's memory, printed with TTFT and the cold, warm and steady TPOT
+     beside their floors (the prefill's FLOPs over the bf16 peak, a decode
+     step's weights, and weights and cache, over HBM's rate);
  19. one JSON line of kernel numbers (the contract's instantiations as
      ``<kernel>[<dtype>/hd<hd>]``, each with its launches on the paths of
      phases 22-25), the card's name and power limit, the run's total time,
@@ -303,6 +322,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data sheet, dense, at its 700 W limit (the peak that the
 # kernels' bounds use too: repro_torch.kernels.cost)
 BF16_FLOP_PER_S = 989e12        # tensor cores
+HBM_BYTES_PER_S = 3.35e12       # HBM3
 
 REQUESTS, PROMPT_LEN, NEW_TOKENS, SEED = 4, 2048, 32, 0
 SSM_REQUESTS = 8                   # mamba2_130m: 8 x 2048 + 32
@@ -360,9 +380,11 @@ PARALLEL_TIMEOUT_S = 600
 # and skipped in two other runs) is cut to leave time for the MoE serving
 # and validation phases, the 50,000 rung (50,112 cells, 67-68 s on the
 # H100) to leave time for phase 20, the 20,000 rung (20,160 cells, 29.7-
-# 31.9 s on the kernel and as long again on numpy) to hold the run under
+# 31.9 s on the kernel and as long again on numpy) and the 10,000 rung
+# (10,080 cells, 13.45 s on the kernel and about as long on numpy; cut
+# when phases 26-27 put the total at 613.4 s) to hold the run under
 # RUN_LIMIT_S.
-SEARCH_LADDER = (None, 10_000)
+SEARCH_LADDER = (None,)
 SEARCH_LIMIT_S = 120
 PHASE4B_TIMEOUT_S = 720
 REPRICE_TURNS = 2                  # 3 before phase 20; cut to leave time for it
@@ -862,7 +884,8 @@ def flash_cases(B, H, Hkv, S, hd):
 # serving cache of mistral_nemo_12b (B, S, Hkv, hd) = (4, 2081, 8, 128) read
 # transposed at the last and the first decode step's kv_len, kv_len 0, 1 and
 # S; ragged shapes; GQA group 3 (minitron_4b's 24/8 heads, compiled as it
-# is) and 16 (qwen3_moe_235b's 64/4, in chunks of 8 heads).
+# is), 8 (command_r_35b's 64/8) and 16 (qwen3_moe_235b's 64/4, in chunks of 8
+# heads).
 def decode_cases() -> tuple:
     s = PROMPT_LEN + NEW_TOKENS + 1
     last = PROMPT_LEN + NEW_TOKENS - 1
@@ -874,11 +897,12 @@ def decode_cases() -> tuple:
             ("ragged", (3, 8, 2, 37, 64, 29)),
             ("ragged-mha", (2, 4, 4, 300, 32, 300)),
             ("gqa3-minitron", (REQUESTS, 24, 8, s, 128, last)),
+            ("gqa8-command_r", (REQUESTS, 64, 8, s, 128, last)),
             ("gqa16", (2, 64, 4, 600, 128, 577)))
 
 
 #: the cases also run through one captured launch replayed at other kv_len
-DECODE_REPLAYED = ("serve", "gqa3-minitron", "gqa16")
+DECODE_REPLAYED = ("serve", "gqa3-minitron", "gqa8-command_r", "gqa16")
 
 #: Row 2 on one rank's block of a context-parallel cache (phase 20b): the
 #: mistral serving cache's sequence halved over a model axis of 2, (B, H,
@@ -901,6 +925,15 @@ MEMORY_FLASH_CASES = (("vision cross", (REQUESTS, 32, 8, PROMPT_LEN, 1601, 128, 
                       ("seamless encoder", (REQUESTS, 16, 16, 1024, 1024, 64, False)))
 MEMORY_DECODE_CASES = (("vision cross", (REQUESTS, 32, 8, 1601, 128, 1601)),
                        ("seamless cross", (REQUESTS, 16, 16, 1024, 64, 1024)))
+#: command_r_35b's attention on its serving path (phases 26-27), held and
+#: timed in phase 3: GQA group 8 at hd 128 (64 query heads over 8 KV heads),
+#: the prefill's causal forward and decode over the serving cache at the last
+#: step's kv_len (also among decode_cases, replayed at other kv_len)
+COMMAND_R_FLASH_CASES = (("command_r_35b prefill",
+                          (REQUESTS, 64, 8, PROMPT_LEN, PROMPT_LEN, 128, True)),)
+COMMAND_R_DECODE_CASES = (("command_r_35b decode",
+                           (REQUESTS, 64, 8, PROMPT_LEN + NEW_TOKENS + 1, 128,
+                            PROMPT_LEN + NEW_TOKENS - 1)),)
 # Each decode output within one bf16 ulp of its f64 value, plus this share
 # of the largest |o|: the kernel's f32 arithmetic is ~1e-7 of the largest
 # output, its rounding to bf16 half an ulp; a P rounded once to bf16 moves
@@ -1079,25 +1112,29 @@ def check_kernels(torch, timer) -> dict:
         shape=[b, h, hkv, k.shape[2], hd, kv_len])
     say(f"  decode_attention serve {out['decode_attention']}")
     del q, k, v, kc, vc, main
-    out["decode_attention"]["memory_shapes"] = shapes = {}
-    for label, shape in MEMORY_DECODE_CASES:
-        q, k, v = decode_inputs(torch, g, shape)
-        mb, mh, mhkv, m, mhd, kv_len = shape
-        kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        o, lse = decode_attention(q, k, v, kl)
-        r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode {label}")
-        b_ms, b_by = cost.decode_attention(mb, mh, mhkv, mhd, kv_len).bound_ms()
-        shapes[label] = dict(
-            max_abs_err=r["o_err"], max_ulp_excess=r["ulp_excess"],
-            ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
-            plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
-                                                           return_lse=True), 20),
-            library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], k, v, causal=False), 200),
-            bound_ms=b_ms, bound_by=b_by, plan=decode_plan(mb, mh, mhkv, mhd),
-            shape=list(shape))
-        say(f"  decode_attention {label} q {tuple(q.shape)} memory {(mb, m, mhkv, mhd)}: "
-            f"{json.dumps(shapes[label])}")
-        del q, k, v, o, lse
+    for group, cases in (("memory_shapes", MEMORY_DECODE_CASES),
+                         ("command_r_35b", COMMAND_R_DECODE_CASES)):
+        out["decode_attention"][group] = shapes = {}
+        for label, shape in cases:
+            q, k, v = decode_inputs(torch, g, shape)
+            mb, mh, mhkv, m, mhd, kv_len = shape
+            kl = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+            kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
+            o, lse = decode_attention(q, k, v, kl)
+            r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode {label}")
+            b_ms, b_by = cost.decode_attention(mb, mh, mhkv, mhd, kv_len).bound_ms()
+            shapes[label] = dict(
+                max_abs_err=r["o_err"], max_ulp_excess=r["ulp_excess"],
+                ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
+                plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl,
+                                                               return_lse=True), 20),
+                library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], kc, vc,
+                                                 causal=False), 200),
+                bound_ms=b_ms, bound_by=b_by, plan=decode_plan(mb, mh, mhkv, mhd),
+                shape=list(shape))
+            say(f"  decode_attention {label} q {tuple(q.shape)} cache {(mb, m, mhkv, mhd)} "
+                f"kv_len {kv_len}: {json.dumps(shapes[label])}")
+            del q, k, v, kc, vc, o, lse
     out["decode_attention"]["context_parallel_shapes"] = shapes = {}
     for label, shape in CP_DECODE_CASES:
         q, k, v = decode_inputs(torch, g, shape)
@@ -1160,28 +1197,30 @@ def check_kernels(torch, timer) -> dict:
         bound_ms=b_ms, bound_by=b_by, shape=[B, H, Hkv, S, S, hd])
     say(f"  flash_attention serve {out['flash_attention']}")
     del qf, kf, vf, main
-    out["flash_attention"]["memory_shapes"] = shapes = {}
-    for label, (mb, mh, mhkv, sq, sk, dh, causal) in MEMORY_FLASH_CASES:
-        qa, ka, va = randn(mb, sq, mh, dh), randn(mb, sk, mhkv, dh), randn(mb, sk, mhkv, dh)
-        args = (qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2))
-        o = flash_attention(*args, causal=causal)
-        want = flash_attention_ref(*args, causal=causal)
-        err = compare(torch, o, want, f"flash {label}")
-        row = row_scaled_errs(o, want)[1]
-        if not row <= TRAIN_ROW_REL:
-            raise AssertionError(
-                f"flash {label}: a row's max |kernel - plain| is {row:.3g} x "
-                f"its max |plain| (limit {TRAIN_ROW_REL:g})")
-        del o, want
-        b_ms, b_by = cost.flash_attention(mb, mh, mhkv, sq, sk, dh, causal).bound_ms()
-        shapes[label] = dict(
-            max_abs_err=err, max_row_scaled_err=row,
-            ms=timer.ms(lambda: flash_attention(*args, causal=causal), 20),
-            plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 5),
-            library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 20),
-            bound_ms=b_ms, bound_by=b_by, shape=[mb, mh, mhkv, sq, sk, dh, causal])
-        say(f"  flash_attention {label}: {json.dumps(shapes[label])}")
-        del qa, ka, va, args
+    for group, cases in (("memory_shapes", MEMORY_FLASH_CASES),
+                         ("command_r_35b", COMMAND_R_FLASH_CASES)):
+        out["flash_attention"][group] = shapes = {}
+        for label, (mb, mh, mhkv, sq, sk, dh, causal) in cases:
+            qa, ka, va = randn(mb, sq, mh, dh), randn(mb, sk, mhkv, dh), randn(mb, sk, mhkv, dh)
+            args = (qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2))
+            o = flash_attention(*args, causal=causal)
+            want = flash_attention_ref(*args, causal=causal)
+            err = compare(torch, o, want, f"flash {label}")
+            row = row_scaled_errs(o, want)[1]
+            if not row <= TRAIN_ROW_REL:
+                raise AssertionError(
+                    f"flash {label}: a row's max |kernel - plain| is {row:.3g} x "
+                    f"its max |plain| (limit {TRAIN_ROW_REL:g})")
+            del o, want
+            b_ms, b_by = cost.flash_attention(mb, mh, mhkv, sq, sk, dh, causal).bound_ms()
+            shapes[label] = dict(
+                max_abs_err=err, max_row_scaled_err=row,
+                ms=timer.ms(lambda: flash_attention(*args, causal=causal), 20),
+                plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 5),
+                library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 20),
+                bound_ms=b_ms, bound_by=b_by, shape=[mb, mh, mhkv, sq, sk, dh, causal])
+            say(f"  flash_attention {label}: {json.dumps(shapes[label])}")
+            del qa, ka, va, args
     return out
 
 
@@ -3813,13 +3852,13 @@ def full_model_readings(torch, cfg, params, prompts, tokens,
     n, s = gen.shape[1], prompts.shape[1]
     seq = torch.cat([prompts, gen[:, :-1]], 1)
     with torch.no_grad():
-        full = forward(cfg, params, seq, memory=memory)
-        teacher = full[:, s - 1:]                           # (B, n, V)
-        if not bool(torch.isfinite(teacher.float()).all()):
+        # a copy of the compared positions, so the pass's logits (3.9 GiB at
+        # a 256,000 vocabulary) are freed before the prefill
+        teacher = forward(cfg, params, seq, memory=memory)[:, s - 1:].clone()
+        if not bool(torch.isfinite(teacher.float()).all()):  # (B, n, V)
             raise AssertionError("full model: non-finite logits")
         agree = (teacher.argmax(-1) == gen).float().mean().item()
-        del full
-        _, cache = prefill(cfg, params, prompts, max_len=s + n, memory=memory)
+        cache = prefill(cfg, params, prompts, max_len=s + n, memory=memory)[1]
         worst = 0.0
         for i in range(n - 1):
             lg, cache = decode_step(cfg, params, cache, gen[:, i], s + i,
@@ -4028,7 +4067,7 @@ def graph_vs_eager(torch, cfg, params, prompts, served=None, memory=None,
         captures, capture_s = engine.captures - before, engine.capture_s
         if new:
             del engine
-        del slot
+        del slot, logits
         logits, cache = prefill(cfg, params, prompts, max_len=s + NEW_TOKENS + 1,
                                 memory=memory)
         eager_toks, diff = [logits[:, -1].argmax(-1)], 0.0
@@ -4086,15 +4125,20 @@ def capture_failure_raises() -> int:
     return 1
 
 
+#: the most device memory a ``run_serve`` call may leave allocated (its
+#: weights and cache must be freed with it)
+RUN_SERVE_LEFT_BYTES = 1 << 30
+
+
 def check_serving(torch, kernels, arch: str, requests: int,
                   want: dict[str, int], phase: int, cfg=None,
-                  short: bool = False) -> dict[str, int]:
+                  short: bool = False) -> tuple[dict[str, int], dict]:
     """The serving path of ``arch`` (or of ``cfg``, a cut of it) at full
     size (phase N), then steady state and correctness (phase N + 1 for the
     dense path unless ``short``, the same phase for the SSM one). ``short``
     leaves out the small config (a cut config has none the kernels take).
     Returns the launch counts of the ``run_serve`` call, and the warm
-    TTFT and steady TPOT (seconds)."""
+    TTFT, the steady TPOT and the cold and warm generates' TPOT (seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import decode_step, prefill
@@ -4104,17 +4148,25 @@ def check_serving(torch, kernels, arch: str, requests: int,
     say(f"[{phase}] run_serve {cfg.name}: {requests} requests x {PROMPT_LEN} "
         f"prompt tokens x {NEW_TOKENS} new tokens, seed {SEED}")
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     kernels.reset_launches()
     res = run_serve(cfg, requests=requests, prompt_len=PROMPT_LEN,
                     tokens=NEW_TOKENS, seed=SEED)
     counts = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
+    # what the call left allocated: its weights, engine, cache and graph
+    # pool must be gone before the next phase draws the weights again
+    left = torch.cuda.memory_allocated() - held
     want = {name: 0 for name in counts} | want
     say(f"    TTFT {res.ttft * 1e3:.3f} ms, TPOT {res.tpot * 1e3:.4f} ms, "
         f"{res.tokens_per_s:.2f} tokens/s, peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {counts}")
+        f"{peak / 2**30:.3f} GiB, left allocated {left / 2**20:.1f} MiB; "
+        f"launches {counts}")
     if counts != want:
         raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    if left > RUN_SERVE_LEFT_BYTES:
+        raise AssertionError(f"{arch}: run_serve left {left / 2**30:.3f} GiB "
+                             f"allocated")
     if len(res.tokens) != NEW_TOKENS or any(
             len(t) != requests or not all(0 <= x < cfg.vocab for x in t)
             for t in res.tokens):
@@ -4185,7 +4237,8 @@ def check_serving(torch, kernels, arch: str, requests: int,
     if not short:
         small = check_small_model(torch, arch)
         say(f"    small config, card vs CPU plain: {small}")
-    return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot}
+    return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot,
+                    "cold_tpot": cold.tpot, "warm_tpot": warm.tpot}
 
 
 # ------------------------------- phases 14-17 ---------------------------------
@@ -5294,6 +5347,60 @@ def phase25_f32_training(torch, kernels) -> dict[str, int]:
     return counts
 
 
+# ------------------------------- phases 26-27 ---------------------------------
+def phase26_command_r(torch, kernels) -> tuple[dict[str, int], dict]:
+    """Phases 26-27: ``run_serve`` on command_r_35b whole, as phases 5-6
+    (:func:`check_serving`): 40 layers at full width, 64/8 heads at hd 128
+    (GQA group 8), LayerNorm as plain code, 60.3 GiB of bf16 weights, so
+    flash attention L launches a prefill, decode attention L a step, and no
+    other kernel. The allocator is emptied first and its free memory
+    printed; the peak allocated over both phases must stay below the card's
+    memory. Printed beside the measured TTFT and TPOT: their floors, the
+    prefill's FLOPs over the bf16 peak (the projections, the head over every
+    position and causal attention) and a decode step's bytes over HBM's
+    rate (the weights, and the weights with the cache at the last step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("command_r_35b")
+    n, hd = cfg.n_layers, cfg.hd
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(init_params(cfg, device="meta")))
+    shown = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
+             "norm", "gated", "rope_theta", "tie_embeddings")
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"[26] command_r_35b whole on one card: "
+        f"{json.dumps({k: getattr(cfg, k) for k in shown})}, nothing cut; "
+        f"weights {weights / 2**30:.3f} GiB; the card's free memory "
+        f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    counts, measured = check_serving(torch, kernels, "command_r_35b", REQUESTS, {
+        "flash_attention": n, "decode_attention": n * (NEW_TOKENS - 1)},
+        phase=26)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = REQUESTS * PROMPT_LEN
+    flops = (2 * (cfg.param_count() - cfg.vocab * cfg.d_model) * tokens
+             + n * 2 * REQUESTS * cfg.n_heads * PROMPT_LEN ** 2 * hd)
+    cache = (2 * n * REQUESTS * (PROMPT_LEN + NEW_TOKENS - 1) * cfg.n_kv_heads
+             * hd * 2)
+    out = {"peak_allocated_gib": peak / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+           "card_gib": total / 2**30,
+           "ttft_floor_ms": flops / BF16_FLOP_PER_S * 1e3,
+           "warm_ttft_ms": measured["warm_ttft"] * 1e3,
+           "tpot_weight_floor_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "tpot_floor_with_cache_ms": (weights + cache) / HBM_BYTES_PER_S * 1e3,
+           "cold_tpot_ms": measured["cold_tpot"] * 1e3,
+           "warm_tpot_ms": measured["warm_tpot"] * 1e3,
+           "steady_tpot_ms": measured["tpot"] * 1e3}
+    say(f"    phases 26-27: {json.dumps(out)}; {time.perf_counter() - t0:.1f} s")
+    if not peak < total:
+        raise AssertionError(f"command_r_35b: peak {peak / 2**30:.3f} GiB is not "
+                             f"below the card's {total / 2**30:.3f} GiB")
+    return counts, measured
+
+
 # ------------------------------- phases 12-13 ---------------------------------
 def check_validation(card: str) -> dict:
     """Phase 12: the modeled-vs-measured loop on the card. Calibrates the
@@ -5354,7 +5461,10 @@ def serving_model_reading(measured: dict) -> dict:
     catalog H100 and HBM, at the served shape (REQUESTS x PROMPT_LEN
     prefill, decode at kv_len PROMPT_LEN + NEW_TOKENS; a MoE decode prices
     every expert, as ``moe_dense`` runs them), beside the warm TTFT and
-    the steady TPOT measured in its serving phase."""
+    the steady TPOT measured in its serving phase. The model prices a layer
+    and checks no capacity, so beside it the bytes the served model keeps
+    resident (bf16 weights, the K/V cache of its attention layers at the
+    serving length) and the catalog memory's capacity."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5378,7 +5488,12 @@ def serving_model_reading(measured: dict) -> dict:
                               decode_layer_graph(dec, kv_len=PROMPT_LEN + NEW_TOKENS),
                               n_layers=cfg.n_layers, system=system,
                               batch=REQUESTS)
-        out[arch] = {"modeled_ttft_ms": pt.ttft * 1e3,
+        resident = 2 * cfg.param_count() + (
+            4 * cfg.n_layers * REQUESTS * (PROMPT_LEN + NEW_TOKENS + 1)
+            * cfg.n_kv_heads * cfg.hd)
+        out[arch] = {"resident_gb": resident / 1e9,
+                     "catalog_capacity_gb": system.memory.capacity / 1e9,
+                     "modeled_ttft_ms": pt.ttft * 1e3,
                      "measured_warm_ttft_ms": got["warm_ttft"] * 1e3,
                      "ttft_modeled_over_measured": pt.ttft / got["warm_ttft"],
                      "modeled_tpot_ms": pt.tpot * 1e3,
@@ -6493,6 +6608,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("10-11")
 
+    # 26.-27. command_r_35b whole (60.3 GiB of weights), where the allocator
+    # holds least: after the serving phases, before the validation loop
+    command_r, command_r_t = phase26_command_r(torch, kernels)
+    torch.cuda.empty_cache()
+    lap("26-27")
+
     # 12. the modeled-vs-measured validation loop
     say("[12] validation: the card calibrated, the three cases predicted, "
         "counted and timed, gated with the reference's bands")
@@ -6503,7 +6624,8 @@ def main() -> int:
     # 13. the paper's serving model beside the measured serving paths
     say("[13] serving model (serving_sweep, one-chip catalog H100 + HBM) "
         "against the measured warm TTFT and steady TPOT")
-    serving_model_reading({"mistral_nemo_12b": dense_t, "olmoe_1b_7b": moe_t})
+    serving_model_reading({"mistral_nemo_12b": dense_t, "olmoe_1b_7b": moe_t,
+                           "command_r_35b": command_r_t})
     torch.cuda.empty_cache()
     lap("12-13")
 
@@ -6540,7 +6662,7 @@ def main() -> int:
     by_path = {"mistral_nemo_12b": dense, "mamba2_130m": ssm, "dse": dse,
                "dse_rank_search_service": features,
                "olmo_1b_train": train, "minitron_4b": gqa3,
-               "olmoe_1b_7b": moe, **new_paths, **rmsnorm_train,
+               "olmoe_1b_7b": moe, "command_r_35b": command_r, **new_paths, **rmsnorm_train,
                **multi_device, "model_axis_two_ranks": model_axis,
                "hd16_smoke": hd16, "f32_smoke": f32_smoke,
                "mistral_nemo_12b_f32": f32_serve, "olmo_1b_f32_train": f32_train}

@@ -1,4 +1,6 @@
-"""The port's model against the JAX reference on mistral_nemo_12b SMOKE.
+"""The port's model against the JAX reference on the SMOKE configs of
+mistral_nemo_12b (RMSNorm) and command_r_35b (LayerNorm, GQA group 4), and
+command_r_35b's full-size leaves against the reference's, as shapes only.
 
 Weights come from the reference's ``init_params`` and cross over through
 numpy (``params_from_jax_numpy``); tokens come from numpy. Tolerances:
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs.mistral_nemo_12b import SMOKE as JAX_SMOKE
 from repro.models import transformer as jt
 from repro_torch.configs import get_config
@@ -27,11 +30,8 @@ from repro_torch.models import (decode_step, forward, init_params,
 
 SMOKE = get_config("mistral_nemo_12b", smoke=True)
 B, S, STEPS = 2, 12, 5
-
-
-def _cfgs(dtype: str):
-    return (dataclasses.replace(JAX_SMOKE, dtype=dtype),
-            dataclasses.replace(SMOKE, dtype=dtype))
+#: the dense decoders whose SMOKE configs the comparisons below run
+ARCHS = ("mistral_nemo_12b", "command_r_35b")
 
 
 @pytest.fixture(scope="module")
@@ -39,10 +39,20 @@ def jax_params():
     return jt.init_params(JAX_SMOKE, jax.random.PRNGKey(0))
 
 
-@pytest.fixture(scope="module")
-def tokens():
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    """(the reference's SMOKE config, the port's, the reference's weights,
+    tokens from numpy) of one of ARCHS."""
+    jcfg = jax_get_config(request.param, smoke=True)
+    cfg = get_config(request.param, smoke=True)
     rng = np.random.default_rng(0)
-    return rng.integers(0, SMOKE.vocab, (B, S + STEPS)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
+    return jcfg, cfg, jt.init_params(jcfg, jax.random.PRNGKey(0)), tokens
+
+
+def _cfgs(case, dtype: str):
+    return (dataclasses.replace(case[0], dtype=dtype),
+            dataclasses.replace(case[1], dtype=dtype))
 
 
 def _port(cfg, jparams):
@@ -106,8 +116,9 @@ def test_init_params_has_reference_shapes(jax_params):
     assert bool((ours["final_norm"]["w"] == 1).all())
 
 
-def test_forward_and_prefill_f32_match_reference(jax_params, tokens):
-    jcfg, cfg = _cfgs("float32")
+def test_forward_and_prefill_f32_match_reference(case):
+    jcfg, cfg = _cfgs(case, "float32")
+    jax_params, tokens = case[2:]
     params = _port(cfg, jax_params)
     prompt = tokens[:, :S]
     want = _np(jt.forward(jcfg, jax_params, jnp.asarray(prompt)))
@@ -125,8 +136,9 @@ def test_forward_and_prefill_f32_match_reference(jax_params, tokens):
                                    rtol=2 ** -7, atol=0)
 
 
-def test_decode_chain_f32_matches_reference(jax_params, tokens):
-    jcfg, cfg = _cfgs("float32")
+def test_decode_chain_f32_matches_reference(case):
+    jcfg, cfg = _cfgs(case, "float32")
+    jax_params, tokens = case[2:]
     params = _port(cfg, jax_params)
     prompt = tokens[:, :S]
     want, want_toks = _jax_decode_chain(jcfg, jax_params, jnp.asarray(prompt),
@@ -145,8 +157,9 @@ def _scaled_err(got: np.ndarray, want: np.ndarray) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def test_bf16_teacher_forced_logits_match_reference(jax_params, tokens):
-    jcfg, cfg = _cfgs("bfloat16")
+def test_bf16_teacher_forced_logits_match_reference(case):
+    jcfg, cfg = _cfgs(case, "bfloat16")
+    jax_params, tokens = case[2:]
     params = _port(cfg, jax_params)
     want = _np(jt.forward(jcfg, jax_params, jnp.asarray(tokens)))
     got = forward(cfg, params, torch.from_numpy(tokens).long())
@@ -168,9 +181,43 @@ def test_bf16_teacher_forced_logits_match_reference(jax_params, tokens):
         assert _scaled_err(g, w) <= 2e-2
 
 
+def _port_shapes(tree, path=()) -> dict:
+    """{path: (shape, dtype)} of the port's leaves, each block of the stack
+    (a list here) folded into one leaf with a leading n_blocks axis, as the
+    reference stacks them."""
+    if isinstance(tree, torch.Tensor):
+        return {path: (tuple(tree.shape), tree.dtype)}
+    if isinstance(tree, list):
+        blocks = [_port_shapes(b, path) for b in tree]
+        assert all(b == blocks[0] for b in blocks), path
+        return {p: ((len(blocks),) + shape, dt) for p, (shape, dt) in blocks[0].items()}
+    return {k: v for name, sub in tree.items()
+            for k, v in _port_shapes(sub, path + (name,)).items()}
+
+
+def test_command_r_full_size_leaves_match_reference():
+    """command_r_35b at full size, nothing allocated: the port's leaves on
+    the meta device have the paths and shapes of ``jax.eval_shape`` over
+    the reference's init; the matrices (bf16 for serving) take 2 x
+    ``param_count()`` bytes, 60.3 GiB, and only the LayerNorm leaves are
+    float32."""
+    jcfg = jax_get_config("command_r_35b")
+    cfg = get_config("command_r_35b")
+    want = jax.eval_shape(partial(jt.init_params, jcfg), jax.random.PRNGKey(0))
+    want = {tuple(k.key for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]}
+    got = _port_shapes(init_params(cfg, device="meta"))
+    assert {p: shape for p, (shape, _) in got.items()} == want
+    assert got[("stack", "l0", "attn", "wk")][0] == (40, 8192, 8 * 128)
+    bf16 = sum(np.prod(shape) * 2 for shape, dt in got.values() if dt == torch.bfloat16)
+    assert bf16 == 2 * cfg.param_count() == 2 * jcfg.param_count()
+    assert round(bf16 / 2**30, 1) == 60.3
+    assert {p[-2] for p, (_, dt) in got.items() if dt == torch.float32} == {
+        "ln1", "ln2", "final_norm"}
+
+
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_reference_field_for_field(smoke):
-    from repro.configs import get_config as jax_get_config
     want = jax_get_config("mistral_nemo_12b", smoke=smoke)
     got = get_config("mistral_nemo_12b", smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -1,8 +1,9 @@
 """The port's serving engine and launcher against the JAX reference.
 
-Greedy generation on the float32 mistral_nemo_12b SMOKE config must emit
-the reference engine's tokens exactly; the rest mirrors the reference's
-engine tests (tests/test_serving.py) on the port alone.
+Greedy generation on the float32 SMOKE configs of mistral_nemo_12b and
+command_r_35b must emit the reference engine's tokens exactly; the rest
+mirrors the reference's engine tests (tests/test_serving.py) on the port
+alone.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.mistral_nemo_12b import SMOKE as JAX_SMOKE
+from repro.configs import get_config as jax_get_config
 from repro.models import init_params as jax_init_params
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
@@ -31,18 +32,19 @@ def engine():
     return ServeEngine(SMOKE, params, max_batch=2, max_len=48, device="cpu")
 
 
-def _prompts(b: int, s: int, seed: int = 0) -> torch.Tensor:
+def _prompts(b: int, s: int, seed: int = 0, vocab: int = SMOKE.vocab) -> torch.Tensor:
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, SMOKE.vocab, (b, s))).long()
+    return torch.from_numpy(rng.integers(0, vocab, (b, s))).long()
 
 
-def test_greedy_generation_f32_matches_reference_engine():
-    jcfg = dataclasses.replace(JAX_SMOKE, dtype="float32")
-    cfg = dataclasses.replace(SMOKE, dtype="float32")
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "command_r_35b"])
+def test_greedy_generation_f32_matches_reference_engine(arch):
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
     params = params_from_jax_numpy(cfg, jax.tree.map(np.asarray, jparams),
                                    device="cpu")
-    prompts = _prompts(2, 10, seed=4)
+    prompts = _prompts(2, 10, seed=4, vocab=cfg.vocab)
     want = JaxServeEngine(jcfg, jparams, max_batch=2, max_len=17).generate(
         jnp.asarray(prompts.numpy(), jnp.int32), n_tokens=6)
     got = ServeEngine(cfg, params, max_batch=2, max_len=17,
