@@ -57,10 +57,16 @@ Phases, each fatal on failure:
      hd 64 full attention and the same tile edges, each row of o, dq (per
      query) and dk, dv (per key) within 2e-2 of that row's largest plain
      value, and the backward kernels bit-identical across two calls; the
-     shapes of cross-attention and the encoder (MEMORY_FLASH_CASES,
+     shapes of the VLM's cross-attention (MEMORY_FLASH_CASES,
      MEMORY_DECODE_CASES: the flash forward without the mask over 1601
-     image tokens and 1024 frames, the encoder's 1024², decode attention
-     over the whole memory) and of command_r_35b's path
+     image tokens, decode attention over the whole memory), SeamlessM4T's
+     at hd 64 (:func:`check_hd64`: the flash forward's three-warpgroup
+     form over the decoder's cross-attention, the encoder's 1024² and
+     the decoder's causal 2048², decode over the memory and the decoder's
+     cache, with kv_len at the 32-key tiles' edges replayed through one
+     captured launch, the forward's 192-row items' edges, two calls the same
+     bits, a step's 24 decode launches in one graph) and of command_r_35b's
+     path
      (COMMAND_R_FLASH_CASES, COMMAND_R_DECODE_CASES: GQA group 8 at hd 128,
      the 4 x 2048 causal prefill and decode over its 2081-position cache at
      kv_len 2079), the SSD scan at Jamba's (4, 2048, 128, 64,
@@ -508,7 +514,7 @@ def profile(torch, fn, moe: bool = False, host: bool = True) -> dict:
         group = ("rmsnorm_bwd" if "rmsnorm_bwd_kernel" in name or "rmsnorm_dw_kernel" in name else
                  "rmsnorm" if "rmsnorm_kernel" in name else
                  "decode_attention" if "decode_" in name and "_kernel" in name else
-                 "flash_attention" if "flash_fwd_kernel" in name else
+                 "flash_attention" if "flash_fwd_" in name else
                  "flash_attention_bwd" if "flash_bwd_" in name else
                  "ssd" if "ssd_chunk_kernel" in name else
                  "matmul" if any(w in name.lower() for w in
@@ -643,6 +649,9 @@ def sdpa_lse(torch, q, k, v, causal: bool):
 FLASH_KERNELS = {"flash_fwd_kernel": 0, "flash_bwd_dkv_kernel": 1,
                  "flash_bwd_dq_kernel": 2, "flash_bwd_dkv_cluster_kernel": 3,
                  "flash_fwd_group_kernel": 4, "flash_bwd_dq_group_kernel": 5}
+#: flash_attention_smem_bytes's id of the forward's three-warpgroup form
+#: (hd 64 without LSE)
+FLASH_FWD_WG3 = 6
 
 
 def ptxas_report(log: str, entry: str, label, extra=lambda m: {}) -> dict:
@@ -723,14 +732,17 @@ def rmsnorm_split_label(m) -> str:
 
 
 #: Mangled entry names of the decode kernels: decode_attention_kernel<HD,
-#: NREP> and, at hd 16, decode_attention_hd16_kernel<NREP> (group 1 None)
-DECODE_ENTRY = r"decode_attention_(?:kernelILi(\d+)E|hd16_kernelI)Li(\d+)E"
-#: their instantiations: hd 16 (its own kernel), 32, 64, 128, each at NREP
-#: 1, 2, 3, 4, 8
+#: NREP> (hd 32, 128) and decode_attention_lanes_kernel<HD, NREP> (hd 16,
+#: 64); a parent's decode_attention_hd16_kernel<NREP> (tools/kernel_compare.py)
+#: reads as hd 16 (groups 1 and 2 None)
+DECODE_ENTRY = (r"decode_attention_(?:kernelILi(\d+)E|lanes_kernelILi(\d+)E|hd16_kernelI)"
+                r"Li(\d+)E")
+#: their instantiations: hd 16, 32, 64, 128, each at NREP 1, 2, 3, 4, 8
 DECODE_BUILDS = 20
-#: the serving forward, the forward with LSE, dK/dV and dQ at hd 32, 64,
-#: 128, and at hd 16 kernels of their own: the grouped forward (with and
-#: without LSE), the cluster dK/dV and the grouped dQ
+#: the forward with and without LSE (at hd 64 without it in its
+#: three-warpgroup form), dK/dV and dQ at hd 32, 64 and 128, and kernels of
+#: their own at hd 16: the grouped forward (with and without LSE), the
+#: cluster dK/dV and the grouped dQ
 FLASH_BUILDS = 16
 #: the float32 decode kernel, decode_f32_kernel<HD, NREP, KV> (hd 16, 32,
 #: 64, 128; NREP 1, 2, 3, 4, 8; a float32 or a bf16 cache), and the float32
@@ -743,17 +755,20 @@ FLASH_F32_BUILDS = 16
 
 
 def decode_label(m) -> str:
-    if m.group(1) is None:
-        return f"decode_hd16<{m.group(2)}>"
-    return f"decode<{m.group(1)}, {m.group(2)}>"
+    if m.group(1):
+        return f"decode<{m.group(1)}, {m.group(3)}>"
+    if m.group(2):
+        return f"decode_lanes<{m.group(2)}, {m.group(3)}>"
+    return f"decode_hd16<{m.group(3)}>"
 
 
 def decode_build_report(log: str) -> dict:
-    """Per decode kernel instantiation (``decode<hd, nrep>``):
-    :func:`ptxas_report` and the dynamic shared memory of a block."""
+    """Per decode kernel instantiation (``decode<hd, nrep>``,
+    ``decode_lanes<hd, nrep>``): :func:`ptxas_report` and the dynamic
+    shared memory of a block."""
     return ptxas_report(log, DECODE_ENTRY, decode_label, lambda m: {
-        "smem_bytes": decode_plan(1, int(m.group(2)), 1,
-                                  int(m.group(1) or 16))["smem_bytes"]})
+        "smem_bytes": decode_plan(1, int(m.group(3)), 1,
+                                  int(m.group(1) or m.group(2) or 16))["smem_bytes"]})
 
 
 def decode_f32_label(m) -> str:
@@ -805,7 +820,9 @@ def flash_build_report(log: str) -> dict:
     return ptxas_report(
         log, r"(" + "|".join(FLASH_KERNELS) + r")ILi(\d+)E(Lb(\d)E)?",
         lambda m: f"{m.group(1)}<{m.group(2)}{', lse' if m.group(4) == '1' else ''}>",
-        lambda m: {"smem_bytes": smem(FLASH_KERNELS[m.group(1)], int(m.group(2)))})
+        lambda m: {"smem_bytes": smem(
+            FLASH_FWD_WG3 if (m.group(1), m.group(2), m.group(4)) == ("flash_fwd_kernel", "64", "0")
+            else FLASH_KERNELS[m.group(1)], int(m.group(2)))})
 
 
 def ssd_build_report(log: str) -> dict:
@@ -917,14 +934,38 @@ CP_DECODE_CASES = (("cp block full", (REQUESTS, 32, 8, CP_DECODE_S, 128, CP_DECO
 
 #: Cross-attention's shapes, held and timed in phase 3: the flash forward
 #: without the mask (label, (B, H, Hkv, Sq, Sk, hd, causal)) over the VLM's
-#: 1601 image tokens and the encoder's 1024 frames, and the encoder's own
-#: self-attention; decode attention (label, (B, H, Hkv, S, hd, kv_len)) over
-#: the whole memory, its K/V a (B, M, Hkv, hd) projection read transposed.
-MEMORY_FLASH_CASES = (("vision cross", (REQUESTS, 32, 8, PROMPT_LEN, 1601, 128, False)),
-                      ("seamless cross", (REQUESTS, 16, 16, PROMPT_LEN, 1024, 64, False)),
-                      ("seamless encoder", (REQUESTS, 16, 16, 1024, 1024, 64, False)))
-MEMORY_DECODE_CASES = (("vision cross", (REQUESTS, 32, 8, 1601, 128, 1601)),
-                       ("seamless cross", (REQUESTS, 16, 16, 1024, 64, 1024)))
+#: 1601 image tokens; decode attention (label, (B, H, Hkv, S, hd, kv_len))
+#: over the whole memory, its K/V a (B, M, Hkv, hd) projection read
+#: transposed. SeamlessM4T's (hd 64) are SEAMLESS_*_CASES.
+MEMORY_FLASH_CASES = (("vision cross", (REQUESTS, 32, 8, PROMPT_LEN, 1601, 128, False)),)
+MEMORY_DECODE_CASES = (("vision cross", (REQUESTS, 32, 8, 1601, 128, 1601)),)
+#: SeamlessM4T-medium's attention (MHA 16/16 at hd 64), phase 15's shapes,
+#: held and timed by :func:`check_hd64`: the flash forward without the mask
+#: over the encoder's 1024 frames (the decoder's cross-attention), the
+#: encoder's own 1024², the decoder's causal 2048²; decode over the memory
+#: and over the decoder's serving cache at the last step's kv_len.
+SEAMLESS_FLASH_CASES = (("seamless cross", (REQUESTS, 16, 16, PROMPT_LEN, 1024, 64, False)),
+                        ("seamless encoder", (REQUESTS, 16, 16, 1024, 1024, 64, False)),
+                        ("seamless self", (REQUESTS, 16, 16, PROMPT_LEN, PROMPT_LEN, 64, True)))
+SEAMLESS_DECODE_CASES = (("seamless cross", (REQUESTS, 16, 16, 1024, 64, 1024)),
+                         ("seamless self", (REQUESTS, 16, 16, PROMPT_LEN + NEW_TOKENS + 1, 64,
+                                            PROMPT_LEN + NEW_TOKENS - 1)))
+#: The hd-64 forward's edges beyond those, (label, (B, H, Hkv, Sq, Sk,
+#: causal)): Sq off the 192-row items and Sk off the 128-key tiles, Sq != Sk
+#: both ways, GQA groups 1, 3, 4 and 16 (the kernel reads kv head h // n_rep)
+HD64_FLASH_EDGES = (("edge-191", (1, 8, 2, 191, 191, True)),
+                    ("edge-193", (1, 8, 8, 193, 193, True)),
+                    ("edge-385-full", (1, 4, 4, 385, 300, False)),
+                    ("causal-sq>sk", (2, 4, 2, 300, 129, True)),
+                    ("causal-sq<sk", (1, 4, 4, 129, 300, True)),
+                    ("gqa3-ragged", (2, 6, 2, 1000, 1000, True)),
+                    ("gqa16", (1, 64, 4, 200, 200, True)))
+#: kv_len at the hd-64 decode's 32-key tile edges, two tiles' and four's,
+#: and the caches' ends, each replayed through one captured launch
+HD64_DECODE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1024, 2079, 2081)
+#: a SeamlessM4T decode step's attention launches, each layer's
+#: self-attention then its cross-attention, over caches of their own
+SEAMLESS_STEP_LAYERS = 12
 #: command_r_35b's attention on its serving path (phases 26-27), held and
 #: timed in phase 3: GQA group 8 at hd 128 (64 query heads over 8 KV heads),
 #: the prefill's causal forward and decode over the serving cache at the last
@@ -1038,6 +1079,170 @@ def decode_replay_check(torch, fn, q, k, v, lens, label: str,
 def decode_plan(b: int, h: int, hkv: int, hd: int, cache=None) -> dict:
     from repro_torch.kernels.decode_attention.ops import plan
     return plan(b, h, hkv, hd, cache)
+
+
+def check_hd64(torch, timer, probe) -> dict:
+    """SeamlessM4T's attention at hd 64 (the flash forward's three-warpgroup
+    form, the lanes decode): the flash forward at SEAMLESS_FLASH_CASES and HD64_FLASH_EDGES (element-wise at
+    TOL, each query row within TRAIN_ROW_REL, two calls the same bits),
+    decode at SEAMLESS_DECODE_CASES, the contract's decode cases at hd 64
+    and every GQA group at the tile's edges (:func:`decode_check`), the
+    seamless shapes' captured launch replayed at HD64_DECODE_LENS. Each
+    seamless shape timed beside its bounds (bytes or operations, and the
+    exponentials), the plain version and SDPA; decode also as one step's
+    2 x SEAMLESS_STEP_LAYERS launches over caches of their own in one graph,
+    the L2 flushed by a read before it, beside an empty kernel's graph and
+    SDPA's. Returns {"flash_attention[bf16/hd64]": ..,
+    "decode_attention[bf16/hd64]": ..}, each with the cross shape's numbers
+    on top and every seamless shape's under "shapes"."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    # ---- the flash forward
+    errs, rows, shapes = [], [], {}
+    cases = [(label, s[:5] + s[6:]) for label, s in SEAMLESS_FLASH_CASES] + list(HD64_FLASH_EDGES)
+    for label, (b, h, hkv, sq, sk, causal) in cases:
+        qa, ka, va = randn(b, sq, h, 64), randn(b, sk, hkv, 64), randn(b, sk, hkv, 64)
+        args = (qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2))
+        o = flash_attention(*args, causal=causal)
+        want = flash_attention_ref(*args, causal=causal)
+        name = f"flash[bf16/hd64] {label}"
+        errs.append(compare(torch, o, want, name))
+        rows.append(row_scaled_errs(o, want)[1])
+        if not rows[-1] <= TRAIN_ROW_REL:
+            raise AssertionError(f"{name}: a row's max |kernel - plain| is {rows[-1]:.3g} x "
+                                 f"its max |plain| (limit {TRAIN_ROW_REL:g})")
+        if not torch.equal(o, flash_attention(*args, causal=causal)):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        del o, want
+        if not label.startswith("seamless"):
+            continue
+        b_ms, b_by = cost.flash_attention(b, h, hkv, sq, sk, 64, causal).bound_ms()
+        shapes[label] = dict(
+            max_abs_err=errs[-1], max_row_scaled_err=rows[-1],
+            ms=timer.ms(lambda: flash_attention(*args, causal=causal), 20),
+            plain_ms=timer.ms(lambda: flash_attention_ref(*args, causal=causal), 3),
+            library_ms=timer.ms(lambda: sdpa(F, *args, causal=causal), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            exp_bound_ms=cost.exponentials("flash_attention", b, h, hkv, sq, sk, 64,
+                                           causal).bound_ms()[0],
+            shape=[b, h, hkv, sq, sk, 64, causal])
+        say(f"  flash_attention[bf16/hd64] {label}: {json.dumps(shapes[label])}")
+        del qa, ka, va, args
+    flash = dict(shapes["seamless cross"], max_abs_err=max(errs), max_row_scaled_err=max(rows),
+                 row_scaled_err_limit=TRAIN_ROW_REL, shapes=shapes)
+
+    # ---- decode
+    errs, ulps, shapes = [], [], {}
+    group_cases = [(f"gqa{n} kv_len {kv}", (2, 2 * n, 2, 300, 64, kv))
+                   for n in (1, 2, 3, 4, 8, 16) for kv in (0, 1, 31, 32, 33, 64, 65, 300)]
+    contract = [(label, (b, h, hkv, s, 64, kv))
+                for label, (b, h, hkv, s, kv) in contract_decode_cases(64, "bf16")]
+    for label, shape in (*SEAMLESS_DECODE_CASES, *contract, *group_cases):
+        q, k, v = decode_inputs(torch, g, shape)
+        kv_len = shape[-1]
+        kl = torch.full((1,), kv_len, dtype=torch.int32, device="cuda")
+        o, lse = decode_attention(q, k, v, kl)
+        r = decode_check(torch, q, k, v, kv_len, o, lse, f"decode[bf16/hd64] {label}")
+        errs.append(r["o_err"])
+        ulps.append(r["ulp_excess"])
+        del o, lse
+        if not label.startswith("seamless"):
+            continue
+        reps = decode_replay_check(torch, decode_attention, q, k, v, HD64_DECODE_LENS,
+                                   f"decode[bf16/hd64] {label} replayed")
+        errs += [x["o_err"] for x in reps.values()]
+        ulps += [x["ulp_excess"] for x in reps.values()]
+        b, h, hkv, s, hd, _ = shape
+        kc, vc = k[:, :, :kv_len], v[:, :, :kv_len]
+        b_ms, b_by = cost.decode_attention(b, h, hkv, hd, kv_len).bound_ms()
+        shapes[label] = dict(
+            max_abs_err=r["o_err"], max_ulp_excess=r["ulp_excess"],
+            replayed_at=list(HD64_DECODE_LENS),
+            ms=timer.ms(lambda: decode_attention(q, k, v, kl), 200),
+            plain_ms=timer.ms(lambda: decode_attention_ref(q, k, v, kl, return_lse=True), 20),
+            library_ms=timer.ms(lambda: sdpa(F, q[:, :, None], kc, vc, causal=False), 200),
+            bound_ms=b_ms, bound_by=b_by,
+            exp_bound_ms=cost.exponentials("decode_attention", b, h, hkv, hd,
+                                           kv_len).bound_ms()[0],
+            plan=decode_plan(b, h, hkv, hd), shape=list(shape))
+        say(f"  decode_attention[bf16/hd64] {label}: {json.dumps(shapes[label])}")
+        del q, k, v, kc, vc
+    decode = dict(shapes["seamless cross"], max_abs_err=max(errs), max_ulp_excess=max(ulps),
+                  shapes=shapes, step_graph=seamless_step_graph(torch, timer, probe))
+    say(f"  decode_attention[bf16/hd64] a step's launches in one graph: "
+        f"{json.dumps(decode['step_graph'])}")
+    say(f"  launches a phase-15 run by shape, as the config gives them (phase 15 "
+        f"counts them by kind): flash {json.dumps(SEAMLESS_FLASH_LAUNCHES)}, decode "
+        f"{json.dumps(SEAMLESS_DECODE_LAUNCHES)}")
+    return {"flash_attention[bf16/hd64]": flash, "decode_attention[bf16/hd64]": decode}
+
+
+#: each seamless shape's launches a phase-15 run (4 x 2048 + 32 tokens:
+#: 12 encoder layers, 12 decoder layers, 31 decode steps), as the config
+#: gives them: printed beside phase 3's readings, never in the kernels
+#: line (phase 15 counts the launches by kind, not by shape)
+SEAMLESS_FLASH_LAUNCHES = {"seamless cross": 12, "seamless encoder": 12, "seamless self": 12}
+SEAMLESS_DECODE_LAUNCHES = {"seamless cross": 12 * (NEW_TOKENS - 1),
+                            "seamless self": 12 * (NEW_TOKENS - 1)}
+
+
+def seamless_step_graph(torch, timer, probe) -> dict:
+    """One SeamlessM4T decode step's attention launches, each layer's
+    self-attention (over its own serving cache at the last step's kv_len)
+    then its cross-attention (over its own memory), captured in one graph
+    and replayed after a read of the flush buffer: ``graph_ms`` for the
+    step's 2 x SEAMLESS_STEP_LAYERS launches, beside the summed bytes bound,
+    SDPA's graph over the same inputs and an empty kernel's (the decode
+    launch's block count and threads, the floor under a launch in a
+    graph); ``self_graph_ms`` and ``cross_graph_ms`` each shape's launches
+    alone, a graph each."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, cost
+    from repro_torch.kernels.decode_attention.ops import decode_attention, plan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    steps = []
+    for _ in range(SEAMLESS_STEP_LAYERS):
+        for _, shape in reversed(SEAMLESS_DECODE_CASES):    # self, then cross
+            q, k, v = decode_inputs(torch, g, shape)
+            kl = torch.full((1,), shape[-1], dtype=torch.int32, device="cuda")
+            steps.append((q, k, v, kl, shape))
+    stream = lambda: _build.stream_ptr(torch.device("cuda"))  # noqa: E731
+    blocks = [plan(*s[:3], s[4]) for *_, s in steps]
+
+    def empty():
+        for pl in blocks:
+            _build.check("decode_attention", probe.empty_launch(
+                pl["n_split"] * pl["groups"], DECODE_LANES_THREADS, stream()))
+    bound = sum(cost.decode_attention(*s[:3], s[4], s[5]).bound_ms()[0] for *_, s in steps)
+    out = dict(
+        launches=len(steps),
+        graph_ms=timer.ms(lambda: [decode_attention(q, k, v, kl) for q, k, v, kl, _ in steps],
+                          20, clean_l2=True),
+        # each shape's launches alone, one graph each
+        **{f"{label.split()[-1]}_graph_ms": timer.ms(
+            lambda i=i: [decode_attention(q, k, v, kl) for q, k, v, kl, _ in steps[i::2]],
+            20, clean_l2=True) for i, (label, _) in enumerate(reversed(SEAMLESS_DECODE_CASES))},
+        library_graph_ms=timer.ms(
+            lambda: [sdpa(F, q[:, :, None], k[:, :, :s[5]], v[:, :, :s[5]], causal=False)
+                     for q, k, v, _, s in steps], 20, clean_l2=True),
+        empty_graph_ms=timer.ms(empty, 20, clean_l2=True), bound_ms=bound)
+    out["share_of_bound"] = bound / out["graph_ms"]
+    del steps
+    return out
 
 
 def check_kernels(torch, timer) -> dict:
@@ -2688,7 +2893,7 @@ def decode_graph_times(torch, timer, probe, fn, b, h, hkv, s, hd, kv_len, dt) ->
 
     def empty(_=None):
         _build.check("decode_attention", probe.empty_launch(
-            pl["n_split"] * pl["groups"], DECODE_HD16_THREADS, stream()))
+            pl["n_split"] * pl["groups"], DECODE_LANES_THREADS, stream()))
     out = dict(graph_ms=graph(lambda c: fn(*c, kl)), empty_graph_ms=graph(empty),
                library_graph_ms=graph(lambda c: sdpa(F, c[0][:, :, None], c[1][:, :, :kv_len],
                                                      c[2][:, :, :kv_len], causal=False)),
@@ -2697,9 +2902,9 @@ def decode_graph_times(torch, timer, probe, fn, b, h, hkv, s, hd, kv_len, dt) ->
     return out
 
 
-#: the hd-16 decode kernel's threads a block (decode_attention.cu,
-#: H16_THREADS): the empty launch beside it takes the same
-DECODE_HD16_THREADS = 160
+#: the hd-16 and hd-64 decode kernel's threads a block (decode_attention.cu,
+#: LANES_THREADS): the empty launch beside it takes the same
+DECODE_LANES_THREADS = 160
 #: The times of the hd-16 kernels these replaced (the hd-128 designs
 #: instantiated at hd 16) at the same shapes, as PERF.md section 6 records
 #: them (chip_smoke.py on an H100 80GB HBM3, 700 W): printed beside this
@@ -4261,7 +4466,8 @@ def memory_source(torch, cfg, seed: int):
 
 
 def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
-                         phase: int) -> tuple[dict, dict]:
+                         phase: int, want_kind: dict[str, int] | None = None,
+                         recorded: dict | None = None) -> tuple[dict, dict]:
     """A cross-attention config served at full size through ``ServeEngine``
     with a memory (the reference's ``run_serve`` passes none): the image
     embeddings, or the encoder's output over the audio frames (``encode``,
@@ -4272,8 +4478,12 @@ def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
     the warm engine serves it without a new capture, its graph tokens
     equal to eager decoding with that memory; a warm generate and steady
     decode; the decode path's logits against a teacher-forced forward;
-    profiles; the SMOKE config on the card against the CPU. Returns the
-    launch counts and the warm TTFT, steady TPOT and encoder time."""
+    profiles; the SMOKE config on the card against the CPU. ``want_kind``:
+    launches by instantiation (``kernels.launches_by_kind``) the run must
+    show as well; ``recorded``: an earlier run's warm TTFT and steady TPOT
+    (ms), printed beside this run's. Returns the launch counts (by wrapper
+    and by instantiation) and the warm TTFT, steady TPOT and encoder
+    time."""
     from repro_torch.models import encode, prefill
     from repro_torch.serve import ServeEngine
 
@@ -4298,14 +4508,17 @@ def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
         torch.cuda.synchronize()
         encoder_s = time.perf_counter() - t0
     res = engine.generate(prompts, n_tokens=NEW_TOKENS, memory=memory)
-    counts = kernels.launches()
+    counts, kinds = kernels.launches(), kernels.launches_by_kind()
     peak = torch.cuda.max_memory_allocated()
     want = {name: 0 for name in counts} | want
     say(f"    encoder {encoder_s * 1e3:.3f} ms (cold), TTFT {res.ttft * 1e3:.3f} ms, "
         f"TPOT {res.tpot * 1e3:.4f} ms, {res.tokens_per_s:.2f} tokens/s, peak memory "
-        f"{peak / 2**30:.3f} GiB; launches {counts}")
+        f"{peak / 2**30:.3f} GiB; launches {counts}, by instantiation {kinds}")
     if counts != want:
         raise AssertionError(f"{cfg.name}: launch counts {counts} != {want}")
+    if want_kind and any(kinds.get(k, 0) != n for k, n in want_kind.items()):
+        raise AssertionError(f"{cfg.name}: launches by instantiation {kinds}, "
+                             f"want {want_kind}")
     if len(res.tokens) != NEW_TOKENS or any(
             len(t) != REQUESTS or not all(0 <= x < cfg.vocab for x in t)
             for t in res.tokens):
@@ -4357,6 +4570,10 @@ def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
         f"ms, min {min(steady.step_times) * 1e3:.4f}, max "
         f"{max(steady.step_times) * 1e3:.4f} over {len(steady.step_times)} "
         f"steps; {steady.tokens_per_s:.2f} tokens/s")
+    if recorded:
+        say(f"    beside {recorded['run']}: warm TTFT {warm.ttft * 1e3:.3f} ms against "
+            f"{recorded['warm_ttft_ms']} ms, steady TPOT {steady.tpot * 1e3:.4f} ms "
+            f"against {recorded['tpot_ms']} ms")
     full = check_full_model(torch, cfg, params, prompts, res.tokens, memory)
     say(f"    full-size consistency: {full}")
     with torch.no_grad():
@@ -4376,8 +4593,8 @@ def check_memory_serving(torch, kernels, cfg, want: dict[str, int],
     del params, memory, sources
     torch.cuda.empty_cache()
     say(f"    small config, card vs CPU plain: {check_small_model(torch, cfg.name)}")
-    return counts, {"warm_ttft": warm.ttft, "tpot": steady.tpot,
-                    "encoder_s": warm_encoder_s, "peak_bytes": peak}
+    return counts | kinds, {"warm_ttft": warm.ttft, "tpot": steady.tpot,
+                            "encoder_s": warm_encoder_s, "peak_bytes": peak}
 
 
 def check_hybrid_model(torch, cfg, params, prompts) -> dict:
@@ -4511,16 +4728,26 @@ def phase_vision(torch, kernels):
         "decode_attention": (cfg.n_layers + n_cross) * (NEW_TOKENS - 1)}, phase=14)
 
 
+#: phase 15's warm TTFT and steady TPOT on the hd-128 designs instantiated at
+#: hd 64, as PERF.md section 6 records them (chip_smoke.py on an H100 80GB
+#: HBM3, 700 W): printed beside this run's
+SEAMLESS_RECORDED = {"run": "the previous hd-64 kernels' recorded run (PERF.md section 6)",
+                     "warm_ttft_ms": 44.8, "tpot_ms": 3.547}
+
+
 def phase_seamless(torch, kernels):
     """Phase 15: the encoder-decoder at full width and depth: the encoder's
     non-causal self-attention, then every decoder layer cross-attends to
-    its output (LayerNorm: no rmsnorm)."""
+    its output (LayerNorm: no rmsnorm); every attention launch at hd 64."""
     from repro_torch.configs import get_config
 
     cfg = get_config("seamless_m4t_medium")
+    flash = cfg.encoder_layers + 2 * cfg.n_layers
+    decode = 2 * cfg.n_layers * (NEW_TOKENS - 1)
     return check_memory_serving(torch, kernels, cfg, {
-        "flash_attention": cfg.encoder_layers + 2 * cfg.n_layers,
-        "decode_attention": 2 * cfg.n_layers * (NEW_TOKENS - 1)}, phase=15)
+        "flash_attention": flash, "decode_attention": decode}, phase=15,
+        want_kind={"flash_attention[bf16/hd64]": flash, "decode_attention[bf16/hd64]": decode},
+        recorded=SEAMLESS_RECORDED)
 
 
 def phase_jamba(torch, kernels):
@@ -6495,6 +6722,11 @@ def main() -> int:
                                   if k.startswith(label) or (k == "split_dw" and "bwd_apply" in name)}
     numbers.update(check_kernels(torch, timer))
     numbers["decode_attention"]["build"] = builds["decode_attention"]
+    numbers.update(check_hd64(torch, timer, probe))
+    numbers["decode_attention[bf16/hd64]"]["build"] = {
+        k: v for k, v in builds["decode_attention"].items() if k.startswith("decode_lanes<64,")}
+    numbers["flash_attention[bf16/hd64]"]["build"] = builds["flash_attention"][
+        "flash_fwd_kernel<64>"]
     numbers["ssd"] = check_ssd(torch, timer) | {"build": builds["ssd"]}
     numbers.update(check_training_kernels(torch, timer))
     for name, kernel in (("flash_attention", "flash_fwd_kernel<128>"),

@@ -64,7 +64,8 @@
 //   on near-ties). Each lane owns hd / 32 columns of every head's
 //   accumulator; a tile's P and rescale factors pass through a 544-byte
 //   buffer per warp.
-// * hd 16 runs a kernel of its own (decode_attention_hd16_kernel, below).
+// * hd 16 and 64 run a kernel of their own (decode_attention_lanes_kernel,
+//   below).
 // * Consumer warp w takes its block's tiles w, w + NCW, ...; each warp keeps
 //   its own (m, l, acc) and the warps merge in shared memory (reusing the
 //   ring) before the blocks merge.
@@ -544,62 +545,101 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---------------------------- head dim 16 ------------------------------------
+// ------------------------- head dims 16 and 64 --------------------------------
 //
-// decode_attention_hd16_kernel<NREP>: the same contract at hd 16, a design of
-// its own. The kernel above, instantiated at hd 16, moved 512 bytes of K and
-// 512 of V a TMA round trip (16-key tiles, 4 in flight a block, ~4 tiles one
-// after another a warp) and spent a 3-round shuffle and a pass through the P
-// buffer on each: at (4, 8/2, cache 2081, 16) it read 0.01363 ms, 43x its
-// bytes bound and 1.09x SDPA (PERF.md section 6, row "2, hd 16"). Here:
-// * Tiles of H16_TK = 64 keys, one 2 KB TMA box of K and one of V each, and
-//   H16_ST = 8 ring stages, all issued before kv_len arrives: a block of the
-//   (4, 8/2, 2081) plan holds its whole share of the cache (4-5 tiles) in
-//   flight at once, one round trip. Rows are 32 bytes, read as 16-byte
-//   halves, so no swizzle is needed: a warp's 32 lanes read 512 contiguous
-//   bytes.
-// * Up to H16_MAX_SPLIT = 8 blocks a head group (the portable cluster):
-//   16 blocks (a non-portable cluster) read 0.0064 against 0.0059 ms a
-//   launch in a graph of 81, 4 blocks 0.0065 (tools/hd16_compare.py, H100
-//   80GB HBM3, 700 W).
-// * Q K^T and P V in f32 on the CUDA cores, a key per lane pair: lane
-//   (j, u) holds columns 8u .. 8u + 7 of q (every head of the chunk) and of
-//   its keys j, j + 16, j + 32, j + 48 of a tile, so a score is 8 FMAs and
-//   one shuffle, and P never leaves the lane that computed it: no P buffer,
+// decode_attention_lanes_kernel<HD, NREP>: the same contract at hd 16 and 64,
+// a design of their own.
+// * hd 16. The kernel above, instantiated at hd 16, moved 512 bytes
+//   of K and 512 of V a TMA round trip (16-key tiles, 4 in flight a block,
+//   ~4 tiles one after another a warp) and spent a 3-round shuffle and a
+//   pass through the P buffer on each: at (4, 8/2, cache 2081, 16) it read
+//   0.01363 ms, 43x its bytes bound and 1.09x SDPA (PERF.md section 6, row
+//   "2, hd 16").
+// * hd 64. The kernel above, instantiated at hd 64 (SeamlessM4T's
+//   MHA, group 1), kept 16 KB in flight a block in 2 KB boxes, used one of
+//   the 8 columns of each Q K^T mma, and its blocks held 8-16 tiles, so the
+//   prologue and the merges weighed against a 5-10 us bytes bound: at
+//   (4, 16/16, 1024, 64) 0.01765 ms, 28.4 % of the bound, a tie with SDPA.
+// The design:
+// * Tiles of TK keys, one TMA box of K and one of V each (hd 16: 64 keys, 2
+//   KB boxes; hd 64: 32 keys, 4 KB boxes), and a ring of ST stages of which
+//   the first EARLY tiles are issued before kv_len arrives (hd 16: all 8, so a
+//   block of the (4, 8/2, 2081) plan holds its whole share in flight at once;
+//   hd 64: 8 stages, 64 KB a block, two a warp, so a warp's next tile is in
+//   flight while it takes this one: 2-5 % faster in a step's graph than
+//   64-key tiles in 4 stages, one a warp, which waited a round trip between
+//   its tiles). Rows are HD * 2 bytes, read in 16-byte pieces by the LPK =
+//   HD / 8 lanes of a key: a quarter warp reads whole 128-byte lines, so no
+//   swizzle is needed.
+// * Up to MAX_SPLIT = 8 blocks a head group (the portable cluster), as many
+//   as fill the card in one wave with every cluster resident: hd 16 16
+//   blocks (a non-portable cluster) read 0.0064 against 0.0059 ms a launch
+//   in a graph of 81, 4 blocks 0.0065; hd 64 (SeamlessM4T's 64 groups: 3
+//   blocks a group) 1, 2, 4 and 16 read the same or slower
+//   (tools/hd16_compare.py, H100 80GB HBM3, 700 W). What an hd-64 launch
+//   spends (a block timeline, PERF.md section 6): its first tile arrives
+//   2.3-2.8 us after the start (the blocks' early loads queue at the
+//   memory's rate), its tile loop runs at ~89 % of the HBM rate, the merge
+//   and tail add 1.4-2.5 us.
+// * Q K^T and P V in f32 on the CUDA cores: lane (j, u) holds columns 8u ..
+//   8u + 7 of q (every head of the chunk) and of its keys j, j + KPP, j + 2
+//   KPP, ... of a tile (KPP = 32 / LPK keys a warp pass), so a score is 8
+//   FMAs and log2(LPK) shuffles (a butterfly: every lane of the key gets the
+//   same bits), and P never leaves the lanes that computed it: no P buffer,
 //   no bf16 rounding of P. Each lane keeps its own online softmax (m, l,
-//   acc) over its keys; a key at or past kv_len scores -inf; the lanes of a
-//   warp merge by shuffles at the end, then the warps in shared memory. At
-//   hd 16 the products are ~33 K FMAs a group and a tile: the tensor cores
-//   would save nothing the memory latency does not hide.
+//   acc) over its keys, updated every CH passes; a key at or past kv_len
+//   scores -inf; the lanes of a warp merge by shuffles at the end, then the
+//   warps in shared memory. At group 1 a score on the tensor cores would
+//   fill 1 of 8 mma columns: the FMAs cost less than the memory's latency
+//   hides.
 // * The blocks of a cluster merge by pushing: each stores its partial into
 //   block 0's shared memory (distributed shared memory) once every block
 //   has started (a cluster barrier's first phase, arrived at the start),
 //   and after one cluster barrier block 0 merges them from its own shared
 //   memory and writes; each block pulling every peer's partial (the
 //   kernel above's merge) read 0.0077 ms a launch in a graph, pushing
-//   0.0065, at 16 blocks a group (two calls of tools/hd16_compare.py).
+//   0.0065, at 16 blocks a group (hd 16, two calls of tools/hd16_compare.py).
 // * The contract is the kernel above's: one graph-safe launch (kv_len read
 //   on the device, the grid from the shapes and the occupancy only), any
 //   GQA group through the NREP chunks, strided q/K/V, o in bf16 and the f32
 //   LSE, the l == 0 guard, and the watchdog's NaN on a stuck wait.
-constexpr int H16_TK = 64;         // keys a tile: one TMA box of K, one of V
-constexpr int H16_W = 4;           // consumer warps
-constexpr int H16_THREADS = (H16_W + 1) * 32;
-constexpr int H16_ST = 8;          // ring stages
-constexpr int H16_EARLY = H16_ST;  // tiles a block issues before kv_len is known
-constexpr int H16_MAX_SPLIT = 8;   // blocks a head group (the portable cluster)
-static_assert(H16_ST % H16_W == 0, "every ring stage is used by one consumer warp");
-static_assert(H16_EARLY <= H16_ST, "the early tiles fit the ring");
+constexpr int LANES_W = 4;  // consumer warps
+constexpr int LANES_THREADS = (LANES_W + 1) * 32;
 
-struct Smem16 {
-  static constexpr int TILE = H16_TK * 32;             // a tile's K (or V) bytes
+template <int HD>
+struct Lanes;
+template <>
+struct Lanes<16> {
+  static constexpr int TK = 64;         // keys a tile: one TMA box of K, one of V
+  static constexpr int ST = 8;          // ring stages
+  static constexpr int EARLY = ST;      // tiles a block issues before kv_len is known
+  static constexpr int MAX_SPLIT = 8;   // blocks a head group (the portable cluster)
+};
+template <>
+struct Lanes<64> {
+  static constexpr int TK = 32;
+  static constexpr int ST = 8;
+  static constexpr int EARLY = ST;
+  static constexpr int MAX_SPLIT = 8;
+};
+
+template <int HD>
+struct LaneGeo : Lanes<HD> {
+  using T = Lanes<HD>;
+  static constexpr int LPK = HD / 8;          // lanes a key, 8 columns (16 bytes) each
+  static constexpr int KPP = 32 / LPK;        // keys a warp pass
+  static constexpr int PASSES = T::TK / KPP;  // passes a tile
+  static constexpr int ROW = HD * 2;          // bytes a key's row
+  static constexpr int TILE = T::TK * ROW;    // a tile's K (or V) bytes
   static constexpr int STAGE = 2 * TILE;
-  static constexpr int RING = H16_ST * STAGE;
-  static constexpr int PART = (16 + 8 * 16) * 4;        // (m[8], l[8], acc[8][16])
-  static constexpr int GATHER = H16_MAX_SPLIT * PART;    // rank 0: every block's partial
-  static constexpr int BARS = 2 * H16_ST * 8 + 16;      // full, empty, the stuck flag
+  static constexpr int RING = T::ST * STAGE;
+  static constexpr int PART = (16 + 8 * HD) * 4;  // (m[8], l[8], acc[8][HD])
+  static constexpr int GATHER = T::MAX_SPLIT * PART;  // rank 0: every block's partial
+  static constexpr int BARS = 2 * T::ST * 8 + 16;     // full, empty, the stuck flag
   static constexpr int TOTAL = 1024 + RING + GATHER + BARS;
-  static_assert(H16_W * PART <= RING, "the warps' partials fit in the ring");
+  static_assert(T::ST % LANES_W == 0, "every ring stage is used by one consumer warp");
+  static_assert(T::EARLY <= T::ST, "the early tiles fit the ring");
+  static_assert(LANES_W * PART <= RING, "the warps' partials fit in the ring");
 };
 
 // 16 bytes of a bf16 row as 8 floats (element 0 in the low half of a word).
@@ -626,16 +666,20 @@ __device__ __forceinline__ void merge_part(float& m, float& l, float (&acc)[8], 
 }
 
 // Scores are kept in base 2: s = (q . k) * scale * log2(e).
-template <int NREP>
-__global__ void __launch_bounds__(H16_THREADS)
-    decode_attention_hd16_kernel(const __grid_constant__ CUtensorMap kmap,
-                                 const __grid_constant__ CUtensorMap vmap, const Params p) {
-  using G = Smem16;
-  constexpr int TK = H16_TK, ST = H16_ST, W = H16_W;
-  extern __shared__ __align__(16) uint8_t smem16_raw[];
-  uint8_t* smem = smem16_raw + ((1024 - (smem_addr(smem16_raw) & 1023)) & 1023);
+template <int HD, int NREP>
+__global__ void __launch_bounds__(LANES_THREADS)
+    decode_attention_lanes_kernel(const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using G = LaneGeo<HD>;
+  constexpr int TK = G::TK, ST = G::ST, W = LANES_W, LPK = G::LPK, KPP = G::KPP;
+  // passes an online-softmax step: fewer at hd 64 for 8 heads, whose
+  // scores would not fit the registers beside q and acc
+  constexpr int CH = HD == 16 || NREP <= 4 ? 4 : 2;
+  static_assert(G::PASSES % CH == 0, "a tile is whole steps");
+  extern __shared__ __align__(16) uint8_t lanes_smem_raw[];
+  uint8_t* smem = lanes_smem_raw + ((1024 - (smem_addr(lanes_smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
-  float* gather = reinterpret_cast<float*>(smem + G::RING);  // [split][16 + 8 x 16], rank 0's
+  float* gather = reinterpret_cast<float*>(smem + G::RING);  // [split][16 + 8 x HD], rank 0's
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::RING + G::GATHER);
   uint64_t* empty = full + ST;
   volatile int* stuck = reinterpret_cast<volatile int*>(empty + ST);
@@ -673,8 +717,8 @@ __global__ void __launch_bounds__(H16_THREADS)
   // before the first write into block 0's shared memory
   asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
 
-  // lane (j, u): keys j + 16 x of a tile, columns 8u .. 8u + 7
-  const int j = lane >> 1, u = lane & 1;
+  // lane (j, u): keys j + KPP x of a tile, columns 8u .. 8u + 7
+  const int j = lane / LPK, u = lane % LPK;
   float m[NREP], l[NREP], acc[NREP][8];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) {
@@ -684,8 +728,8 @@ __global__ void __launch_bounds__(H16_THREADS)
   }
 
   if (warp == W) {
-    // producer: lane 0 loads each tile's K and V box; the first H16_EARLY
-    // tiles of the split that lie in the cache before kv_len is known
+    // producer: lane 0 loads each tile's K and V box; the first EARLY tiles
+    // of the split that lie in the cache before kv_len is known
     if (lane == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&kmap)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&vmap)) : "memory");
@@ -697,7 +741,7 @@ __global__ void __launch_bounds__(H16_THREADS)
         tma_load_4d(kt + G::TILE, &vmap, full + s, 0, kvh, tile_key(i), b);
       };
       int i = 0;
-      for (; i < H16_EARLY && tile_key(i) < p.S; ++i) issue(i);
+      for (; i < G::EARLY && tile_key(i) < p.S; ++i) issue(i);
       const int ntiles = count_tiles();
       for (; i < ntiles; ++i) {
         if (i >= ST) {  // the stage's previous tile released by its warp
@@ -726,60 +770,67 @@ __global__ void __launch_bounds__(H16_THREADS)
       const int rows = min(TK, kv_len - tile_key(i));
       const uint8_t* kt = ring + s * G::STAGE;
       const uint8_t* vt = kt + G::TILE;
-      float sc[TK / 16][NREP];
 #pragma unroll
-      for (int x = 0; x < TK / 16; ++x) {
-        float kx[8];
-        bf16x8(*reinterpret_cast<const uint4*>(kt + (x * 16 + j) * 32 + 16 * u), kx);
+      for (int x0 = 0; x0 < G::PASSES; x0 += CH) {
+        float sc[CH][NREP];
+#pragma unroll
+        for (int x = 0; x < CH; ++x) {
+          float kx[8];
+          bf16x8(*reinterpret_cast<const uint4*>(kt + ((x0 + x) * KPP + j) * G::ROW + 16 * u),
+                 kx);
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) {
+            float d = 0.f;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) d = fmaf(qf[r][c], kx[c], d);
+            sc[x][r] = d;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < CH; ++x)
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) {
+            float d = sc[x][r];
+#pragma unroll
+            for (int o = 1; o < LPK; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+            sc[x][r] = (x0 + x) * KPP + j < rows ? d * p.scale_log2 : -INFINITY;
+          }
 #pragma unroll
         for (int r = 0; r < NREP; ++r) {
-          float d = 0.f;
+          float mx = sc[0][r];
 #pragma unroll
-          for (int c = 0; c < 8; ++c) d = fmaf(qf[r][c], kx[c], d);
-          sc[x][r] = d;
+          for (int x = 1; x < CH; ++x) mx = fmaxf(mx, sc[x][r]);
+          const float mn = fmaxf(m[r], mx);
+          const float base = mn == -INFINITY ? 0.f : mn;  // no valid key of the lane yet
+          const float alpha = exp2f(m[r] - base);         // m = -inf: 0
+          float sum = 0.f;
+#pragma unroll
+          for (int x = 0; x < CH; ++x) {
+            sc[x][r] = exp2f(sc[x][r] - base);
+            sum += sc[x][r];
+          }
+          l[r] = l[r] * alpha + sum;
+          m[r] = mn;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
         }
-      }
 #pragma unroll
-      for (int x = 0; x < TK / 16; ++x)
+        for (int x = 0; x < CH; ++x) {
+          float vx[8];
+          bf16x8(*reinterpret_cast<const uint4*>(vt + ((x0 + x) * KPP + j) * G::ROW + 16 * u),
+                 vx);
 #pragma unroll
-        for (int r = 0; r < NREP; ++r) {
-          const float d = sc[x][r] + __shfl_xor_sync(0xffffffffu, sc[x][r], 1);
-          sc[x][r] = x * 16 + j < rows ? d * p.scale_log2 : -INFINITY;
+          for (int r = 0; r < NREP; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(sc[x][r], vx[c], acc[r][c]);
         }
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-        float mx = sc[0][r];
-#pragma unroll
-        for (int x = 1; x < TK / 16; ++x) mx = fmaxf(mx, sc[x][r]);
-        const float mn = fmaxf(m[r], mx);
-        const float base = mn == -INFINITY ? 0.f : mn;  // no valid key of the lane yet
-        const float alpha = exp2f(m[r] - base);         // m = -inf: 0
-        float sum = 0.f;
-#pragma unroll
-        for (int x = 0; x < TK / 16; ++x) {
-          sc[x][r] = exp2f(sc[x][r] - base);
-          sum += sc[x][r];
-        }
-        l[r] = l[r] * alpha + sum;
-        m[r] = mn;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
-      }
-#pragma unroll
-      for (int x = 0; x < TK / 16; ++x) {
-        float vx[8];
-        bf16x8(*reinterpret_cast<const uint4*>(vt + (x * 16 + j) * 32 + 16 * u), vx);
-#pragma unroll
-        for (int r = 0; r < NREP; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(sc[x][r], vx[c], acc[r][c]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + s);
     }
-    // the warp's 16 key lanes of each column half merge by shuffles
+    // the warp's key lanes of each column piece merge by shuffles
 #pragma unroll
-    for (int o = 2; o < 32; o <<= 1)
+    for (int o = LPK; o < 32; o <<= 1)
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
         float ao[8];
@@ -794,13 +845,13 @@ __global__ void __launch_bounds__(H16_THREADS)
 
   float* wm = reinterpret_cast<float*>(ring);  // [W][8]
   float* wl = wm + W * 8;                      // [W][8]
-  float* wacc = wl + W * 8;                    // [W][8][16]
+  float* wacc = wl + W * 8;                    // [W][8][HD]
   if (warp < W && j == 0) {
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
       if (u == 0) wm[warp * 8 + r] = m[r], wl[warp * 8 + r] = l[r];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) wacc[(warp * 8 + r) * 16 + 8 * u + c] = acc[r][c];
+      for (int c = 0; c < 8; ++c) wacc[(warp * 8 + r) * HD + 8 * u + c] = acc[r][c];
     }
   }
   __syncthreads();
@@ -809,9 +860,9 @@ __global__ void __launch_bounds__(H16_THREADS)
   // once every block of the cluster has started
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
   cg::cluster_group cluster = cg::this_cluster();
-  float* slot = cluster.map_shared_rank(gather + split * (16 + 8 * 16), 0);
-  for (int i = threadIdx.x; i < valid * 16; i += H16_THREADS) {
-    const int r = i / 16;
+  float* slot = cluster.map_shared_rank(gather + split * (16 + 8 * HD), 0);
+  for (int i = threadIdx.x; i < valid * HD; i += LANES_THREADS) {
+    const int r = i / HD;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < W; ++w) M = fmaxf(M, wm[w * 8 + r]);
@@ -821,29 +872,29 @@ __global__ void __launch_bounds__(H16_THREADS)
       if (wm[w * 8 + r] != -INFINITY) {
         const float c = exp2f(wm[w * 8 + r] - M);
         L += wl[w * 8 + r] * c;
-        A += wacc[(w * 8 + r) * 16 + i % 16] * c;
+        A += wacc[(w * 8 + r) * HD + i % HD] * c;
       }
     }
     slot[16 + i] = *stuck ? NAN : A;
-    if (i % 16 == 0) slot[r] = M, slot[8 + r] = L;
+    if (i % HD == 0) slot[r] = M, slot[8 + r] = L;
   }
   cluster.sync();  // every partial is in block 0's shared memory
   if (split != 0) return;  // nothing reads the others' shared memory
-  // block 0 merges the (valid heads x 16) outputs from the n_split partials
-  for (int i = threadIdx.x; i < valid * 16; i += H16_THREADS) {
-    const int r = i / 16, d = i % 16;
+  // block 0 merges the (valid heads x HD) outputs from the n_split partials
+  for (int i = threadIdx.x; i < valid * HD; i += LANES_THREADS) {
+    const int r = i / HD, d = i % HD;
     float M = -INFINITY;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, gather[s * (16 + 8 * 16) + r]);
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, gather[s * (16 + 8 * HD) + r]);
     float L = 0.f, A = 0.f;
     for (int s = 0; s < n_split; ++s) {
-      const float* part = gather + s * (16 + 8 * 16);
+      const float* part = gather + s * (16 + 8 * HD);
       const float c = part[r] == -INFINITY ? 0.f : exp2f(part[r] - M);
       L += part[8 + r] * c;
       A += part[16 + i] * c;
     }
     const float safe = L == 0.f ? 1.f : L;
     const int64_t row = (int64_t)b * p.H + h0 + r;
-    p.o[row * 16 + d] = __float2bfloat16(A / safe);
+    p.o[row * HD + d] = __float2bfloat16(A / safe);
     if (d == 0) p.lse[row] = M == -INFINITY ? -1e30f : (M + log2f(safe)) * LN2;
   }
 }
@@ -952,17 +1003,18 @@ cudaError_t plan(int B, int H, int Hkv, Plan* out) {
   return cudaSuccess;
 }
 
-// The TMA map of a (B, Hkv, S, 16) bf16 view for the hd-16 kernel: boxes of
-// (16, 1, H16_TK, 1), one 32-byte row a key, not swizzled; rows past S read
+// The TMA map of a (B, Hkv, S, HD) bf16 view for the lanes kernel: boxes of
+// (HD, 1, TK, 1), one HD * 2-byte row a key, not swizzled; rows past S read
 // as zeros.
-cudaError_t make_map16(CUtensorMap* map, const void* base, int B, int Hkv, int S,
-                       const int64_t* st) {
+template <int HD>
+cudaError_t make_map_lanes(CUtensorMap* map, const void* base, int B, int Hkv, int S,
+                           const int64_t* st) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {16, (cuuint64_t)Hkv, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)B};
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)Hkv, (cuuint64_t)(S > 0 ? S : 1), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {16, 1, (cuuint32_t)H16_TK, 1};
+  const cuuint32_t box[4] = {HD, 1, (cuuint32_t)Lanes<HD>::TK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -971,26 +1023,28 @@ cudaError_t make_map16(CUtensorMap* map, const void* base, int B, int Hkv, int S
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The hd-16 kernel's plan: as plan() with the cluster merge, up to
-// H16_MAX_SPLIT blocks a head group (a non-portable size, allowed on the
-// kernel), as many as fill the card in one wave with every cluster resident.
-template <int NREP>
-cudaError_t plan16(int B, int H, int Hkv, Plan* out) {
-  static int slots = 0, active[H16_MAX_SPLIT + 1] = {};
-  constexpr int smem = Smem16::TOTAL;
-  auto kernel = decode_attention_hd16_kernel<NREP>;
+// The lanes kernel's plan: as plan() with the cluster merge, up to
+// MAX_SPLIT blocks a head group (a non-portable size, allowed on the
+// kernel, above 8), as many as fill the card in one wave with every
+// cluster resident.
+template <int HD, int NREP>
+cudaError_t plan_lanes(int B, int H, int Hkv, Plan* out) {
+  constexpr int MAX_SPLIT = Lanes<HD>::MAX_SPLIT;
+  static int slots = 0, active[MAX_SPLIT + 1] = {};
+  constexpr int smem = LaneGeo<HD>::TOTAL;
+  auto kernel = decode_attention_lanes_kernel<HD, NREP>;
   if (slots == 0) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess && H16_MAX_SPLIT > 8)
+    if (e == cudaSuccess && MAX_SPLIT > 8)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     int per_sm = 0, sms = 0, dev = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, H16_THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LANES_THREADS, smem);
     if (e != cudaSuccess) return e;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    for (int n = 1; n <= H16_MAX_SPLIT; ++n) {
+    for (int n = 1; n <= MAX_SPLIT; ++n) {
       cudaLaunchAttribute attr[1];
       attr[0].id = cudaLaunchAttributeClusterDimension;
       attr[0].val.clusterDim.x = n;
@@ -998,7 +1052,7 @@ cudaError_t plan16(int B, int H, int Hkv, Plan* out) {
       attr[0].val.clusterDim.z = 1;
       cudaLaunchConfig_t cfg = {};
       cfg.gridDim = dim3(n, 1);
-      cfg.blockDim = dim3(H16_THREADS);
+      cfg.blockDim = dim3(LANES_THREADS);
       cfg.dynamicSmemBytes = smem;
       cfg.attrs = attr;
       cfg.numAttrs = 1;
@@ -1009,7 +1063,7 @@ cudaError_t plan16(int B, int H, int Hkv, Plan* out) {
   }
   const int group = H / Hkv;
   out->groups = B * Hkv * ((group + NREP - 1) / NREP);
-  int n = max(1, min(H16_MAX_SPLIT, slots / max(1, out->groups)));
+  int n = max(1, min(MAX_SPLIT, slots / max(1, out->groups)));
   while (n > 1 && active[n] < out->groups) --n;
   out->n_split = n;
   out->clusters = active[n];
@@ -1079,18 +1133,18 @@ cudaError_t dispatch_group(const Args& a) {
   }
 }
 
-template <int NREP>
-cudaError_t run16(const Args& a) {
+template <int HD, int NREP>
+cudaError_t run_lanes(const Args& a) {
   Plan pl;
-  cudaError_t err = plan16<NREP>(a.B, a.H, a.Hkv, &pl);
+  cudaError_t err = plan_lanes<HD, NREP>(a.B, a.H, a.Hkv, &pl);
   if (err != cudaSuccess || a.plan_only) {
     if (a.plan_only) *a.plan_only = pl;
     return err;
   }
   const int64_t* st = a.strides;
   CUtensorMap km, vm;
-  if ((err = make_map16(&km, a.k, a.B, a.Hkv, a.S, st + 2)) != cudaSuccess) return err;
-  if ((err = make_map16(&vm, a.v, a.B, a.Hkv, a.S, st + 5)) != cudaSuccess) return err;
+  if ((err = make_map_lanes<HD>(&km, a.k, a.B, a.Hkv, a.S, st + 2)) != cudaSuccess) return err;
+  if ((err = make_map_lanes<HD>(&vm, a.v, a.B, a.Hkv, a.S, st + 5)) != cudaSuccess) return err;
   Params p{static_cast<const bf16*>(a.q), static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
            static_cast<const int*>(a.kv_len), nullptr, nullptr, a.S, a.H, a.Hkv, a.H / a.Hkv,
            st[0], st[1], a.scale_log2};
@@ -1101,30 +1155,31 @@ cudaError_t run16(const Args& a) {
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.n_split, pl.groups);
-  cfg.blockDim = dim3(H16_THREADS);
+  cfg.blockDim = dim3(LANES_THREADS);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = a.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attention_hd16_kernel<NREP>, km, vm, p);
+  err = cudaLaunchKernelEx(&cfg, decode_attention_lanes_kernel<HD, NREP>, km, vm, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-cudaError_t dispatch_group16(const Args& a) {
+template <int HD>
+cudaError_t dispatch_lanes(const Args& a) {
   switch (a.H / a.Hkv) {
-    case 1: return run16<1>(a);
-    case 2: return run16<2>(a);
-    case 3: return run16<3>(a);
-    case 4: return run16<4>(a);
-    default: return run16<8>(a);  // 8, or chunks of 8 heads
+    case 1: return run_lanes<HD, 1>(a);
+    case 2: return run_lanes<HD, 2>(a);
+    case 3: return run_lanes<HD, 3>(a);
+    case 4: return run_lanes<HD, 4>(a);
+    default: return run_lanes<HD, 8>(a);  // 8, or chunks of 8 heads
   }
 }
 
 cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 16: return dispatch_group16(a);
+    case 16: return dispatch_lanes<16>(a);
     case 32: return dispatch_group<32>(a);
-    case 64: return dispatch_group<64>(a);
+    case 64: return dispatch_lanes<64>(a);
     case 128: return dispatch_group<128>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -1165,7 +1220,7 @@ int decode_attention_plan(int B, int H, int Hkv, int hd, int64_t* info) {
                nullptr, 0.f, nullptr, &pl};
   const cudaError_t err = dispatch_hd(hd, a);
   info[0] = pl.n_split, info[1] = pl.groups, info[2] = pl.smem;
-  info[3] = CLUSTER_MERGE || hd == 16 ? 1 : 0, info[4] = (int64_t)pl.scratch,
+  info[3] = CLUSTER_MERGE || hd == 16 || hd == 64 ? 1 : 0, info[4] = (int64_t)pl.scratch,
   info[5] = pl.clusters;
   return (int)err;
 }

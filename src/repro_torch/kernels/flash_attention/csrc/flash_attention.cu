@@ -19,7 +19,8 @@
 // rate is reached only through warpgroup products (wgmma), with loads
 // that overlap the math.
 //
-// Forward design (one template for hd 16, 32, 64, 128, with and without LSE):
+// Forward design (one template for hd 32, 64 and 128, with and without LSE;
+// hd 16 has kernels of its own, below):
 // * Persistent: one block per SM (at most one per work item) walks work
 //   items of 128 query rows of one (batch, head). Heads go in groups whose
 //   K/V fit in ~40 MB of L2 together; inside a group the longest (last)
@@ -30,6 +31,8 @@
 // * 384 threads: two consumer warpgroups of 64 query rows each and one
 //   producer warpgroup. The roles split once into one if/else; setmaxnreg
 //   gives each consumer thread 232 registers and each producer thread 40.
+//   The serving forward at hd 64 takes three consumer warpgroups (items of
+//   192 rows, 512 threads, 160 and 32 registers): see Fwd.
 // * One producer thread loads with TMA (cp.async.bulk.tensor) through 4-D
 //   tiled tensor maps over the strided (B, heads, S, hd) views, dims
 //   (hd, heads, S, B): Q into one of two buffers, then K and V tiles of
@@ -50,9 +53,9 @@
 //   into bf16 A fragments with no shuffle) and V read MN-major
 //   (transposed B). S of tile j and P V of tile j - 1 are in flight
 //   together, and the softmax of tile j runs while P V does.
-// * Ping-pong: the two warpgroups take turns (named barriers) to issue
-//   their products, so one's run on the tensor cores while the other does
-//   its softmax. The softmax is online in registers in the log2 domain: a
+// * Ping-pong: the warpgroups take turns (named barriers, in a ring) to
+//   issue their products, so one's run on the tensor cores while another
+//   does its softmax. The softmax is online in registers in the log2 domain: a
 //   thread holds rows g and g + 8 of its warp's 16, the row max over 4
 //   lanes by two shuffles, the scale folded into one FFMA before a single
 //   ex2.approx.ftz; masking only on diagonal or ragged tiles.
@@ -117,16 +120,38 @@ struct Geo {
 
 // ------------------------------- forward -------------------------------------
 
-constexpr int FBM = 128;          // query rows per work item: two warpgroups of 64
-constexpr int FBN = 128;          // keys per K/V tile
-constexpr int FWD_THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
-constexpr int CONSUMER_WARPS = 8;
+constexpr int FBN = 128;           // keys per K/V tile
+constexpr int CONSUMER_WARPS = 8;  // the backward kernels' two consumer warpgroups
 
-template <int HD>
+// The forward's shape. Consumer warpgroups of 64 query rows take turns to
+// issue their products, so one's softmax runs while another's products
+// do. Two hide the softmax where the products are the longer part (hd 32,
+// 128). At hd 64 the exponentials (one a (head, query, key) pair, 16 a
+// clock an SM) take as long as the two products, and two warpgroups leave
+// the tensor cores waiting, so the serving forward there (SeamlessM4T's)
+// takes three, on items of 192 rows: O is 32 registers a thread at hd 64,
+// so setmaxnreg gives each consumer 160 and the producer 32. Its
+// softmaxes take turns too, in the same order (the assembler moves a
+// turn's arrive, and the wait for P V after it, up into the softmax: 1-3
+// % faster than no turns), and alpha is one ex2.approx.ftz. Measured
+// (tools/kernel_compare.py --hd 64, H100 80GB HBM3, 700 W; PERF.md
+// section 6): ~5 % faster than two warpgroups at SeamlessM4T's shapes;
+// its products alone reach 46 % of the tensor cores' peak, so the
+// products' pipeline, not the special function unit, sets the pace. The
+// forward with LSE at hd 64 (no serving path) keeps two.
+template <int HD, bool LSE>
 struct Fwd : Geo<HD> {
   using G = Geo<HD>;
-  static constexpr int Q_CHUNK = FBM * G::SW;   // bytes of one chunk of Q
-  static constexpr int KV_CHUNK = FBN * G::SW;  // bytes of one chunk of a K or V tile
+  static constexpr bool WG3 = HD == 64 && !LSE;
+  static constexpr int WG = WG3 ? 3 : 2;          // consumer warpgroups
+  static constexpr int BM = 64 * WG;              // query rows per work item
+  static constexpr int THREADS = 128 * (WG + 1);  // and one producer warpgroup
+  static constexpr int CONSUMER_WARPS = 4 * WG;
+  static constexpr int REGS = WG3 ? 160 : 232;    // a consumer thread's, by setmaxnreg
+  static constexpr int PRODUCER_REGS = WG3 ? 32 : 40;
+  static constexpr bool SOFTMAX_TURNS = WG3;      // named barriers 1 + WG .. 2 WG
+  static constexpr int Q_CHUNK = BM * G::SW;      // bytes of one chunk of Q
+  static constexpr int KV_CHUNK = FBN * G::SW;    // bytes of one chunk of a K or V tile
   static constexpr int Q_BYTES = G::NC * Q_CHUNK;  // one of two Q buffers
   static constexpr int KV_BYTES = G::NC * KV_CHUNK;
   static constexpr int STAGES = HD == 128 ? 2 : 4;  // per ring (K, V)
@@ -406,16 +431,17 @@ __device__ __forceinline__ void mn_product(float (&d)[HD / 2], const uint32_t (&
 }
 
 // S = Q K^T for one forward warpgroup: Q and K both K-major.
-template <int HD>
+template <int HD, bool LSE>
 __device__ __forceinline__ void qk_product(float (&s)[FBN / 2], uint32_t q_base, uint32_t k_base) {
-  kmajor_product<HD, FBN>(s, q_base, Fwd<HD>::Q_CHUNK, k_base, Fwd<HD>::KV_CHUNK);
+  using C = Fwd<HD, LSE>;
+  kmajor_product<HD, FBN>(s, q_base, C::Q_CHUNK, k_base, C::KV_CHUNK);
 }
 
 // O += P V: V is (keys, hd) with hd contiguous, the B operand MN-major.
-template <int HD>
+template <int HD, bool LSE>
 __device__ __forceinline__ void pv_product(float (&o)[HD / 2], const uint32_t (&pa)[FBN / 16][4],
                                            uint32_t v_base) {
-  mn_product<HD, FBN>(o, pa, v_base, Fwd<HD>::KV_CHUNK);
+  mn_product<HD, FBN>(o, pa, v_base, Fwd<HD, LSE>::KV_CHUNK);
 }
 
 // The accumulator of a 64 x N product (f32; columns 16 kk .. 16 kk + 15 are
@@ -432,8 +458,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&d
   }
 }
 
-// Named barriers 1 and 2 pass the turn to issue products between the two
-// consumer warpgroups (256 threads: one group syncs, the other arrives).
+// A named barrier passes a turn from one consumer warpgroup to the next
+// (256 threads: one group syncs, the other arrives).
 __device__ __forceinline__ void turn_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
@@ -442,25 +468,26 @@ __device__ __forceinline__ void turn_arrive(int id) {
 }
 
 // Work item L of the persistent grid -> (batch * H + head, first query
-// row). Heads go in groups of `group` whose K/V fit in L2 together; inside
-// a group the longest (last) query blocks of every head come first.
+// row), items of bm rows. Heads go in groups of `group` whose K/V fit in
+// L2 together; inside a group the longest (last) query blocks of every
+// head come first.
 __device__ __forceinline__ void work_item(int L, int nm, int bh_all, int group, int& bh,
-                                          int& m0) {
+                                          int& m0, int bm) {
   const int span = group * nm, g0 = L / span * group;
   const int in_group = min(group, bh_all - g0), idx = L % span;
   bh = g0 + idx % in_group;
-  m0 = (nm - 1 - idx / in_group) * FBM;
+  m0 = (nm - 1 - idx / in_group) * bm;
 }
 
 template <int HD, bool LSE>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+__global__ void __launch_bounds__(Fwd<HD, LSE>::THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
                  float scale_log2, int group, int64_t o_sb, int64_t o_sh, int64_t o_ss) {
-  using C = Fwd<HD>;
-  constexpr int ST = C::STAGES;
+  using C = Fwd<HD, LSE>;
+  constexpr int ST = C::STAGES, FBM = C::BM, WG = C::WG;  // FBM: query rows an item
   constexpr int NT = FBN / 8;  // 8-key column tiles of S
   constexpr int DT = HD / 8;   // 8-wide column tiles of O
   extern __shared__ uint8_t fwd_smem[];
@@ -489,22 +516,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(full_q + i, 1);
-      mbar_init(empty_q + i, CONSUMER_WARPS);
+      mbar_init(empty_q + i, C::CONSUMER_WARPS);
     }
     for (int s = 0; s < ST; ++s) {
       mbar_init(full_k + s, 1);
       mbar_init(full_v + s, 1);
-      mbar_init(empty_k + s, CONSUMER_WARPS);
-      mbar_init(empty_v + s, CONSUMER_WARPS);
+      mbar_init(empty_k + s, C::CONSUMER_WARPS);
+      mbar_init(empty_v + s, C::CONSUMER_WARPS);
     }
     *stuck = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // ---- producer warpgroup: one thread loads
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == CONSUMER_WARPS && lane == 0) {
+  if (warp >= C::CONSUMER_WARPS) {  // ---- producer warpgroup: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS) : "memory");
+    if (warp == C::CONSUMER_WARPS && lane == 0) {
       // Per item: Q, K_0, then K_{it+1} ahead of V_it (the consumers need
       // tile it + 1's K before tile it's V). kt and vt count the tiles
       // loaded into each ring over the whole launch, nq the Q loads; each
@@ -513,7 +540,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       int kt = 0, vt = 0, qi = 0, nq = 0;
       for (int L = blockIdx.x; L < items && !*stuck; L = next_item(L), ++qi) {
         int bh, m0;
-        work_item(L, nm, bh_all, group, bh, m0);
+        work_item(L, nm, bh_all, group, bh, m0, FBM);
         const int b = bh / H, h = bh % H, kvh = h / n_rep;
         const int n_end = causal ? min(Sk, m0 + FBM) : Sk;
         const int n_tiles = (n_end + FBN - 1) / FBN;
@@ -544,17 +571,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       drain_ring(full_v, ST, vt);
     }
   } else {  // ---- consumer warpgroups: 64 query rows of each item
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::REGS) : "memory");
     const int wg = warp >> 2;
     const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
     const int r0 = (warp & 3) * 16 + g;     // this thread's rows r0 and r0 + 8 of the group's 64
     const uint32_t q_base0 = smem_addr(Qs) + wg * 64 * C::SW;
     const uint32_t k_base = smem_addr(Ks), v_base = smem_addr(Vs);
-    // Ping-pong: the groups take turns to issue their products, so one's
-    // run on the tensor cores while the other does its softmax. Group 0
-    // goes first; group 0's last sync takes group 1's last turn.
-    const int my_turn = 1 + wg, their_turn = 2 - wg;
-    if (wg == 1) turn_arrive(1);
+    // Ping-pong: the groups take turns to issue their products, in a ring,
+    // so one's run on the tensor cores while another does its softmax:
+    // group wg syncs on barrier 1 + wg and passes the turn on barrier 1 +
+    // (wg + 1) % WG. Group 0 goes first (the last group's arrival lets it);
+    // group 0's last sync takes the last group's last turn.
+    const int my_turn = 1 + wg, their_turn = 1 + (wg + 1) % WG;
+    if (wg == WG - 1) turn_arrive(1);
+    // With SOFTMAX_TURNS the softmaxes take turns too, in the same order
+    // (barriers 1 + WG + wg).
+    auto take_exp = [&]() {
+      if constexpr (C::SOFTMAX_TURNS) turn_sync(1 + WG + wg);
+    };
+    auto pass_exp = [&]() {
+      if constexpr (C::SOFTMAX_TURNS) turn_arrive(1 + WG + (wg + 1) % WG);
+    };
+    if (C::SOFTMAX_TURNS && wg == WG - 1) turn_arrive(1 + WG);
 
     float oacc[HD / 2];
     float mrow[2], lrow[2];
@@ -598,7 +636,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
         const float m_new = fmaxf(mrow[rh], m * scale_log2);  // log2 domain
         base[rh] = (m_new == -INFINITY) ? 0.f : m_new;       // a row with no key yet
-        alpha[rh] = exp2f(mrow[rh] - base[rh]);
+        alpha[rh] = C::WG3 ? ex2_ftz(mrow[rh] - base[rh]) : exp2f(mrow[rh] - base[rh]);
         mrow[rh] = m_new;
       }
 #pragma unroll
@@ -627,7 +665,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     int kt = 0, vt = 0, qi = 0;
     for (int L = blockIdx.x; L < items; L = next_item(L), ++qi) {
       int bh, m0;
-      work_item(L, nm, bh_all, group, bh, m0);
+      work_item(L, nm, bh_all, group, bh, m0, FBM);
       const int b = bh / H, h = bh % H;
       const int n_end = causal ? min(Sk, m0 + FBM) : Sk;
       const int n_tiles = (n_end + FBN - 1) / FBN;
@@ -649,7 +687,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         __syncwarp();
         turn_sync(my_turn);
         wgmma_fence();
-        qk_product<HD>(s, q_base, k_base + sk * C::KV_BYTES);
+        qk_product<HD, LSE>(s, q_base, k_base + sk * C::KV_BYTES);
         wgmma_commit();
         turn_arrive(their_turn);
         wgmma_wait<0>();
@@ -660,7 +698,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         ++kt;
         n0 = 0;
+        take_exp();
         softmax();
+        pass_exp();
         rescale_and_pack();
       }
       // Tile it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} in flight
@@ -672,9 +712,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         __syncwarp();
         turn_sync(my_turn);
         wgmma_fence();
-        qk_product<HD>(s, q_base, k_base + sk * C::KV_BYTES);
+        qk_product<HD, LSE>(s, q_base, k_base + sk * C::KV_BYTES);
         wgmma_commit();
-        pv_product<HD>(oacc, pa, v_base + sv * C::KV_BYTES);
+        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);
         wgmma_commit();
         turn_arrive(their_turn);
         wgmma_wait<1>();  // S_it is done
@@ -685,7 +725,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         ++kt;
         n0 = it * FBN;
+        take_exp();
         softmax();
+        pass_exp();
         wgmma_wait<0>();  // P_{it-1} V_{it-1} is done
         fence_regs(oacc);
         fence_regs(pa);
@@ -699,7 +741,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         __syncwarp();
         turn_sync(my_turn);
         wgmma_fence();
-        pv_product<HD>(oacc, pa, v_base + sv * C::KV_BYTES);
+        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);
         wgmma_commit();
         turn_arrive(their_turn);
         wgmma_wait<0>();
@@ -732,7 +774,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
     }
-    if (wg == 0) turn_sync(1);
+    if (wg == 0) {  // the last group's last turns
+      turn_sync(1);
+      if (C::SOFTMAX_TURNS) turn_sync(1 + WG);
+    }
   }
 }
 
@@ -807,20 +852,20 @@ template <int HD, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int Hkv, int Sq, int Sk, int causal, float scale_log2,
                    const int64_t* st, cudaStream_t stream) {
-  using C = Fwd<HD>;
+  using C = Fwd<HD, LSE>;
   static bool configured = false;
   cudaError_t err = allow_smem(flash_fwd_kernel<HD, LSE>, C::SMEM, configured);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, FBM)) != cudaSuccess) return err;
+  if ((err = make_map<HD>(&qm, q, B, H, Sq, st, C::BM)) != cudaSuccess) return err;
   if ((err = make_map<HD>(&km, k, B, Hkv, Sk, st + 3, FBN)) != cudaSuccess) return err;
   if ((err = make_map<HD>(&vm, v, B, Hkv, Sk, st + 6, FBN)) != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  const int items = B * H * ((Sq + FBM - 1) / FBM);  // persistent: one block per SM at most
-  flash_fwd_kernel<HD, LSE><<<items < sms ? items : sms, FWD_THREADS, C::SMEM, stream>>>(
+  const int items = B * H * ((Sq + C::BM - 1) / C::BM);  // persistent: one block per SM at most
+  flash_fwd_kernel<HD, LSE><<<items < sms ? items : sms, C::THREADS, C::SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, H, Hkv, Sq, Sk, causal, scale_log2,
       head_group(B * H, H / Hkv, Sk, HD), st[9], st[10], st[11]);
   return cudaGetLastError();
@@ -2308,18 +2353,20 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 }
 
 // Dynamic shared memory a launch takes, in bytes: kernel 0 the forward
-// (with or without LSE), 1 dK/dV, 2 dQ, and the hd-16 kernels that those
-// launch at hd 16: 3 the cluster dK/dV, 4 the grouped forward, 5 the
-// grouped dQ; 0 for another hd.
+// with LSE (and without it, but at hd 64), 1 dK/dV, 2 dQ, and the kernels
+// of their own: at hd 16 3 the cluster dK/dV, 4 the grouped forward, 5 the
+// grouped dQ; at hd 64 6 the three-warpgroup serving forward; 0 for
+// another hd.
 int flash_attention_smem_bytes(int kernel, int hd) {
+  if (kernel == 6) return hd == 64 ? Fwd<64, false>::SMEM : 0;
   if (kernel == 3) return hd == 16 ? Dkv16<16>::SMEM : 0;
   if (kernel == 4) return hd == 16 ? Fwd16<16>::SMEM : 0;
   if (kernel == 5) return hd == 16 ? Dq16<16>::SMEM : 0;
   switch (hd) {
-    case 16: return kernel == 0 ? Fwd<16>::SMEM : kernel == 1 ? Dkv<16>::SMEM : Dq<16>::SMEM;
-    case 32: return kernel == 0 ? Fwd<32>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;
-    case 64: return kernel == 0 ? Fwd<64>::SMEM : kernel == 1 ? Dkv<64>::SMEM : Dq<64>::SMEM;
-    case 128: return kernel == 0 ? Fwd<128>::SMEM : kernel == 1 ? Dkv<128>::SMEM : Dq<128>::SMEM;
+    case 16: return kernel == 0 ? Fwd<16, true>::SMEM : kernel == 1 ? Dkv<16>::SMEM : Dq<16>::SMEM;
+    case 32: return kernel == 0 ? Fwd<32, true>::SMEM : kernel == 1 ? Dkv<32>::SMEM : Dq<32>::SMEM;
+    case 64: return kernel == 0 ? Fwd<64, true>::SMEM : kernel == 1 ? Dkv<64>::SMEM : Dq<64>::SMEM;
+    case 128: return kernel == 0 ? Fwd<128, true>::SMEM : kernel == 1 ? Dkv<128>::SMEM : Dq<128>::SMEM;
     default: return 0;
   }
 }

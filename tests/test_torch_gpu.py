@@ -30,7 +30,10 @@ bf16 cases are held, float32 at the reference's 2e-5 (forward) and 2e-4
 backward in float32; float16 and hd 8 raise. The float32 decode kernel is
 also replayed from one captured launch with kv_len changed on the card, and
 the float32 dQ, forward and dK/dV hold their tolerances with the backward's
-bits the same across two calls. Without a card every
+bits the same across two calls. The hd-64 serving forward and decode (kernels
+of their own) are held at SeamlessM4T's shapes and their tiles' and items'
+edges, two calls the same bits, the decode replayed across its 64-key tiles'
+edges with each replay timed. Without a card every
 test here skips. Run them on a card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1254,12 +1257,13 @@ def test_hd16_dkv_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, caus
 
 
 def test_other_head_dims_keep_their_instantiations(cuda):
-    """hd 32, 64 and 128 keep the kernels they had before the hd-16 designs:
-    decode's plan a cluster of at most 8 blocks a group, the forward's, dK/dV's
-    and dQ's shared memory (the hd-16 grouped forward, cluster dK/dV and
-    cluster dQ have their own), and each held against its plain version
-    (their bits against the previous source are held by
-    tools/hd16_compare.py)."""
+    """hd 32, 64 and 128 keep the training kernels they had before the hd-16
+    designs, and hd 32 and 128 the serving forward and decode too: decode's
+    plan a cluster of at most 8 blocks a group, the forward's, dK/dV's and
+    dQ's shared memory (the hd-16 grouped forward, cluster dK/dV and
+    cluster dQ have their own, and the hd-64 forward its three-warpgroup form), and
+    each held against its plain version (their bits against the previous
+    source are held by tools/kernel_compare.py)."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -1280,6 +1284,7 @@ def test_other_head_dims_keep_their_instantiations(cuda):
         assert smem(2, hd) == 1024 + 2 * 128 * hd * 2 + 4 * 2 * 64 * hd * 2 + 8 * 9 + 16
     for kernel in (3, 4, 5):     # the hd-16 kernels: cluster dK/dV, forward, dQ
         assert smem(kernel, 16) > 0 and smem(kernel, 32) == 0
+    assert smem(6, 64) > 0 and smem(6, 16) == smem(6, 128) == 0   # the hd-64 forward
     g = torch.Generator(device=cuda).manual_seed(33)
     for hd in (32, 64, 128):
         q = torch.randn(4, 8, hd, generator=g, device=cuda).bfloat16()
@@ -1374,3 +1379,90 @@ def test_hd16_dq_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, causa
     assert bool(torch.isfinite(dq.float()).all())
     assert _row_scaled_err(dq, dqr) <= 2e-2
     assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, lser, dd, causal))
+
+
+# ---------------- the hd-64 serving forward and decode redesign ---------------
+#: (B, H, Hkv, Sq, Sk, causal): SeamlessM4T's three shapes (the decoder's
+#: cross-attention over 1024 frames, the encoder's 1024², the decoder's
+#: causal 2048²), Sq off the 192-row items (191, 193, 385) and Sk off the
+#: 128-key tiles, Sq != Sk both ways, GQA groups 1, 3, 4 and 16
+HD64_EDGES = [(4, 16, 16, 2048, 1024, False),
+              (4, 16, 16, 1024, 1024, False),
+              (4, 16, 16, 2048, 2048, True),
+              (1, 8, 2, 191, 191, True),
+              (1, 8, 8, 193, 193, True),
+              (1, 4, 4, 385, 300, False),
+              (2, 4, 2, 300, 129, True),
+              (1, 4, 4, 129, 300, True),
+              (2, 6, 2, 1000, 1000, True),
+              (1, 64, 4, 200, 200, True)]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", HD64_EDGES)
+def test_hd64_forward_matches_plain_with_the_same_bits(cuda, b, h, hkv, sq, sk, causal):
+    """The hd-64 serving forward (items of 192 rows, three consumer
+    warpgroups taking turns, a persistent grid dealing the items in zigzag
+    rounds) against its plain version, Q, K and V the model's transposed
+    views: each query row within 2e-2 of that row's largest plain value,
+    two calls the same bits, one launch counted at bf16/hd64."""
+    g = torch.Generator(device=cuda).manual_seed(36)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    q, k, v = randn(b, sq, h, 64), randn(b, sk, hkv, 64), randn(b, sk, hkv, 64)
+    reset_launches()
+    o = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.by_kind == {"bf16/hd64": 1}
+    orf = flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
+    assert _row_scaled_err(o, orf) <= 2e-2
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("b,h,hkv,s", [
+    (4, 16, 16, 2081),     # SeamlessM4T's decoder cache
+    (4, 16, 16, 1024),     # its memory: 1024 frames
+    (2, 8, 2, 600),        # group 4
+    (2, 6, 2, 300),        # group 3
+    (2, 32, 2, 600),       # group 16, in chunks of 8 heads
+    (1, 2, 1, 8192)])      # a block takes more tiles than its ring holds
+def test_hd64_decode_replayed_across_tile_edges(cuda, b, h, hkv, s):
+    """The hd-64 decode kernel (32-key tiles, two ring stages a warp, the
+    blocks of a cluster pushing their partials to block 0) captured once
+    with a device kv_len and replayed while kv_len advances across the
+    tiles' edges, to S and past it, each replay timed (a wait that gives up
+    takes ~2 s): o within 2^-6 of the largest plain output and lse within
+    1e-3 (kv_len 0: o = 0, lse = -1e30), one launch counted a replay at
+    bf16/hd64; two eager calls the same bits."""
+    from repro_torch.kernels._build import CountedGraph
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q = torch.randn(b, h, 64, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, s, hkv, 64, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, s, hkv, 64, generator=g, device=cuda).bfloat16().transpose(1, 2)
+    kl = torch.full((1,), s - 2, dtype=torch.int32, device=cuda)
+    o1, lse1 = decode_attention(q, k, v, kl)           # warm: builds the kernel
+    o2, lse2 = decode_attention(q, k, v, kl)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    graph = CountedGraph()
+    with graph.capture():
+        o, lse = decode_attention(q, k, v, kl)
+    reset_launches()
+    lens = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1000, s - 1, s, s + 50)
+    seconds = []
+    for i, kv_len in enumerate(lens):
+        kl.fill_(kv_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        assert seconds[-1] < 0.5, (kv_len, seconds)
+        assert decode_attention.by_kind == {"bf16/hd64": i + 1}
+        if kv_len == 0:
+            assert bool((o == 0).all()) and bool((lse == -1e30).all())
+            continue
+        orf, lser = decode_attention_ref(q, k, v, min(kv_len, s), return_lse=True)
+        assert bool(torch.isfinite(o.float()).all())
+        assert _scaled_err(o, orf) <= 2.0 ** -6
+        _close(lse, lser, 1e-3)

@@ -259,7 +259,7 @@ def test_rmsnorm_launch_variants_plant_their_attribute(name, attribute):
 
 
 # ------------------------------- the hd-16 kernels ----------------------------
-HD16_COMPARE = _tool("hd16_compare")
+HD16_COMPARE = _tool("kernel_compare")
 
 
 def test_hd16_compare_names_the_sources():

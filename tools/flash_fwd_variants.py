@@ -32,21 +32,24 @@ OUT = ROOT / "build" / "fwd_variants"
 SHAPES = ((4, 32, 8, 2048, 128, True), (8, 16, 16, 2048, 128, True),
           (1, 32, 8, 8192, 128, False))
 
-QK = "        qk_product<HD>(s, q_base, k_base + sk * C::KV_BYTES);\n"
-PV = "        pv_product<HD>(oacc, pa, v_base + sv * C::KV_BYTES);\n"
+QK = "        qk_product<HD, LSE>(s, q_base, k_base + sk * C::KV_BYTES);\n"
+PV = "        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);\n"
 EXP = "        s[i] = ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));"
 LOAD = """  mbar_expect_tx(bar, C::NC * ROWS * C::SW);
 #pragma unroll
   for (int c = 0; c < C::NC; ++c)"""
 TURNS = ("        turn_sync(my_turn);\n", "        turn_arrive(their_turn);\n",
-         "    if (wg == 1) turn_arrive(1);\n", "    if (wg == 0) turn_sync(1);\n")
+         "    if (wg == 1) turn_arrive(1);\n", "    if (wg == 0) turn_sync(1);\n",
+         "    if (wg == WG - 1) turn_arrive(1);\n")
+#: the forward's last sync on the issue ring (its softmax ring's stays)
+LAST_TURN = "      turn_sync(1);\n      if (C::SOFTMAX_TURNS)"
 
 #: name -> (edits as (text, replacement), what it shows)
 VARIANTS = {
     "as-is": ([], "the kernel as committed"),
     "exp2f": ([(EXP, EXP.replace("ex2_ftz(", "exp2f("))],
               "exp2f (range fixes around MUFU.EX2) in place of ex2.approx.ftz"),
-    "no-pingpong": ([(t, "") for t in TURNS],
+    "no-pingpong": ([(t, "") for t in TURNS] + [(LAST_TURN, "      if (C::SOFTMAX_TURNS)")],
                     "the warpgroups issue their products without taking turns"),
     **{f"l2-group-{mb}mb": ([("(int)(40.0 * (1 << 20) / per_head)",
                               f"(int)({mb}.0 * (1 << 20) / per_head)")],

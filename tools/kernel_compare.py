@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
-"""Hold and time the bf16 head-dim-16 attention kernels (decode, the forward
-with and without the LSE, dK/dV and dQ) beside another source of the same
-kernels (a parent's), in one call on one card.
+"""Hold and time the bf16 attention kernels of their own at a head dim (16:
+decode, the forward with and without the LSE, dK/dV and dQ; 64: the serving
+forward and decode) beside another source of the same kernels (a
+parent's), in one call on one card.
 
-    python3 tools/hd16_compare.py --source parent=local/parent
-    python3 tools/hd16_compare.py --source parent=local/parent --quick fwd-bn-64 fwd-trace
+    python3 tools/kernel_compare.py --source parent=local/parent
+    python3 tools/kernel_compare.py --source parent=local/parent --quick fwd-bn-64 fwd-trace
+    python3 tools/kernel_compare.py --hd 64 --source parent=local/parent dec64-tk-64
+
+``--hd 64`` (see :func:`main64`) holds and times SeamlessM4T's hd-64 shapes
+through ``chip_smoke.check_hd64`` for each source in turns, and holds the
+other head dims' bits (``--hold-hd64``: the hd-64 forward's and decode's
+own bits too, against the first source, for a rewrite that should keep
+them); without it, hd 16 as below.
 
 ``--source NAME=DIR``: a directory holding ``decode_attention.cu`` and
 ``flash_attention.cu`` with the checkout's C interface, e.g. a parent's,
@@ -12,7 +20,7 @@ written with ``git show <commit>:src/repro_torch/kernels/decode_attention/
 csrc/decode_attention.cu > local/parent/decode_attention.cu`` (and the same
 for ``flash_attention/csrc/flash_attention.cu``). The checkout's sources run
 as ``new``. Needs a CUDA card and nvcc; every source is built in parallel
-into ``build/hd16_compare/`` with ``-Xptxas -v`` (the checkout is never
+into ``build/kernel_compare/`` with ``-Xptxas -v`` (the checkout is never
 touched), and the registers and spills of its decode and flash kernels are
 printed. Further arguments name VARIANTS: the checkout's sources with a few
 lines edited, run as sources of their own (a variant that leaves work out
@@ -23,7 +31,8 @@ span, each SM's tiles, the blocks' concurrency), ``fwd-phases``,
 ``dq-phases`` and ``fwd-outside`` the SM clocks a tile each phase takes
 (:func:`phases_report`), and ``--rates`` alone runs RATES_SOURCE, the
 special function unit's exponential rate beside the softmax's other work.
-The whole summary goes to ``chiprun_out/hd16_compare.json``.
+The whole summary goes to ``chiprun_out/kernel_compare.json``
+(``chiprun_out/kernel_compare_hd64.json`` with ``--hd 64``).
 
 Each source is held first: the hd-16 decode cases of ``chip_smoke.py``'s
 phase 3 (:func:`chip_smoke.decode_check`: within DECODE_REL of the plain
@@ -62,7 +71,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels"
 SOURCES = {"decode_attention": CSRC / "decode_attention" / "csrc" / "decode_attention.cu",
            "flash_attention": CSRC / "flash_attention" / "csrc" / "flash_attention.cu"}
-OUT = ROOT / "build" / "hd16_compare"
+OUT = ROOT / "build" / "kernel_compare"
 
 #: kv_len at the new tile's edges (64 keys) and at the cache's ends
 DECODE_LENS = (0, 1, 63, 64, 65, 127, 128, 129, 1000, 2079, 2081)
@@ -86,13 +95,24 @@ EDGES = (("gqa8-100", (2, 16, 2, 100, 100, True)),
          ("gqa2-sq>sk", (1, 4, 2, 300, 129, True)))
 #: the flash kernels timed and held at the other head dims (OTHER_DKV's shapes)
 OTHER_FLASH = ("fwd", "fwd_lse", "dkv", "dq")
+#: --hd 64: the shapes whose bits each source must keep and whose times are
+#: read in the same turns (the hd-16, 32 and 128 kernels, and the hd-64
+#: training kernels, which the hd-64 designs leave alone): decode (B, H, Hkv,
+#: S, hd, kv_len), the flash kernels (B, H, Hkv, Sq, Sk, hd, causal) with the
+#: kinds held at each
+OTHER_DECODE_64 = ((4, 8, 2, 2081, 16, 2079), (4, 8, 2, 2081, 32, 2079),
+                   (4, 32, 8, 2081, 128, 2079))
+OTHER_DKV_64 = (((4, 8, 2, 2048, 2048, 16, True), OTHER_FLASH),
+                ((4, 8, 2, 2048, 2048, 32, True), OTHER_FLASH),
+                ((4, 16, 16, 2048, 2048, 64, True), ("fwd_lse", "dkv", "dq")),
+                ((8, 16, 16, 2048, 2048, 128, True), OTHER_FLASH))
 
 OUTSIDE = "expected to fail the checks"
-_SPLIT = "constexpr int H16_MAX_SPLIT = 8;"
-_TK = "constexpr int H16_TK = 64; "
-_WARPS = "constexpr int H16_W = 4; "
+_SPLIT = "  static constexpr int MAX_SPLIT = 8;   // blocks a head group"
+_TK = "  static constexpr int TK = 64;         // keys a tile"
+_WARPS = "constexpr int LANES_W = 4; "
 _NTILES = "    return split >= tiles ? 0 : (tiles - split + n_split - 1) / n_split;"
-_EARLY = "      for (; i < H16_EARLY && tile_key(i) < p.S; ++i) issue(i);\n"
+_EARLY = "      for (; i < G::EARLY && tile_key(i) < p.S; ++i) issue(i);\n"
 _FINAL = "  if (split != 0) return;  // nothing reads the others' shared memory\n"
 _CL = "constexpr int DKV16_CL = 4; "
 _MINB = "constexpr int DKV16_MINB = 4; "
@@ -296,16 +316,235 @@ def _fold(frags: str, acc: str) -> str:
 """
 
 
+_L64 = """struct Lanes<64> {
+  static constexpr int TK = 32;
+  static constexpr int ST = 8;
+  static constexpr int EARLY = ST;
+  static constexpr int MAX_SPLIT = 8;
+};"""
+def _lanes64(tk: int = 32, st: int = 8, split: int = 8) -> list:
+    """The hd-64 decode's tile, ring and split edited."""
+    return [(_L64, _L64.replace("TK = 32", f"TK = {tk}").replace("ST = 8", f"ST = {st}")
+             .replace("MAX_SPLIT = 8", f"MAX_SPLIT = {split}"))]
+
+
+# The hd-64 serving forward is the template's three-warpgroup form
+# (Fwd<64, false>, C::WG3): its variants edit that form alone, under
+# C::WG3, except where they change a constant every form shares (FBN).
+_W64_FBN = "constexpr int FBN = 128;           // keys per K/V tile\n"
+_W64_WG = "  static constexpr int WG = WG3 ? 3 : 2;          // consumer warpgroups\n"
+_W64_REGS = ("  static constexpr int REGS = WG3 ? 160 : 232;    // a consumer thread's, by setmaxnreg\n"
+             "  static constexpr int PRODUCER_REGS = WG3 ? 32 : 40;\n")
+_W64_ST = "  static constexpr int STAGES = HD == 128 ? 2 : 4;  // per ring (K, V)\n"
+_W64_TURNS = "    if (wg == WG - 1) turn_arrive(1);\n"
+_W64_PASS_EXP = "      if constexpr (C::SOFTMAX_TURNS) turn_arrive(1 + WG + (wg + 1) % WG);\n"
+_W64_PACK = "      pack_a<FBN>(pa, s);\n"
+_W64_EXP = "        s[i] = ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));\n"
+_W64_PV = "  mn_product<HD, FBN>(o, pa, v_base, Fwd<HD, LSE>::KV_CHUNK);\n"
+_W64_LAST = ("    if (wg == 0) {  // the last group's last turns\n      turn_sync(1);\n"
+             "      if (C::SOFTMAX_TURNS) turn_sync(1 + WG);\n    }\n")
+_W64_MID = "        n0 = it * FBN;\n        take_exp();\n        softmax();\n        pass_exp();\n"
+#: each place a warpgroup takes and passes its turn to issue products: tile
+#: 0's S, a middle tile's S and P V, the last tile's P V
+_W64_ISSUE = [
+    ("        turn_sync(my_turn);\n        wgmma_fence();\n"
+     "        qk_product<HD, LSE>(s, q_base, k_base + sk * C::KV_BYTES);\n"
+     "        wgmma_commit();\n        turn_arrive(their_turn);\n        wgmma_wait<0>();\n"),
+    ("        turn_sync(my_turn);\n        wgmma_fence();\n"
+     "        qk_product<HD, LSE>(s, q_base, k_base + sk * C::KV_BYTES);\n"
+     "        wgmma_commit();\n        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);\n"
+     "        wgmma_commit();\n        turn_arrive(their_turn);\n"),
+    ("        turn_sync(my_turn);\n        wgmma_fence();\n"
+     "        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);\n"
+     "        wgmma_commit();\n        turn_arrive(their_turn);\n")]
+_LAP = "        lap({0});\n"
+#: the hd-64 forward's phases in SM clocks, summed over a warpgroup's middle
+#: tiles (S and the previous P V in flight together) by its first thread:
+#: the K/V waits, the wait for its turn to issue, issuing its products, the
+#: wait for S, the wait for its softmax turn, the softmax, the wait for P
+#: V, O's rescale and P's pack (the assembler moves instructions across
+#: these marks, so each reads where the warp was, roughly)
+W64_PHASES = ("full_wait", "turn_wait", "issue", "s_wait", "exp_turn_wait", "softmax",
+              "pv_wait", "pack")
+W64_PHASE_EDITS = [
+    (_W64_TURNS, _W64_TURNS + "    unsigned long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "    unsigned int c0 = clock(), c1 = 0, tiles_done = 0;\n"
+     "    const long long clk_start = clock64();\n    uint64_t ns_start, ns_end;\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(ns_start));\n"
+     "    auto lap = [&](int i) { c1 = clock(); ph[i] += c1 - c0; c0 = c1; };\n"),
+    ("        mbar_wait(full_k + sk, (kt / ST) & 1, stuck);\n"
+     "        mbar_wait(full_v + sv, (vt / ST) & 1, stuck);\n        __syncwarp();\n"
+     "        turn_sync(my_turn);\n",
+     "        c0 = clock();\n        mbar_wait(full_k + sk, (kt / ST) & 1, stuck);\n"
+     "        mbar_wait(full_v + sv, (vt / ST) & 1, stuck);\n        __syncwarp();\n"
+     + _LAP.format(0) + "        turn_sync(my_turn);\n" + _LAP.format(1)),
+    ("        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);\n        wgmma_commit();\n"
+     "        turn_arrive(their_turn);\n        wgmma_wait<1>();  // S_it is done\n"
+     "        fence_regs(s);\n",
+     "        pv_product<HD, LSE>(oacc, pa, v_base + sv * C::KV_BYTES);\n        wgmma_commit();\n"
+     "        turn_arrive(their_turn);\n" + _LAP.format(2)
+     + "        wgmma_wait<1>();  // S_it is done\n        fence_regs(s);\n" + _LAP.format(3)),
+    (_W64_MID + "        wgmma_wait<0>();  // P_{it-1} V_{it-1} is done\n"
+     "        fence_regs(oacc);\n        fence_regs(pa);\n"
+     "        if (lane == 0) mbar_arrive(empty_v + sv);\n",
+     "        n0 = it * FBN;\n        take_exp();\n" + _LAP.format(4) + "        softmax();\n"
+     + _LAP.format(5) + "        pass_exp();\n"
+     + "        wgmma_wait<0>();  // P_{it-1} V_{it-1} is done\n"
+     "        fence_regs(oacc);\n        fence_regs(pa);\n" + _LAP.format(6)
+     + "        if (lane == 0) mbar_arrive(empty_v + sv);\n"),
+    ("        ++vt;\n        rescale_and_pack();\n      }\n",
+     "        ++vt;\n        rescale_and_pack();\n" + _LAP.format(7)
+     + "        ++tiles_done;\n      }\n"),
+    (_W64_LAST, "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(ns_end));\n"
+     "    if (C::WG3 && (threadIdx.x & 127) == 0) {\n      int fbh, fm0;\n"
+     "      work_item(blockIdx.x, nm, bh_all, group, fbh, fm0, FBM);\n"
+     "      uint32_t* rec = reinterpret_cast<uint32_t*>(o + fbh / H * o_sb + fbh % H * o_sh + "
+     "(int64_t)(fm0 + wg) * o_ss);\n"
+     "      for (int i = 0; i < 8; ++i) rec[i] = (uint32_t)ph[i];\n"
+     "      rec[8] = tiles_done;\n      rec[9] = blockIdx.x;\n"
+     "      rec[10] = (uint32_t)(clock64() - clk_start);\n"
+     "      rec[11] = (uint32_t)(ns_end - ns_start);\n"
+     f"      rec[12] = {0x600DF00D}u;\n    }}\n" + _W64_LAST)]
+
+
+#: four consumer warpgroups (items of 256 rows) on 64-key tiles (every
+#: form's tiles), 112 registers a consumer thread and 24 a producer thread
+#: (a block's registers are what it launched with: 640 threads at 96)
+W64_WG4 = [(_W64_WG, _W64_WG.replace("? 3 :", "? 4 :")),
+           (_W64_FBN, _W64_FBN.replace("128", "64")),
+           (_W64_REGS, _W64_REGS.replace("WG3 ? 160", "WG3 ? 112").replace("WG3 ? 32", "WG3 ? 24"))]
+_W64_ALU = """      if constexpr (C::WG3) {
+#pragma unroll
+        for (int kk = 0; kk < FBN / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const uint32_t u0 = __float_as_uint(s[8 * kk + 2 * x]);
+            const uint32_t u1 = __float_as_uint(s[8 * kk + 2 * x + 1]);
+            pa[kk][x] = __byte_perm(u0 + 0x7fffu + ((u0 >> 16) & 1u),
+                                    u1 + 0x7fffu + ((u1 >> 16) & 1u), 0x7632);
+          }
+      } else {
+        pack_a<FBN>(pa, s);
+      }
+"""
+_W64_TRUNC = """      if constexpr (C::WG3) {
+#pragma unroll
+        for (int kk = 0; kk < FBN / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = __byte_perm(__float_as_uint(s[8 * kk + 2 * x]),
+                                    __float_as_uint(s[8 * kk + 2 * x + 1]), 0x7632);
+      } else {
+        pack_a<FBN>(pa, s);
+      }
+"""
+
+
+_NOW_NS = "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"({0}));"
+#: the lanes decode's per-block timeline over its group's q row (8 words a
+#: block; at most 4 blocks a group at hd 64): the SM, the start (ns), and
+#: from it warp 0's first tile, warp 0's last tile done, the block's end
+#: (after the cluster barrier), its tiles, TRACE_MARK
+DEC_TRACE_EDITS = [
+    ("  extern __shared__ __align__(16) uint8_t lanes_smem_raw[];\n",
+     "  extern __shared__ __align__(16) uint8_t lanes_smem_raw[];\n"
+     "  uint64_t tr_t0, tr_data = 0, tr_loop = 0, tr_end;\n  int tr_tiles = 0;\n  "
+     + _NOW_NS.format("tr_t0") + "\n"),
+    ("      if (__any_sync(0xffffffffu, *stuck)) break;  // warp-uniform: shuffles follow\n",
+     "      if (__any_sync(0xffffffffu, *stuck)) break;  // warp-uniform: shuffles follow\n"
+     "      if (tr_data == 0) " + _NOW_NS.format("tr_data") + "\n      ++tr_tiles;\n"),
+    ("    // the warp's key lanes of each column piece merge by shuffles\n",
+     "    " + _NOW_NS.format("tr_loop") + "\n"
+     "    // the warp's key lanes of each column piece merge by shuffles\n"),
+    ("  cluster.sync();  // every partial is in block 0's shared memory\n",
+     "  cluster.sync();  // every partial is in block 0's shared memory\n  "
+     + _NOW_NS.format("tr_end") + "\n"
+     "  if (threadIdx.x == 0) {\n    uint32_t smid;\n"
+     "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
+     "    uint32_t* rec = reinterpret_cast<uint32_t*>(const_cast<bf16*>(p.q + b * p.q_sb + "
+     "(int64_t)h0 * p.q_sh)) + 8 * split;\n"
+     "    rec[0] = smid;\n    rec[1] = (uint32_t)tr_t0;\n    rec[2] = (uint32_t)(tr_t0 >> 32);\n"
+     "    rec[3] = tr_data ? (uint32_t)(tr_data - tr_t0) : 0u;\n"
+     "    rec[4] = tr_loop ? (uint32_t)(tr_loop - tr_t0) : 0u;\n"
+     "    rec[5] = (uint32_t)(tr_end - tr_t0);\n    rec[6] = tr_tiles;\n"
+     f"    rec[7] = {0x600DF00D}u;\n  }}\n")]
+
+
 #: name -> (library, edits as (text, replacement), what it shows)
 VARIANTS = {
+    "dec64-split-1-deep": ("decode_attention", _lanes64(64, 12, 1),
+                           "hd-64 decode: one block a head group, a ring of 12 stages"),
+    "dec64-split-2-deep": ("decode_attention", _lanes64(64, 12, 2),
+                           "hd-64 decode: up to 2 blocks a head group, a ring of 12 stages"),
+    "dec64-trace": ("decode_attention", DEC_TRACE_EDITS,
+                    "decode: each block's SM and timeline over its group's q; expected to fail "
+                    "the checks"),
+    "fwd64-no-softmax": ("flash_attention", [
+        (_W64_MID, _W64_MID.replace("        softmax();\n", "        if (!C::WG3) softmax();\n"))],
+        "hd-64 forward: the middle tiles' S packed as P, no max, exponential or sum; expected "
+        "to fail the checks"),
+    "fwd64-no-pv": ("flash_attention", [
+        (_W64_PV, "  if constexpr (Fwd<HD, LSE>::WG3) {\n    uint32_t fold = 0;\n#pragma unroll\n"
+         "    for (int kk = 0; kk < FBN / 16; ++kk)\n#pragma unroll\n"
+         "      for (int x = 0; x < 4; ++x) fold ^= pa[kk][x];\n"
+         "    o[0] += __uint_as_float(fold & 0x3f800000u);\n  } else {\n  " + _W64_PV + "  }\n")],
+        "hd-64 forward: P packed but no P V product; expected to fail the checks"),
+    "fwd64-wg4-bn64": ("flash_attention", W64_WG4,
+                       "hd-64 forward: four consumer warpgroups (256-row items), 64-key tiles "
+                       "(every head dim's forward)"),
+    "fwd64-bn-64": ("flash_attention", [(_W64_FBN, _W64_FBN.replace("128", "64"))],
+                    "hd-64 forward: 64-key tiles (every head dim's forward)"),
+    "fwd64-trunc-pack": ("flash_attention", [(_W64_PACK, _W64_TRUNC)],
+                         "hd-64 forward: P cut to bf16 by a byte permute, not rounded by cvt; "
+                         "expected to fail the checks"),
+    "fwd64-alu-pack": ("flash_attention", [(_W64_PACK, _W64_ALU)],
+                       "hd-64 forward: P rounded to bf16 by integer arithmetic on the ALU (round "
+                       "to nearest even: the same bits as cvt.rn for these probabilities)"),
+    "fwd64-no-exp": ("flash_attention", [(_W64_EXP, _W64_EXP.replace(
+        "ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));",
+        "C::WG3 ? (fmaf(s[i], scale_log2, -base[(i >> 1) & 1]) > -8.f ? 1.f : 0.f)\n"
+        "                       : ex2_ftz(fmaf(s[i], scale_log2, -base[(i >> 1) & 1]));"))],
+                     "hd-64 forward: P a 0 or 1 by a compare, no exponential; expected to fail "
+                     "the checks"),
+    "fwd64-pin": ("flash_attention", [
+        (_W64_MID, _W64_MID.replace("pass_exp();", "if (C::WG3) fence_regs(s);\n        pass_exp();")),
+        (_W64_PASS_EXP, _W64_PASS_EXP.replace("(wg + 1) % WG);",
+                                              "(wg + 1) % WG + (lrow[0] + lrow[1] < 0.f));"))],
+        "hd-64 forward: a softmax turn passed only after the whole softmax (the arrive's id "
+        "reads the row sums, so the assembler cannot move it, or the wait for P V, up)"),
+    "fwd64-no-exp-turns": ("flash_attention", [(
+        "  static constexpr bool SOFTMAX_TURNS = WG3; ",
+        "  static constexpr bool SOFTMAX_TURNS = false; ")],
+        "hd-64 forward: the softmaxes without turns (all three at once)"),
+    "fwd64-no-turns": ("flash_attention", [
+        *[(x, x.replace("        turn_sync(my_turn);\n", "        if (!C::WG3) turn_sync(my_turn);\n")
+           .replace("        turn_arrive(their_turn);\n",
+                    "        if (!C::WG3) turn_arrive(their_turn);\n")) for x in _W64_ISSUE],
+        (_W64_TURNS, "    if (!C::WG3 && wg == WG - 1) turn_arrive(1);\n"),
+        (_W64_LAST, _W64_LAST.replace("      turn_sync(1);\n", "      if (!C::WG3) turn_sync(1);\n"))],
+        "hd-64 forward: the three warpgroups issue their products without turns"),
+    "fwd64-phases": ("flash_attention", W64_PHASE_EDITS,
+                     "hd-64 forward: SM clocks a middle tile in each phase; expected to fail the "
+                     "checks"),
+    "dec64-tk-64": ("decode_attention", _lanes64(64, 4),
+                    "hd-64 decode: 64-key tiles, 4 stages (the same 64 KB ring, one a warp)"),
+    "dec64-st-8": ("decode_attention", _lanes64(64, 8),
+                   "hd-64 decode: 8 stages of 64 keys (128 KB a block)"),
+    "dec64-split-4": ("decode_attention", _lanes64(split=4),
+                      "hd-64 decode: up to 4 blocks a head group"),
+    "dec64-split-16": ("decode_attention", _lanes64(split=16),
+                       "hd-64 decode: up to 16 blocks a head group (a non-portable cluster)"),
+    "fwd64-st-5": ("flash_attention", [(_W64_ST, _W64_ST.replace("HD == 128 ? 2 : 4;",
+                                                                  "HD == 128 ? 2 : WG3 ? 5 : 4;"))],
+                   "hd-64 forward: rings of 5 stages"),
     "split-16": ("decode_attention", [(_SPLIT, _SPLIT.replace("= 8;", "= 16;"))],
                  "decode: up to 16 blocks a head group (a non-portable cluster)"),
     "split-4": ("decode_attention", [(_SPLIT, _SPLIT.replace("= 8;", "= 4;"))],
                 "decode: up to 4 blocks a head group"),
     "tk-32": ("decode_attention", [(_TK, _TK.replace("64", "32"))],
               "decode: 32-key tiles"),
-    "warps-8": ("decode_attention", [(_WARPS, _WARPS.replace("4", "8"))],
-                "decode: 8 consumer warps"),
+    "warps-8": ("decode_attention", [(_WARPS, _WARPS.replace("4", "8")), *_lanes64(64, 8)],
+                "decode: 8 consumer warps (hd 64: 8 stages, one a warp)"),
     "merge-alone": ("decode_attention", [(_NTILES, "    return 0;"), (_EARLY, "")],
                     f"decode: no tiles, no early loads: launch, prologue and the merges; "
                     f"{OUTSIDE}"),
@@ -695,7 +934,7 @@ def main() -> int:
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
     from repro_torch.kernels.flash_attention.ref import attention_delta, flash_attention_fwd_lse_ref
 
-    argv, sources, quick, variants = sys.argv[1:], {}, False, []
+    argv, sources, quick, variants, hd, hold64 = sys.argv[1:], {}, False, [], 16, False
     if argv == ["--rates"]:
         print(f"elements a ns an SM: {json.dumps(rates(torch))}; card "
               f"{chip_smoke.nvidia_smi('name,power.limit')}", flush=True)
@@ -707,6 +946,10 @@ def main() -> int:
             sources[n] = {lib: (Path(d) / f"{lib}.cu").read_text() for lib in SOURCES}
         elif a == "--quick":
             quick = True
+        elif a == "--hd":
+            hd = int(argv.pop(0))
+        elif a == "--hold-hd64":
+            hold64 = True
         elif a in VARIANTS:
             variants.append(a)
         else:
@@ -724,6 +967,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = chip_smoke.Timer(torch)
     stream = lambda: _build.stream_ptr(torch.device("cuda"))  # noqa: E731
+    if hd == 64:
+        return main64(torch, chip_smoke, names, libs, timer, probe, quick, hold64)
+    if hd != 16:
+        raise SystemExit(f"--hd {hd}: 16 or 64")
 
     held = {}
     for n in names:
@@ -869,11 +1116,275 @@ def main() -> int:
                "bounds": bounds, **yard, "held": held, "times": times}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "hd16_compare.json").write_text(json.dumps(summary, indent=1))
+    (out_dir / "kernel_compare.json").write_text(json.dumps(summary, indent=1))
     print(f"card {summary['card']}; bounds {json.dumps(bounds)}; the whole summary in "
-          f"chiprun_out/hd16_compare.json")
+          f"chiprun_out/kernel_compare.json")
     return 0 if all(not h["failed"] for n, h in held.items()
                     if not VARIANTS.get(n, ("", "", ""))[2].endswith(OUTSIDE)) else 1
+
+
+def other_readings(torch, chip_smoke, timer, others, first_out: dict, first: str) -> dict:
+    """Each of ``others`` ((kind, shape, args) at the head dims a design leaves
+    alone) called, its outputs held against the first source's bits (kept
+    in ``first_out`` at that source's first turn) and timed."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd_lse)
+
+    r = {}
+    for kind, shape, args in others:
+        if kind == "decode":
+            kln = torch.full((1,), shape[-1], dtype=torch.int32, device="cuda")
+            fn = (lambda a=args, k=kln: decode_attention(*a, k))
+        else:
+            q_, k_, v_, do_, lse_, dd_ = args
+            causal = shape[-1]
+            fn = {"fwd": lambda: flash_attention(q_, k_, v_, causal=causal),
+                  "fwd_lse": lambda: flash_attention_fwd_lse(q_, k_, v_, causal),
+                  "dkv": lambda: flash_attention_bwd_dkv(q_, k_, v_, do_, lse_, dd_, causal),
+                  "dq": lambda: flash_attention_bwd_dq(q_, k_, v_, do_, lse_, dd_, causal)}[kind]
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        key = f"{kind}{list(shape)}"
+        if key in first_out:
+            r[f"{key}_bits_as_{first}"] = all(bool(torch.equal(a, b))
+                                              for a, b in zip(out, first_out[key]))
+        else:
+            first_out[key] = out
+        r[f"{key}_ms"] = timer.ms(fn, 20)
+    return r
+
+
+def fwd64_phases(torch, o, shape) -> dict:
+    """The fwd64-phases variant's records (each warpgroup's first thread
+    over row m0 + wg of its block's first item; the kernel's work_item and
+    head_group at items of 192 rows): SM clocks a middle tile in each of
+    W64_PHASES, summed over the blocks and warpgroups and divided by their
+    tiles, and the blocks' clocks and nanoseconds (the SM clock)."""
+    import numpy as np
+
+    b_all, h, hkv, sq, sk, hd = shape[:6]
+    bm, n_wg = 192, 3
+    nm, bh_all = -(-sq // bm), b_all * h
+    per_head = 4.0 * max(sk, 1) * hd / (h // hkv)
+    group = max(1, min(bh_all, int(40.0 * (1 << 20) / per_head)))
+    grid = min(bh_all * nm, torch.cuda.get_device_properties(0).multi_processor_count)
+    recs = []
+    for x in range(grid):
+        span, g0 = group * nm, x // (group * nm) * group
+        in_group, idx = min(group, bh_all - g0), x % span
+        bh, m0 = g0 + idx % in_group, (nm - 1 - idx // in_group) * bm
+        for wg in range(n_wg):
+            if m0 + wg < sq:
+                raw = o[bh // h, bh % h, m0 + wg, :26].contiguous().view(torch.int32)
+                r = raw.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+                if r[12] == TRACE_MARK and r[9] == x:
+                    recs.append(r)
+    rec = np.array(recs)
+    tiles = rec[:, 8].sum()
+    out = {"records": len(rec), "clocks_a_middle_tile": dict(zip(
+        W64_PHASES, (rec[:, :8].sum(0) / max(tiles, 1)).round(1).tolist()))}
+    out["sm_mhz"] = round(float((rec[:, 10] / rec[:, 11]).mean() * 1e3), 1)
+    out["block_us_mean_max"] = [round(float(rec[:, 11].mean() / 1e3), 2),
+                                round(float(rec[:, 11].max() / 1e3), 2)]
+    return out
+
+
+def gives_up(torch, chip_smoke, g) -> bool:
+    """Whether a launch of the forward or decode at the seamless shapes
+    takes over 50 ms (a pipeline fault: each wait that gives up takes ~2 s
+    before the watchdog lets the block go)."""
+    import time
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    calls = []
+    for _, (b, h, hkv, sq, sk, hd, causal) in chip_smoke.SEAMLESS_FLASH_CASES[:1]:
+        qkv = [torch.randn((b, s, m, hd), generator=g, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for s, m in ((sq, h), (sk, hkv), (sk, hkv))]
+        calls.append(lambda qkv=qkv, c=causal: flash_attention(*qkv, causal=c))
+    for _, shape in chip_smoke.SEAMLESS_DECODE_CASES[:1]:
+        q, k, v = chip_smoke.decode_inputs(torch, g, shape)
+        calls.append(lambda q=q, k=k, v=v, n=shape[-1]: decode_attention(q, k, v, n))
+    for call in calls:
+        call()                                   # builds, warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 0.05:
+            return True
+    return False
+
+
+def dec_trace_report(torch, chip_smoke, g) -> dict:
+    """The dec64-trace variant at each SEAMLESS_DECODE_CASES shape, one
+    launch after the L2 is flushed by a read: the launch's span, the
+    blocks' starts, warp 0's wait for its first tile, its tile loop, the
+    merge (the loop's end to the block's end), the blocks an SM; in us."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention, plan
+
+    out = {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for label, shape in chip_smoke.SEAMLESS_DECODE_CASES:
+        b, h, hkv, s, hd, kv_len = shape
+        q, k, v = chip_smoke.decode_inputs(torch, g, shape)
+        decode_attention(q.clone(), k, v, kv_len)
+        flush.max()
+        torch.cuda.synchronize()
+        decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        n_split = plan(b, h, hkv, hd)["n_split"]
+        raw = q.view(torch.int32).cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+        rec = raw.reshape(b * h, -1)[:, :8 * n_split].reshape(-1, 8)
+        rec = rec[rec[:, 7] == TRACE_MARK]
+        start = rec[:, 1] + (rec[:, 2] << 32)
+        start = (start - start.min()) / 1e3
+        end = start + rec[:, 5] / 1e3
+        data = np.where(rec[:, 3] > 0, rec[:, 3] / 1e3, np.nan)
+        loop = np.where(rec[:, 4] > 0, rec[:, 4] / 1e3, np.nan)
+        _, per_sm = np.unique(rec[:, 0], return_counts=True)
+        pct = lambda x: [round(float(np.nanpercentile(x, q_)), 2) for q_ in (50, 90, 100)]  # noqa: E731
+        out[label] = {"blocks": len(rec), "n_split": n_split,
+                      "span_us": round(float(end.max()), 2),
+                      "start_us_p50_p90_max": pct(start),
+                      "first_tile_us_p50_p90_max": pct(data),
+                      "loop_end_us_p50_p90_max": pct(loop),
+                      "merge_us_p50_p90_max": pct(rec[:, 5] / 1e3 - loop),
+                      "end_us_p50_p90_max": pct(end),
+                      "tiles_min_max": [int(rec[:, 6].min()), int(rec[:, 6].max())],
+                      "sms": len(per_sm), "blocks_per_sm_min_max": [int(per_sm.min()),
+                                                                   int(per_sm.max())]}
+    return out
+
+
+def time_unchecked(torch, chip_smoke, timer, probe, g) -> dict:
+    """A source that failed a check (a variant that leaves work out) timed
+    without the checks: the forward at SEAMLESS_FLASH_CASES, decode as one
+    step's launches in a graph."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    import time
+
+    out = {}
+    for label, (b, h, hkv, sq, sk, hd, causal) in chip_smoke.SEAMLESS_FLASH_CASES:
+        qkv = [torch.randn((b, s, m, hd), generator=g, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for s, m in ((sq, h), (sk, hkv), (sk, hkv))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_attention(*qkv, causal=causal)
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 0.05:     # a wait gave up (~2 s each): not timed
+            out[label] = "a wait gave up"
+            continue
+        out[label] = round(timer.ms(lambda: flash_attention(*qkv, causal=causal), 20), 5)
+    out["decode step graph"] = round(
+        chip_smoke.seamless_step_graph(torch, timer, probe)["graph_ms"], 5)
+    return out
+
+
+def main64(torch, chip_smoke, names, libs, timer, probe, quick: bool,
+           hold64: bool = False) -> int:
+    """``--hd 64``: every source in turns (the order given and back, old,
+    new, new, old; ``--quick`` once each), each turn
+    ``chip_smoke.check_hd64`` (the hd-64 forward and decode held at
+    SeamlessM4T's shapes and their edges, two calls the same bits, the
+    replays across the 64-key tiles' edges; each seamless shape timed
+    beside its bounds, the plain version and SDPA; a step's 24 decode
+    launches in one graph) and, unless ``--quick``, the kernels the hd-64
+    designs leave alone (OTHER_DECODE_64, OTHER_DKV_64) held against the
+    first source's bits and timed; with ``--hold-hd64`` (a rewrite that
+    should keep them) the hd-64 forward and decode at SeamlessM4T's shapes
+    too. A failed check is recorded with the turn; the exit code is 1 if a
+    source that is not a variant expected to fail failed one, or if a
+    source that is not a variant gives the held kernels other bits."""
+    from repro_torch.kernels.flash_attention.ref import attention_delta, flash_attention_fwd_lse_ref
+
+    g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    others = []
+    if not quick:
+        for shape in OTHER_DECODE_64:
+            others.append(("decode", shape, chip_smoke.decode_inputs(torch, g, shape)))
+        for shape, kinds in OTHER_DKV_64:
+            x = chip_smoke.training_inputs(torch, shape)
+            o, lse = flash_attention_fwd_lse_ref(*x[:3], shape[-1])
+            for kind in kinds:
+                others.append((kind, shape, (*x, lse, attention_delta(o, x[3]))))
+            del o
+    if hold64:
+        for _, shape in chip_smoke.SEAMLESS_DECODE_CASES:
+            others.append(("decode", shape, chip_smoke.decode_inputs(torch, g, shape)))
+        for _, shape in chip_smoke.SEAMLESS_FLASH_CASES:
+            others.append(("fwd", shape, (*chip_smoke.training_inputs(torch, shape), None, None)))
+    turns = names + ([] if quick else names[::-1])
+    first_out: dict = {}
+    runs = []
+    for turn, n in enumerate(turns):
+        use(libs[n])
+        r = {"source": n, "turn": turn}
+        if gives_up(torch, chip_smoke, g):
+            r["failed"] = "a wait gave up (a launch over 50 ms): not held or timed"
+            r["others"] = {}
+            runs.append(r)
+            print(f"turn {turn} {n}: {r['failed']}", flush=True)
+            continue
+        try:
+            r["hd64"] = chip_smoke.check_hd64(torch, timer, probe)
+        except AssertionError as e:
+            r["failed"] = str(e)[:300]
+            r["unchecked_ms"] = time_unchecked(torch, chip_smoke, timer, probe, g)
+        r["others"] = other_readings(torch, chip_smoke, timer, others, first_out, names[0])
+        runs.append(r)
+        brief = {}
+        for key, entry in r.get("hd64", {}).items():
+            for label, s in entry["shapes"].items():
+                brief[f"{key} {label}"] = [round(s["ms"], 5), round(s["library_ms"], 5)]
+            if "step_graph" in entry:
+                brief[f"{key} step graph"] = [round(entry["step_graph"]["graph_ms"], 5),
+                                              round(entry["step_graph"]["library_graph_ms"], 5)]
+        print(f"turn {turn} {n}: (ms, SDPA ms) {json.dumps(brief)}; failed "
+              f"{r.get('failed')}; unchecked {json.dumps(r.get('unchecked_ms'))}; others "
+              f"{json.dumps(r['others'])}", flush=True)
+    phases = {}
+    if "fwd64-phases" in names:
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+
+        use(libs["fwd64-phases"])
+        for label, shape in chip_smoke.SEAMLESS_FLASH_CASES:
+            b, h, hkv, sq, sk, hd, causal = shape
+            qkv = [torch.randn((b, s, m, hd), generator=g, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for s, m in ((sq, h), (sk, hkv), (sk, hkv))]
+            flash_attention(*qkv, causal=causal)
+            timer.flush.zero_()
+            o = flash_attention(*qkv, causal=causal)
+            torch.cuda.synchronize()
+            phases[f"fwd64-phases {label}"] = fwd64_phases(torch, o, shape)
+            print(f"fwd64-phases {label}: {json.dumps(phases[f'fwd64-phases {label}'])}",
+                  flush=True)
+    if "dec64-trace" in names:
+        use(libs["dec64-trace"])
+        phases["dec64-trace"] = dec_trace_report(torch, chip_smoke, g)
+        print(f"dec64-trace: {json.dumps(phases['dec64-trace'])}", flush=True)
+    summary = {"card": chip_smoke.nvidia_smi("name,power.limit"),
+               "ptxas": {n: {lib: rep for lib, (_, rep) in libs[n].items()} for n in names},
+               "runs": runs, "phases": phases}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "kernel_compare_hd64.json").write_text(json.dumps(summary, indent=1))
+    print(f"card {summary['card']}; the whole summary in chiprun_out/kernel_compare_hd64.json")
+    expected = {n for n in names if VARIANTS.get(n, ("", "", ""))[2].endswith(OUTSIDE)}
+    bad = [r["source"] for r in runs if r.get("failed") and r["source"] not in expected]
+    # a variant may edit what every head dim's forward shares (FBN): its
+    # others' bits are printed, not held
+    bits = [k for r in runs if r["source"] not in VARIANTS
+            for k, v in r["others"].items() if "_bits_as_" in k and not v]
+    if bad or bits:
+        print(f"FAILED: checks in {bad}; bits differ at {bits}")
+    return 0 if not bad and not bits else 1
 
 
 if __name__ == "__main__":
